@@ -1,0 +1,126 @@
+"""Paged-attention port contracts: the port's plain version against the
+JAX package's Pallas kernel (interpret mode) and its XLA reference.
+
+The cases are ``tools/paged_attention_smoke.py``'s edge cases — a
+sequence crossing a page boundary, sentinel-padded tables, a full wave,
+the speculative-verify query length — plus the two shapes the serving
+engine adds: a prefill wave (``Lq = bucket``) with all-pad rows, and a
+decode wave with inactive rows (``index = 0``, all-sentinel tables).
+The CUDA kernel itself runs only on the card: ``test_torch_cuda.py``
+compares it with this plain version there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from skycomputing_tpu.ops.paged_attention import (
+    paged_attention as jax_paged_attention,
+    paged_attention_reference as jax_paged_attention_reference,
+)
+from skycomputing_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_reference,
+)
+
+pytestmark = pytest.mark.torch_port
+
+P, PS, H, D = 10, 4, 2, 16
+
+
+def _tables(rows):
+    t = np.full((len(rows), max(len(r) for r in rows) or 1), P, np.int32)
+    for i, r in enumerate(rows):
+        t[i, : len(r)] = r
+    return t
+
+
+# (R, Lq, tables, index)
+CASES = {
+    "page_boundary_1row": (1, 1, _tables([[7, 2, 5]]), [8]),
+    "sentinel_padded_wave": (
+        3, 1, _tables([[7, 2, 5], [0, 9], [1, 3, 4, 6, 8]]), [8, 4, 16]),
+    "sentinel_heavy": (2, 1, np.array([[3, P, P, P], [1, P, P, P]],
+                                      np.int32), [0, 2]),
+    "verify_shape_lq3": (
+        3, 3, _tables([[7, 2, 5], [0, 9], [1, 3, 4, 6, 8]]), [6, 2, 14]),
+    "verify_full_wave_lq4": (
+        3, 4, _tables([[7, 2, 5], [0, 9], [1, 3, 4, 6, 8]]), [5, 0, 12]),
+    # a prefill wave: row 0 shares 4 tokens and appends 8 (index 4),
+    # row 1 is fresh, rows 2-3 are pad rows with all-sentinel tables
+    "prefill_lq8_pad_rows": (
+        4, 8, np.array([[2, 6, 8, P], [5, 1, P, P], [P] * 4, [P] * 4],
+                       np.int32), [4, 0, 0, 0]),
+    # a decode wave with inactive rows (index 0, all sentinels)
+    "decode_inactive_rows": (
+        4, 1, np.array([[4, 7, P], [P, P, P], [9, 0, 3], [P, P, P]],
+                       np.int32), [5, 0, 10, 0]),
+}
+
+
+def _sees_no_sentinel(table, index, Lq):
+    """Rows whose visible positions (``< index + Lq``) all map to real
+    pages."""
+    last_page = (np.asarray(index) + Lq - 1) // PS
+    return np.array([
+        (table[r, : min(last_page[r] + 1, table.shape[1])] < P).all()
+        for r in range(table.shape[0])
+    ])
+
+
+def _inputs(seed, R, Lq):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((R, Lq, H, D)).astype(np.float32)
+    k = rng.standard_normal((P, PS, H, D)).astype(np.float32)
+    v = rng.standard_normal((P, PS, H, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_version_matches_jax_kernel_and_reference(name):
+    """The port's plain version equals the Pallas kernel (interpret
+    mode) and the XLA reference to 1e-5 on every edge case, and CPU
+    calls never count as kernel launches."""
+    R, Lq, table, index = CASES[name]
+    index = np.asarray(index, np.int32)
+    q, k, v = _inputs(sorted(CASES).index(name), R, Lq)
+    launches = paged_attention.launches
+    out = paged_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), torch.from_numpy(table),
+                          torch.from_numpy(index)).numpy()
+    assert paged_attention.launches == launches == 0
+    assert out.shape == (R, Lq, H, D) and np.isfinite(out).all()
+    kern = np.asarray(jax_paged_attention(q, k, v, table, index,
+                                          interpret=True))
+    ref = np.asarray(jax_paged_attention_reference(q, k, v, table, index))
+    np.testing.assert_allclose(out, kern, atol=1e-5, rtol=0)
+    # the XLA reference clips sentinel positions instead of clamping the
+    # page, so it agrees wherever no sentinel lies in a row's visible
+    # span — every live row; pad and inactive rows are garbage by design
+    live = _sees_no_sentinel(table, index, Lq)
+    assert live.any()
+    np.testing.assert_allclose(out[live], ref[live], atol=1e-5, rtol=0)
+
+
+def test_scalar_index_and_softmax_scale_match_jax():
+    """A scalar ``index`` broadcasts over rows and an explicit
+    ``softmax_scale`` replaces ``D**-0.5``, as in the JAX function."""
+    R, Lq, table, _ = CASES["verify_shape_lq3"]
+    q, k, v = _inputs(11, R, Lq)
+    out = paged_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(table), 3, softmax_scale=0.5).numpy()
+    ref = np.asarray(jax_paged_attention(
+        q, k, v, table, 3, softmax_scale=0.5, interpret=True))
+    np.testing.assert_allclose(out, ref, atol=1e-5, rtol=0)
+
+
+def test_wrapper_keeps_bfloat16_on_cpu():
+    """The output keeps q's dtype (the kernel's contract) on the CPU
+    path too."""
+    R, Lq, table, index = CASES["sentinel_padded_wave"]
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(12, R, Lq))
+    out = paged_attention(q, k, v, torch.from_numpy(table),
+                          torch.tensor(index, dtype=torch.int32))
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
