@@ -16,12 +16,12 @@ Numerics follow flax's ``dtype``/``param_dtype`` pair: parameters are
 float32, dense layers and embeddings compute in ``cfg.dtype``,
 LayerNorm runs in float32 with eps 1e-5 and its output is cast to
 ``cfg.dtype``, and logits come out in float32.  Attention goes through
-``ops/paged_attention.py``: the CUDA kernel on the card, its plain
-version on the CPU.
+``ops/paged_attention.py``: the CUDA kernel on the card (over fp or
+int8 pages), its plain version on the CPU.  :func:`draft_slice_indices`
+cuts the speculative draft out of a stack.
 
 Not ported yet: the full-sequence training forward, ring attention,
-the slot-layout ``decode``, ``GptBlock_MoeMlp``, ``generate`` and the
-speculative draft slice.
+the slot-layout ``decode``, ``GptBlock_MoeMlp`` and ``generate``.
 """
 
 from __future__ import annotations
@@ -175,19 +175,26 @@ class GptBlock_Attn(nn.Module):
 
         ``hidden``: [R, Lq, H] new positions index..index+Lq-1 per row;
         ``k_slab``/``v_slab``: [num_pages, page_size, heads, head_dim]
-        physical page pools shared by every row; ``page_table``: [R, W]
-        int32 on the slabs' device (sentinel-padded); ``index``: [R]
-        int32 on the slabs' device; ``write``: the step's
-        :class:`~..serving.kv_cache.PagedWrite` plan.  The new K/V are
+        physical page pools shared by every row, or
+        :class:`~..serving.kv_cache.QuantizedPages` (int8 values + scale
+        slab); ``page_table``: [R, W] int32 on the slabs' device
+        (sentinel-padded); ``index``: [R] int32 on the slabs' device;
+        ``write``: the step's plan for this slab type
+        (:func:`~..serving.kv_cache.write_plan`).  The new K/V are
         written into the slabs in place BEFORE attention reads them.
         Returns (new_hidden, k_slab, v_slab).
         """
-        from ..serving.kv_cache import scatter_paged_kv
+        from ..serving.kv_cache import QuantizedPages, scatter_kv
 
         cfg = self.config
         q, k_new, v_new = self._qkv(hidden)
-        scatter_paged_kv(k_slab, v_slab, k_new, v_new, write)
-        ctx = paged_attention(q, k_slab, v_slab, page_table, index)
+        scatter_kv(k_slab, v_slab, k_new, v_new, write)
+        if isinstance(k_slab, QuantizedPages):
+            ctx = paged_attention(q, k_slab.values, v_slab.values,
+                                  page_table, index, k_scale=k_slab.scale,
+                                  v_scale=v_slab.scale)
+        else:
+            ctx = paged_attention(q, k_slab, v_slab, page_table, index)
         ctx = ctx.to(torch_dtype(cfg.dtype))
         ctx = ctx.reshape(ctx.shape[0], ctx.shape[1], cfg.hidden_size)
         return hidden + self.c_proj(ctx), k_slab, v_slab
@@ -318,6 +325,44 @@ def attn_indices(modules) -> list:
     ]
 
 
+def draft_slice_indices(modules, draft_blocks: int) -> list:
+    """Module indices of the prefix-slice draft model for speculative
+    decoding: embeddings + the first ``draft_blocks`` attention units
+    (with everything between them) + the LM head.
+
+    The slice is a PREFIX of the stack, so the hidden state entering
+    each sliced layer is the target's, and the draft's KV cache for
+    those layers IS the target's: it reads and writes the same pages
+    and needs no prefill of its own.  Returns the index list into the
+    full module list; raises when the stack is not a decodable GPT or
+    ``draft_blocks`` leaves no target-only attention unit.
+    """
+    if not modules or not isinstance(modules[0], GptEmbeddings):
+        raise ValueError(
+            "expected a GPT stack: GptEmbeddings + GptBlock_Attn units"
+        )
+    attn = attn_indices(modules)
+    if int(draft_blocks) < 1:
+        raise ValueError(
+            f"draft_blocks must be >= 1, got {draft_blocks}"
+        )
+    if int(draft_blocks) >= len(attn):
+        raise ValueError(
+            f"draft_blocks={draft_blocks} must be smaller than the "
+            f"target's {len(attn)} attention units — a draft as deep "
+            f"as the target cannot speed anything up"
+        )
+    if not isinstance(modules[-1], GptLmHead):
+        raise ValueError(
+            "expected the stack to end in GptLmHead (the draft reuses "
+            "the target's head at the slice point)"
+        )
+    # everything before the first attention unit the draft leaves out,
+    # then the head
+    cut = attn[int(draft_blocks)]
+    return list(range(cut)) + [len(modules) - 1]
+
+
 @torch.no_grad()
 def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
     """Thread one PAGED step through a module slice.
@@ -325,14 +370,15 @@ def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
     ``data`` is token ids [R, Lq] when the slice starts with
     :class:`GptEmbeddings`, else a hidden state; ``slabs`` is one
     ``[num_pages, page_size, heads, head_dim]`` (k, v) pair per attention
-    unit, updated in place; ``page_table`` [R, W] / ``index`` [R] /
-    ``valid_len`` [R] are shared by every layer and may lie on the host
-    (numpy or CPU tensors) — the write plan is computed there once and
-    moved to the slabs' device with the table and index.  Prefill
-    (``Lq = bucket``) and decode (``Lq = 1``) are this one function at
-    different shapes.  Returns (output, slabs).
+    unit (plain tensors, or ``QuantizedPages`` for an int8 pool), updated
+    in place; ``page_table`` [R, W] / ``index`` [R] / ``valid_len`` [R]
+    are shared by every layer and may lie on the host (numpy or CPU
+    tensors) — the write plan is computed there once and moved to the
+    slabs' device with the table and index.  Prefill (``Lq = bucket``),
+    decode (``Lq = 1``) and speculative verify (``Lq = k + 1``) are this
+    one function at different shapes.  Returns (output, slabs).
     """
-    from ..serving.kv_cache import paged_write_plan
+    from ..serving.kv_cache import slab_device, write_plan
 
     n_attn = len(attn_indices(modules))
     if len(slabs) != n_attn:
@@ -340,12 +386,11 @@ def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
             f"got {len(slabs)} cache pairs for {n_attn} attention units"
         )
     k0 = slabs[0][0]
-    device = k0.device
+    device = slab_device(k0)
     table = torch.as_tensor(np.asarray(page_table, np.int32))
     index_h = torch.as_tensor(np.asarray(index, np.int32)).reshape(-1)
-    write = paged_write_plan(table, index_h, np.asarray(valid_len),
-                             k0.shape[0], k0.shape[1],
-                             data.shape[1]).to(device)
+    write = write_plan(k0, table, index_h, np.asarray(valid_len),
+                       data.shape[1]).to(device)
     table = table.to(device).contiguous()
     index_d = index_h.to(device)
     cache_i = 0
@@ -372,6 +417,7 @@ __all__ = [
     "apply_kv_paged",
     "attn_indices",
     "decode_modules",
+    "draft_slice_indices",
     "gpt_layer_configs",
     "random_state_dicts",
 ]

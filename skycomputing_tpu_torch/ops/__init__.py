@@ -2,6 +2,11 @@
 PyTorch version (``csrc/`` holds the CUDA sources, ``_build`` compiles
 them at first use)."""
 
-from .paged_attention import paged_attention, paged_attention_reference
+from .paged_attention import (
+    paged_attention,
+    paged_attention_int8,
+    paged_attention_reference,
+)
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_int8",
+           "paged_attention_reference"]

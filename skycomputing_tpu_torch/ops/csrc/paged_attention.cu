@@ -1,18 +1,25 @@
 // Causal attention over a paged KV pool, walked through a page table.
 //
-// Replaces the Pallas kernel skycomputing_tpu/ops/paged_attention.py:
-// _paged_kernel (with its _accumulate step), the fp variant.  Same
-// contract: q [R, Lq, H, D]; k/v pages [P, page_size, H, D] in q's
-// dtype; page_table [R, W] int32 padded with sentinels >= P; index [R]
-// int32.  Query j of row r sits at index[r] + j and sees logical
-// positions <= index[r] + j.  Sentinel entries clamp to page P-1 and are
-// masked by that causal rule.  Softmax statistics and the accumulator
-// are float32; the output is rounded to q's dtype.
+// Replaces the Pallas kernels of skycomputing_tpu/ops/paged_attention.py:
+// _paged_kernel (the fp pool) and _paged_kernel_int8 (the int8 pool),
+// each with its _accumulate step; one template serves both, on the
+// stored K/V type.  Same contract: q [R, Lq, H, D]; k/v pages
+// [P, page_size, H, D] in q's dtype, or int8 with float32 scales
+// k_scale/v_scale [P, H] (one per page and head, fetched through the
+// same clamped table entry as the page); page_table [R, W] int32 padded
+// with sentinels >= P; index [R] int32.  Query j of row r sits at
+// index[r] + j and sees logical positions <= index[r] + j.  Sentinel
+// entries clamp to page P-1 and are masked by that causal rule.  Softmax
+// statistics and the accumulator are float32; the output is rounded to
+// q's dtype.
 //
 // What bounds it on an H100: the K/V bytes it reads.  A decode step
-// (Lq = 1) does 4*D flops per key position against 2*D*sizeof(T) bytes
+// (Lq = 1) does 4*D flops per key position against 2*D*sizeof(KV) bytes
 // of K/V, far below the card's ~295 flops per byte, so it is memory
-// bound; prefill tiles of 16 queries stay below that line too.
+// bound; prefill tiles of 16 queries stay below that line too.  The int8
+// pool halves those bytes against bf16 (plus 8 bytes of scales per page
+// and head); its pages are dequantized as they are staged into shared
+// memory, so no dequantized copy ever goes to device memory.
 //
 // What the design does about it: each K/V page tile is read from device
 // memory once per (row, head, tile of 16 queries) and staged through
@@ -25,12 +32,14 @@
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see skycomputing_tpu_torch/ops/_build.py) and bound
-// with ctypes through the plain C function at the end of this file.
+// with ctypes through the plain C functions at the end of this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,6 +52,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -67,10 +77,15 @@ __host__ __device__ inline size_t smem_floats(int D, int page_size) {
          + 3 * kQueryTile;             // running max, sum, correction
 }
 
-template <typename T>
+// T: q and output type.  KV: stored page type, T itself or int8_t; an
+// int8 page is multiplied by its (page, head) scale as it is staged
+// (k_scale/v_scale are read only when KV is int8_t).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                       const T* __restrict__ v_pages,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
+                       const KV* __restrict__ v_pages,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int32_t* __restrict__ page_table,
                        const int32_t* __restrict__ index, T* __restrict__ out,
                        int Lq, int H, int D, int num_pages, int page_size,
@@ -119,15 +134,26 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int32_t* table_row = page_table + (int64_t)r * width;
   for (int i = 0; i < n_pages; ++i) {
     const int phys = min(max(table_row[i], 0), num_pages - 1);
-    const T* k_page = k_pages + (int64_t)phys * page_size * pos_stride +
-                      (int64_t)h * D;
-    const T* v_page = v_pages + (int64_t)phys * page_size * pos_stride +
-                      (int64_t)h * D;
+    const KV* k_page = k_pages + (int64_t)phys * page_size * pos_stride +
+                       (int64_t)h * D;
+    const KV* v_page = v_pages + (int64_t)phys * page_size * pos_stride +
+                       (int64_t)h * D;
     __syncthreads();  // the previous page's tiles are no longer read
-    for (int e = tid; e < page_size * D; e += kThreads) {
-      const int j = e / D, d = e % D;
-      ks[j * Dp + d] = to_float(k_page[j * pos_stride + d]);
-      vs[j * D + d] = to_float(v_page[j * pos_stride + d]);
+    if constexpr (std::is_same<KV, int8_t>::value) {
+      // the Pallas kernel's k.astype(f32) * k_scale, in the same order
+      const float k_sc = k_scale[(int64_t)phys * H + h];
+      const float v_sc = v_scale[(int64_t)phys * H + h];
+      for (int e = tid; e < page_size * D; e += kThreads) {
+        const int j = e / D, d = e % D;
+        ks[j * Dp + d] = to_float(k_page[j * pos_stride + d]) * k_sc;
+        vs[j * D + d] = to_float(v_page[j * pos_stride + d]) * v_sc;
+      }
+    } else {
+      for (int e = tid; e < page_size * D; e += kThreads) {
+        const int j = e / D, d = e % D;
+        ks[j * Dp + d] = to_float(k_page[j * pos_stride + d]);
+        vs[j * D + d] = to_float(v_page[j * pos_stride + d]);
+      }
     }
     __syncthreads();
 
@@ -202,24 +228,31 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const int32_t* table, const int32_t* index, void* out,
                    int R, int Lq, int H, int D, int num_pages, int page_size,
                    int width, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(D, page_size) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_attention_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((Lq + kQueryTile - 1) / kQueryTile, H, R);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), table, index, static_cast<T*>(out), Lq, H, D,
-      num_pages, page_size, width, scale);
+  paged_attention_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, table, index,
+      static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int R, int Lq, int H, int D, int num_pages, int page_size,
+               int width) {
+  return D < 1 || D > kMaxHeadDim || R < 1 || R > 65535 || H < 1 ||
+         H > 65535 || Lq < 1 || width < 1 || num_pages < 1 || page_size < 1;
 }
 
 }  // namespace
@@ -234,20 +267,49 @@ int sky_paged_attention(int dtype, const void* q, const void* k_pages,
                         const void* index, void* out, int R, int Lq, int H,
                         int D, int num_pages, int page_size, int width,
                         float scale, void* stream) {
-  if (D < 1 || D > kMaxHeadDim || R < 1 || R > 65535 || H < 1 || H > 65535 ||
-      Lq < 1 || width < 1 || num_pages < 1 || page_size < 1)
+  if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
     return (int)cudaErrorInvalidValue;
   const int32_t* table = static_cast<const int32_t*>(page_table);
   const int32_t* idx = static_cast<const int32_t*>(index);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch<float>(q, k_pages, v_pages, table, idx, out, R, Lq,
-                                H, D, num_pages, page_size, width, scale, s);
+      return (int)launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                       table, idx, out, R, Lq, H, D,
+                                       num_pages, page_size, width, scale, s);
     case 1:
-      return (int)launch<__nv_bfloat16>(q, k_pages, v_pages, table, idx, out,
-                                        R, Lq, H, D, num_pages, page_size,
-                                        width, scale, s);
+      return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+          q, k_pages, v_pages, nullptr, nullptr, table, idx, out, R, Lq, H, D,
+          num_pages, page_size, width, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The int8 pool: k/v pages int8, k_scale/v_scale float32 [num_pages, H];
+// dtype (of q and out) as above.
+int sky_paged_attention_int8(int dtype, const void* q, const void* k_pages,
+                             const void* v_pages, const void* k_scale,
+                             const void* v_scale, const void* page_table,
+                             const void* index, void* out, int R, int Lq,
+                             int H, int D, int num_pages, int page_size,
+                             int width, float scale, void* stream) {
+  if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
+    return (int)cudaErrorInvalidValue;
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
+  const int32_t* table = static_cast<const int32_t*>(page_table);
+  const int32_t* idx = static_cast<const int32_t*>(index);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)launch<float, int8_t>(q, k_pages, v_pages, ksc, vsc, table,
+                                        idx, out, R, Lq, H, D, num_pages,
+                                        page_size, width, scale, s);
+    case 1:
+      return (int)launch<__nv_bfloat16, int8_t>(
+          q, k_pages, v_pages, ksc, vsc, table, idx, out, R, Lq, H, D,
+          num_pages, page_size, width, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,21 +1,24 @@
 """Causal attention over a paged KV pool, the page walk inside a kernel.
 
-The port of ``skycomputing_tpu/ops/paged_attention.py``'s fp path.  On a
-CUDA tensor :func:`paged_attention` launches the hand-written Hopper
-kernel in ``csrc/paged_attention.cu`` (built with ``nvcc`` for
-``sm_90a`` at first use, bound with ``ctypes``); on a CPU tensor it runs
-:func:`paged_attention_reference`, the plain PyTorch version of the same
-function.  Nothing else picks the path: a CUDA call either launches the
-kernel or raises.
+The port of ``skycomputing_tpu/ops/paged_attention.py``, for both of
+its pools: pages in the model dtype (the JAX module's
+``_paged_kernel``) and int8 pages with per-page-per-head float32 scales
+(``_paged_kernel_int8``).  On a CUDA tensor :func:`paged_attention`
+launches the hand-written Hopper kernel in ``csrc/paged_attention.cu``
+(built with ``nvcc`` for ``sm_90a`` at first use, bound with
+``ctypes``); on a CPU tensor it runs :func:`paged_attention_reference`,
+the plain PyTorch version of the same function.  Nothing else picks the
+path: a CUDA call either launches the kernel or raises.
 
 The kernel never materializes a row's gathered K/V view: one thread
 block per (row, head, tile of 16 queries) walks the row's page table in
-order, staging each page's K/V tile through shared memory and folding it
-into a float32 online softmax.  ``csrc/paged_attention.cu`` says what
-bounds it on the card and what its design does about that.
+order, staging each page's K/V tile through shared memory (an int8 tile
+multiplied by its page's scale on the way) and folding it into a
+float32 online softmax.  ``csrc/paged_attention.cu`` says what bounds it
+on the card and what its design does about that.
 
-int8 pages (``k_scale``/``v_scale``, the JAX module's
-``_paged_kernel_int8``) are not ported yet.
+Each pool's kernel counts its own launches: ``paged_attention.launches``
+for the fp pool, ``paged_attention_int8.launches`` for the int8 pool.
 """
 
 from __future__ import annotations
@@ -36,14 +39,19 @@ def _library():
         from . import _build
 
         lib = _build.load("paged_attention")
-        fn = lib.sky_paged_attention
         # dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
         # page_size, width; scale; stream
-        fn.argtypes = (
+        lib.sky_paged_attention.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p]
         )
-        fn.restype = ctypes.c_int
+        # the same with k_scale, v_scale after v
+        lib.sky_paged_attention_int8.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.sky_paged_attention.restype = ctypes.c_int
+        lib.sky_paged_attention_int8.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -54,46 +62,22 @@ def _row_index(index, R: int, device) -> torch.Tensor:
     return idx.reshape(-1).expand(R).contiguous()
 
 
-def paged_attention(
-    q: torch.Tensor,
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
-    page_table: torch.Tensor,
-    index,
-    *,
-    softmax_scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Attention of ``q`` over the pages its rows' tables name.
-
-    ``q``: [R, Lq, H, D] (``Lq = 1`` decode, ``Lq = bucket`` prefill);
-    ``k_pages``/``v_pages``: [num_pages, page_size, H, D] in q's dtype;
-    ``page_table``: [R, W] int32, sentinel-padded (entries >= num_pages
-    clamp into the pool and are causally masked); ``index``: [R] (or a
-    scalar) position of each row's first query — query ``j`` sees
-    positions ``<= index + j``.  Returns [R, Lq, H, D] in q's dtype.
-
-    CPU tensors take :func:`paged_attention_reference`.  CUDA tensors
-    launch the kernel (float32 or bfloat16, ``D <= 128``) and count the
-    launch in ``paged_attention.launches``; anything the kernel does not
-    take raises.
-    """
-    if q.device.type == "cpu":
-        return paged_attention_reference(
-            q, k_pages, v_pages, page_table, index,
-            softmax_scale=softmax_scale,
-        )
+def _launch_args(q, pages, page_dtype, page_table, index):
+    """Check what the kernel takes (raising on anything else) and return
+    the common launch arguments: (table, index, R, Lq, H, D, P,
+    page_size)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     R, Lq, H, D = q.shape
-    P, page_size = k_pages.shape[0], k_pages.shape[1]
+    P, page_size = pages[0].shape[0], pages[0].shape[1]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(
             f"paged_attention kernel takes float32 or bfloat16, got {q.dtype}"
         )
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.device != q.device or t.dtype != q.dtype:
+    for name, t in zip(("k_pages", "v_pages"), pages):
+        if t.device != q.device or t.dtype != page_dtype:
             raise ValueError(
-                f"{name} must be {q.dtype} on {q.device}, got {t.dtype} "
+                f"{name} must be {page_dtype} on {q.device}, got {t.dtype} "
                 f"on {t.device}"
             )
         if tuple(t.shape) != (P, page_size, H, D):
@@ -113,6 +97,61 @@ def paged_attention(
         )
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     idx = _row_index(index, R, q.device)
+    return table, idx, R, Lq, H, D, P, page_size
+
+
+def _check_rc(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"paged_attention kernel launch failed: cudaError_t {rc}"
+        )
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    index,
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``q`` over the pages its rows' tables name.
+
+    ``q``: [R, Lq, H, D] (``Lq = 1`` decode, ``Lq = k + 1`` speculative
+    verify, ``Lq = bucket`` prefill); ``k_pages``/``v_pages``:
+    [num_pages, page_size, H, D] in q's dtype — or int8, with
+    ``k_scale``/``v_scale`` [num_pages, H] float32 dequant scales (pass
+    both or neither); ``page_table``: [R, W] int32, sentinel-padded
+    (entries >= num_pages clamp into the pool and are causally masked);
+    ``index``: [R] (or a scalar) position of each row's first query —
+    query ``j`` sees positions ``<= index + j``.  Returns [R, Lq, H, D]
+    in q's dtype.
+
+    CPU tensors take :func:`paged_attention_reference`.  CUDA tensors
+    launch the kernel (q float32 or bfloat16, ``D <= 128``) and count
+    the launch in ``paged_attention.launches`` (fp pages) or
+    ``paged_attention_int8.launches`` (int8 pages); anything the kernel
+    does not take raises.
+    """
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass k_scale AND v_scale together (int8) "
+                         "or neither (fp)")
+    if k_scale is not None:
+        return paged_attention_int8(
+            q, k_pages, v_pages, k_scale, v_scale, page_table, index,
+            softmax_scale=softmax_scale,
+        )
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, k_pages, v_pages, page_table, index,
+            softmax_scale=softmax_scale,
+        )
+    table, idx, R, Lq, H, D, P, page_size = _launch_args(
+        q, (k_pages, v_pages), q.dtype, page_table, index
+    )
     if softmax_scale is None:
         softmax_scale = float(D) ** -0.5
     out = torch.empty_like(q)
@@ -124,10 +163,7 @@ def paged_attention(
             out.data_ptr(), R, Lq, H, D, P, page_size, table.shape[1],
             float(softmax_scale), stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: cudaError_t {rc}"
-        )
+    _check_rc(rc)
     paged_attention.launches += 1
     return out
 
@@ -135,19 +171,77 @@ def paged_attention(
 paged_attention.launches = 0
 
 
+def paged_attention_int8(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scale: torch.Tensor,
+    v_scale: torch.Tensor,
+    page_table: torch.Tensor,
+    index,
+    *,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """:func:`paged_attention` over an int8 pool: each page tile is
+    dequantized with its (page, head) scale inside the kernel, so no
+    dequantized copy of the pool ever exists.  ``k_scale``/``v_scale``
+    are contiguous float32 [num_pages, H] on q's device.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel and count it
+    in ``paged_attention_int8.launches``."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(
+            q, k_pages, v_pages, page_table, index, k_scale=k_scale,
+            v_scale=v_scale, softmax_scale=softmax_scale,
+        )
+    table, idx, R, Lq, H, D, P, page_size = _launch_args(
+        q, (k_pages, v_pages), torch.int8, page_table, index
+    )
+    for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s.device != q.device or s.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 on {q.device}, got {s.dtype} "
+                f"on {s.device}"
+            )
+        if tuple(s.shape) != (P, H):
+            raise ValueError(f"{name} shape {tuple(s.shape)} != {(P, H)}")
+        if not s.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if softmax_scale is None:
+        softmax_scale = float(D) ** -0.5
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _library().sky_paged_attention_int8(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, Lq, H, D,
+            P, page_size, table.shape[1], float(softmax_scale), stream,
+        )
+    _check_rc(rc)
+    paged_attention_int8.launches += 1
+    return out
+
+
+paged_attention_int8.launches = 0
+
+
 def paged_attention_reference(
     q, k_pages, v_pages, page_table, index, *,
-    softmax_scale: Optional[float] = None,
+    k_scale=None, v_scale=None, softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version with the kernel's exact contract: gather
     each row's virtual K/V view (materialized — the cost the kernel
-    removes), mask by logical position, float32 softmax.
+    removes), dequantized in float32 when scales are given, mask by
+    logical position, float32 softmax.
 
     A sentinel entry reads page ``num_pages - 1``, as in the kernel and
     the JAX package's Pallas kernel.  (The JAX XLA reference clips the
     flat position instead, so the two disagree where a sentinel lies
     inside a row's visible span: only on pad and inactive rows, whose
     output is discarded.)"""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass k_scale AND v_scale together (int8) "
+                         "or neither (fp)")
     R, Lq, H, D = q.shape
     P, page_size = k_pages.shape[0], k_pages.shape[1]
     if softmax_scale is None:
@@ -159,8 +253,15 @@ def paged_attention_reference(
         page_size, device=device
     )
     flat_pos = pos.reshape(R, -1)
-    k_virt = k_pages.reshape(P * page_size, H, D)[flat_pos].float()
-    v_virt = v_pages.reshape(P * page_size, H, D)[flat_pos].float()
+
+    def gather(pages, scale):
+        virt = pages.reshape(P * page_size, H, D)[flat_pos].float()
+        if scale is not None:
+            virt = virt * scale[flat_pos // page_size][:, :, :, None]
+        return virt
+
+    k_virt = gather(k_pages, k_scale)
+    v_virt = gather(v_pages, v_scale)
     s = torch.einsum("blhd,bmhd->bhlm", q.float() * softmax_scale, k_virt)
     qpos = idx[:, None] + torch.arange(Lq, device=device)
     kpos = torch.arange(k_virt.shape[1], device=device)
@@ -170,4 +271,5 @@ def paged_attention_reference(
     return torch.einsum("bhlm,bmhd->blhd", p, v_virt).to(q.dtype)
 
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["paged_attention", "paged_attention_int8",
+           "paged_attention_reference"]

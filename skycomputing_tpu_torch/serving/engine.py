@@ -2,17 +2,31 @@
 
 The port of ``skycomputing_tpu/serving/engine.py``'s paged layout on one
 stage and one device.  Every tick the engine (1) admits queued requests
-through bucketed prefill waves while decode rows AND pages allow, and
-(2) runs one single-token decode step over all decode rows.  Requests
-join and leave the running batch only between ticks (Orca, OSDI '22).
+— through bucketed prefill waves, through swap-in of preempted
+requests, or, with ``prefill_chunk`` set, by enrolling them for chunked
+prefill — while decode rows AND pages allow, (2) advances chunked
+prefill by a budgeted number of chunk waves, and (3) runs one decode
+tick over all decode rows: a single-token step, or with ``spec_k > 0`` a
+speculative tick (a prefix-slice draft proposes ``spec_k`` tokens, the
+target verifies them in one ``Lq = spec_k + 1`` forward).  Requests join
+and leave the running batch only between ticks (Orca, OSDI '22).
 
 KV lives in per-layer page pools ``[num_pages, page_size, heads,
-head_dim]`` addressed through per-request page tables; the host
-bookkeeping — free-list allocator, refcounts, radix prefix cache,
-copy-on-write grants — is :mod:`.paging`, a verbatim copy of the JAX
-package's.  Prefill and decode are one function (``models/gpt.
-apply_kv_paged``) at two shapes, and both go through the paged-attention
-kernel (``ops/paged_attention.py``) on the card.
+head_dim]`` addressed through per-request page tables — in the model
+dtype, or with ``kv_dtype="int8"`` as int8 values plus per-page-per-head
+float32 scales, quantized at write time.  The host bookkeeping —
+free-list allocator, refcounts, radix prefix cache, copy-on-write
+grants, chunk budget, preemption policy — is :mod:`.paging`, a verbatim
+copy of the JAX package's.  Every step is one function
+(``models/gpt.apply_kv_paged``) at some query length, and each goes
+through the paged-attention kernel (``ops/paged_attention.py``; its int8
+twin for an int8 pool) on the card.
+
+A running request can be preempted (:meth:`ServingEngine.preempt`): by
+recomputation (it re-queues and its KV is rebuilt by prefill on
+re-admission) or by swap (its pages are copied to host memory under a
+checksum and scattered back into fresh pages on re-admission, with no
+prefill).
 
 PyTorch runs eagerly, so there are no compiled programs to key, donate
 or warm: the page slabs are updated in place and the bucket set only
@@ -21,15 +35,14 @@ step (``index = 0``, ``valid = 0``, all-sentinel tables): their writes
 drop and their attention reads stay inside the pool.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-slot layout, chunked prefill (``prefill_chunk``), speculative decoding
-(``spec_k``), int8 pages (``kv_dtype``), multi-stage placement
-(``worker_manager``/``partition``), swap/recompute preemption,
+slot layout, multi-stage placement (``worker_manager``/``partition``),
 ``reconfigure``, handoff export/import, and the live-metrics exporter.
 There is no tracer and no autotuner hook.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
@@ -44,10 +57,12 @@ from ..models.gpt import (
     apply_kv_paged,
     attn_indices,
     decode_modules,
+    draft_slice_indices,
 )
 from ..utils import resolve_device
 from .batcher import (
     AdmissionQueue,
+    FAILED,
     FINISHED,
     QueueFullError,
     REJECTED,
@@ -55,8 +70,15 @@ from .batcher import (
     Request,
     ShapeBucketer,
 )
-from .kv_cache import init_paged_caches, kv_spec_from_config
-from .paging import PagedKVCachePool, RowAllocator, pages_for
+from .kv_cache import QuantizedPages, init_paged_caches, kv_spec_from_config
+from .paging import (
+    ChunkBudgetPolicy,
+    PagedKVCachePool,
+    RowAllocator,
+    choose_preempt_mode,
+    pages_for,
+)
+from .speculative import DraftModel, greedy_accept_count
 
 
 @dataclass
@@ -70,22 +92,46 @@ class ServingStats:
     and ``decode_s`` are host wall time per phase, each ending in the
     device-to-host copy of the step's tokens (so they include the
     device's work).
+
+    The feature counters keep the JAX engine's names and meanings:
+    ``preemptions``/``swap_outs``/``swap_ins``/``swap_corruptions``
+    (preemption; a corrupt swap record falls back to recompute),
+    ``prefill_chunks`` (chunk rows computed) and ``chunk_stalls`` (ticks
+    where the chunk budget deferred work), ``quantized_pages`` (page
+    tiles re-quantized by writes) and ``dequant_blocks`` (page blocks
+    dequantized by attention reads, per step, not per layer),
+    ``draft_tokens`` (usable draft proposals), ``accepted_draft_tokens``
+    and ``spec_rollbacks``.  ``prefill_waves`` counts chunk waves too.
+    ``decode_ticks`` counts single-token decode ticks and ``spec_ticks``
+    speculative ones (draft + verify); both are the port's own.
     """
 
     iterations: int = 0
     prefill_waves: int = 0
     prefill_tokens: int = 0
     decode_ticks: int = 0
+    spec_ticks: int = 0
     decode_tokens: int = 0
     generated_tokens: int = 0
     admitted: int = 0
     finished: int = 0
+    preemptions: int = 0
     queue_stalls: int = 0
     queue_rejections: int = 0
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
     cow_copies: int = 0
+    swap_outs: int = 0
+    swap_ins: int = 0
+    swap_corruptions: int = 0
     prefix_evictions: int = 0
+    prefill_chunks: int = 0
+    chunk_stalls: int = 0
+    quantized_pages: int = 0
+    dequant_blocks: int = 0
+    draft_tokens: int = 0
+    accepted_draft_tokens: int = 0
+    spec_rollbacks: int = 0
     # gauges
     queue_depth: int = 0
     batch_occupancy: float = 0.0
@@ -121,11 +167,14 @@ class ServingStats:
 
 class _PagedServingStage:
     """The one stage: module slice + device + per-attention-layer page
-    slabs ``[num_pages, page_size, heads, head_dim]``."""
+    slabs ``[num_pages, page_size, heads, head_dim]`` (``QuantizedPages``
+    pairs under ``kv_dtype="int8"``)."""
 
     def __init__(self, modules: Sequence[Any], state_dicts: Sequence[Any],
-                 device: torch.device, num_pages: int, page_size: int):
+                 device: torch.device, num_pages: int, page_size: int,
+                 kv_dtype: Optional[str] = None):
         self.device = device
+        self.kv_dtype = kv_dtype
         for module, sd in zip(modules, state_dicts):
             module.load_state_dict(sd, strict=True)
         self.modules = [m.to(device) for m in modules]
@@ -133,26 +182,83 @@ class _PagedServingStage:
             kv_spec_from_config(self.modules[i].config.to_dict(), page_size)
             for i in attn_indices(self.modules)
         ]
+        self.num_pages = int(num_pages)
         self.slabs = self.build_slabs(num_pages, page_size)
 
     def build_slabs(self, num_pages: int, page_size: int):
-        """Fresh zeroed page slabs, one (k, v) pair per attention layer."""
+        """Fresh zeroed page slabs, one (k, v) pair per attention layer;
+        int8 values plus float32 scale slabs under ``kv_dtype="int8"``."""
         return init_paged_caches(self.specs, num_pages, page_size,
-                                 device=self.device)
+                                 device=self.device, kv_dtype=self.kv_dtype)
 
     def apply_cow_plan(self, plan) -> None:
         """Execute the pool's copy-on-write plan
         (``PagedKVCachePool.cow_plan``) on every layer's slabs, in
-        place.  A scale copy means the pool believes its pages are int8
-        while these slabs are not — pool/stage drift, which raises."""
+        place.  On an int8 pool the plan names the scale row alongside
+        the values (a clone dequantized under another scale would
+        corrupt the shared prefix).  A plan that does not fit the slabs
+        — a scale copy for fp slabs, or int8 slabs without one — is
+        pool/stage kv_dtype drift, which raises."""
+        copies: Dict[str, Any] = {}
         for kind, src, dst in plan:
-            if kind != "values":
-                raise ValueError(
-                    f"COW plan entry {kind!r} does not apply to fp slabs"
-                )
-            for k, v in self.slabs:
-                k[dst].copy_(k[src])
-                v[dst].copy_(v[src])
+            if kind not in ("values", "scales"):
+                raise ValueError(f"unknown COW plan entry {kind!r}")
+            copies[kind] = (int(src), int(dst))
+        if not copies:
+            return
+        quantized = self.kv_dtype == "int8"
+        if ("scales" in copies) != quantized:
+            raise ValueError(
+                f"COW plan {sorted(copies)} does not fit this stage's "
+                f"{'int8' if quantized else 'fp'} slabs — pool/stage "
+                f"kv_dtype drift"
+            )
+        for pair in self.slabs:
+            for slab in pair:
+                if quantized:
+                    s, d = copies["values"]
+                    slab.values[d].copy_(slab.values[s])
+                    s, d = copies["scales"]
+                    slab.scale[d].copy_(slab.scale[s])
+                else:
+                    s, d = copies["values"]
+                    slab[d].copy_(slab[s])
+
+    def swap_out(self, table: np.ndarray) -> List[Any]:
+        """Host copies of the pages in ``table`` (sentinel-padded to a
+        fixed length; sentinel rows carry garbage the swap-in drops).
+        int8 slabs swap their scale rows alongside the values — a page
+        restored without its scale would dequantize garbage.  The copy
+        is ordered after every step already queued on the device."""
+        rows = torch.as_tensor(np.asarray(table, np.int64)).clamp(
+            0, self.num_pages - 1).to(self.device)
+
+        def host(slab):
+            if isinstance(slab, QuantizedPages):
+                return QuantizedPages(slab.values[rows].cpu(),
+                                      slab.scale[rows].cpu())
+            return slab[rows].cpu()
+
+        return [(host(k), host(v)) for k, v in self.slabs]
+
+    def swap_in(self, table: np.ndarray, host_pairs: List[Any]) -> None:
+        """Scatter host page copies back into the pages of ``table``, in
+        place; sentinel table rows drop."""
+        t = torch.as_tensor(np.asarray(table, np.int64))
+        keep = (t >= 0) & (t < self.num_pages)
+        src = keep.nonzero()[:, 0]
+        dst = t[keep].to(self.device)
+
+        def put(slab, host):
+            slab.index_copy_(0, dst, host[src].to(self.device, slab.dtype))
+
+        for (k, v), (hk, hv) in zip(self.slabs, host_pairs):
+            for slab, host in ((k, hk), (v, hv)):
+                if isinstance(slab, QuantizedPages):
+                    put(slab.values, host.values)
+                    put(slab.scale, host.scale)
+                else:
+                    put(slab, host)
 
     def step(self, data, tables, index, valid):
         """One paged step through every module; returns the output."""
@@ -160,6 +266,33 @@ class _PagedServingStage:
             self.modules, data, self.slabs, tables, index, valid
         )
         return out
+
+
+def _host_leaves(data):
+    """The tensors of a swap record's payload, in order (per-layer (k,
+    v) pairs, each a tensor or a ``QuantizedPages`` of values + scale)."""
+    if isinstance(data, (list, tuple)):
+        for item in data:
+            yield from _host_leaves(item)
+    else:
+        yield data
+
+
+def _swap_record_checksum(pages: int, index: int, data: List[Any]) -> str:
+    """sha256 over a swap record's host payload: page count, resume
+    index and every host tensor's bytes (an int8 record's scale rows
+    too).  Stamped at swap-out, verified at swap-in."""
+    h = hashlib.sha256()
+    h.update(f"{int(pages)}:{int(index)}".encode())
+    for t in _host_leaves(data):
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _swap_record_nbytes(data: List[Any]) -> int:
+    """Total host bytes a swap record parks."""
+    return int(sum(t.numel() * t.element_size() for t in _host_leaves(data)))
 
 
 def _not_ported(feature: str):
@@ -178,6 +311,13 @@ class ServingEngine:
     ``models.gpt.random_state_dicts``).  ``device`` defaults to CUDA;
     without a CUDA device construction raises unless the caller passes
     ``device="cpu"``.
+
+    Feature knobs, as in the JAX engine: ``kv_dtype="int8"`` stores
+    pages quantized; ``spec_k`` > 0 with ``draft_blocks`` decodes
+    speculatively (greedy streams are unchanged); ``prefill_chunk`` (one
+    of the buckets) with ``max_chunk_rows`` prefills in budgeted chunks
+    that ride ticks beside decode; ``preempt_policy`` ("auto",
+    "recompute" or "swap") is the default mode of :meth:`preempt`.
     """
 
     def __init__(
@@ -199,10 +339,13 @@ class ServingEngine:
         max_concurrency: Optional[int] = None,
         enable_prefix_cache: bool = True,
         max_prefix_entries: int = 256,
-        device=None,
+        preempt_policy: str = "auto",
         prefill_chunk: Optional[int] = None,
+        max_chunk_rows: Optional[int] = None,
         spec_k: int = 0,
+        draft_blocks: Optional[int] = None,
         kv_dtype: Optional[str] = None,
+        device=None,
         worker_manager=None,
         partition: Optional[Sequence[int]] = None,
     ):
@@ -210,20 +353,26 @@ class ServingEngine:
             _not_ported("the slot KV layout")
         if kv_layout != "paged":
             raise ValueError(f"kv_layout must be 'paged', got {kv_layout!r}")
-        if prefill_chunk:
-            _not_ported("chunked prefill (prefill_chunk)")
-        if spec_k:
-            _not_ported("speculative decoding (spec_k)")
-        if kv_dtype is not None:
-            _not_ported(f"kv_dtype={kv_dtype!r} pages")
         if worker_manager is not None or (
                 partition is not None and len(partition) > 1):
             _not_ported("multi-stage placement")
+        if preempt_policy not in ("auto", "recompute", "swap"):
+            raise ValueError(
+                f"preempt_policy must be 'auto', 'recompute' or 'swap', "
+                f"got {preempt_policy!r}"
+            )
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None (model dtype) or 'int8', "
+                f"got {kv_dtype!r}"
+            )
         if queue_policy not in ("reject", "shed"):
             raise ValueError(
                 f"queue_policy must be 'reject' or 'shed', "
                 f"got {queue_policy!r}"
             )
+        self.kv_dtype = kv_dtype
+        self.preempt_policy = preempt_policy
         self.device = resolve_device(device)
         modules = decode_modules(build_layer_stack(list(model_cfg)))
         if not attn_indices(modules) or not isinstance(
@@ -237,6 +386,7 @@ class ServingEngine:
                 f"got {len(params_list)} param trees for "
                 f"{len(modules)} layers"
             )
+        model_dtype = str(_gcfg(modules[0].config).dtype)
         max_pos = _gcfg(modules[0].config).max_position_embeddings
         # the paged operating point: max_len becomes the PER-REQUEST
         # virtual span (max_pages_per_request x page_size), and the pool
@@ -294,25 +444,77 @@ class ServingEngine:
             self.bucketer, prefill_batch=prefill_batch,
             max_queue=self.max_queue,
         )
+        # chunked prefill: split the non-shared prefill tail into
+        # prefill_chunk-token chunks that ride ticks beside decode
+        self.prefill_chunk: Optional[int] = None
+        self.max_chunk_rows: Optional[int] = None
+        self._chunk_policy: Optional[ChunkBudgetPolicy] = None
+        if prefill_chunk:
+            self._set_chunking(int(prefill_chunk), max_chunk_rows)
+        elif max_chunk_rows is not None:
+            raise ValueError("max_chunk_rows requires prefill_chunk")
+        # speculative decoding: a prefix-slice draft proposes spec_k
+        # tokens per tick, the target verifies all spec_k + 1 positions
+        # in one forward
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.draft_blocks = (
+            int(draft_blocks) if draft_blocks is not None else None
+        )
+        if self.spec_k > 0 and self.draft_blocks is None:
+            raise ValueError(
+                "spec_k > 0 requires draft_blocks (the prefix-slice "
+                "depth of the draft model)"
+            )
         self.stats = ServingStats()
         self._running: Dict[int, Request] = {}
+        # chunked-prefill ledger: requests holding a page grant and a
+        # decode row whose prefilled_len watermark has not reached the
+        # end of their effective prompt (insertion order = enrollment
+        # FIFO, which chunk waves honor head-first)
+        self._prefilling: Dict[int, Request] = {}
         self._finished: List[Request] = []
         self._pool = PagedKVCachePool(
             self.num_pages, self.page_size, self.max_pages_per_request,
             enable_prefix_cache=bool(enable_prefix_cache),
             max_prefix_entries=int(max_prefix_entries),
-            kv_dtype=str(_gcfg(modules[0].config).dtype),
+            kv_dtype=kv_dtype or model_dtype,
         )
         self._rows = RowAllocator(self.max_concurrency)
+        # request_id -> host page copies + resume state (the swap pool)
+        self._swapped: Dict[int, Dict[str, Any]] = {}
         self.stage = _PagedServingStage(
             modules, list(params_list), self.device, self.num_pages,
-            self.page_size,
+            self.page_size, kv_dtype=kv_dtype,
         )
+        self._draft: Optional[DraftModel] = None
+        if self.spec_k > 0:
+            idx = draft_slice_indices(self.stage.modules, self.draft_blocks)
+            self._draft = DraftModel([self.stage.modules[i] for i in idx])
+
+    def _set_chunking(self, prefill_chunk: int,
+                      max_chunk_rows: Optional[int]) -> None:
+        """Validate + install the chunked-prefill operating point.
+        ``prefill_chunk`` must be one of the prefill buckets, as in the
+        JAX engine (chunk waves take the bucket shapes)."""
+        if prefill_chunk not in self.bucketer.buckets:
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must be one of the "
+                f"prefill buckets {list(self.bucketer.buckets)}"
+            )
+        rows = (
+            int(max_chunk_rows) if max_chunk_rows is not None
+            else self.prefill_batch
+        )
+        self._chunk_policy = ChunkBudgetPolicy(
+            prefill_chunk, max_chunk_rows=rows,
+            idle_chunk_rows=max(rows, self.prefill_batch * 2),
+        )
+        self.prefill_chunk = int(prefill_chunk)
+        self.max_chunk_rows = rows
 
     # --- features of the JAX engine this port does not have yet ------------
-    def preempt(self, request_id: int, mode: Optional[str] = None):
-        _not_ported("preemption (swap/recompute)")
-
     def reconfigure(self, **knobs):
         _not_ported("reconfigure")
 
@@ -336,6 +538,13 @@ class ServingEngine:
     @property
     def queued_requests(self) -> List[Request]:
         return list(self._queue.requests)
+
+    @property
+    def running_requests(self) -> List[Request]:
+        """Requests holding a decode row, mid-prefill ones included."""
+        return list(self._prefilling.values()) + list(
+            self._running.values()
+        )
 
     def submit(self, request: Request, *, force: bool = False) -> Request:
         """Queue a request (admitted on a later ``step``).
@@ -374,6 +583,111 @@ class ServingEngine:
         self.stats.queue_depth = self._queue.depth
         return request
 
+    def preempt(self, request_id: int,
+                mode: Optional[str] = None) -> Request:
+        """Evict a running request; it re-queues and resumes with its
+        token stream intact.
+
+        ``mode`` (or the engine's ``preempt_policy``) picks between
+        **recompute** (the KV prefix is rebuilt by prefill on
+        re-admission) and **swap** (page contents are copied to host
+        memory under a checksum and scattered back into fresh pages on
+        re-admission, no prefill).  ``"auto"`` chooses by resume cost
+        (``paging.choose_preempt_mode``); a resume prefix that has
+        outgrown every bucket forces swap.  A request still mid-prefill
+        (chunked) preempts by recomputation only.
+        """
+        request = self._running.get(request_id)
+        prefilling = False
+        if request is None:
+            request = self._prefilling.get(request_id)
+            prefilling = request is not None
+        if request is None:
+            raise KeyError(f"request {request_id} is not running")
+        if mode not in (None, "auto", "recompute", "swap"):
+            # validate BEFORE any state is touched
+            raise ValueError(
+                f"preempt mode must be 'auto', 'recompute' or 'swap', "
+                f"got {mode!r}"
+            )
+        if prefilling and mode == "swap":
+            raise ValueError(
+                "a mid-prefill request preempts by recomputation only"
+            )
+        resume_len = int(request.effective_prompt.size)
+        if prefilling:
+            # the re-queue needs a bucket; no tokens were generated yet
+            self.bucketer.bucket_for(resume_len)
+            mode = "recompute"
+        else:
+            try:
+                self.bucketer.bucket_for(resume_len)
+                fits = True
+            except ValueError:
+                fits = False
+            if mode is None:
+                mode = self.preempt_policy
+            if mode == "auto":
+                mode = choose_preempt_mode(
+                    resume_len, len(self._pool.table(request_id)),
+                    self.page_size, recompute_feasible=fits,
+                )
+            if mode == "recompute" and not fits:
+                self.bucketer.bucket_for(resume_len)  # the diagnostic
+        swap_record = None
+        if mode == "swap":
+            # host copies BEFORE any state mutates: a sentinel-padded
+            # table keeps the copied shape fixed
+            table = np.full(
+                (self.max_pages_per_request,), self.num_pages, np.int32
+            )
+            held = self._pool.table(request_id)
+            table[: len(held)] = held
+            data = self.stage.swap_out(table)
+            swap_record = dict(
+                pages=len(held), index=request.index, data=data,
+                nbytes=_swap_record_nbytes(data),
+                checksum=_swap_record_checksum(len(held), request.index,
+                                               data),
+            )
+        if prefilling:
+            self._prefilling.pop(request_id)
+            request.prefilled_len = 0  # recompute replays the tail
+        else:
+            self._running.pop(request_id)
+        self._rows.release(request.slot)
+        self._pool.release(request_id)
+        request.slot = None
+        request.preemptions += 1
+        self.stats.preemptions += 1
+        if swap_record is not None:
+            self._swapped[request_id] = swap_record
+            self.stats.swap_outs += 1
+        # force: a preempted request is already admitted.  A swapped
+        # request needs no prefill bucket (its KV returns verbatim)
+        self._queue.submit(request, force=True,
+                           require_bucket=(mode != "swap"))
+        self.stats.queue_depth = self._queue.depth
+        return request
+
+    def drain(self) -> List[Request]:
+        """Evict everything and return it, token streams intact: every
+        running request is preempted by recomputation and the queue
+        emptied, FIFO order (swap records are local to this engine, so
+        a drained request resumes elsewhere by re-prefilling).  A
+        running request whose resume prefix fits no bucket stays
+        running and is not returned."""
+        for request_id in list(self._running) + list(self._prefilling):
+            try:
+                self.preempt(request_id, mode="recompute")
+            except ValueError:
+                continue  # not resumable by recompute: stays running
+        drained = self._queue.drain()
+        for r in drained:
+            self._swapped.pop(r.request_id, None)
+        self.stats.queue_depth = 0
+        return drained
+
     def _finish(self, request: Request, now: float) -> None:
         self._rows.release(request.slot)
         # pages the radix index still references survive the release —
@@ -394,15 +708,23 @@ class ServingEngine:
 
     # --- the continuous-batching loop ---------------------------------------
     def has_work(self) -> bool:
-        return bool(self._running) or self._queue.depth > 0
+        return (bool(self._running) or bool(self._prefilling)
+                or self._queue.depth > 0)
 
     def step(self) -> None:
-        """One engine iteration: admit prefill waves, then one decode
-        tick over every decode row."""
+        """One engine iteration: admit (prefill waves, swap-ins, or
+        chunked enrollment), advance chunked prefill within its budget,
+        then one decode tick — speculative when ``spec_k > 0`` — over
+        every decode row."""
         if self._queue.depth > 0 and self.free_slots == 0:
             self.stats.queue_stalls += 1
         self._admit_paged()
-        self._decode_tick_paged()
+        if self._chunk_policy is not None:
+            self._chunk_tick()
+        if self._draft is not None:
+            self._spec_tick()
+        else:
+            self._decode_tick_paged()
         self.stats.iterations += 1
         self.stats.queue_depth = self._queue.depth
         self.stats.batch_occupancy = self._rows.occupancy
@@ -439,13 +761,176 @@ class ServingEngine:
     def _admit_paged(self) -> None:
         """Admit from the queue while rows AND pages allow — admission
         charges each request its full page footprint.  FIFO: the head
-        either admits or stalls the queue."""
+        either admits (prefill wave, swap-in or chunked enrollment) or
+        stalls the queue."""
         while self._queue.requests and self._rows.free_slots >= 1:
+            head = self._queue.requests[0]
+            if head.request_id in self._swapped:
+                if not self._swap_in(head):
+                    if head.request_id in self._swapped:
+                        self.stats.queue_stalls += 1  # pages unavailable
+                        return
+                    # corrupt record dropped (or the victim FAILED):
+                    # re-judge the head as a recompute admission
+                continue
+            if self._chunk_policy is not None:
+                # chunked admission is charge-only: the head gets its
+                # grant and decode row, its prefill rides chunk waves
+                if not self._enroll_chunked(head):
+                    self.stats.queue_stalls += 1
+                    return
+                continue
             wave = self._select_paged_wave()
             if wave is None:
                 self.stats.queue_stalls += 1  # rows were free, pages not
                 return
             self._prefill_wave_paged(wave)
+
+    def _enroll_chunked(self, request: Request) -> bool:
+        """Admit the queue head under chunked prefill: charge its page
+        grant, seat it on a decode row, apply the grant's COW copy and
+        set the ``prefilled_len`` watermark at the shared-prefix
+        boundary.  No prefill compute happens here.  False (nothing
+        mutated) when the pages cannot be charged yet."""
+        tokens = self._effective_tokens(request)
+        grant = self._pool.acquire(
+            request.request_id, tokens, len(tokens) + request.remaining
+        )
+        if grant is None:
+            return False
+        row = self._rows.allocate()
+        if row is None:  # the caller checked free rows
+            raise RuntimeError("chunked enrollment found no free row")
+        request.slot = row
+        plan = self._pool.cow_plan(grant)
+        if plan:
+            self.stage.apply_cow_plan(plan)
+        self._queue.remove(request)
+        request.prefilled_len = grant.shared_tokens
+        request.status = RUNNING
+        self._prefilling[request.request_id] = request
+        self.stats.queue_depth = self._queue.depth
+        return True
+
+    def _chunk_tick(self) -> None:
+        """Advance chunked prefill by at most the policy's budget:
+        head-fixes-the-bucket chunk waves in enrollment order, each
+        request advancing at most one chunk per tick.  A tick that
+        leaves some mid-prefill request without a chunk counts one
+        ``chunk_stalls``."""
+        if not self._prefilling:
+            return
+        budget = self._chunk_policy.rows_for_tick(
+            pending=len(self._prefilling), decoding=len(self._running)
+        )
+        advanced: set = set()
+        while budget > 0:
+            wave = self._select_chunk_wave(
+                min(budget, self.prefill_batch), advanced
+            )
+            if not wave:
+                break
+            advanced.update(r.request_id for r in wave)
+            self._chunk_wave(wave)
+            budget -= len(wave)
+        if any(rid not in advanced for rid in self._prefilling):
+            self.stats.chunk_stalls += 1
+
+    def _next_chunk_len(self, request: Request) -> int:
+        return min(
+            self.prefill_chunk,
+            int(request.effective_prompt.size) - request.prefilled_len,
+        )
+
+    def _select_chunk_wave(self, cap: int,
+                           exclude: set) -> List[Request]:
+        """Up to ``cap`` mid-prefill requests whose next chunk pads to
+        the enrollment head's bucket (FIFO head never skipped);
+        ``exclude`` holds requests already advanced this tick."""
+        pending = [
+            r for r in self._prefilling.values()
+            if r.request_id not in exclude
+        ]
+        if not pending:
+            return []
+        bucket = self.bucketer.bucket_for(self._next_chunk_len(pending[0]))
+        wave: List[Request] = []
+        for r in pending:
+            if len(wave) >= cap:
+                break
+            if self.bucketer.bucket_for(self._next_chunk_len(r)) == bucket:
+                wave.append(r)
+        return wave
+
+    def _chunk_wave(self, wave: List[Request]) -> None:
+        """One prefill-chunk wave: each member's next ``<= prefill_chunk``
+        prompt positions, padded to the wave bucket and written through
+        the members' page tables at their ``prefilled_len`` watermarks.
+        A member whose watermark reaches its prompt end commits its
+        first token and joins the decode batch."""
+        rows = self.prefill_batch
+        chunks = []
+        for r in wave:
+            clen = self._next_chunk_len(r)
+            chunks.append(
+                r.effective_prompt[r.prefilled_len:r.prefilled_len + clen]
+            )
+        bucket = self.bucketer.bucket_for(int(chunks[0].size))
+        ids, lengths = self.bucketer.pad_batch(
+            chunks, bucket, rows, self.pad_id
+        )
+        tables = np.full(
+            (rows, self.max_pages_per_request), self.num_pages, np.int32
+        )
+        index = np.zeros((rows,), np.int32)
+        valid = np.zeros((rows,), np.int32)  # pad rows: writes drop
+        for i, r in enumerate(wave):
+            held = self._pool.table(r.request_id)
+            tables[i, : len(held)] = held
+            index[i] = r.prefilled_len
+            valid[i] = r.prefilled_len + int(chunks[i].size)
+        width = self._table_width(valid)
+        self._count_quant(index, valid, width, len(wave))
+        t0 = time.perf_counter()
+        data = self.stage.step(
+            torch.from_numpy(ids).to(self.device), tables[:, :width],
+            index, valid,
+        )
+        last = torch.from_numpy(lengths.astype(np.int64) - 1).to(self.device)
+        logits = data[torch.arange(rows, device=self.device), last]
+        tokens_np = logits.argmax(dim=-1).cpu().numpy()
+        now = time.perf_counter()
+        self.stats.prefill_s += now - t0
+        self.stats.prefill_waves += 1
+        self.stats.prefill_tokens += int(sum(int(c.size) for c in chunks))
+        self.stats.prefill_chunks += len(wave)
+
+        finals = [
+            (i, r) for i, r in enumerate(wave)
+            if r.prefilled_len + int(chunks[i].size)
+            >= int(r.effective_prompt.size)
+        ]
+        sampled = self._sampled_rows(logits, finals)
+        for i, r in enumerate(wave):
+            r.prefilled_len += int(chunks[i].size)
+            if r.prefilled_len < int(r.effective_prompt.size):
+                continue  # watermark advanced; more chunks to come
+            # final chunk: the last true position's logits seed the
+            # first generated token, exactly like a one-shot wave
+            self._prefilling.pop(r.request_id)
+            self._pool.register_prefix(
+                r.request_id, [int(t) for t in r.prompt]
+            )
+            r.tokens.append(self._pick_token(r, tokens_np[i], sampled.get(i)))
+            r.index = r.prefilled_len
+            r.prefilled_len = 0
+            r.status = RUNNING
+            self._running[r.request_id] = r
+            if r.first_token_s is None:
+                r.first_token_s = now
+            self.stats.generated_tokens += 1
+            if r.done:
+                self._finish(r, now)
 
     @staticmethod
     def _effective_tokens(request: Request) -> tuple:
@@ -472,6 +957,8 @@ class ServingEngine:
         for r in queued:
             if len(wave) >= cap:
                 break
+            if r.request_id in self._swapped:
+                continue  # swap-ins ride their own admission path
             tokens = self._effective_tokens(r)
             length = len(tokens)
             if bucket is not None:
@@ -535,6 +1022,7 @@ class ServingEngine:
                 self.stage.apply_cow_plan(plan)
 
         width = self._table_width(valid)
+        self._count_quant(index, valid, width, len(wave))
         t0 = time.perf_counter()
         data = self.stage.step(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
@@ -581,29 +1069,104 @@ class ServingEngine:
             p <<= 1
         return min(p, self.max_pages_per_request)
 
-    def _decode_tick_paged(self) -> None:
-        active = list(self._running.values())
-        if not active:
+    def _count_quant(self, index, valid, width: int, rows: int) -> None:
+        """int8 observability, per step: ``quantized_pages`` = pages the
+        write touched (each re-quantized through its scale),
+        ``dequant_blocks`` = page blocks attention dequantized (active
+        rows x table width)."""
+        if self.kv_dtype != "int8":
             return
+        index = np.asarray(index)
+        valid = np.asarray(valid)
+        live = valid > index
+        if np.any(live):
+            touched = (
+                (valid[live] - 1) // self.page_size
+                - index[live] // self.page_size + 1
+            )
+            self.stats.quantized_pages += int(touched.sum())
+        self.stats.dequant_blocks += int(rows) * int(width)
+
+    def _swap_in(self, request: Request) -> bool:
+        """Re-seat a swapped-out request: fresh pages, host copies
+        scattered back, NO prefill — decoding continues from exactly
+        where the swap-out left it.  False (nothing mutated) when the
+        pages cannot be charged yet.
+
+        The record's checksum is verified first.  A mismatch drops the
+        record (``swap_corruptions``) and returns False with the record
+        gone, so the admission loop re-judges the head as a recompute
+        re-admission; a victim whose resume prefix fits no bucket is
+        FAILED instead."""
+        record = self._swapped[request.request_id]
+        if _swap_record_checksum(record["pages"], record["index"],
+                                 record["data"]) != record["checksum"]:
+            del self._swapped[request.request_id]
+            self.stats.swap_corruptions += 1
+            try:
+                self.bucketer.bucket_for(int(request.effective_prompt.size))
+            except ValueError:
+                self._queue.remove(request)
+                request.status = FAILED
+                request.fail_reason = (
+                    "swap record corrupted and the resume prefix fits "
+                    "no bucket"
+                )
+                self.stats.queue_depth = self._queue.depth
+            return False
+        pages = self._pool.acquire_pages(request.request_id, record["pages"])
+        if pages is None:
+            return False
+        row = self._rows.allocate()
+        if row is None:  # the caller checked free rows
+            raise RuntimeError("swap-in found no free row")
+        table = np.full(
+            (self.max_pages_per_request,), self.num_pages, np.int32
+        )
+        table[: len(pages)] = pages
+        self.stage.swap_in(table, record["data"])
+        del self._swapped[request.request_id]
+        self._queue.remove(request)
+        request.slot = row
+        request.index = record["index"]
+        request.status = RUNNING
+        self._running[request.request_id] = request
+        self.stats.swap_ins += 1
+        self.stats.queue_depth = self._queue.depth
+        return True
+
+    def _decode_rows(self, active):
+        """Per-row host inputs of a decode tick over ``active``: last
+        tokens [rows], positions [rows] and page tables [rows, max_pages]
+        (inactive rows: token 0, index 0, all sentinels)."""
         rows = self.max_concurrency
-        tokens = np.zeros((rows, 1), np.int64)
+        tokens = np.zeros((rows,), np.int64)
         index = np.zeros((rows,), np.int32)
-        valid = np.zeros((rows,), np.int32)  # inactive rows never write
         tables = np.full(
             (rows, self.max_pages_per_request), self.num_pages, np.int32
         )
         for r in active:
-            tokens[r.slot, 0] = r.tokens[-1]
+            tokens[r.slot] = r.tokens[-1]
             index[r.slot] = r.index
-            valid[r.slot] = r.index + 1
             held = self._pool.table(r.request_id)
             tables[r.slot, : len(held)] = held
+        return tokens, index, tables
+
+    def _decode_tick_paged(self) -> None:
+        active = list(self._running.values())
+        if not active:
+            return
+        tokens, index, tables = self._decode_rows(active)
+        valid = np.zeros_like(index)  # inactive rows never write
+        for r in active:
+            valid[r.slot] = r.index + 1
 
         width = self._table_width(valid)
+        self._count_quant(index, valid, width, len(active))
         t0 = time.perf_counter()
         data = self.stage.step(
-            torch.from_numpy(tokens).to(self.device), tables[:, :width],
-            index, valid,
+            torch.from_numpy(tokens[:, None]).to(self.device),
+            tables[:, :width], index, valid,
         )
         logits = data[:, 0]  # [rows, V]
         nxt_np = logits.argmax(dim=-1).cpu().numpy()
@@ -621,6 +1184,96 @@ class ServingEngine:
             r.index += 1
             if r.done:
                 self._finish(r, now)
+
+    def _spec_tick(self) -> None:
+        """One speculative decode tick: the draft proposes ``spec_k``
+        tokens per row (``Lq = 1`` steps over the stage's first
+        ``draft_blocks`` slab pairs), then the target verifies all
+        ``spec_k + 1`` positions in ONE forward (``Lq = spec_k + 1``) and
+        greedy acceptance commits the agreed draft prefix plus the
+        target's own next token — so the committed stream is the
+        non-speculative greedy stream.  Rollback is a watermark
+        truncate: rejected positions' KV sits past the committed
+        ``index``.  Temperature rows commit one token from the verify's
+        position-0 logits; a tick with no greedy row is a plain decode
+        tick."""
+        active = list(self._running.values())
+        if not active:
+            return
+        if all(r.temperature > 0.0 for r in active):
+            self._decode_tick_paged()
+            return
+        k = self.spec_k
+        tokens, index0, tables = self._decode_rows(active)
+        reserve = np.zeros_like(index0)  # inactive rows: 0 -> writes drop
+        for r in active:
+            reserve[r.slot] = int(r.prompt.size) + r.max_new_tokens
+        # verify writes cap at min(index + k + 1, reserve); one table
+        # width (covering that bound) serves the draft and the verify
+        valid = np.minimum(index0 + k + 1, reserve)
+        width = self._table_width(valid)
+        tables = tables[:, :width]
+        self._count_quant(index0, valid, width, len(active))
+        if self.kv_dtype == "int8":
+            # the draft's k Lq=1 passes quantize (one tail-page re-quant
+            # per kept step per row) and dequantize (one table width per
+            # step) too
+            slots = [r.slot for r in active]
+            kept = np.clip(reserve[slots] - index0[slots], 0, k)
+            self.stats.quantized_pages += int(kept.sum())
+            self.stats.dequant_blocks += k * len(active) * width
+        t0 = time.perf_counter()
+        d = self._draft.num_attn
+        drafted = self._draft.draft_k(
+            torch.from_numpy(tokens).to(self.device), self.stage.slabs[:d],
+            tables, index0, reserve, k,
+        )
+        verify_in = np.concatenate([tokens[:, None], drafted], axis=1)
+        logits3 = self.stage.step(
+            torch.from_numpy(verify_in).to(self.device), tables, index0,
+            valid,
+        )  # [rows, k+1, V]
+        target_np = logits3.argmax(dim=-1).cpu().numpy()
+        now = time.perf_counter()
+        self.stats.decode_s += now - t0
+        self.stats.spec_ticks += 1
+
+        sampled = self._sampled_rows(
+            logits3[:, 0], [(r.slot, r) for r in active]
+        )
+        committed_total = 0
+        for r in active:
+            row = r.slot
+            if r.temperature > 0.0:
+                # position-0 logits == the plain decode tick's logits
+                tok = self._pick_token(r, target_np[row, 0],
+                                       sampled.get(row))
+                commit = [tok][: min(1, r.remaining)]
+            else:
+                remaining = r.remaining
+                accepted = greedy_accept_count(drafted[row],
+                                               target_np[row, :k])
+                commit = (
+                    [int(t) for t in drafted[row, :accepted]]
+                    + [int(target_np[row, accepted])]
+                )
+                ncommit = min(len(commit), remaining)
+                commit = commit[:ncommit]
+                # only USABLE proposals count: a row whose remaining
+                # budget is below k could never consume the surplus
+                self.stats.draft_tokens += min(k, remaining)
+                self.stats.accepted_draft_tokens += min(accepted, ncommit)
+                # the verify wrote min(k+1, remaining) positions; a
+                # rollback happened iff the watermark stops short of that
+                if ncommit < min(k + 1, remaining):
+                    self.stats.spec_rollbacks += 1
+            r.tokens.extend(commit)
+            r.index += len(commit)
+            committed_total += len(commit)
+            if r.done:
+                self._finish(r, now)
+        self.stats.decode_tokens += committed_total
+        self.stats.generated_tokens += committed_total
 
     @staticmethod
     def _sampled_rows(logits, rows) -> Dict[int, np.ndarray]:

@@ -1,8 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here is marked ``cuda`` and skips where
-``torch.cuda.is_available()`` is false: a hand-written kernel has no CPU
-mode.  The file imports neither jax nor the JAX package, so it runs on
-a machine that has only PyTorch::
+"""The port's CUDA kernels (paged attention over fp and int8 pools)
+against their plain PyTorch versions, on the card.  Every test here is
+marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false:
+a hand-written kernel has no CPU mode.  The file imports neither jax
+nor the JAX package, so it runs on a machine that has only PyTorch::
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
@@ -13,6 +13,7 @@ import torch
 
 from skycomputing_tpu_torch.ops.paged_attention import (
     paged_attention,
+    paged_attention_int8,
     paged_attention_reference,
 )
 
@@ -34,6 +35,9 @@ SHAPES = {
     # head_dim 128 x page_size 64: over 48 KB of shared memory
     "wide_pages": (6, 64, 2, 128, 3,
                    [([4, 1], 70), ([2], 0)]),
+    # speculative verify (Lq = k + 1 = 5), first queries mid-page
+    "verify": (10, 4, 2, 16, 5,
+               [([7, 2, 5], 6), ([0, 9], 2), ([], 0), ([1, 3, 4, 6, 8], 13)]),
 }
 
 
@@ -56,6 +60,26 @@ def _case(name, dtype):
             torch.from_numpy(table).cuda(), torch.from_numpy(index).cuda())
 
 
+def _int8_case(name, dtype):
+    """The same rows over an int8 pool: values ~ N(0, 32) rounded and
+    clipped to [-127, 127], scales ~ U(0.02, 0.04) per (page, head), so
+    the dequantized pages are of unit size."""
+    q, _, _, table, index = _case(name, dtype)
+    P, PS, H, D, _, _ = SHAPES[name]
+    rng = np.random.default_rng(100 + sorted(SHAPES).index(name))
+
+    def pages():
+        vals = np.clip(np.round(32 * rng.standard_normal((P, PS, H, D))),
+                       -127, 127).astype(np.int8)
+        return torch.from_numpy(vals).cuda()
+
+    def scales():
+        return torch.from_numpy(
+            rng.uniform(0.02, 0.04, (P, H)).astype(np.float32)).cuda()
+
+    return q, pages(), pages(), scales(), scales(), table, index
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -75,6 +99,38 @@ def test_paged_attention_kernel_matches_plain_version(card, name, dtype):
     assert bool(torch.isfinite(out).all())
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], f"max |err| {err}"
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_paged_attention_int8_kernel_matches_plain_version(card, name, dtype):
+    q, k, v, ks, vs, table, index = _int8_case(name, dtype)
+    before = (paged_attention.launches, paged_attention_int8.launches)
+    out = paged_attention(q, k, v, table, index, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches,
+            paged_attention_int8.launches) == (before[0], before[1] + 1)
+    ref = paged_attention_reference(q, k, v, table, index, k_scale=ks,
+                                    v_scale=vs)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"max |err| {err}"
+
+
+def test_paged_attention_int8_rejects_what_the_kernel_does_not_take(card):
+    q, k, v, ks, vs, table, index = _int8_case("verify", "float32")
+    with pytest.raises(ValueError, match="together"):
+        paged_attention(q, k, v, table, index, k_scale=ks)
+    with pytest.raises(ValueError, match="k_scale shape"):
+        paged_attention(q, k, v, table, index, k_scale=ks[:, :1].clone(),
+                        v_scale=vs)
+    with pytest.raises(ValueError, match="k_pages"):
+        paged_attention(q, k.float(), v, table, index, k_scale=ks,
+                        v_scale=vs)
+    with pytest.raises(ValueError, match="v_scale"):
+        paged_attention(q, k, v, table, index, k_scale=ks,
+                        v_scale=vs.double())
 
 
 def test_paged_attention_rejects_what_the_kernel_does_not_take(card):

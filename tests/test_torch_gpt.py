@@ -1,6 +1,8 @@
 """GPT decode-unit port contracts: each port module, and a whole paged
 prefill + decode step, against the JAX modules on the same weights
-(moved with ``params_from_jax``), in float32 at 1e-5 relative."""
+(moved with ``params_from_jax``), in float32 at 1e-5 relative — over fp
+page slabs and over int8 ``QuantizedPages`` slabs — plus the
+speculative draft's layer slice."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +19,9 @@ from skycomputing_tpu_torch import (
     params_from_jax,
 )
 from skycomputing_tpu_torch.models import gpt as tgpt
-from skycomputing_tpu_torch.serving.kv_cache import paged_write_plan
+from skycomputing_tpu.serving import kv_cache as jkv
+from skycomputing_tpu_torch.serving import kv_cache as tkv
+from skycomputing_tpu_torch.serving.kv_cache import paged_write_plan, write_plan
 
 pytestmark = pytest.mark.torch_port
 
@@ -209,3 +213,104 @@ def test_registry_fallback_and_tuple_threading_stack():
     with pytest.raises(ValueError, match="ring attention"):
         tgpt.decode_modules([tgpt.GptBlock_Attn(
             tgpt.GptConfig(hidden_size=8, num_attention_heads=2), mesh="sp")])
+
+
+def _int8_slabs(seed, n_layers):
+    """Random int8 page slabs (values and scales) as (torch, jax)
+    QuantizedPages pairs holding the same numbers."""
+    rng = np.random.default_rng(seed)
+    out_t, out_j = [], []
+    for _ in range(n_layers):
+        pair_t, pair_j = [], []
+        for _ in range(2):
+            vals = rng.integers(-127, 128, (P, PS, 2, 32)).astype(np.int8)
+            scale = rng.uniform(0.005, 0.03, (P, 2)).astype(np.float32)
+            pair_t.append(tkv.QuantizedPages(torch.from_numpy(vals.copy()),
+                                             torch.from_numpy(scale.copy())))
+            pair_j.append(jkv.QuantizedPages(jnp.asarray(vals),
+                                             jnp.asarray(scale)))
+        out_t.append(tuple(pair_t))
+        out_j.append(tuple(pair_j))
+    return out_t, out_j
+
+
+def _close_int8(tslab, jslab):
+    """The written K/V are projections (float32 roundoff between the two
+    packages), so a value sitting on a rounding boundary may land one
+    int8 step apart; anything more is a fault.  Scales are amax / 127 of
+    those projections: 1e-5 relative."""
+    diff = np.abs(tslab.values.numpy().astype(np.int32)
+                  - np.asarray(jslab.values).astype(np.int32))
+    assert diff.max() <= 1, f"int8 values differ by {diff.max()} steps"
+    assert (diff > 0).mean() < 1e-3, f"{int((diff > 0).sum())} values differ"
+    _close(tslab.scale, jslab.scale)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_attn_decode_paged_int8_matches_jax(tiny, impl):
+    """One attention unit over int8 pages (kernel B3's path): the same
+    hidden output and the same re-quantized pages as JAX's
+    ``decode_paged`` under either attention body."""
+    _, jmods, params, tmods = tiny
+    R, Lq = 3, 3
+    _, _, table, index, valid = _paged_inputs(5, R, Lq)
+    (tpair,), (jpair,) = _int8_slabs(6, 1)
+    hidden = np.random.default_rng(7).standard_normal(
+        (R, Lq, 64)).astype(np.float32)
+    jh, jk, jv = jmods[1].apply(
+        {"params": params[1]}, hidden, *jpair, jnp.asarray(table),
+        jnp.asarray(index), jnp.asarray(valid), impl,
+        method=jgpt.GptBlock_Attn.decode_paged)
+    plan = write_plan(tpair[0], table, index, valid, Lq)
+    assert isinstance(plan, tkv.QuantizedWrite)
+    with torch.no_grad():
+        th, tk, tv = tmods[1].decode_paged(
+            torch.from_numpy(hidden), *tpair, torch.from_numpy(table),
+            torch.from_numpy(index), plan)
+    assert tk is tpair[0] and tv is tpair[1]  # written in place
+    live = valid > 0
+    _close(th.numpy()[live], np.asarray(jh)[live])
+    _close_int8(tk, jk)
+    _close_int8(tv, jv)
+
+
+def test_apply_kv_paged_int8_prefill_then_decode_matches_jax(tiny):
+    """The whole stack over int8 pools: a prefill wave then a decode
+    step, logits and every layer's pages as JAX's ``apply_kv_paged``
+    with ``QuantizedPages`` slabs."""
+    _, jmods, params, tmods = tiny
+    rng = np.random.default_rng(8)
+    tslabs, jslabs = _int8_slabs(9, 2)
+    table = np.full((3, 4), P, np.int32)
+    table[0, :3] = [5, 2, 9]
+    table[1, :2] = [0, 7]
+    steps = [(rng.integers(1, 512, (3, 8)), [0, 0, 0], [8, 6, 0]),
+             (rng.integers(1, 512, (3, 1)), [8, 6, 0], [9, 7, 0])]
+    for ids, index, valid in steps:
+        ids = ids.astype(np.int32)
+        index = np.asarray(index, np.int32)
+        valid = np.asarray(valid, np.int32)
+        jout, jslabs = jgpt.apply_kv_paged(
+            jmods, params, jnp.asarray(ids), jslabs, jnp.asarray(table),
+            jnp.asarray(index), jnp.asarray(valid), attn_impl="pallas")
+        tout, tslabs = tgpt.apply_kv_paged(
+            tmods, torch.from_numpy(ids), tslabs, table, index, valid)
+        live = valid > 0
+        _close(tout.numpy()[live], np.asarray(jout)[live])
+        for (tk, tv), (jk, jv) in zip(tslabs, jslabs):
+            _close_int8(tk, jk)
+            _close_int8(tv, jv)
+
+
+def test_draft_slice_indices_match_jax(tiny):
+    """The speculative draft's prefix slice: embeddings + the first
+    ``draft_blocks`` blocks + the LM head, the same indices as JAX; a
+    draft as deep as the target, or of no block, is refused."""
+    _, jmods, _, tmods = tiny
+    assert tgpt.draft_slice_indices(tmods, 1) == \
+        jgpt.draft_slice_indices(jmods, 1) == [0, 1, 2, 5]
+    for blocks in (0, 2):
+        with pytest.raises(ValueError, match="draft_blocks"):
+            tgpt.draft_slice_indices(tmods, blocks)
+    with pytest.raises(ValueError, match="GPT stack"):
+        tgpt.draft_slice_indices(tmods[1:], 1)

@@ -1,5 +1,6 @@
 """Paged-attention port contracts: the port's plain version against the
-JAX package's Pallas kernel (interpret mode) and its XLA reference.
+JAX package's Pallas kernels (interpret mode) and its XLA reference,
+over fp pools and over int8 pools with per-page-per-head scales.
 
 The cases are ``tools/paged_attention_smoke.py``'s edge cases — a
 sequence crossing a page boundary, sentinel-padded tables, a full wave,
@@ -20,6 +21,7 @@ from skycomputing_tpu.ops.paged_attention import (
 )
 from skycomputing_tpu_torch.ops.paged_attention import (
     paged_attention,
+    paged_attention_int8,
     paged_attention_reference,
 )
 
@@ -124,3 +126,57 @@ def test_wrapper_keeps_bfloat16_on_cpu():
     out = paged_attention(q, k, v, torch.from_numpy(table),
                           torch.tensor(index, dtype=torch.int32))
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
+
+
+def _int8_inputs(seed, R, Lq):
+    """The JAX int8 kernel test's inputs: int8 pages uniform in
+    [-127, 127], scales uniform in [0.005, 0.03] per (page, head)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((R, Lq, H, D)).astype(np.float32)
+    k = rng.integers(-127, 128, (P, PS, H, D)).astype(np.int8)
+    v = rng.integers(-127, 128, (P, PS, H, D)).astype(np.int8)
+    ks = rng.uniform(0.005, 0.03, (P, H)).astype(np.float32)
+    vs = rng.uniform(0.005, 0.03, (P, H)).astype(np.float32)
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("name", ["sentinel_padded_wave",
+                                  "prefill_lq8_pad_rows",
+                                  "verify_full_wave_lq4",
+                                  "decode_inactive_rows"])
+def test_int8_plain_version_matches_jax_kernel_and_reference(name):
+    """Over an int8 pool (kernel B3's contract) the plain version equals
+    JAX's ``_paged_kernel_int8`` in interpret mode and its dequantizing
+    XLA reference to 1e-5 — decode, prefill with pad rows, and the
+    speculative-verify query length; CPU calls launch nothing."""
+    R, Lq, table, index = CASES[name]
+    index = np.asarray(index, np.int32)
+    q, k, v, ks, vs = _int8_inputs(40 + sorted(CASES).index(name), R, Lq)
+    launches = (paged_attention.launches, paged_attention_int8.launches)
+    out = paged_attention(
+        *map(torch.from_numpy, (q, k, v, table, index)),
+        k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs)).numpy()
+    assert (paged_attention.launches,
+            paged_attention_int8.launches) == launches == (0, 0)
+    assert out.shape == (R, Lq, H, D) and np.isfinite(out).all()
+    kern = np.asarray(jax_paged_attention(q, k, v, table, index,
+                                          k_scale=ks, v_scale=vs,
+                                          interpret=True))
+    ref = np.asarray(jax_paged_attention_reference(
+        q, k, v, table, index, k_scale=ks, v_scale=vs))
+    np.testing.assert_allclose(out, kern, atol=1e-5, rtol=0)
+    live = _sees_no_sentinel(table, index, Lq)
+    np.testing.assert_allclose(out[live], ref[live], atol=1e-5, rtol=0)
+
+
+def test_int8_scales_must_come_in_pairs():
+    """One scale without the other raises, as in JAX, on both the
+    wrapper and the plain version."""
+    R, Lq, table, index = CASES["sentinel_padded_wave"]
+    q, k, v, ks, _ = map(torch.from_numpy, _int8_inputs(50, R, Lq))
+    args = (q, k, v, torch.from_numpy(table),
+            torch.tensor(index, dtype=torch.int32))
+    with pytest.raises(ValueError, match="together"):
+        paged_attention(*args, k_scale=ks)
+    with pytest.raises(ValueError, match="together"):
+        paged_attention_reference(*args, v_scale=ks)

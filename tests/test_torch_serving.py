@@ -156,12 +156,13 @@ def test_queue_bound_reject_and_shed(gpt):
 
 @pytest.mark.parametrize("kwargs, feature", [
     (dict(kv_layout="slot"), "slot KV layout"),
-    (dict(prefill_chunk=8), "chunked prefill"),
-    (dict(spec_k=2), "speculative"),
-    (dict(kv_dtype="int8"), "int8"),
     (dict(partition=[3, 3]), "multi-stage"),
 ])
 def test_unported_features_raise(gpt, kwargs, feature):
+    """Engine features still to port raise ``NotImplementedError`` (int8
+    pages, speculation, chunked prefill and preemption are ported: see
+    ``test_torch_serving_int8_spec.py`` and
+    ``test_torch_serving_chunk_preempt.py``)."""
     layer_cfgs, _, sds = gpt
     with pytest.raises(NotImplementedError, match=feature):
         ServingEngine(layer_cfgs, sds, device="cpu", **dict(BASE, **kwargs))
@@ -170,7 +171,7 @@ def test_unported_features_raise(gpt, kwargs, feature):
 def test_unported_methods_raise(gpt):
     layer_cfgs, _, sds = gpt
     engine = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
-    for call in (lambda: engine.preempt(0), lambda: engine.reconfigure(),
+    for call in (lambda: engine.reconfigure(),
                  lambda: engine.export_handoff(0),
                  lambda: engine.import_handoff(None, {}),
                  engine.enable_timeseries, engine.start_exporter):
