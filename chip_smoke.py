@@ -8,11 +8,13 @@ one.  Phases, each fatal on failure:
 2. build every CUDA source under ``skycomputing_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, started together);
 3. each kernel against its plain PyTorch version on the card, in
-   bfloat16 and float32, at GPT-2 small's attention shapes (decode,
-   prefill and speculative-verify waves), over fp pages (kernel B2) and
-   over int8 pages with per-page-per-head scales (kernel B3), with
-   kernel / plain / library times and the bound;
-4. the main path: GPT-2 small (full width, 12 layers, random weights
+   bfloat16 and float32, with kernel / plain / library times and the
+   bound: paged attention at GPT-2 small's shapes (decode, prefill and
+   speculative-verify waves) over fp pages (kernel B2) and over int8
+   pages with per-page-per-head scales (kernel B3); flash attention
+   (kernel B1) at BERT-large's microbatch (B=8, L=128, H=16, D=64, a
+   padded tail of 32 keys), at L=512 and at L=100;
+4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
    read from that run alone;
@@ -30,7 +32,19 @@ one.  Phases, each fatal on failure:
    streams on the card must equal the card's plain streams;
 9. a profiler breakdown of a few decode ticks, fp and int8 (device time
    by kernel), and what the KV write (the int8 quantize-on-write, the fp
-   scatter) costs per tick.
+   scatter) costs per tick;
+10. the training path: BERT-large (24 encoder layers as 75 units, seq
+    128, batch 32, bf16 compute, flash attention, random weights from a
+    seed) over 4 workers on the card, even allocation, GPipe with 4
+    microbatches, SGD 1e-3, ``Runner.train`` for 5 steps: finite
+    losses, step time, tokens/s, MFU, peak memory, and B1 launched
+    exactly 2 x 24 x 4 = 192 times per step (forward and
+    rematerialized forward), read from that run alone;
+11. trainer card against CPU: the same pipeline at depth 2 in float32,
+    two steps on ``cuda`` and on ``cpu`` from the same weights and
+    batch: losses within 1e-4 relative, parameters within 1e-5;
+12. a profiler breakdown of one train step (device time by kernel, the
+    card's idle share, B1's share).
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -86,16 +100,32 @@ def check(cond: bool, msg: str) -> None:
 # --------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms, each launch timed alone with
-    CUDA events after a 64 MiB write evicts the 50 MB L2 (a layer's
-    pages come from device memory, not from the previous layer's L2)."""
+# a spinning kernel of ~2 ms at the H100's clock, queued ahead of a timed
+# call so that the card is still busy while the host enqueues it
+SPIN_CYCLES = 4_000_000
+
+
+def time_ms(torch, fn, iters: int = 30, warmup: int = 3,
+            host_ahead: bool = True) -> float:
+    """Median time of ``fn`` on the card's clock in ms, each call timed
+    alone with CUDA events after a 64 MiB write evicts the 50 MB L2 (a
+    layer's pages come from device memory, not from the previous layer's
+    L2).
+
+    ``host_ahead`` (the default) queues the spin kernel before the start
+    event, so the host has enqueued the whole call before the card
+    reaches it: the span is the call's device time, not the host's time
+    to launch it (a short kernel behind a Python wrapper would otherwise
+    time the wrapper).  ``host_ahead=False`` times the span as a caller
+    meets it, host launch time included."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if host_ahead:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -105,6 +135,29 @@ def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def host_ms(torch, fn, iters: int = 30) -> float:
+    """Median host time to issue ``fn`` in ms (the card kept busy by the
+    spin kernel, so no call blocks); where it exceeds the device time,
+    a caller issuing one call at a time waits on the host."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    times.sort()
+    return times[len(times) // 2]
+
+
+def spin_ms(torch) -> float:
+    """The spin kernel's own time: ``host_ahead`` timing holds while the
+    host issues a call in less."""
+    return time_ms(torch, lambda: torch.cuda._sleep(SPIN_CYCLES), iters=5,
+                   warmup=1, host_ahead=False)
 
 
 # --------------------------------------------------------------------------
@@ -244,14 +297,17 @@ def kernel_checks(torch, np):
                 err = (out.float() - ref.float()).abs().max().item()
                 finite = bool(torch.isfinite(out).all())
                 ms = time_ms(torch, lambda: paged_attention(*args, **kw))
+                issue_ms = host_ms(torch, lambda: paged_attention(*args,
+                                                                  **kw))
                 plain_ms = time_ms(
                     torch, lambda: paged_attention_reference(*args, **kw))
                 library_ms = time_ms(torch, library_call(torch, case))
                 bound_ms, bound_by = attention_bound(np, case, dtype)
                 row = dict(kernel=kernel, case=name, R=R, Lq=Lq,
                            dtype=dtype, max_abs_err=err, tol=tol[dtype],
-                           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by)
+                           ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
+                           library_ms=library_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
                 log(f"   {json.dumps(row)}")
                 check(finite and err <= tol[dtype],
                       f"{kernel} {name} {dtype}: max |err| {err:.3g} "
@@ -429,6 +485,8 @@ def lockstep_int8(torch, np, gpt_mod, ServingEngine, Request):
 
 
 def check_launches(launches, expect, what):
+    """Every kernel's launches equal ``expect`` (0 where it names none)."""
+    expect = {name: expect.get(name, 0) for name in launches}
     check(launches == expect,
           f"{what}: launches {json.dumps(launches)} == {json.dumps(expect)}")
 
@@ -450,19 +508,31 @@ def kernel_rows(prof):
 def profile_ticks(torch, engine, ticks=4):
     """``torch.profiler`` over ``ticks`` engine steps; device time by
     kernel, the card's idle share over the window."""
+    def run():
+        for _ in range(ticks):
+            engine.step()
+
+    return profile_window(torch, run)[0]
+
+
+def profile_window(torch, run):
+    """``torch.profiler`` over ``run()``: (a summary with the window,
+    device busy time, kernel launches, the card's idle share and the top
+    12 kernels by device time; every kernel row as (device us, name,
+    count))."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(ticks):
-            engine.step()
+        run()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     rows = kernel_rows(prof)
     total_us = sum(r[0] for r in rows)
-    out = dict(window_s=window, device_busy_s=total_us / 1e6)
+    out = dict(window_s=window, device_busy_s=total_us / 1e6,
+               kernel_launches=sum(r[2] for r in rows))
     if total_us > 0:
         out["idle_share"] = max(0.0, 1 - total_us / 1e6 / window)
         out["top"] = [dict(kernel=k[:80], device_ms=us / 1e3, count=n,
@@ -472,7 +542,7 @@ def profile_ticks(torch, engine, ticks=4):
                 f"x{row['count']:<5d} {row['kernel']}")
     else:
         log("   the profiler recorded no device time: not measured")
-    return out
+    return out, rows
 
 
 def write_cost_per_tick(torch, np, engine, timer=time_ms):
@@ -510,7 +580,7 @@ def write_cost_per_tick(torch, np, engine, timer=time_ms):
         for k, v in slabs:
             scatter_kv(k, v, new, new, plan)
 
-    span_ms = timer(torch, write, iters=10)
+    span_ms = timer(torch, write, iters=10, host_ahead=False)
     if device.type != "cuda":
         return span_ms, None
     from torch.profiler import ProfilerActivity, profile
@@ -520,6 +590,237 @@ def write_cost_per_tick(torch, np, engine, timer=time_ms):
         write()
         torch.cuda.synchronize()
     return span_ms, sum(r[0] for r in kernel_rows(prof)) / 1e3
+
+
+# --------------------------------------------------------------------------
+# phase 3: flash attention (B1) against its plain version
+# --------------------------------------------------------------------------
+
+# (case, B, L, padded tail keys) at BERT-large's heads (H=16, D=64)
+FLASH_CASES = (("bert_large_L128", 8, 128, 32), ("long_L512", 2, 512, 0),
+               ("indivisible_L100", 2, 100, 0))
+
+
+def flash_case(torch, np, B, L, tail, dtype, seed):
+    """q/k/v ~ N(0, 1) [B, L, 16, 64] and a bias row of 0 with -10000
+    on the last ``tail`` keys, in ``dtype`` on the card."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, 16, 64))
+                                .astype(np.float32)).to("cuda", dt)
+               for _ in range(3))
+    bias = torch.zeros(B, L)
+    if tail:
+        bias[:, -tail:] = -10000.0
+    return q, k, v, bias.to("cuda", dt)
+
+
+def flash_bound(q, bias, dtype):
+    """The least time for one call: q, k, v read and out written once
+    (plus the bias row), against 4 * B * H * L * L * D flops (the two
+    products; the softmax's exps are not counted)."""
+    B, L, H, D = q.shape
+    itemsize = q.element_size()
+    nbytes = 4 * B * L * H * D * itemsize + bias.numel() * itemsize
+    flops = 4.0 * B * H * L * L * D
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_checks(torch, np):
+    """B1 against its plain version at each case in both dtypes, with
+    the kernel's, the plain version's and SDPA's times (SDPA over the
+    same inputs transposed to [B, H, L, D] outside the timed call, the
+    bias as a broadcast additive mask)."""
+    import torch.nn.functional as F
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    results = []
+    for name, B, L, tail in FLASH_CASES:
+        for dtype in ("bfloat16", "float32"):
+            q, k, v, bias = flash_case(torch, np, B, L, tail, dtype,
+                                       seed=300 + len(results))
+            scale = q.shape[-1] ** -0.5
+            out = flash_attention(q, k, v, bias)
+            ref = flash_attention_reference(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = bias[:, None, None, :]
+            ms = time_ms(torch, lambda: flash_attention(q, k, v, bias))
+            issue_ms = host_ms(torch, lambda: flash_attention(q, k, v, bias))
+            plain_ms = time_ms(torch, lambda: flash_attention_reference(
+                q, k, v, bias, scale))
+            library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask))
+            bound_ms, bound_by = flash_bound(q, bias, dtype)
+            row = dict(kernel="flash_attention", case=name, B=B, L=L,
+                       H=16, D=64, padded_keys=tail, dtype=dtype,
+                       max_abs_err=err, tol=tol[dtype], ms=ms,
+                       host_ms=issue_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            log(f"   {json.dumps(row)}")
+            check(finite and err <= tol[dtype],
+                  f"flash_attention {name} {dtype}: max |err| {err:.3g} "
+                  f"<= {tol[dtype]}")
+            results.append(row)
+    return results
+
+
+# --------------------------------------------------------------------------
+# phases 10-12: the BERT pipeline trainer
+# --------------------------------------------------------------------------
+
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 5
+BERT_WORKERS, BERT_MICROBATCHES, BERT_LR = 4, 4, 1e-3
+
+
+def bert_batch(np, vocab_size):
+    """The reference benchmark's batch: ids from default_rng(0) in
+    [5, vocab), token types 0, no padding, 3-way labels."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(5, vocab_size,
+                       size=(BERT_BATCH, BERT_SEQ)).astype(np.int32)
+    labels = rng.integers(0, 3, size=(BERT_BATCH,)).astype(np.int32)
+    return (ids, np.zeros_like(ids), np.ones_like(ids)), labels
+
+
+def build_trainer(torch, model_cfg, devices=None, state_dicts=None):
+    """4 workers (device index i % cards), even allocation, the
+    parameter server (weights from seed 0 unless given), GPipe with 4
+    microbatches and SGD — through the library's entry points."""
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ParameterServer,
+        WorkerManager,
+    )
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import PipelineModel, sgd
+
+    cards = max(torch.cuda.device_count(), 1)
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config([
+        dict(name=f"node-{i}", device_config=dict(device_index=i % cards))
+        for i in range(BERT_WORKERS)
+    ])
+    Allocator(model_cfg, wm).even_allocate()
+    ps = ParameterServer(model_cfg, state_dicts=state_dicts,
+                         generator=torch.Generator().manual_seed(SEED))
+    model = PipelineModel(wm, ps, sgd(BERT_LR), cross_entropy_loss,
+                          devices=devices,
+                          num_microbatches=BERT_MICROBATCHES)
+    return model, ps, wm
+
+
+def train_bert(torch, np, kernels):
+    """BERT-large trained by ``Runner.train`` for 5 steps; every
+    kernel's launches are set to 0 just before and read just after."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.runner import Hook, Runner
+
+    cfg = bert_config("large", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      use_flash_attention=True)
+    model_cfg = bert_layer_configs(cfg, num_encoder_units=24, num_classes=3,
+                                   deterministic=True)
+    check(len(model_cfg) == 75 and cfg.hidden_size == 1024
+          and cfg.num_attention_heads == 16 and cfg.dtype == "bfloat16",
+          "BERT-large: 75 units, hidden 1024, 16 heads, bf16 compute")
+    data, labels = bert_batch(np, cfg.vocab_size)
+    t0 = time.perf_counter()
+    model, ps, wm = build_trainer(torch, model_cfg)
+    setup_s = time.perf_counter() - t0
+    partition = model.partition_signature()
+    check(partition == [19, 19, 19, 18],
+          f"even allocation {partition} over 4 workers")
+    params = sum(p.numel() for stage in model.stages
+                 for p in stage.parameters)
+
+    class Record(Hook):
+        def __init__(self):
+            self.steps = []
+
+        def after_train_iter(self, runner):
+            self.steps.append(runner.model.stats.snapshot())
+
+    runner = Runner(model, ps, wm, max_epochs=1, max_iters=BERT_STEPS)
+    record = Record()
+    runner.register_hook(record)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    for k in kernels.values():
+        k["fn"].launches = 0
+    t0 = time.perf_counter()
+    runner.train([(data, labels)] * BERT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    steps = record.steps
+    losses = [s["loss"] for s in steps]
+    log(f"   losses: {losses}")
+    check(len(losses) == BERT_STEPS
+          and all(np.isfinite(x) for x in losses),
+          f"{len(losses)} finite losses")
+    step_s = [s["forward_s"] + s["backward_s"] + s["step_s"] for s in steps]
+    median = float(np.median(step_s[1:]))
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = dict(
+        setup_s=setup_s, wall_s=wall, losses=losses, step_s=step_s,
+        step_s_median_2_5=median, tokens_per_step=tokens,
+        tokens_per_s=tokens / median, parameters=params,
+        mfu=6.0 * params * tokens / median / PEAK_FLOPS["bfloat16"],
+        forward_s=[s["forward_s"] for s in steps],
+        backward_s=[s["backward_s"] for s in steps],
+        update_s=[s["step_s"] for s in steps],
+        dispatch_s=[s["dispatch_s"] for s in steps],
+        phase_means_s=runner.phase_timer.summary(),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        mem_before_gb=mem_before / 1e9,
+        partition=partition, launches=launches,
+    )
+    log(f"   e2e: {json.dumps(e2e)}")
+    return model, data, labels, launches, e2e
+
+
+def trainer_card_vs_cpu(torch, np):
+    """The pipeline at BERT-large's width, depth 2, float32: two steps
+    on the card and on the CPU from the same weights and batch."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+
+    cfg = bert_config("large", dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      use_flash_attention=True)
+    model_cfg = bert_layer_configs(cfg, num_encoder_units=2, num_classes=3,
+                                   deterministic=True)
+    data, labels = bert_batch(np, cfg.vocab_size)
+    card, card_ps, _ = build_trainer(torch, model_cfg)
+    host, host_ps, _ = build_trainer(torch, model_cfg,
+                                     devices=[torch.device("cpu")],
+                                     state_dicts=card_ps.params)
+    losses = {}
+    for name, model in (("cuda", card), ("cpu", host)):
+        t0 = time.perf_counter()
+        losses[name] = [model.train_step(data, labels) for _ in range(2)]
+        log(f"   {name}: losses {losses[name]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        model.sync_to_parameter_server()
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["cuda"], losses["cpu"]))
+    param_abs = max(
+        (a[key] - b[key]).abs().max().item()
+        for a, b in zip(card_ps.params, host_ps.params) for key in a
+    )
+    return dict(losses=losses, max_loss_rel_diff=loss_rel,
+                max_param_abs_diff=param_abs)
 
 
 def main() -> int:
@@ -534,6 +835,7 @@ def main() -> int:
         import numpy as np
         from skycomputing_tpu_torch.models import gpt as gpt_mod
         from skycomputing_tpu_torch.ops import _build
+        from skycomputing_tpu_torch.ops.flash_attention import flash_attention
         from skycomputing_tpu_torch.ops.paged_attention import (
             paged_attention,
             paged_attention_int8,
@@ -557,9 +859,13 @@ def main() -> int:
         "paged_attention_int8": dict(
             fn=paged_attention_int8, route="cuda", source=source,
             replaces="skycomputing_tpu/ops/paged_attention.py:108"),
+        "flash_attention": dict(
+            fn=flash_attention, route="cuda",
+            source="skycomputing_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces="skycomputing_tpu/ops/flash_attention.py:26"),
     }
     serve_args = (torch, np, gpt_mod, ServingEngine, Request, kernels)
-    B2, B3 = "paged_attention", "paged_attention_int8"
+    B1, B2, B3 = "flash_attention", "paged_attention", "paged_attention_int8"
 
     with phase("card"):
         smi = subprocess.run(
@@ -584,8 +890,15 @@ def main() -> int:
                 log(ptxas.read_text().strip())
 
     with phase("kernels against plain versions"):
+        report["spin_ms"] = spin_ms(torch)
+        log(f"   spin kernel ahead of each timed call: "
+            f"{report['spin_ms']:.3f} ms")
         attn = kernel_checks(torch, np)
         report["kernels"] = attn
+
+    with phase("flash attention (B1) against its plain version"):
+        flash = flash_checks(torch, np)
+        report["flash_kernel"] = flash
 
     with phase("main path: GPT-2 small paged serving"):
         cfg = gpt_mod.GptConfig()
@@ -770,9 +1083,50 @@ def main() -> int:
             del engine
         report["profile"] = prof_report
 
-    def entry(name, kernel_launches):
-        row = next(r for r in attn if r["kernel"] == name
-                   and r["case"] == "decode" and r["dtype"] == "bfloat16")
+    with phase("training path: BERT-large pipeline, 4 stages, GPipe M=4"):
+        model, data, labels, launches, e2e = train_bert(torch, np, kernels)
+        per_step = 2 * 24 * BERT_MICROBATCHES
+        check_launches(launches, {B1: per_step * BERT_STEPS},
+                       f"{per_step} B1 launches per step (24 layers x "
+                       f"{BERT_MICROBATCHES} microbatches x forward and "
+                       f"rematerialized forward) x {BERT_STEPS} steps")
+        log(f"   step {e2e['step_s_median_2_5'] * 1e3:.1f} ms (median of "
+            f"steps 2-{BERT_STEPS}), {e2e['tokens_per_s']:.0f} tokens/s, "
+            f"MFU {e2e['mfu']:.2%}, peak {e2e['peak_mem_gb']:.2f} GB")
+        report["e2e_train"] = e2e
+        train_launches = launches
+
+    with phase("profile: device time by kernel over one train step"):
+        b1_before = flash_attention.launches
+        out, rows = profile_window(
+            torch, lambda: model.train_step(data, labels))
+        b1_us = sum(us for us, key, _ in rows
+                    if "flash_attention_kernel" in key)
+        total_us = sum(us for us, _, _ in rows)
+        out.update(flash_launches=flash_attention.launches - b1_before,
+                   flash_device_ms=b1_us / 1e3,
+                   flash_share=b1_us / total_us if total_us else None)
+        log(f"   profile train step: "
+            f"{json.dumps({k: v for k, v in out.items() if k != 'top'})}")
+        report["profile_train"] = out
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with phase("trainer card against CPU: depth 2, float32"):
+        cmp = trainer_card_vs_cpu(torch, np)
+        log(f"   {json.dumps(cmp)}")
+        check(cmp["max_loss_rel_diff"] <= 1e-4,
+              f"card and CPU losses within {cmp['max_loss_rel_diff']:.3g} "
+              f"<= 1e-4 relative")
+        check(cmp["max_param_abs_diff"] <= 1e-5,
+              f"card and CPU parameters within "
+              f"{cmp['max_param_abs_diff']:.3g} <= 1e-5 after two steps")
+        report["trainer_card_vs_cpu"] = cmp
+
+    def entry(name, kernel_launches, rows=attn, case="decode"):
+        row = next(r for r in rows if r["kernel"] == name
+                   and r["case"] == case and r["dtype"] == "bfloat16")
         k = kernels[name]
         return dict(name=name, route=k["route"], source=k["source"],
                     replaces=k["replaces"], launches=kernel_launches,
@@ -781,9 +1135,11 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     # each kernel's launches from the path that is its own: B2 from the
-    # fp main path, B3 from the int8 path
+    # fp serving path, B3 from the int8 path, B1 from the trainer
     line = {"kernels": [entry(B2, main_launches[B2]),
-                        entry(B3, int8_launches[B3])]}
+                        entry(B3, int8_launches[B3]),
+                        entry(B1, train_launches[B1], flash,
+                              "bert_large_L128")]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -3,15 +3,20 @@
 The JAX package ``skycomputing_tpu`` stays the reference; this package
 re-implements it slice by slice for an NVIDIA H100, module for module
 under the same names.  It imports ``torch`` and ``numpy`` and never
-``jax``, ``flax`` or ``skycomputing_tpu``.  Slice 1 is paged GPT
+``jax``, ``flax`` or ``skycomputing_tpu``.  Slices 1-2 are paged GPT
 serving: :class:`~.serving.ServingEngine` over ``models/gpt.py``, with
-the paged-attention kernel written in CUDA (``ops/csrc``).
+the paged-attention kernels written in CUDA (``ops/csrc``).  Slice 3 is
+the BERT pipeline trainer: ``models/bert.py`` split into units over a
+:class:`~.dynamics.WorkerManager`, weights in a
+:class:`~.dynamics.ParameterServer`, an :class:`~.dynamics.Allocator`
+(even split), the GPipe :class:`~.parallel.PipelineModel` and the
+:class:`~.runner.Runner`, with the flash-attention kernel in CUDA.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 """
 
-from . import models  # noqa: F401 - registers the GPT layers in LAYER
+from . import models  # noqa: F401 - registers the BERT and GPT layers
 from .builder import LayerStack, build_layer, build_layer_stack
 from .convert import params_from_jax
 from .registry import LAYER, Registry

@@ -4,7 +4,10 @@ The tests and any user holding weights from the JAX package run both
 packages on the same weights through :func:`params_from_jax`.  The
 trees come in as nested dicts of numpy arrays (``jax.device_get`` of
 ``LayerStack.init``'s result, or a checkpoint), so nothing here imports
-JAX.  Mappings:
+JAX.  GPT's trees are flat (one level of submodules); BERT's nest
+(``BertLayer_Head`` holds ``self.query`` ... and ``output.LayerNorm``),
+so the tree is walked recursively and a nested name becomes a dotted
+state-dict key.  Leaf mappings:
 
 - flax ``Dense`` ``kernel [in, out]`` -> ``weight [out, in]``, plus
   ``bias``;
@@ -27,6 +30,20 @@ GPT_LAYER_PARAMS = {
     "GptLmHead": ("ln_f", "lm_head"),
 }
 
+#: the top-level submodule names each BERT layer's param tree holds
+BERT_LAYER_PARAMS = {
+    "BertEmbeddings": ("word_embeddings", "position_embeddings",
+                       "token_type_embeddings", "LayerNorm"),
+    "BertLayer_Head": ("self", "output"),
+    "BertLayer_Body": ("dense_act",),
+    "BertLayer_BodyShard": ("dense_act",),
+    "BertLayer_Tail": ("dense", "LayerNorm"),
+    "BertPooler": ("dense_act",),
+    "BertTailForClassification": ("classifier",),
+}
+
+LAYER_PARAMS = {**GPT_LAYER_PARAMS, **BERT_LAYER_PARAMS}
+
 
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
@@ -42,6 +59,11 @@ def _submodule(name: str, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if keys == {"scale", "bias"}:  # LayerNorm
         return {f"{name}.weight": _tensor(tree["scale"]),
                 f"{name}.bias": _tensor(tree["bias"])}
+    if all(isinstance(sub, Mapping) for sub in tree.values()):
+        out: Dict[str, torch.Tensor] = {}
+        for key, sub in tree.items():  # a module of modules
+            out.update(_submodule(f"{name}.{key}", sub))
+        return out
     raise ValueError(f"{name}: unrecognized flax param leaves {sorted(keys)}")
 
 
@@ -57,7 +79,7 @@ def params_from_jax(params_list: Sequence[Mapping[str, Any]],
     out = []
     for i, (tree, cfg) in enumerate(zip(params_list, layer_cfgs)):
         kind = cfg["layer_type"]
-        expected = GPT_LAYER_PARAMS.get(kind)
+        expected = LAYER_PARAMS.get(kind)
         if expected is None:
             raise ValueError(f"layer {i}: no conversion for {kind!r}")
         if set(tree) != set(expected):
@@ -72,4 +94,5 @@ def params_from_jax(params_list: Sequence[Mapping[str, Any]],
     return out
 
 
-__all__ = ["GPT_LAYER_PARAMS", "params_from_jax"]
+__all__ = ["BERT_LAYER_PARAMS", "GPT_LAYER_PARAMS", "LAYER_PARAMS",
+           "params_from_jax"]

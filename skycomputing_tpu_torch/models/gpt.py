@@ -31,24 +31,16 @@ from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.paged_attention import paged_attention
 from ..registry import LAYER
 from ..utils import torch_dtype
+from .bert import ACT2FN, _Dense, _embed, _layer_norm
 
 # serving/kv_cache.py is imported function-locally, as in the JAX
 # package: the serving package imports this module, never the reverse
 # at import time.
-
-# models/bert.py's activation table (the exact, not tanh, gelu)
-ACT2FN = {
-    "gelu": lambda x: F.gelu(x, approximate="none"),
-    "relu": F.relu,
-    "swish": F.silu,
-    "tanh": torch.tanh,
-}
 
 
 class GptConfig:
@@ -98,25 +90,6 @@ def _gcfg(config) -> GptConfig:
     return GptConfig.from_dict(config)
 
 
-class _Dense(nn.Linear):
-    """``nn.Linear`` with float32 parameters that computes in
-    ``dtype`` (flax ``Dense(dtype=..., param_dtype=float32)``)."""
-
-    def __init__(self, in_features: int, out_features: int, dtype):
-        super().__init__(in_features, out_features)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
-
-
-def _layer_norm(x, ln: nn.LayerNorm):
-    """float32 LayerNorm, eps 1e-5 (flax ``LayerNorm(dtype=float32)``)."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps)
-
-
 @LAYER.register_module
 class GptEmbeddings(nn.Module):
     """Token + learned position embeddings (``wte``/``wpe``)."""
@@ -125,8 +98,9 @@ class GptEmbeddings(nn.Module):
         super().__init__()
         self.config = _gcfg(config)
         cfg = self.config
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        std = cfg.initializer_range
+        self.wte = _embed(cfg.vocab_size, cfg.hidden_size, std)
+        self.wpe = _embed(cfg.max_position_embeddings, cfg.hidden_size, std)
 
     def decode(self, input_ids, index):
         """Embed ``input_ids`` [B, Lq] at positions index..index+Lq-1
@@ -152,10 +126,10 @@ class GptBlock_Attn(nn.Module):
         dt = torch_dtype(cfg.dtype)
         H = cfg.hidden_size
         self.ln_1 = nn.LayerNorm(H, eps=1e-5)
-        self.q_proj = _Dense(H, H, dt)
-        self.k_proj = _Dense(H, H, dt)
-        self.v_proj = _Dense(H, H, dt)
-        self.c_proj = _Dense(H, H, dt)
+        self.q_proj = _Dense(H, H, dt, cfg.initializer_range)
+        self.k_proj = _Dense(H, H, dt, cfg.initializer_range)
+        self.v_proj = _Dense(H, H, dt, cfg.initializer_range)
+        self.c_proj = _Dense(H, H, dt, cfg.initializer_range)
 
     def _qkv(self, hidden):
         cfg = self.config
@@ -210,8 +184,10 @@ class GptBlock_Mlp(nn.Module):
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         self.ln_2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.c_fc = _Dense(cfg.hidden_size, cfg.intermediate_size, dt)
-        self.c_proj = _Dense(cfg.intermediate_size, cfg.hidden_size, dt)
+        self.c_fc = _Dense(cfg.hidden_size, cfg.intermediate_size, dt,
+                           cfg.initializer_range)
+        self.c_proj = _Dense(cfg.intermediate_size, cfg.hidden_size, dt,
+                             cfg.initializer_range)
 
     def forward(self, hidden):
         cfg = self.config
@@ -230,7 +206,7 @@ class GptLmHead(nn.Module):
         cfg = self.config
         self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.lm_head = _Dense(cfg.hidden_size, cfg.vocab_size,
-                              torch_dtype(cfg.dtype))
+                              torch_dtype(cfg.dtype), cfg.initializer_range)
 
     def forward(self, hidden):
         x = _layer_norm(hidden, self.ln_f).to(torch_dtype(self.config.dtype))

@@ -1,6 +1,14 @@
-"""Device and dtype helpers shared by the port's entry points."""
+"""Helpers shared by the port's entry points: device and dtype
+resolution, and the ports of ``skycomputing_tpu/utils/logger.py``
+(:class:`Logger`) and ``skycomputing_tpu/utils/timer.py``
+(:class:`DistributedTimer`, :class:`PhaseTimer`)."""
 
 from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import List, Optional, TextIO
 
 import torch
 
@@ -35,4 +43,109 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device", "torch_dtype"]
+class Logger:
+    """Timestamped line logger writing to a file and/or stderr
+    (``filename=None``: stderr only).  ``info`` writes ``[ts] message``;
+    ``warning`` and ``error`` insert their level tag after the
+    timestamp; ``utc=True`` stamps ISO-8601 UTC."""
+
+    def __init__(self, filename: Optional[str] = None, mode: str = "a",
+                 echo: bool = False, utc: bool = False):
+        self._filename = filename
+        self._echo = echo or filename is None
+        self._utc = utc
+        self._fh: Optional[TextIO] = None
+        if filename is not None:
+            parent = os.path.dirname(filename)
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            self._fh = open(filename, mode)
+
+    def _timestamp(self) -> str:
+        if self._utc:
+            return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+        return time.strftime("%Y-%m-%d %H:%M:%S")
+
+    def _emit(self, tag: str, message: str) -> None:
+        line = f"[{self._timestamp()}] {tag}{message}"
+        if self._fh is not None:
+            self._fh.write(line + "\n")
+            self._fh.flush()
+        if self._echo:
+            print(line, file=sys.stderr)
+
+    def info(self, message: str) -> None:
+        self._emit("", message)
+
+    def warning(self, message: str) -> None:
+        self._emit("WARNING: ", message)
+
+    def error(self, message: str) -> None:
+        self._emit("ERROR: ", message)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+class DistributedTimer:
+    """In-memory timestamp list, optionally mirrored to
+    ``<root>/dist_timer.txt`` (one process drives every stage, so no
+    file exchange is needed)."""
+
+    FILENAME = "dist_timer.txt"
+
+    def __init__(self, root: Optional[str] = None):
+        self._root = root
+        self._stamps: List[float] = []
+        if root is not None:
+            os.makedirs(root, exist_ok=True)
+
+    @property
+    def _file(self) -> Optional[str]:
+        if self._root is None:
+            return None
+        return os.path.join(self._root, self.FILENAME)
+
+    def add_timestamp(self) -> None:
+        stamp = time.perf_counter()
+        self._stamps.append(stamp)
+        if self._file is not None:
+            with open(self._file, "a") as fh:
+                fh.write(f"{stamp}\n")
+
+    def get_prev_interval(self) -> float:
+        if len(self._stamps) < 2:
+            return 0.0
+        return self._stamps[-1] - self._stamps[-2]
+
+    def clean(self) -> None:
+        self._stamps.clear()
+        f = self._file
+        if f is not None and os.path.exists(f):
+            os.remove(f)
+
+
+class PhaseTimer:
+    """Accumulates named phase durations (forward/backward/step/...)."""
+
+    def __init__(self):
+        self.totals = {}
+        self.counts = {}
+
+    def record(self, phase: str, seconds: float) -> None:
+        self.totals[phase] = self.totals.get(phase, 0.0) + seconds
+        self.counts[phase] = self.counts.get(phase, 0) + 1
+
+    def mean(self, phase: str) -> float:
+        if self.counts.get(phase, 0) == 0:
+            return 0.0
+        return self.totals[phase] / self.counts[phase]
+
+    def summary(self) -> dict:
+        return {k: self.mean(k) for k in self.totals}
+
+
+__all__ = ["DistributedTimer", "Logger", "PhaseTimer", "resolve_device",
+           "torch_dtype"]

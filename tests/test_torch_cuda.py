@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (paged attention over fp and int8 pools)
-against their plain PyTorch versions, on the card.  Every test here is
+"""The port's CUDA kernels (paged attention over fp and int8 pools,
+flash attention) against their plain PyTorch versions, on the card.  Every test here is
 marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false:
 a hand-written kernel has no CPU mode.  The file imports neither jax
 nor the JAX package, so it runs on a machine that has only PyTorch::
@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from skycomputing_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
 from skycomputing_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_int8,
@@ -142,3 +146,68 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take(card):
                         k, v, table, index)
     with pytest.raises(ValueError, match="k_pages"):
         paged_attention(q, k.double(), v, table, index)
+
+
+# flash attention at the trainer's shapes: (B, L, H, D, padded tail keys)
+FLASH_SHAPES = {
+    "bert_large_L128": (8, 128, 16, 64, 32),  # one microbatch, BERT-large
+    "long_L512": (2, 512, 16, 64, 0),  # several key tiles
+    "indivisible_L100": (2, 100, 16, 64, 0),  # a ragged last tile
+}
+
+
+def _flash_case(name, dtype):
+    B, L, H, D, tail = FLASH_SHAPES[name]
+    rng = np.random.default_rng(200 + sorted(FLASH_SHAPES).index(name))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D))
+                                .astype(np.float32)).to("cuda", dt)
+               for _ in range(3))
+    bias = torch.zeros(B, L)
+    if tail:
+        bias[:, -tail:] = -10000.0
+    return q, k, v, bias.to("cuda", dt)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
+def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
+    q, k, v, bias = _flash_case(name, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_reference(q, k, v, bias, q.shape[-1] ** -0.5)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert bool(torch.isfinite(out).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"max |err| {err}"
+
+
+def test_flash_attention_gradient_is_the_plain_versions(card):
+    """The backward recomputes the plain version in float32, so the
+    kernel's gradients are autograd through the plain version (the same
+    arithmetic; 1e-6 covers another GEMM algorithm choice)."""
+    q, k, v, bias = (t.requires_grad_(True)
+                     for t in _flash_case("indivisible_L100", "float32"))
+    g = torch.randn_like(q)
+    grads = torch.autograd.grad(flash_attention(q, k, v, bias), (q, k, v,
+                                                                 bias), g)
+    ref = torch.autograd.grad(
+        flash_attention_reference(q, k, v, bias, q.shape[-1] ** -0.5),
+        (q, k, v, bias), g)
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
+    q, k, v, bias = _flash_case("indivisible_L100", "float32")
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                        v, bias)
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention(q, k.double(), v, bias)
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention(q, k, v, bias[:, :-1])

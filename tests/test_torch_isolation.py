@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``skycomputing_tpu_torch`` and
 nothing in ``chip_smoke.py`` imports ``jax``, ``flax`` or the JAX
-package; the package imports with those blocked; an engine asked for
-no device refuses to fall back to the CPU; and ``chip_smoke.py`` fails
-without a CUDA device, also when it stands alone in a directory."""
+package; the package imports with those blocked; an engine or a
+pipeline asked for no device refuses to fall back to the CPU; and
+``chip_smoke.py`` fails without a CUDA device, also when it stands alone
+in a directory."""
 
 import ast
 import os
@@ -89,6 +90,29 @@ def test_engine_without_device_refuses_cpu_fallback():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(layer_cfgs, random_state_dicts(layer_cfgs, 0),
                       max_len=32, buckets=(8,))
+
+
+def test_pipeline_without_devices_refuses_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ParameterServer,
+        WorkerManager,
+    )
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import PipelineModel, sgd
+
+    cfg = bert_config("tiny", dtype="float32", use_flash_attention=True)
+    model_cfg = bert_layer_configs(cfg, num_encoder_units=1,
+                                   deterministic=True)
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config([dict(name="node-0")])
+    Allocator(model_cfg, wm).even_allocate()
+    ps = ParameterServer(model_cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PipelineModel(wm, ps, sgd(1e-3), cross_entropy_loss)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
