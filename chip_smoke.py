@@ -6,14 +6,22 @@ one.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source under ``skycomputing_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together), one ``ptxas`` line per
+   kernel instantiation (registers, spill bytes, static shared memory);
+   the tensor-core and decode bodies must not spill;
 3. each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, with kernel / plain / library times and the
    bound: paged attention at GPT-2 small's shapes (decode, prefill and
    speculative-verify waves) over fp pages (kernel B2) and over int8
    pages with per-page-per-head scales (kernel B3); flash attention
    (kernel B1) at BERT-large's microbatch (B=8, L=128, H=16, D=64, a
-   padded tail of 32 keys), at L=512 and at L=100;
+   padded tail of 32 keys), at L=512 and at L=100; then, checked but
+   not timed, each kernel body's edges (B1 at L=7, 64 and 65, head_dim
+   32, 40 and 128, B=1, every key masked; B2 and B3 with a row at index
+   0 and a row filling its whole table, head_dim 64 and 128, Lq 1, 5,
+   16 and 17).  Every row names the body that served it and what
+   ``ptxas -v`` reported for that body (registers, spills, shared
+   memory) beside its dynamic shared memory;
 4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
@@ -33,18 +41,22 @@ one.  Phases, each fatal on failure:
 9. a profiler breakdown of a few decode ticks, fp and int8 (device time
    by kernel), and what the KV write (the int8 quantize-on-write, the fp
    scatter) costs per tick;
-10. the training path: BERT-large (24 encoder layers as 75 units, seq
+10. bf16 flash on against off: BERT-large's width at depth 2, two
+    steps in bfloat16 with ``use_flash_attention`` on (B1's
+    tensor-core body inside the model) and off (the einsum path) from
+    the same weights: losses within 2e-2 relative;
+11. the training path: BERT-large (24 encoder layers as 75 units, seq
     128, batch 32, bf16 compute, flash attention, random weights from a
     seed) over 4 workers on the card, even allocation, GPipe with 4
     microbatches, SGD 1e-3, ``Runner.train`` for 5 steps: finite
     losses, step time, tokens/s, MFU, peak memory, and B1 launched
     exactly 2 x 24 x 4 = 192 times per step (forward and
     rematerialized forward), read from that run alone;
-11. trainer card against CPU: the same pipeline at depth 2 in float32,
+12. trainer card against CPU: the same pipeline at depth 2 in float32,
     two steps on ``cuda`` and on ``cpu`` from the same weights and
     batch: losses within 1e-4 relative, parameters within 1e-5;
-12. a profiler breakdown of one train step (device time by kernel, the
-    card's idle share, B1's share).
+13. a profiler breakdown of one train step (device time by kernel, the
+    card's idle share, B1's share, the weight casts' launches).
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -57,6 +69,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -158,6 +171,104 @@ def spin_ms(torch) -> float:
     host issues a call in less."""
     return time_ms(torch, lambda: torch.cuda._sleep(SPIN_CYCLES), iters=5,
                    warmup=1, host_ahead=False)
+
+
+# --------------------------------------------------------------------------
+# kernel bodies and what ptxas said about them
+# --------------------------------------------------------------------------
+
+# template arguments as the compiler mangles them
+_MANGLED_ARGS = (("13__nv_bfloat16", "bf16"), ("f", "f32"), ("a", "int8"))
+
+
+def kernel_label(mangled: str) -> str:
+    """``paged_attention_kernel_decode<bf16, int8, 1>`` for a mangled
+    kernel name of the port (the mangled name where it is not one)."""
+    found = re.search(r"\d+((?:flash|paged)_attention_kernel\w*?)I(.+?)EEv",
+                      mangled)
+    if not found:
+        return mangled
+    name, args = found.groups()
+    out, i = [], 0
+    while i < len(args):
+        if args.startswith("S1_", i):  # the first type argument again
+            out.append(out[0])
+            i += 3
+        elif args[i] == "L":  # an integer: Li<digits>E
+            end = args.index("E", i)
+            out.append(args[i + 2:end])
+            i = end + 1
+        else:
+            for code, label in _MANGLED_ARGS:
+                if args.startswith(code, i):
+                    out.append(label)
+                    i += len(code)
+                    break
+            else:
+                return mangled
+    return f"{name}<{', '.join(out)}>"
+
+
+def ptxas_by_label(_build):
+    """Every kernel instantiation's ``ptxas -v`` figures, by label."""
+    return {kernel_label(fn): info
+            for stem in sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+            for fn, info in _build.ptxas_report(stem).items()}
+
+
+_SHORT = {"float32": "f32", "bfloat16": "bf16", "int8": "int8"}
+
+
+def body_fields(ptxas, body, label, smem_bytes):
+    """A kernel row's body: its name, the instantiation that ran, what
+    ptxas reported for it and its dynamic shared memory per block."""
+    info = ptxas.get(label, {})
+    return dict(body=body, kernel_function=label,
+                registers=info.get("registers"),
+                spill_store_bytes=info.get("spill_store_bytes"),
+                spill_load_bytes=info.get("spill_load_bytes"),
+                static_smem_bytes=info.get("static_smem_bytes", 0),
+                dynamic_smem_bytes=smem_bytes)
+
+
+def paged_body(ptxas, q, page_dtype, table):
+    """Which body of B2/B3 serves ``q`` over pages of ``page_dtype``."""
+    from skycomputing_tpu_torch.ops.paged_attention import (
+        kernel_plan,
+        kernel_smem_bytes,
+    )
+
+    R, Lq, H, D = q.shape
+    body = kernel_plan(page_dtype, Lq, D)
+    kv = _SHORT[str(page_dtype).replace("torch.", "")]
+    t = _SHORT[str(q.dtype).replace("torch.", "")]
+    if body == "decode":
+        max_q = 1 if Lq == 1 else (8 if Lq <= 8 else 16)
+        label = f"paged_attention_kernel_decode<{t}, {kv}, {max_q}>"
+    else:
+        label = f"paged_attention_kernel<{t}, {kv}>"
+    return body_fields(ptxas, body, label, kernel_smem_bytes(
+        body, page_dtype, Lq, D, 16, table.shape[1]))
+
+
+def flash_body(torch, ptxas, q):
+    """Which body of B1 serves ``q``."""
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        kernel_plan,
+        kernel_smem_bytes,
+    )
+
+    B, L, H, D = q.shape
+    plan = kernel_plan(q.dtype, B, L, H, D, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    if plan["body"] == "tensor_core":
+        label = f"flash_attention_kernel_mma<{D}>"
+    else:
+        t = _SHORT[str(q.dtype).replace("torch.", "")]
+        label = f"flash_attention_kernel<{t}, {4 if D <= 64 else 8}>"
+    out = body_fields(ptxas, plan["body"], label, kernel_smem_bytes(plan, D))
+    out["warps"] = plan["warps"]
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -275,7 +386,7 @@ def library_call(torch, case):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)
 
 
-def kernel_checks(torch, np):
+def kernel_checks(torch, np, ptxas):
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -307,12 +418,84 @@ def kernel_checks(torch, np):
                            dtype=dtype, max_abs_err=err, tol=tol[dtype],
                            ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by)
+                           bound_by=bound_by,
+                           **paged_body(ptxas, case["q"], case["k"].dtype,
+                                        case["table"]))
                 log(f"   {json.dumps(row)}")
                 check(finite and err <= tol[dtype],
                       f"{kernel} {name} {dtype}: max |err| {err:.3g} "
                       f"<= {tol[dtype]}")
                 results.append(row)
+    return results
+
+
+def paged_edge_case(torch, np, D, Lq, dtype, int8, seed):
+    """page_size 16, H=12 at head_dim ``D``, a 12-page pool, four rows:
+    one at index 0 (its first query sees one position), one whose last
+    query fills all four of its pages, one mid-page and one inactive
+    (all sentinels).  ``int8`` pages as in :func:`attention_case`."""
+    H, PS, P, W = 12, 16, 12, 4
+    rows = [([3, 4], 0), ([5, 1, 7, 9], W * PS - Lq), ([2, 0, 11], 20),
+            ([], 0)]
+    rng = np.random.default_rng(seed)
+    table = np.full((len(rows), W), P, np.int32)
+    index = np.zeros(len(rows), np.int32)
+    for r, (pages, idx) in enumerate(rows):
+        table[r, :len(pages)] = pages
+        index[r] = idx
+    dt = getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(rows), Lq, H, D), np.float32)).to("cuda", dt)
+    args = [q]
+    for _ in ("k", "v"):
+        if int8:
+            args.append(torch.from_numpy(np.clip(np.round(
+                32 * rng.standard_normal((P, PS, H, D))), -127, 127).astype(
+                    np.int8)).cuda())
+        else:
+            args.append(torch.from_numpy(rng.standard_normal(
+                (P, PS, H, D), np.float32)).to("cuda", dt))
+    args += [torch.from_numpy(table).cuda(), torch.from_numpy(index).cuda()]
+    kw = {}
+    if int8:
+        kw = {name: torch.from_numpy(rng.uniform(0.02, 0.04, (P, H)).astype(
+            np.float32)).cuda() for name in ("k_scale", "v_scale")}
+    return args, kw
+
+
+def paged_edge_checks(torch, np, ptxas):
+    """B2 and B3 at each body's edges, in both dtypes, against the plain
+    version (checked, not timed)."""
+    from skycomputing_tpu_torch.ops.paged_attention import (
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    results = []
+    for kernel, int8 in (("paged_attention", False),
+                         ("paged_attention_int8", True)):
+        for D in (64, 128):
+            for Lq in (1, 5, 16, 17):
+                for dtype in ("bfloat16", "float32"):
+                    args, kw = paged_edge_case(torch, np, D, Lq, dtype, int8,
+                                               seed=500 + len(results))
+                    out = paged_attention(*args, **kw)
+                    ref = paged_attention_reference(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    finite = bool(torch.isfinite(out).all())
+                    row = dict(kernel=kernel, case=f"edge_d{D}_lq{Lq}", D=D,
+                               Lq=Lq, dtype=dtype, max_abs_err=err,
+                               tol=tol[dtype],
+                               **paged_body(ptxas, args[0], args[1].dtype,
+                                            args[3]))
+                    log(f"   {json.dumps(row)}")
+                    check(finite and err <= tol[dtype],
+                          f"{kernel} D={D} Lq={Lq} {dtype} "
+                          f"({row['body']}): max |err| {err:.3g} "
+                          f"<= {tol[dtype]}")
+                    results.append(row)
     return results
 
 
@@ -505,16 +688,6 @@ def kernel_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def profile_ticks(torch, engine, ticks=4):
-    """``torch.profiler`` over ``ticks`` engine steps; device time by
-    kernel, the card's idle share over the window."""
-    def run():
-        for _ in range(ticks):
-            engine.step()
-
-    return profile_window(torch, run)[0]
-
-
 def profile_window(torch, run):
     """``torch.profiler`` over ``run()``: (a summary with the window,
     device busy time, kernel launches, the card's idle share and the top
@@ -629,7 +802,7 @@ def flash_bound(q, bias, dtype):
                                  else "operations")
 
 
-def flash_checks(torch, np):
+def flash_checks(torch, np, ptxas):
     """B1 against its plain version at each case in both dtypes, with
     the kernel's, the plain version's and SDPA's times (SDPA over the
     same inputs transposed to [B, H, L, D] outside the timed call, the
@@ -666,7 +839,8 @@ def flash_checks(torch, np):
                        max_abs_err=err, tol=tol[dtype], ms=ms,
                        host_ms=issue_ms, plain_ms=plain_ms,
                        library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       **flash_body(torch, ptxas, q))
             log(f"   {json.dumps(row)}")
             check(finite and err <= tol[dtype],
                   f"flash_attention {name} {dtype}: max |err| {err:.3g} "
@@ -675,8 +849,64 @@ def flash_checks(torch, np):
     return results
 
 
+# (case, B, L, H, D, masked tail keys) at the tensor-core body's edges;
+# head_dim 40 is not a multiple of 16, so bf16 too takes the CUDA-core body
+FLASH_EDGE_CASES = (("short_L7", 2, 7, 4, 64, 0), ("one_tile_L64", 2, 64, 4,
+                                                    64, 0),
+                    ("one_past_L65", 2, 65, 4, 64, 0),
+                    ("head_dim_32", 2, 96, 4, 32, 8),
+                    ("head_dim_128", 2, 130, 4, 128, 8),
+                    ("batch_1", 1, 128, 16, 64, 32),
+                    ("all_keys_masked", 2, 64, 4, 64, 64),
+                    ("head_dim_40", 2, 100, 4, 40, 8))
+
+
+def flash_edge_checks(torch, np, ptxas):
+    """B1 at its bodies' edges in both dtypes against the plain version
+    (checked, not timed).  In ``all_keys_masked`` batch 0's queries are
+    zero, so its softmax must come out uniform: its output the mean of v
+    over the keys."""
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    results = []
+    for name, B, L, H, D, tail in FLASH_EDGE_CASES:
+        for dtype in ("bfloat16", "float32"):
+            rng = np.random.default_rng(600 + len(results))
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, L, H, D)).astype(np.float32)).to("cuda", dt)
+                for _ in range(3))
+            bias = torch.zeros(B, L)
+            if tail:
+                bias[:, -tail:] = -10000.0
+            bias = bias.to("cuda", dt)
+            if name == "all_keys_masked":
+                q[0] = 0
+            out = flash_attention(q, k, v, bias)
+            ref = flash_attention_reference(q, k, v, bias, D ** -0.5)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if name == "all_keys_masked":
+                mean = v[0].float().mean(dim=0, keepdim=True)
+                err = max(err, (out[0].float() - mean).abs().max().item())
+            finite = bool(torch.isfinite(out).all())
+            row = dict(kernel="flash_attention", case=name, B=B, L=L, H=H,
+                       D=D, padded_keys=tail, dtype=dtype, max_abs_err=err,
+                       tol=tol[dtype], **flash_body(torch, ptxas, q))
+            log(f"   {json.dumps(row)}")
+            check(finite and err <= tol[dtype],
+                  f"flash_attention {name} {dtype} ({row['body']}): "
+                  f"max |err| {err:.3g} <= {tol[dtype]}")
+            results.append(row)
+    return results
+
+
 # --------------------------------------------------------------------------
-# phases 10-12: the BERT pipeline trainer
+# phases 10-13: the BERT pipeline trainer
 # --------------------------------------------------------------------------
 
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 5
@@ -823,6 +1053,37 @@ def trainer_card_vs_cpu(torch, np):
                 max_param_abs_diff=param_abs)
 
 
+def flash_on_off_bf16(torch, np, kernels):
+    """BERT-large's width at depth 2 in bfloat16: two steps with
+    ``use_flash_attention`` on and two with it off, from the same
+    weights and batch.  Returns both loss lists, the largest relative
+    difference and B1's launches in each run."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+
+    models = {}
+    params = None
+    for flash in (True, False):
+        cfg = bert_config("large", hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0,
+                          use_flash_attention=flash)
+        model_cfg = bert_layer_configs(cfg, num_encoder_units=2,
+                                       num_classes=3, deterministic=True)
+        model, ps, _ = build_trainer(torch, model_cfg, state_dicts=params)
+        params = params or ps.params
+        models[flash] = model
+    data, labels = bert_batch(np, cfg.vocab_size)
+    losses, launches = {}, {}
+    for flash, model in models.items():
+        before = kernels["flash_attention"]["fn"].launches
+        losses[flash] = [model.train_step(data, labels) for _ in range(2)]
+        launches[flash] = kernels["flash_attention"]["fn"].launches - before
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[True],
+                                                   losses[False]))
+    return dict(losses_flash=losses[True], losses_einsum=losses[False],
+                max_loss_rel_diff=rel, flash_launches=launches[True],
+                einsum_run_flash_launches=launches[False])
+
+
 def main() -> int:
     import torch
 
@@ -884,21 +1145,31 @@ def main() -> int:
             built = list(pool.map(_build.build, sources))
         report["build_s"] = time.perf_counter() - t0
         log(f"   built {sources} in {report['build_s']:.2f} s")
-        for path in built:
-            ptxas = path.with_suffix(".log")
-            if ptxas.exists():
-                log(ptxas.read_text().strip())
+        ptxas = ptxas_by_label(_build)
+        report["ptxas"] = ptxas
+        for label, info in ptxas.items():
+            log(f"   ptxas {label}: {json.dumps(info)}")
+        new_bodies = {label: info for label, info in ptxas.items()
+                      if "_kernel_mma<" in label or "_kernel_decode<" in label}
+        check(len(new_bodies) > 0 and all(
+            info.get("spill_store_bytes", 1) == 0
+            and info.get("spill_load_bytes", 1) == 0
+            for info in new_bodies.values()),
+              f"{len(new_bodies)} instantiations of the tensor-core and "
+              f"decode bodies, none spilling")
 
     with phase("kernels against plain versions"):
         report["spin_ms"] = spin_ms(torch)
         log(f"   spin kernel ahead of each timed call: "
             f"{report['spin_ms']:.3f} ms")
-        attn = kernel_checks(torch, np)
+        attn = kernel_checks(torch, np, ptxas)
         report["kernels"] = attn
+        report["kernel_edges"] = paged_edge_checks(torch, np, ptxas)
 
     with phase("flash attention (B1) against its plain version"):
-        flash = flash_checks(torch, np)
+        flash = flash_checks(torch, np, ptxas)
         report["flash_kernel"] = flash
+        report["flash_edges"] = flash_edge_checks(torch, np, ptxas)
 
     with phase("main path: GPT-2 small paged serving"):
         cfg = gpt_mod.GptConfig()
@@ -1062,7 +1333,15 @@ def main() -> int:
             ticks0 = engine.stats.decode_ticks
             launches0 = kernels[kernel]["fn"].launches
             log(f"   {label} pages:")
-            out = profile_ticks(torch, engine)
+            out, rows = profile_window(
+                torch, lambda: [engine.step() for _ in range(4)])
+            kernel_us = sum(us for us, key, _ in rows
+                            if "paged_attention_kernel" in key)
+            busy_us = sum(us for us, _, _ in rows)
+            out.update(paged_device_ms=kernel_us / 1e3,
+                       paged_share=kernel_us / busy_us if busy_us else None,
+                       paged_kernels=sorted({key[:100] for _, key, _ in rows
+                                             if "paged_attention" in key}))
             ticks = engine.stats.decode_ticks - ticks0
             per_tick = (kernels[kernel]["fn"].launches - launches0) / max(
                 ticks, 1)
@@ -1082,6 +1361,21 @@ def main() -> int:
             prof_report[label] = out
             del engine
         report["profile"] = prof_report
+
+    with phase("bf16 flash on against off: BERT-large width, depth 2"):
+        cmp = flash_on_off_bf16(torch, np, kernels)
+        log(f"   {json.dumps(cmp)}")
+        check(cmp["flash_launches"] == 2 * 2 * 2 * BERT_MICROBATCHES
+              and cmp["einsum_run_flash_launches"] == 0,
+              f"B1 launched {cmp['flash_launches']} times with the flag on "
+              f"(2 steps x 2 layers x {BERT_MICROBATCHES} microbatches x "
+              f"forward and remat), {cmp['einsum_run_flash_launches']} off")
+        check(cmp["max_loss_rel_diff"] <= 2e-2,
+              f"bf16 losses with flash on and off within "
+              f"{cmp['max_loss_rel_diff']:.3g} <= 2e-2 relative")
+        report["flash_on_off_bf16"] = cmp
+        gc.collect()
+        torch.cuda.empty_cache()
 
     with phase("training path: BERT-large pipeline, 4 stages, GPipe M=4"):
         model, data, labels, launches, e2e = train_bert(torch, np, kernels)
@@ -1103,9 +1397,13 @@ def main() -> int:
         b1_us = sum(us for us, key, _ in rows
                     if "flash_attention_kernel" in key)
         total_us = sum(us for us, _, _ in rows)
-        out.update(flash_launches=flash_attention.launches - b1_before,
+        b1_launches = flash_attention.launches - b1_before
+        out.update(flash_launches=b1_launches,
                    flash_device_ms=b1_us / 1e3,
-                   flash_share=b1_us / total_us if total_us else None)
+                   flash_us_per_launch=b1_us / max(b1_launches, 1),
+                   flash_share=b1_us / total_us if total_us else None,
+                   copy_launches=sum(n for _, key, n in rows
+                                     if "copy" in key))
         log(f"   profile train step: "
             f"{json.dumps({k: v for k, v in out.items() if k != 'top'})}")
         report["profile_train"] = out

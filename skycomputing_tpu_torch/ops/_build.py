@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -80,6 +81,43 @@ def build(name: str) -> Path:
     return target
 
 
+_PTXAS_FIELDS = (
+    ("stack_bytes", re.compile(r"(\d+) bytes stack frame")),
+    ("spill_store_bytes", re.compile(r"(\d+) bytes spill stores")),
+    ("spill_load_bytes", re.compile(r"(\d+) bytes spill loads")),
+    ("registers", re.compile(r"Used (\d+) registers")),
+    ("static_smem_bytes", re.compile(r"(\d+) bytes smem")),
+)
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """``ptxas -v`` output by mangled kernel name: registers, spill
+    stores and loads, stack frame and static shared memory, in bytes
+    but for the registers (a kernel's dynamic shared memory is its own
+    to report)."""
+    report: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = report.setdefault(entry.group(1), {})
+            continue
+        if current is None:
+            continue
+        for field, pattern in _PTXAS_FIELDS:
+            found = pattern.search(line)
+            if found:
+                current[field] = int(found.group(1))
+    return report
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """:func:`parse_ptxas` of the build log of ``csrc/<name>.cu``; empty
+    if it was not built here."""
+    log = library_path(name).with_suffix(".log")
+    return parse_ptxas(log.read_text()) if log.exists() else {}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first if
     needed; loaded once per process."""
@@ -89,4 +127,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "library_path", "load", "nvcc_path"]
+__all__ = ["BUILD_DIR", "CSRC", "build", "library_path", "load", "nvcc_path",
+           "parse_ptxas", "ptxas_report"]

@@ -4,37 +4,52 @@
 // Replaces the Pallas kernel of skycomputing_tpu/ops/flash_attention.py:
 // _flash_kernel, launched by _flash_forward's pl.pallas_call.  Same
 // contract: q, k, v [B, L, H, D] in float32 or bfloat16, contiguous;
-// bias [B, L] float32 (the model-dtype mask row, widened exactly by the
-// wrapper), added to every query's score of that key; out [B, L, H, D]
-// in q's dtype.  q is scaled by `scale` in float32 before the product
-// (the Pallas kernel's q.astype(f32) * scale), the bias is added in
-// float32, and the running max, running sum and accumulator are float32;
-// the output is acc / max(l, 1e-30) rounded to q's dtype.  The bias is
-// an ordinary additive term: a key with bias -1e4 still counts, so a row
+// bias [B, L] in float32 or bfloat16, read in its stored type at the
+// strides it is given (no widened copy is made), added in float32 to
+// every query's score of that key; out [B, L, H, D] in q's dtype.  The
+// scores are scaled by `scale` in float32, the bias is added in float32,
+// and the running max, running sum and accumulator are float32; the
+// output is acc / max(l, 1e-30) rounded to q's dtype.  The bias is an
+// ordinary additive term: a key with bias -1e4 still counts, so a row
 // whose every key is masked gets a uniform softmax, as on the TPU.  Keys
 // past L in the last tile are excluded by their index, never by a bias.
 //
 // What bounds it on an H100: at BERT's shapes (L = 128, D = 64) the work
 // is 4*L*L*D flops per (batch, head) against (4*L*D + L) elements of
 // q, k, v, out and bias: 128 flops per element, 64 per bf16 byte, below
-// the card's ~295 flops per byte, so the bound is the bytes.  This
-// kernel does its products on the float32 CUDA cores, not the tensor
-// cores, and reads its operands from shared memory: shared-memory loads
-// and float32 FMAs bound it, well above the byte bound.
+// the card's ~295 flops per byte, so the bound is the bytes.
 //
-// What the design does about it: one thread block per (batch, head,
-// tile of 32 queries) walks K/V in tiles of 64 keys, staging each tile
-// once through shared memory (converted to float32 as it is staged) and
-// folding it into a float32 online softmax; the [L, L] score matrix
-// never reaches device memory.  Each thread owns a 4 x 4 block of scores
-// and a 4 x (D/16) block of the accumulator, so every value it loads
-// from shared memory feeds four FMAs.  On the TPU the K/V walk was a
-// fori_loop over VMEM blocks of one grid cell; here it is a loop inside
-// one block, and blocks share nothing.  No wgmma, TMA or mma.sync yet.
+// Two bodies; which one runs depends only on the dtype and D (the
+// wrapper's plan, skycomputing_tpu_torch/ops/flash_attention.py):
+//
+// * bfloat16 with D a multiple of 16 (<= 128): flash_attention_kernel_mma,
+//   an FA2-style tensor-core body.  One block per (batch, head, tile of
+//   16 queries per warp; 4 warps, or 2 or 1 where fewer blocks than SMs
+//   would result).  Each warp keeps its 16 query rows as mma A fragments
+//   in registers for the whole K/V walk.  K/V tiles of 64 keys are copied
+//   into shared memory with 16-byte cp.async, double-buffered, so the
+//   next tile loads while this one is computed, with one barrier per
+//   tile; rows are padded by 16 bytes so that ldmatrix is free of bank
+//   conflicts.  A tile's bias is read one key per thread, a tile ahead.  S = Q.K^T runs on
+//   mma.sync.m16n8k16 (bf16 in, f32 accumulate); the f32 scores are
+//   multiplied by `scale` (q is never rounded after scaling), the bias is
+//   added in f32, keys past L are set to -inf by index, and the online
+//   softmax runs in registers with quad shuffles.  P is rounded to bf16
+//   in registers and reused as the A operand of P.V, V read with
+//   ldmatrix.trans; the f32 output goes through shared memory and out
+//   to device memory in 16-byte vectors.
+// * float32, or bfloat16 with another D: flash_attention_kernel, the
+//   CUDA-core body.  One block per (batch, head, 32 queries) stages K/V
+//   tiles of 64 keys in float32 through shared memory, every product a
+//   float32 FMA with a 4 x 4 register tile per thread.  Its exact float32
+//   arithmetic is what the float32 card-against-CPU checks rely on.
+//
+// On the TPU the K/V walk was a fori_loop over VMEM blocks of one grid
+// cell; here it is a loop inside one block, and blocks share nothing.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see skycomputing_tpu_torch/ops/_build.py) and bound
-// with ctypes through the plain C function at the end of this file.
+// with ctypes through the plain C functions at the end of this file.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,6 +68,19 @@ constexpr int kRows = kQTile / kTy;     // 4 queries per thread
 constexpr int kCols = kKTile / kTx;     // 4 keys per thread
 constexpr int kPs = kKTile + 1;         // padded row of the score tile
 
+// the bias row: [B, L] at strides (sb, sk) elements, float32 or bfloat16
+struct Bias {
+  const void* ptr;
+  int is_bf16;
+  int64_t sb, sk;
+  __device__ __forceinline__ float at(int b, int key) const {
+    const int64_t off = (int64_t)b * sb + (int64_t)key * sk;
+    return is_bf16 ? __bfloat162float(
+                         static_cast<const __nv_bfloat16*>(ptr)[off])
+                   : static_cast<const float*>(ptr)[off];
+  }
+};
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -68,6 +96,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+
+// ---------------------------------------------------------------------------
+// The CUDA-core body (float32, and bfloat16 with D not a multiple of 16)
+// ---------------------------------------------------------------------------
 
 // Shared memory, in floats.  q and k rows are padded by one so that
 // threads reading neighbouring rows at the same head dim hit distinct
@@ -88,7 +120,7 @@ __host__ __device__ inline size_t smem_floats(int D) {
 template <typename T, int kDims>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
+                       const T* __restrict__ v, Bias bias,
                        T* __restrict__ out, int L, int H, int D, float scale) {
   extern __shared__ float smem[];
   const int Dp = D + 1;
@@ -112,7 +144,6 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid % 32;
   const int64_t pos_stride = (int64_t)H * D;  // one position of q, k, v
   const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * D;
-  const float* bias_row = bias + (int64_t)b * L;
 
   // this tile's queries, scaled in float32; rows past L are zero
   for (int e = tid; e < kQTile * D; e += kThreads) {
@@ -146,7 +177,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[j * Dp + d] = kv;
       vs[j * D + d] = vv;
     }
-    if (tid < kKTile) bs[tid] = tid < nk ? bias_row[k0 + tid] : 0.f;
+    if (tid < kKTile) bs[tid] = tid < nk ? bias.at(b, k0 + tid) : 0.f;
     __syncthreads();
 
     // scores (q * scale) . k + bias; keys past L are -inf by index
@@ -249,8 +280,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int kDims>
 cudaError_t launch_dims(const void* q, const void* k, const void* v,
-                        const float* bias, void* out, int B, int L, int H,
-                        int D, float scale, cudaStream_t stream) {
+                        Bias bias, void* out, int B, int L, int H, int D,
+                        float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(D) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -266,9 +297,9 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v,
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* out, int B, int L, int H, int D,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch_cuda_core(const void* q, const void* k, const void* v,
+                             Bias bias, void* out, int B, int L, int H, int D,
+                             float scale, cudaStream_t stream) {
   // half the accumulator registers where the head is at most 64 wide
   if (D <= 4 * kTx)
     return launch_dims<T, 4>(q, k, v, bias, out, B, L, H, D, scale, stream);
@@ -276,30 +307,389 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                            scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (bfloat16, D a multiple of 16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 16;  // query rows of one warp (the mma's M)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; with
+// `valid` false the 16 bytes are zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as a bf16 pair, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr int kStages = 2;  // K/V tiles in the tensor-core body's ring
+
+// Shared memory of the tensor-core body, in bytes: the block's query
+// rows (then its output rows) and kStages K and V tiles, all with rows
+// of D + 8 bf16 (16 bytes of padding), and kStages bias tiles in f32.
+__host__ __device__ inline size_t mma_smem_bytes(int D, int warps) {
+  const size_t row = (size_t)(D + 8) * sizeof(__nv_bfloat16);
+  return (size_t)warps * kMmaRows * row + 2 * kStages * (size_t)kKTile * row +
+         kStages * kKTile * sizeof(float);
+}
+
+// Warp w owns query rows q0 + 16 w .. q0 + 16 w + 15.  In an m16n8
+// fragment lane l holds rows l / 4 and l / 4 + 8, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each 8-column tile.
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, Bias bias,
+                           __nv_bfloat16* __restrict__ out, int L, int H,
+                           float scale) {
+  constexpr int kStride = kD + 8;       // padded shared row, in bf16
+  constexpr int kChunks = kD / 8;       // 16-byte chunks of one row
+  constexpr int kKSteps = kD / 16;      // k-steps of Q.K^T
+  constexpr int kDTiles = kD / 8;       // n-tiles of P.V
+  constexpr int kNTiles = kKTile / 8;   // n-tiles of Q.K^T
+  constexpr int kTileElems = kKTile * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int q_tile = warps * kMmaRows;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + q_tile * kStride;      // [kStages][kKTile][kStride]
+  __nv_bfloat16* vs = ks + kStages * kTileElems;  // [kStages][kKTile][kStride]
+  float* bs = reinterpret_cast<float*>(vs + kStages * kTileElems);  // [kStages][kKTile]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * q_tile;
+  const int64_t pos_stride = (int64_t)H * kD;
+  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * kD;
+  const int n_tiles = (L + kKTile - 1) / kKTile;
+  const int tig2 = 2 * (lane % 4);
+
+  // the query tile, rows past L zero-filled
+  for (int e = tid; e < q_tile * kChunks; e += threads) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = q0 + r < L;
+    cp_async16(qs + r * kStride + c * 8,
+               q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride + c * 8, ok);
+  }
+  // queue a K/V tile (keys past L zero-filled), then commit a group (an
+  // empty one past the last tile, so every step waits the same way)
+  auto load_kv = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = tile * kKTile;
+      __nv_bfloat16* kb = ks + (tile % kStages) * kTileElems;
+      __nv_bfloat16* vb = vs + (tile % kStages) * kTileElems;
+      for (int e = tid; e < kKTile * kChunks; e += threads) {
+        const int j = e / kChunks, c = e % kChunks;
+        const bool ok = k0 + j < L;
+        const int64_t off =
+            base + (int64_t)(ok ? k0 + j : 0) * pos_stride + c * 8;
+        cp_async16(kb + j * kStride + c * 8, k + off, ok);
+        cp_async16(vb + j * kStride + c * 8, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+  // a tile's bias in log2 units, one key per thread (two where the
+  // block has one warp; keys past L read nothing): read into registers
+  // one tile before it is stored to shared memory, two before it is used
+  float bias_next[kKTile / 32];
+  auto load_bias = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < kKTile / 32; ++i) {
+      const int j = tid + i * threads;
+      const int key = tile * kKTile + j;
+      bias_next[i] = j < kKTile && key < L ? bias.at(b, key) * kLog2e : 0.f;
+    }
+  };
+  auto store_bias = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < kKTile / 32; ++i) {
+      const int j = tid + i * threads;
+      if (j < kKTile) bs[(tile % kStages) * kKTile + j] = bias_next[i];
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_kv(i);
+  load_bias(0);
+  store_bias(0);
+  load_bias(1);
+
+  uint32_t qf[kKSteps][4];             // this warp's Q, A fragments
+  float o[kDTiles][4];                 // output accumulator
+  float m[2] = {-INFINITY, -INFINITY};  // rows lane/4 and lane/4 + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and the query tile) has landed
+    __syncthreads();  // ... for every thread, and tile t - 1 is read
+    load_kv(t + kStages - 1);  // into the buffers tile t - 1 used
+    store_bias(t + 1);
+    load_bias(t + 2);
+
+    if (t == 0) {
+      const __nv_bfloat16* qw = qs + warp * kMmaRows * kStride;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldmatrix_x4(qf[kk], qw + (lane % 16) * kStride + kk * 16 +
+                                (lane / 16) * 8);
+    }
+
+    // S = Q . K^T over this tile's 64 keys
+    const __nv_bfloat16* kb = ks + (t % kStages) * kTileElems;
+    float s[kNTiles][4];
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kb + (np * 16 + (lane % 8) + (lane / 16) * 8) * kStride +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // f32 scores * scale + bias, in log2 units; keys past L are -inf
+    const int k0 = t * kKTile;
+    const float* bb = bs + (t % kStages) * kKTile;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n * 8 + tig2 + (e % 2);
+        const float x = k0 + key < L
+                            ? fmaf(s[n][e], scale2, bb[key])
+                            : -INFINITY;
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key k0 < L is in every tile, so the new max is finite
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);  // exp2(-inf) = 0 on the first tile
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e / 2]);  // exp2(-inf) = 0
+        s[n][e] = p;
+        l[e / 2] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P . V: P in bf16 from the score registers, V by ldmatrix.trans
+    const __nv_bfloat16* vb = vs + (t % kStages) * kTileElems;
+#pragma unroll
+    for (int kk = 0; kk < kKTile / 16; ++kk) {
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int np = 0; np < kDTiles / 2; ++np) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(
+            vf, vb + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kStride +
+                    np * 16 + (lane / 16) * 8);
+        mma_bf16(o[2 * np], pf, vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], pf, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc / max(l, 1e-30) in bf16, through this warp's own query rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* ow = qs + warp * kMmaRows * kStride;
+  const int row = lane / 4;
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+    *reinterpret_cast<uint32_t*>(ow + row * kStride + n * 8 + tig2) =
+        pack_bf16(o[n][0] * l[0], o[n][1] * l[0]);
+    *reinterpret_cast<uint32_t*>(ow + (row + 8) * kStride + n * 8 + tig2) =
+        pack_bf16(o[n][2] * l[1], o[n][3] * l[1]);
+  }
+  __syncwarp();
+  for (int e = lane; e < kMmaRows * kChunks; e += 32) {
+    const int r = e / kChunks, c = e % kChunks;
+    const int qi = q0 + warp * kMmaRows + r;
+    if (qi < L)
+      *reinterpret_cast<uint4*>(out + base + (int64_t)qi * pos_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + r * kStride + c * 8);
+  }
+}
+
+template <int kD>
+cudaError_t launch_mma_dim(const void* q, const void* k, const void* v,
+                           Bias bias, void* out, int B, int L, int H,
+                           int warps, float scale, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(kD, warps);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_mma<kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int q_tile = warps * kMmaRows;
+  const dim3 grid((L + q_tile - 1) / q_tile, H, B);
+  flash_attention_kernel_mma<kD><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), bias,
+      static_cast<__nv_bfloat16*>(out), L, H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_mma(const void* q, const void* k, const void* v, Bias bias,
+                       void* out, int B, int L, int H, int D, int warps,
+                       float scale, cudaStream_t stream) {
+  switch (D) {
+#define SKY_MMA_CASE(d) \
+  case d:               \
+    return launch_mma_dim<d>(q, k, v, bias, out, B, L, H, warps, scale, stream);
+    SKY_MMA_CASE(16)
+    SKY_MMA_CASE(32)
+    SKY_MMA_CASE(48)
+    SKY_MMA_CASE(64)
+    SKY_MMA_CASE(80)
+    SKY_MMA_CASE(96)
+    SKY_MMA_CASE(112)
+    SKY_MMA_CASE(128)
+#undef SKY_MMA_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  bias is float32
-// [B, L].  Returns a cudaError_t (0 = launched).  Shapes are checked by
-// the Python wrapper; this rejects only what the kernel cannot hold.
-int sky_flash_attention(int dtype, const void* q, const void* k,
-                        const void* v, const void* bias, void* out, int B,
-                        int L, int H, int D, float scale, void* stream) {
+// body: 0 = the CUDA-core body, 1 = the tensor-core body (bfloat16, D a
+// multiple of 16, q/k/v/out 16-byte aligned); warps: the tensor-core
+// body's warps per block (1, 2 or 4; 16 queries each), ignored by the
+// CUDA-core body.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out);
+// bias_dtype likewise, the bias read at bias[b * bias_sb + key * bias_sk].
+// Returns a cudaError_t (0 = launched).  Shapes are checked by the Python
+// wrapper, which also picks the body; this rejects only what the chosen
+// body cannot hold.
+int sky_flash_attention(int body, int warps, int dtype, const void* q,
+                        const void* k, const void* v, const void* bias,
+                        int bias_dtype, long long bias_sb, long long bias_sk,
+                        void* out, int B, int L, int H, int D, float scale,
+                        void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1 || D < 1 ||
-      D > kMaxHeadDim)
+      D > kMaxHeadDim || (bias_dtype != 0 && bias_dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const float* bias_f = static_cast<const float*>(bias);
+  const Bias b{bias, bias_dtype, (int64_t)bias_sb, (int64_t)bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (dtype != 1 || D % 16 != 0 || (warps != 1 && warps != 2 && warps != 4)
+        || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_mma(q, k, v, b, out, B, L, H, D, warps, scale, s);
+  }
+  if (body != 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
-      return (int)launch<float>(q, k, v, bias_f, out, B, L, H, D, scale, s);
+      return (int)launch_cuda_core<float>(q, k, v, b, out, B, L, H, D, scale,
+                                          s);
     case 1:
-      return (int)launch<__nv_bfloat16>(q, k, v, bias_f, out, B, L, H, D,
-                                        scale, s);
+      return (int)launch_cuda_core<__nv_bfloat16>(q, k, v, b, out, B, L, H, D,
+                                                  scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory, in bytes, of one block of the given body.
+int sky_flash_attention_smem(int body, int D, int warps) {
+  if (body == 1) return (int)mma_smem_bytes(D, warps);
+  return (int)(smem_floats(D) * sizeof(float));
 }
 
 }  // extern "C"

@@ -11,24 +11,47 @@
 // index[r] + j and sees logical positions <= index[r] + j.  Sentinel
 // entries clamp to page P-1 and are masked by that causal rule.  Softmax
 // statistics and the accumulator are float32; the output is rounded to
-// q's dtype.
+// q's dtype.  An int8 element is dequantized as k.astype(f32) * k_scale
+// before it meets q, in the Pallas kernel's order.
 //
 // What bounds it on an H100: the K/V bytes it reads.  A decode step
 // (Lq = 1) does 4*D flops per key position against 2*D*sizeof(KV) bytes
 // of K/V, far below the card's ~295 flops per byte, so it is memory
 // bound; prefill tiles of 16 queries stay below that line too.  The int8
 // pool halves those bytes against bf16 (plus 8 bytes of scales per page
-// and head); its pages are dequantized as they are staged into shared
-// memory, so no dequantized copy ever goes to device memory.
+// and head), and no dequantized copy ever goes to device memory.  A
+// decode row holds only a few hundred positions, so what keeps the card
+// from that bound is latency: how many page round trips run one after
+// another.
 //
-// What the design does about it: each K/V page tile is read from device
-// memory once per (row, head, tile of 16 queries) and staged through
-// shared memory, where every query of the tile reuses it; pages wholly
-// past the tile's last query position are never read; the score matrix
-// and the running statistics never leave the block.  On the TPU the
-// page walk was a grid axis carrying its state in VMEM scratch; here
-// blocks run in no order and share nothing, so the walk is a loop
-// inside one block.  Loads are scalar and no wgmma or TMA is used yet.
+// Two bodies, chosen by the wrapper's plan
+// (skycomputing_tpu_torch/ops/paged_attention.py) from Lq, D and the
+// page type alone:
+//
+// * Lq <= 16 (decode, speculative verify) with a K/V row of D elements a
+//   whole number of 16-byte chunks: paged_attention_kernel_decode.  One
+//   block of eight warps per (row, head) (four where eight would not fit
+//   in shared memory: float32 at D = 128).  The row's positions are cut
+//   into chunks of 16; warp w of W takes chunks w, w + W, ..., each with
+//   a private float32 online-softmax state, and the warps' states are
+//   merged through shared memory at the end.  A warp copies a chunk's K and V
+//   into its own double buffer in shared memory with 16-byte cp.async
+//   (8 bf16, 4 float32 or 16 int8 per copy, the table entry of each
+//   position read from a copy of the row's table in shared memory), so
+//   the next chunk is in flight while this one is consumed, and nothing
+//   but __syncwarp orders the walk.  Each score is a dot product split
+//   over two half-warps and joined with one shuffle; the softmax
+//   statistics are shuffles over 16 lanes; in P.V each lane owns head
+//   dims lane + 32 j.  Positions past the causal bound are never read.
+// * every other call (prefill waves, Lq > 16): paged_attention_kernel,
+//   the query-tile body.  One block per (row, head, tile of 16 queries)
+//   stages each page's K/V tile in float32 through shared memory, where
+//   every query of the tile reuses it; pages wholly past the tile's last
+//   query position are never read.
+//
+// On the TPU the page walk was a grid axis carrying its state in VMEM
+// scratch; here blocks run in no order and share nothing, so the walk is
+// a loop inside one block.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see skycomputing_tpu_torch/ops/_build.py) and bound
@@ -229,11 +252,12 @@ paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
 }
 
 template <typename T, typename KV>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* k_scale, const float* v_scale,
-                   const int32_t* table, const int32_t* index, void* out,
-                   int R, int Lq, int H, int D, int num_pages, int page_size,
-                   int width, float scale, cudaStream_t stream) {
+cudaError_t launch_tile(const void* q, const void* k, const void* v,
+                        const float* k_scale, const float* v_scale,
+                        const int32_t* table, const int32_t* index, void* out,
+                        int R, int Lq, int H, int D, int num_pages,
+                        int page_size, int width, float scale,
+                        cudaStream_t stream) {
   const size_t smem = smem_floats(D, page_size) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -249,6 +273,406 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The decode body (Lq <= 16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxWarps = 8;       // warps per (row, head) block: 8, or 4
+constexpr int kChunk = 16;         // positions a warp takes per step
+constexpr int kStages = 2;         // chunks in flight per warp
+constexpr int kMaxDecodeQ = 16;    // the largest Lq of the decode body
+constexpr int kDimsPerLane = kMaxHeadDim / 32;  // P.V: head dims lane + 32 j
+constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (4) bytes from device memory into shared memory, asynchronously;
+// with `valid` false the bytes are zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// one 16-byte chunk of a K/V row as float32
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out, float) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+// (a bf16 is the high half of a float32: widening is a shift)
+__device__ __forceinline__ void unpack_bf16x2(uint32_t w, float* out) {
+  out[0] = __uint_as_float(w << 16);
+  out[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out,
+                                         __nv_bfloat16) {
+  unpack_bf16x2(raw.x, out);
+  unpack_bf16x2(raw.y, out + 2);
+  unpack_bf16x2(raw.z, out + 4);
+  unpack_bf16x2(raw.w, out + 6);
+}
+__device__ __forceinline__ void unpack_int8x4(uint32_t w, float* out) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = (float)(int8_t)((w >> (8 * j)) & 0xff);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out,
+                                         int8_t) {
+  unpack_int8x4(raw.x, out);
+  unpack_int8x4(raw.y, out + 4);
+  unpack_int8x4(raw.z, out + 8);
+  unpack_int8x4(raw.w, out + 12);
+}
+
+// Shared memory of the decode body, in bytes: the scaled queries, each
+// warp's probabilities and (int8) scales, the row's clamped table, and
+// each warp's double buffer of K and V chunks (rows padded by 16 bytes),
+// which the merge of the warps' states reuses at the end.
+__host__ __device__ inline size_t decode_row_bytes(int D, int kv_size) {
+  return (size_t)D * kv_size + 16;
+}
+__host__ __device__ inline size_t decode_staging_offset(int D, int max_q,
+                                                        int width, int warps) {
+  return (size_t)max_q * D * sizeof(float)                     // q_s
+         + (size_t)warps * max_q * kChunk * sizeof(float)      // p_s
+         + (size_t)warps * kStages * 2 * kChunk * sizeof(float)  // scales
+         + (size_t)((width + 3) / 4 * 4) * sizeof(int32_t);   // table
+}
+__host__ __device__ inline size_t decode_smem_bytes(int D, int kv_size,
+                                                    int max_q, int width,
+                                                    int warps) {
+  const size_t staging =
+      (size_t)warps * kStages * 2 * kChunk * decode_row_bytes(D, kv_size);
+  const size_t merge = (size_t)warps * max_q * (D + 2) * sizeof(float);
+  return decode_staging_offset(D, max_q, width, warps) +
+         (staging > merge ? staging : merge);
+}
+// 8 warps per block, or 4 where 8 would not fit in shared memory (0: no
+// number of warps fits)
+inline int decode_warps(int D, int kv_size, int max_q, int width) {
+  for (int warps = kMaxWarps; warps >= 4; warps /= 2)
+    if (decode_smem_bytes(D, kv_size, max_q, width, warps) <= kMaxSmem)
+      return warps;
+  return 0;
+}
+
+template <typename T, typename KV, int kMaxQ>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+paged_attention_kernel_decode(
+    const T* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ page_table,
+    const int32_t* __restrict__ index, T* __restrict__ out, int Lq, int H,
+    int D, int num_pages, int page_size, int width, float scale) {
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte chunk
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int row_bytes = (int)decode_row_bytes(D, sizeof(KV));
+  float* q_s = reinterpret_cast<float*>(smem_raw);         // [kMaxQ][D]
+  float* p_all = q_s + kMaxQ * D;                          // [warp][kMaxQ][16]
+  float* sc_all = p_all + warps * kMaxQ * kChunk;          // [warp][stage][2][16]
+  int32_t* table_s = reinterpret_cast<int32_t*>(sc_all + warps * kStages * 2 * kChunk);
+  unsigned char* staging =  // [warp][stage][2][16][row]
+      smem_raw + decode_staging_offset(D, kMaxQ, width, warps);
+  float* merge = reinterpret_cast<float*>(staging);        // [warp][kMaxQ][D + 2]
+
+  const int h = blockIdx.x;
+  const int r = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int64_t pos_stride = (int64_t)H * D;  // one position of q or a page
+  const int idx = index[r];
+  // positions 0 .. n_pos - 1 are the only ones a query of this row sees
+  const int n_pos = min(width * page_size, idx + Lq);
+  const int n_pages = (n_pos + page_size - 1) / page_size;
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
+
+  const int32_t* table_row = page_table + (int64_t)r * width;
+  for (int i = tid; i < n_pages; i += threads)
+    table_s[i] = min(max(table_row[i], 0), num_pages - 1);
+  const T* q_row = q + (int64_t)r * Lq * pos_stride + (int64_t)h * D;
+  for (int e = tid; e < Lq * D; e += threads) {
+    const int qq = e / D, d = e % D;
+    q_s[e] = to_float(q_row[qq * pos_stride + d]) * scale;
+  }
+  __syncthreads();
+
+  const int chunks_per_row = D / kElems;  // 16-byte chunks of one position
+  float* p_s = p_all + warp * kMaxQ * kChunk;
+  float* sc_w = sc_all + warp * kStages * 2 * kChunk;
+  unsigned char* st_w = staging + (size_t)warp * kStages * 2 * kChunk * row_bytes;
+
+  // queue chunk ci's K, V (and scales) into stage s, then commit a group
+  // (an empty one past the row's end, so every step waits the same way)
+  auto issue = [&](int ci, int s) {
+    if (ci < n_chunks) {
+      unsigned char* kb = st_w + (size_t)(2 * s) * kChunk * row_bytes;
+      unsigned char* vb = kb + (size_t)kChunk * row_bytes;
+      for (int e = lane; e < kChunk * chunks_per_row; e += 32) {
+        const int j = e / chunks_per_row, c = e % chunks_per_row;
+        const int pos = ci * kChunk + j;
+        const bool ok = pos < n_pos;
+        int64_t off = 0;
+        if (ok)
+          off = ((int64_t)table_s[pos / page_size] * page_size +
+                 pos % page_size) * pos_stride +
+                (int64_t)h * D + c * kElems;
+        cp_async16(kb + j * row_bytes + c * 16, k_pages + off, ok);
+        cp_async16(vb + j * row_bytes + c * 16, v_pages + off, ok);
+      }
+      if (kInt8 && lane < kChunk) {
+        const int pos = ci * kChunk + lane;
+        const bool ok = pos < n_pos;
+        const int64_t off =
+            ok ? (int64_t)table_s[pos / page_size] * H + h : 0;
+        cp_async4(sc_w + (2 * s) * kChunk + lane, k_scale + off, ok);
+        cp_async4(sc_w + (2 * s + 1) * kChunk + lane, v_scale + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float m[kMaxQ], l[kMaxQ], acc[kMaxQ][kDimsPerLane];
+#pragma unroll
+  for (int qq = 0; qq < kMaxQ; ++qq) {
+    m[qq] = -INFINITY;
+    l[qq] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDimsPerLane; ++j) acc[qq][j] = 0.f;
+  }
+  // scores: lane (p, half) dots position p of the chunk with the queries
+  // over half of the 16-byte chunks of its row
+  const int p = lane % kChunk;
+  const int half = lane / kChunk;
+  const int per_half = (chunks_per_row + 1) / 2;
+  const int vec_begin = half * per_half;
+  const int vec_end = min(chunks_per_row, vec_begin + per_half);
+
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) issue(warp + s * warps, s);
+  for (int t = 0;; ++t) {
+    const int ci = warp + t * warps;
+    if (ci >= n_chunks) break;
+    const int s = t % kStages;
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned char* kb = st_w + (size_t)(2 * s) * kChunk * row_bytes;
+    const unsigned char* vb = kb + (size_t)kChunk * row_bytes;
+    const float* ksc = sc_w + (2 * s) * kChunk;
+    const float* vsc = ksc + kChunk;
+
+    float dot[kMaxQ];
+#pragma unroll
+    for (int qq = 0; qq < kMaxQ; ++qq) dot[qq] = 0.f;
+    const float k_sc = kInt8 ? ksc[p] : 1.f;
+    for (int vi = vec_begin; vi < vec_end; ++vi) {
+      float kv[kElems];
+      unpack16(*reinterpret_cast<const uint4*>(kb + p * row_bytes + vi * 16),
+               kv, KV());
+      if (kInt8) {
+#pragma unroll
+        for (int e = 0; e < kElems; ++e) kv[e] *= k_sc;
+      }
+#pragma unroll
+      for (int qq = 0; qq < kMaxQ; ++qq) {
+        if (qq < Lq) {
+          const float4* qv =
+              reinterpret_cast<const float4*>(q_s + qq * D + vi * kElems);
+#pragma unroll
+          for (int e4 = 0; e4 < kElems / 4; ++e4) {
+            const float4 x = qv[e4];
+            dot[qq] = fmaf(x.x, kv[4 * e4], dot[qq]);
+            dot[qq] = fmaf(x.y, kv[4 * e4 + 1], dot[qq]);
+            dot[qq] = fmaf(x.z, kv[4 * e4 + 2], dot[qq]);
+            dot[qq] = fmaf(x.w, kv[4 * e4 + 3], dot[qq]);
+          }
+        }
+      }
+    }
+
+    // online softmax over the chunk's 16 positions, per query
+    const int pos = ci * kChunk + p;
+#pragma unroll
+    for (int qq = 0; qq < kMaxQ; ++qq) {
+      if (qq < Lq) {
+        const float full = dot[qq] + __shfl_xor_sync(0xffffffffu, dot[qq], 16);
+        const bool visible = pos < n_pos && pos <= idx + qq;
+        const float x = visible ? full : -INFINITY;
+        float cm = x;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+        const float m_new = fmaxf(m[qq], cm);
+        const float pr = visible ? expf(x - m_new) : 0.f;
+        float cs = pr;
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          cs += __shfl_xor_sync(0xffffffffu, cs, o);
+        const float corr = (m_new == -INFINITY) ? 1.f : expf(m[qq] - m_new);
+        l[qq] = l[qq] * corr + cs;
+        m[qq] = m_new;
+#pragma unroll
+        for (int j = 0; j < kDimsPerLane; ++j) acc[qq][j] *= corr;
+        if (half == 0) p_s[qq * kChunk + p] = pr;
+      }
+    }
+    __syncwarp();
+
+    // acc += p . v, lane owning head dims lane + 32 j
+    const int n_here = min(kChunk, n_pos - ci * kChunk);
+    for (int jj = 0; jj < n_here; ++jj) {
+      const KV* vrow = reinterpret_cast<const KV*>(vb + jj * row_bytes);
+      const float v_sc = kInt8 ? vsc[jj] : 1.f;
+      float vv[kDimsPerLane];
+#pragma unroll
+      for (int j = 0; j < kDimsPerLane; ++j) {
+        const int d = lane + 32 * j;
+        float x = 0.f;
+        if (d < D) {
+          x = to_float(vrow[d]);
+          if (kInt8) x *= v_sc;
+        }
+        vv[j] = x;
+      }
+#pragma unroll
+      for (int qq = 0; qq < kMaxQ; ++qq) {
+        if (qq < Lq) {
+          const float pr = p_s[qq * kChunk + jj];
+#pragma unroll
+          for (int j = 0; j < kDimsPerLane; ++j)
+            acc[qq][j] = fmaf(pr, vv[j], acc[qq][j]);
+        }
+      }
+    }
+    __syncwarp();  // stage s is read: refill it
+    issue(ci + kStages * warps, s);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's buffers are read; the merge reuses them
+
+  // merge the warps' (m, l, acc); a warp that saw nothing has m = -inf
+  const int mrow = D + 2;
+  float* mw = merge + warp * kMaxQ * mrow;
+#pragma unroll
+  for (int qq = 0; qq < kMaxQ; ++qq) {
+    if (qq < Lq) {
+      if (lane == 0) {
+        mw[qq * mrow + D] = m[qq];
+        mw[qq * mrow + D + 1] = l[qq];
+      }
+#pragma unroll
+      for (int j = 0; j < kDimsPerLane; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) mw[qq * mrow + d] = acc[qq][j];
+      }
+    }
+  }
+  __syncthreads();
+  T* o_row = out + (int64_t)r * Lq * pos_stride + (int64_t)h * D;
+  for (int e = tid; e < Lq * D; e += threads) {
+    const int qq = e / D, d = e % D;
+    float mx = -INFINITY;
+    for (int w = 0; w < warps; ++w)
+      mx = fmaxf(mx, merge[(w * kMaxQ + qq) * mrow + D]);
+    float sum = 0.f, o = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      const float* st = merge + (w * kMaxQ + qq) * mrow;
+      const float wt = st[D] == -INFINITY ? 0.f : expf(st[D] - mx);
+      sum = fmaf(st[D + 1], wt, sum);
+      o = fmaf(st[d], wt, o);
+    }
+    o_row[qq * pos_stride + d] = from_float<T>(o / fmaxf(sum, 1e-30f));
+  }
+}
+
+template <typename T, typename KV, int kMaxQ>
+cudaError_t launch_decode_q(const void* q, const void* k, const void* v,
+                            const float* k_scale, const float* v_scale,
+                            const int32_t* table, const int32_t* index,
+                            void* out, int R, int Lq, int H, int D,
+                            int num_pages, int page_size, int width,
+                            float scale, cudaStream_t stream) {
+  const int warps = decode_warps(D, sizeof(KV), kMaxQ, width);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = decode_smem_bytes(D, sizeof(KV), kMaxQ, width, warps);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel_decode<T, KV, kMaxQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(H, R);
+  paged_attention_kernel_decode<T, KV, kMaxQ>
+      <<<grid, warps * 32, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), k_scale, v_scale, table, index,
+          static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
+  return cudaGetLastError();
+}
+
+// the decode body's query bound: 1 (decode), 8 (speculative verify) or 16
+int decode_max_q(int Lq) { return Lq == 1 ? 1 : (Lq <= 8 ? 8 : kMaxDecodeQ); }
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+bool decode_fits(int Lq, int D, int kv_size) {
+  return Lq <= kMaxDecodeQ && (D * kv_size) % 16 == 0;
+}
+
+// body: 0 = the query-tile body, 1 = the decode body
+template <typename T, typename KV>
+cudaError_t launch(int body, const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
+                   const int32_t* table, const int32_t* index, void* out,
+                   int R, int Lq, int H, int D, int num_pages, int page_size,
+                   int width, float scale, cudaStream_t stream) {
+  if (body == 0)
+    return launch_tile<T, KV>(q, k, v, k_scale, v_scale, table, index, out,
+                              R, Lq, H, D, num_pages, page_size, width, scale,
+                              stream);
+  if (body != 1 || !decode_fits(Lq, D, sizeof(KV)) || !aligned16(k) ||
+      !aligned16(v))
+    return cudaErrorInvalidValue;
+  switch (decode_max_q(Lq)) {
+    case 1:
+      return launch_decode_q<T, KV, 1>(q, k, v, k_scale, v_scale, table,
+                                       index, out, R, Lq, H, D, num_pages,
+                                       page_size, width, scale, stream);
+    case 8:
+      return launch_decode_q<T, KV, 8>(q, k, v, k_scale, v_scale, table,
+                                       index, out, R, Lq, H, D, num_pages,
+                                       page_size, width, scale, stream);
+    default:
+      return launch_decode_q<T, KV, kMaxDecodeQ>(
+          q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D,
+          num_pages, page_size, width, scale, stream);
+  }
+}
+
 bool bad_shape(int R, int Lq, int H, int D, int num_pages, int page_size,
                int width) {
   return D < 1 || D > kMaxHeadDim || R < 1 || R > 65535 || H < 1 ||
@@ -259,14 +683,16 @@ bool bad_shape(int R, int Lq, int H, int D, int num_pages, int page_size,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
-// Shapes are checked by the Python wrapper; this rejects only what the
-// kernel itself cannot hold.
-int sky_paged_attention(int dtype, const void* q, const void* k_pages,
-                        const void* v_pages, const void* page_table,
-                        const void* index, void* out, int R, int Lq, int H,
-                        int D, int num_pages, int page_size, int width,
-                        float scale, void* stream) {
+// body: 0 = the query-tile body, 1 = the decode body (Lq <= 16, D times
+// the page element size a multiple of 16 bytes, pages 16-byte aligned);
+// the Python wrapper picks it.  dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t (0 = launched).  Shapes are checked by the Python
+// wrapper; this rejects only what the chosen body cannot hold.
+int sky_paged_attention(int body, int dtype, const void* q,
+                        const void* k_pages, const void* v_pages,
+                        const void* page_table, const void* index, void* out,
+                        int R, int Lq, int H, int D, int num_pages,
+                        int page_size, int width, float scale, void* stream) {
   if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
     return (int)cudaErrorInvalidValue;
   const int32_t* table = static_cast<const int32_t*>(page_table);
@@ -274,26 +700,27 @@ int sky_paged_attention(int dtype, const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
-                                       table, idx, out, R, Lq, H, D,
+      return (int)launch<float, float>(body, q, k_pages, v_pages, nullptr,
+                                       nullptr, table, idx, out, R, Lq, H, D,
                                        num_pages, page_size, width, scale, s);
     case 1:
       return (int)launch<__nv_bfloat16, __nv_bfloat16>(
-          q, k_pages, v_pages, nullptr, nullptr, table, idx, out, R, Lq, H, D,
-          num_pages, page_size, width, scale, s);
+          body, q, k_pages, v_pages, nullptr, nullptr, table, idx, out, R, Lq,
+          H, D, num_pages, page_size, width, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The int8 pool: k/v pages int8, k_scale/v_scale float32 [num_pages, H];
-// dtype (of q and out) as above.
-int sky_paged_attention_int8(int dtype, const void* q, const void* k_pages,
-                             const void* v_pages, const void* k_scale,
-                             const void* v_scale, const void* page_table,
-                             const void* index, void* out, int R, int Lq,
-                             int H, int D, int num_pages, int page_size,
-                             int width, float scale, void* stream) {
+// body and dtype (of q and out) as above.
+int sky_paged_attention_int8(int body, int dtype, const void* q,
+                             const void* k_pages, const void* v_pages,
+                             const void* k_scale, const void* v_scale,
+                             const void* page_table, const void* index,
+                             void* out, int R, int Lq, int H, int D,
+                             int num_pages, int page_size, int width,
+                             float scale, void* stream) {
   if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
     return (int)cudaErrorInvalidValue;
   const float* ksc = static_cast<const float*>(k_scale);
@@ -303,16 +730,29 @@ int sky_paged_attention_int8(int dtype, const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return (int)launch<float, int8_t>(q, k_pages, v_pages, ksc, vsc, table,
-                                        idx, out, R, Lq, H, D, num_pages,
-                                        page_size, width, scale, s);
+      return (int)launch<float, int8_t>(body, q, k_pages, v_pages, ksc, vsc,
+                                        table, idx, out, R, Lq, H, D,
+                                        num_pages, page_size, width, scale, s);
     case 1:
       return (int)launch<__nv_bfloat16, int8_t>(
-          q, k_pages, v_pages, ksc, vsc, table, idx, out, R, Lq, H, D,
+          body, q, k_pages, v_pages, ksc, vsc, table, idx, out, R, Lq, H, D,
           num_pages, page_size, width, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Dynamic shared memory, in bytes, of one block of the given body for a
+// page element of kv_size bytes (4, 2 or 1).
+int sky_paged_attention_smem(int body, int kv_size, int Lq, int D,
+                             int page_size, int width) {
+  if (body == 1) {
+    const int max_q = decode_max_q(Lq);
+    const int warps = decode_warps(D, kv_size, max_q, width);
+    return warps ? (int)decode_smem_bytes(D, kv_size, max_q, width, warps)
+                 : -1;
+  }
+  return (int)(smem_floats(D, page_size) * sizeof(float));
 }
 
 }  // extern "C"

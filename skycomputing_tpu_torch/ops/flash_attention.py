@@ -3,12 +3,17 @@
 The port of ``skycomputing_tpu/ops/flash_attention.py``.  On CUDA tensors
 :func:`flash_attention` launches the hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
-use, bound with ``ctypes``): one thread block per (batch, head, tile of
-32 queries) walks K/V in shared-memory tiles with a float32 online
-softmax, so the [L, L] score matrix never reaches device memory.  On CPU
-tensors it runs :func:`flash_attention_reference`, the plain PyTorch
-version of the same function.  Nothing else picks the path: a CUDA call
-either launches the kernel or raises.
+use, bound with ``ctypes``), so the [L, L] score matrix never reaches
+device memory.  It has two bodies, and :func:`kernel_plan` picks one
+from the dtype and head_dim alone: bfloat16 with a head_dim that is a
+multiple of 16 runs the tensor-core body (``mma.sync`` products,
+``cp.async`` double-buffered K/V tiles, online softmax in registers);
+float32, and bfloat16 with any other head_dim, run the CUDA-core body
+(float32 FMAs throughout).  The bias is read in its stored dtype, so a
+call launches the kernel and nothing else.  On CPU tensors it runs
+:func:`flash_attention_reference`, the plain PyTorch version of the same
+function.  Nothing else picks the path: a CUDA call either launches the
+kernel or raises.
 
 The gradient is the JAX module's: the forward is the kernel, the
 backward recomputes the plain version in float32 under autograd
@@ -26,7 +31,9 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+_BODIES = ("cuda_core", "tensor_core")  # the kernel's body codes 0 and 1
 _lib = None
+_sm_counts = {}
 
 
 def _library():
@@ -35,14 +42,51 @@ def _library():
         from . import _build
 
         lib = _build.load("flash_attention")
-        # dtype; q, k, v, bias, out; B, L, H, D; scale; stream
+        # body, warps, dtype; q, k, v, bias; bias dtype; bias strides;
+        # out; B, L, H, D; scale; stream
         lib.sky_flash_attention.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_void_p]
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.sky_flash_attention.restype = ctypes.c_int
+        lib.sky_flash_attention_smem.argtypes = [ctypes.c_int] * 3
+        lib.sky_flash_attention_smem.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _sm_count(device) -> int:
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
+def kernel_plan(dtype, B: int, L: int, H: int, D: int,
+                sm_count: int) -> dict:
+    """Which body of the kernel serves a call, by dtype and head_dim
+    alone: ``"tensor_core"`` for bfloat16 with ``D`` a multiple of 16,
+    else ``"cuda_core"``.  The tensor-core body gives each warp 16
+    queries; ``warps`` is 4 unless fewer blocks than ``sm_count`` would
+    result, then 2 or 1 (more, smaller blocks fill the card).  The
+    CUDA-core body always takes 32 queries on 4 warps."""
+    if dtype == torch.bfloat16 and D % 16 == 0 and D <= _MAX_HEAD_DIM:
+        warps = 4
+        while warps > 1 and -(-L // (16 * warps)) * H * B < sm_count:
+            warps //= 2
+        return dict(body="tensor_core", warps=warps, q_tile=16 * warps)
+    return dict(body="cuda_core", warps=4, q_tile=32)
+
+
+def kernel_smem_bytes(plan: dict, D: int) -> int:
+    """Dynamic shared memory of one block of ``plan``'s body (builds and
+    loads the kernel's library)."""
+    return _library().sky_flash_attention_smem(
+        _BODIES.index(plan["body"]), D, plan["warps"])
 
 
 def check_blocks(seq_len: int, block_q: int, block_k: int) -> None:
@@ -100,15 +144,24 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
             f"bias must be [B={B}, L={L}] on {q.device}, got "
             f"{tuple(bias.shape)} on {bias.device}"
         )
-    # the mask row in the model dtype, widened exactly (bf16 -> f32)
-    bias32 = bias.float().contiguous()
+    if bias.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"flash_attention kernel takes a float32 or bfloat16 bias, got "
+            f"{bias.dtype}"
+        )
+    plan = kernel_plan(q.dtype, B, L, H, D, _sm_count(q.device))
     out = torch.empty_like(q)
+    if plan["body"] == "tensor_core" and any(
+            t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        # the bias is read in its stored dtype at its own strides
         rc = _library().sky_flash_attention(
+            _BODIES.index(plan["body"]), plan["warps"],
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            bias32.data_ptr(), out.data_ptr(), B, L, H, D, float(scale),
-            stream,
+            bias.data_ptr(), _DTYPE_CODES[bias.dtype], bias.stride(0),
+            bias.stride(1), out.data_ptr(), B, L, H, D, float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -157,7 +210,8 @@ def flash_attention(
     ``block_q``/``block_k`` are the JAX signature's TPU tile requests:
     they only decide the ``ValueError`` of :func:`check_blocks`.  CPU
     tensors take :func:`flash_attention_reference`; CUDA tensors launch
-    the kernel (float32 or bfloat16, ``D <= 128``) and count it in
+    the kernel (float32 or bfloat16, ``D <= 128``, the bias float32 or
+    bfloat16; the body from :func:`kernel_plan`) and count it in
     ``flash_attention.launches``; anything the kernel does not take
     raises.
     """
@@ -173,4 +227,5 @@ def flash_attention(
 
 flash_attention.launches = 0
 
-__all__ = ["check_blocks", "flash_attention", "flash_attention_reference"]
+__all__ = ["check_blocks", "flash_attention", "flash_attention_reference",
+           "kernel_plan", "kernel_smem_bytes"]

@@ -10,12 +10,18 @@ launches the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 the plain PyTorch version of the same function.  Nothing else picks the
 path: a CUDA call either launches the kernel or raises.
 
-The kernel never materializes a row's gathered K/V view: one thread
-block per (row, head, tile of 16 queries) walks the row's page table in
-order, staging each page's K/V tile through shared memory (an int8 tile
-multiplied by its page's scale on the way) and folding it into a
-float32 online softmax.  ``csrc/paged_attention.cu`` says what bounds it
-on the card and what its design does about that.
+The kernel never materializes a row's gathered K/V view.  It has two
+bodies, and :func:`kernel_plan` picks one from Lq, head_dim and the page
+type alone.  Decode and speculative-verify waves (``Lq <= 16``) run the
+decode body: one block of eight warps per (row, head), each warp walking
+its own 16-position chunks of the row through a ``cp.async`` double
+buffer with a private float32 online softmax, the warps' states merged
+at the end.  Prefill waves (``Lq > 16``), and a head_dim whose K/V row
+is not a whole number of 16-byte chunks, run the query-tile body: one
+block per (row, head, tile of 16 queries) stages each page's K/V tile
+through shared memory.  An int8 tile is multiplied by its page's scale
+as it is read, in both.  ``csrc/paged_attention.cu`` says what bounds
+the kernel on the card and what each body does about that.
 
 Each pool's kernel counts its own launches: ``paged_attention.launches``
 for the fp pool, ``paged_attention_int8.launches`` for the int8 pool.
@@ -30,6 +36,8 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
+_MAX_DECODE_Q = 16
+_BODIES = ("query_tile", "decode")  # the kernel's body codes 0 and 1
 _lib = None
 
 
@@ -39,21 +47,42 @@ def _library():
         from . import _build
 
         lib = _build.load("paged_attention")
-        # dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
+        # body, dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
         # page_size, width; scale; stream
         lib.sky_paged_attention.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p]
         )
         # the same with k_scale, v_scale after v
         lib.sky_paged_attention_int8.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.sky_paged_attention.restype = ctypes.c_int
         lib.sky_paged_attention_int8.restype = ctypes.c_int
+        lib.sky_paged_attention_smem.argtypes = [ctypes.c_int] * 6
+        lib.sky_paged_attention_smem.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_plan(page_dtype, Lq: int, D: int) -> str:
+    """Which body of the kernel serves a call, from the page type, Lq
+    and head_dim alone: ``"decode"`` where ``Lq <= 16`` and a K/V row of
+    ``D`` elements is a whole number of 16-byte chunks, else
+    ``"query_tile"``."""
+    row_bytes = D * page_dtype.itemsize
+    if Lq <= _MAX_DECODE_Q and row_bytes % 16 == 0 and D <= _MAX_HEAD_DIM:
+        return "decode"
+    return "query_tile"
+
+
+def kernel_smem_bytes(body: str, page_dtype, Lq: int, D: int,
+                      page_size: int, width: int) -> int:
+    """Dynamic shared memory of one block of ``body`` (builds and loads
+    the kernel's library)."""
+    return _library().sky_paged_attention_smem(
+        _BODIES.index(body), page_dtype.itemsize, Lq, D, page_size, width)
 
 
 def _row_index(index, R: int, device) -> torch.Tensor:
@@ -64,8 +93,8 @@ def _row_index(index, R: int, device) -> torch.Tensor:
 
 def _launch_args(q, pages, page_dtype, page_table, index):
     """Check what the kernel takes (raising on anything else) and return
-    the common launch arguments: (table, index, R, Lq, H, D, P,
-    page_size)."""
+    the common launch arguments: (body code, table, index, R, Lq, H, D,
+    P, page_size)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     R, Lq, H, D = q.shape
@@ -95,9 +124,12 @@ def _launch_args(q, pages, page_dtype, page_table, index):
         raise ValueError(
             f"page_table must be [R={R}, W>=1], got {tuple(page_table.shape)}"
         )
+    body = kernel_plan(page_dtype, Lq, D)
+    if body == "decode" and any(t.data_ptr() % 16 for t in pages):
+        raise ValueError("k_pages and v_pages must be 16-byte aligned")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     idx = _row_index(index, R, q.device)
-    return table, idx, R, Lq, H, D, P, page_size
+    return _BODIES.index(body), table, idx, R, Lq, H, D, P, page_size
 
 
 def _check_rc(rc: int) -> None:
@@ -131,7 +163,8 @@ def paged_attention(
     in q's dtype.
 
     CPU tensors take :func:`paged_attention_reference`.  CUDA tensors
-    launch the kernel (q float32 or bfloat16, ``D <= 128``) and count
+    launch the kernel (q float32 or bfloat16, ``D <= 128``; the body
+    from :func:`kernel_plan`) and count
     the launch in ``paged_attention.launches`` (fp pages) or
     ``paged_attention_int8.launches`` (int8 pages); anything the kernel
     does not take raises.
@@ -149,7 +182,7 @@ def paged_attention(
             q, k_pages, v_pages, page_table, index,
             softmax_scale=softmax_scale,
         )
-    table, idx, R, Lq, H, D, P, page_size = _launch_args(
+    body, table, idx, R, Lq, H, D, P, page_size = _launch_args(
         q, (k_pages, v_pages), q.dtype, page_table, index
     )
     if softmax_scale is None:
@@ -158,7 +191,7 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().sky_paged_attention(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            body, _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), table.data_ptr(), idx.data_ptr(),
             out.data_ptr(), R, Lq, H, D, P, page_size, table.shape[1],
             float(softmax_scale), stream,
@@ -193,7 +226,7 @@ def paged_attention_int8(
             q, k_pages, v_pages, page_table, index, k_scale=k_scale,
             v_scale=v_scale, softmax_scale=softmax_scale,
         )
-    table, idx, R, Lq, H, D, P, page_size = _launch_args(
+    body, table, idx, R, Lq, H, D, P, page_size = _launch_args(
         q, (k_pages, v_pages), torch.int8, page_table, index
     )
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -212,7 +245,7 @@ def paged_attention_int8(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().sky_paged_attention_int8(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            body, _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, Lq, H, D,
             P, page_size, table.shape[1], float(softmax_scale), stream,
@@ -271,5 +304,5 @@ def paged_attention_reference(
     return torch.einsum("bhlm,bmhd->blhd", p, v_virt).to(q.dtype)
 
 
-__all__ = ["paged_attention", "paged_attention_int8",
-           "paged_attention_reference"]
+__all__ = ["kernel_plan", "kernel_smem_bytes", "paged_attention",
+           "paged_attention_int8", "paged_attention_reference"]

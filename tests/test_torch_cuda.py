@@ -1,5 +1,7 @@
 """The port's CUDA kernels (paged attention over fp and int8 pools,
-flash attention) against their plain PyTorch versions, on the card.  Every test here is
+flash attention) against their plain PyTorch versions, on the card, at
+the main path's shapes and at the edges of each kernel body (which body
+serves a case is asserted beside it).  Every test here is
 marked ``cuda`` and skips where ``torch.cuda.is_available()`` is false:
 a hand-written kernel has no CPU mode.  The file imports neither jax
 nor the JAX package, so it runs on a machine that has only PyTorch::
@@ -14,6 +16,12 @@ import torch
 from skycomputing_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+)
+from skycomputing_tpu_torch.ops.flash_attention import (
+    kernel_plan as flash_kernel_plan,
+)
+from skycomputing_tpu_torch.ops.paged_attention import (
+    kernel_plan as paged_kernel_plan,
 )
 from skycomputing_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -45,9 +53,31 @@ SHAPES = {
 }
 
 
+def _edge_rows(Lq):
+    """A row at index 0 (its first query sees one position), a row whose
+    last query fills all four of its pages, a row mid-page, an inactive
+    row."""
+    return [([3, 4], 0), ([5, 1, 7, 9], 64 - Lq), ([2, 0, 11], 20), ([], 0)]
+
+
+# page_size 16 (the engine's) at both bodies' edges: Lq 1, 5 and 16 take
+# the decode body, 17 the query-tile body
+EDGE_SHAPES = {
+    f"ps16_d{D}_lq{Lq}": (12, 16, 2, D, Lq, _edge_rows(Lq))
+    for D in (64, 128) for Lq in (1, 5, 16, 17)
+}
+ALL_SHAPES = {**SHAPES, **EDGE_SHAPES}
+
+
+def _seed(name):
+    if name in SHAPES:
+        return sorted(SHAPES).index(name)
+    return 50 + sorted(EDGE_SHAPES).index(name)
+
+
 def _case(name, dtype):
-    P, PS, H, D, Lq, rows = SHAPES[name]
-    rng = np.random.default_rng(sorted(SHAPES).index(name))
+    P, PS, H, D, Lq, rows = ALL_SHAPES[name]
+    rng = np.random.default_rng(_seed(name))
     width = max(len(t) for t, _ in rows)
     table = np.full((len(rows), width), P, np.int32)
     index = np.zeros(len(rows), np.int32)
@@ -69,8 +99,8 @@ def _int8_case(name, dtype):
     clipped to [-127, 127], scales ~ U(0.02, 0.04) per (page, head), so
     the dequantized pages are of unit size."""
     q, _, _, table, index = _case(name, dtype)
-    P, PS, H, D, _, _ = SHAPES[name]
-    rng = np.random.default_rng(100 + sorted(SHAPES).index(name))
+    P, PS, H, D, _, _ = ALL_SHAPES[name]
+    rng = np.random.default_rng(100 + _seed(name))
 
     def pages():
         vals = np.clip(np.round(32 * rng.standard_normal((P, PS, H, D))),
@@ -90,10 +120,18 @@ def card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
+def _expected_paged_body(page_dtype, Lq, D):
+    row_bytes = D * page_dtype.itemsize
+    return "decode" if Lq <= 16 and row_bytes % 16 == 0 else "query_tile"
+
+
 @pytest.mark.parametrize("dtype", sorted(TOL))
-@pytest.mark.parametrize("name", sorted(SHAPES))
+@pytest.mark.parametrize("name", sorted(ALL_SHAPES))
 def test_paged_attention_kernel_matches_plain_version(card, name, dtype):
     args = _case(name, dtype)
+    Lq, D = args[0].shape[1], args[0].shape[3]
+    assert paged_kernel_plan(args[1].dtype, Lq, D) == (
+        _expected_paged_body(args[1].dtype, Lq, D))
     before = paged_attention.launches
     out = paged_attention(*args)
     torch.cuda.synchronize()
@@ -106,9 +144,11 @@ def test_paged_attention_kernel_matches_plain_version(card, name, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))
-@pytest.mark.parametrize("name", sorted(SHAPES))
+@pytest.mark.parametrize("name", sorted(ALL_SHAPES))
 def test_paged_attention_int8_kernel_matches_plain_version(card, name, dtype):
     q, k, v, ks, vs, table, index = _int8_case(name, dtype)
+    assert paged_kernel_plan(torch.int8, q.shape[1], q.shape[3]) == (
+        _expected_paged_body(torch.int8, q.shape[1], q.shape[3]))
     before = (paged_attention.launches, paged_attention_int8.launches)
     out = paged_attention(q, k, v, table, index, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
@@ -148,17 +188,29 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take(card):
         paged_attention(q, k.double(), v, table, index)
 
 
-# flash attention at the trainer's shapes: (B, L, H, D, padded tail keys)
+# flash attention at the trainer's shapes and at the tensor-core body's
+# edges: (B, L, H, D, padded tail keys)
 FLASH_SHAPES = {
     "bert_large_L128": (8, 128, 16, 64, 32),  # one microbatch, BERT-large
     "long_L512": (2, 512, 16, 64, 0),  # several key tiles
     "indivisible_L100": (2, 100, 16, 64, 0),  # a ragged last tile
+    "short_L7": (2, 7, 4, 64, 0),  # less than one mma tile
+    "one_tile_L64": (2, 64, 4, 64, 0),  # exactly one 64-key tile
+    "one_past_L65": (2, 65, 4, 64, 0),  # one key past the first tile
+    "head_dim_32": (2, 96, 4, 32, 8),
+    "head_dim_128": (2, 130, 4, 128, 8),
+    "batch_1": (1, 128, 16, 64, 32),
+    "all_keys_masked": (2, 64, 4, 64, 64),  # every key of every row masked
+    "head_dim_40": (2, 100, 4, 40, 8),  # bf16 too takes the CUDA-core body
 }
+_FLASH_ORIGINAL = ("bert_large_L128", "indivisible_L100", "long_L512")
 
 
 def _flash_case(name, dtype):
     B, L, H, D, tail = FLASH_SHAPES[name]
-    rng = np.random.default_rng(200 + sorted(FLASH_SHAPES).index(name))
+    seed = (200 + _FLASH_ORIGINAL.index(name) if name in _FLASH_ORIGINAL
+            else 250 + sorted(FLASH_SHAPES).index(name))
+    rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D))
                                 .astype(np.float32)).to("cuda", dt)
@@ -173,6 +225,10 @@ def _flash_case(name, dtype):
 @pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
 def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
     q, k, v, bias = _flash_case(name, dtype)
+    B, L, H, D = q.shape
+    plan = flash_kernel_plan(q.dtype, B, L, H, D, 132)
+    assert plan["body"] == ("tensor_core" if dtype == "bfloat16"
+                            and D % 16 == 0 else "cuda_core")
     before = flash_attention.launches
     out = flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
@@ -181,6 +237,21 @@ def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
     assert out.dtype == q.dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
     err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"max |err| {err}"
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+def test_flash_attention_fully_masked_row_is_finite_and_uniform(card, dtype):
+    """Every key of every row carries bias -1e4 and batch 0's queries are
+    zero: its scores are all equal, so its softmax is uniform and its
+    output the mean of v over the keys (in either body)."""
+    q, k, v, bias = _flash_case("all_keys_masked", dtype)
+    q[0] = 0
+    out = flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    mean = v[0].float().mean(dim=0, keepdim=True).expand_as(out[0])
+    err = (out[0].float() - mean).abs().max().item()
     assert err <= TOL[dtype], f"max |err| {err}"
 
 
@@ -211,3 +282,5 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(card):
         flash_attention(q, k.double(), v, bias)
     with pytest.raises(ValueError, match="bias"):
         flash_attention(q, k, v, bias[:, :-1])
+    with pytest.raises(TypeError, match="bias"):
+        flash_attention(q, k, v, bias.double())
