@@ -56,7 +56,36 @@ one.  Phases, each fatal on failure:
     two steps on ``cuda`` and on ``cpu`` from the same weights and
     batch: losses within 1e-4 relative, parameters within 1e-5;
 13. a profiler breakdown of one train step (device time by kernel, the
-    card's idle share, B1's share, the weight casts' launches).
+    card's idle share, B1's share, the weight casts' launches);
+14. the profilers: the static (FLOPs on the ``meta`` device) and the
+    timed (forward + backward seconds on the card) ``ModelBenchmarker``
+    over BERT-large's 75 units at batch 32, seq 128 — six distinct
+    units, none at 0, equal memory estimates, B1 launched while timing —
+    and the ``DeviceBenchmarker`` over four workers on the card
+    (``MatmulStack`` 1024 x 4 on (256, 1024): timed once, free memory
+    from ``mem_get_info``);
+15. the launcher's path: ``launch.run`` on
+    ``skycomputing_tpu_torch/configs/bert_pipeline.py`` — BERT-large at
+    24 layers, seq 128, batch 32, flash on, 4 workers on the card with
+    the stimulator, ``optimal`` allocation from the static profile, 1F1B
+    with 4 microbatches, 5 steps, with the stop, timer and checkpoint
+    hooks: the partition is the solver's, contiguous and not the even
+    split, every loss finite, B1 launched exactly 192 times per step;
+    the checkpoint restores its parameters under ``even_allocate``
+    (equal) and its optimizer state is refused there; step time,
+    tokens/s, MFU and peak memory beside the GPipe phase's;
+16. the headline pass as ``bench.py`` runs it at this scale
+    (``dynamics/headline.py:headline_pass``): four workers with the
+    paper's slowdowns (3, 5, 3, 6), even allocation and
+    ``measure_stage_times``, ``calibrate_costs_by_group`` from the even
+    pass (one scale each for the encoder stack, the embeddings and the
+    two end units), ``optimal_allocate`` and ``measure_stage_times``
+    again; each
+    raw stage time times its worker's slowdown gives the emulated step
+    time (``schedule_step_time``) at 4 and 16 microbatches; the even
+    allocation is measured in the order even, optimal, optimal, even
+    and each side's step is the mean of its two; the optimal step must
+    be below the even one at both.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -70,6 +99,7 @@ from __future__ import annotations
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1084,6 +1114,280 @@ def flash_on_off_bf16(torch, np, kernels):
                 einsum_run_flash_launches=launches[False])
 
 
+# --------------------------------------------------------------------------
+# phases 14-16: the profilers, the launcher and the headline pass
+# --------------------------------------------------------------------------
+
+def bert_units(preset="large", layers=24):
+    """The trainer's BERT (flash on, both dropouts 0) as unit configs."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+
+    cfg = bert_config(preset, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      use_flash_attention=True)
+    return cfg, bert_layer_configs(cfg, num_encoder_units=layers,
+                                   num_classes=3, deterministic=True)
+
+
+def worker_pool(n):
+    """``n`` workers round-robined over the cards (all on one here)."""
+    from skycomputing_tpu_torch.dynamics import (
+        WorkerManager,
+        worker_pool_config,
+    )
+
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config(worker_pool_config(n, prefix="node"))
+    return wm
+
+
+def profilers(torch, np, kernels, model_cfg, vocab_size, device=None):
+    """The static and the timed ``ModelBenchmarker`` over ``model_cfg`` at
+    the trainer's batch, and the device benchmarker over four workers.
+    Returns (both model benchmarkers, for the headline pass; a report)."""
+    from skycomputing_tpu_torch.dataset import RandomTokenGenerator
+    from skycomputing_tpu_torch.dynamics import (
+        ModelBenchmarker,
+        device_available_memory_mb,
+        proxy_device_benchmarker,
+    )
+
+    def tokens():
+        return RandomTokenGenerator(BERT_BATCH, BERT_SEQ, vocab_size)
+
+    static = ModelBenchmarker(model_cfg, tokens())
+    t0 = time.perf_counter()
+    flops, static_mem = static.benchmark()
+    static_s = time.perf_counter() - t0
+    timed = ModelBenchmarker(model_cfg, tokens(), device=device, timed=True)
+    for k in kernels.values():
+        k["fn"].launches = 0
+    t0 = time.perf_counter()
+    seconds, timed_mem = timed.benchmark()
+    timed_s = time.perf_counter() - t0
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    per_type = {}
+    for cfg, f, s, m in zip(model_cfg, flops, seconds, static_mem):
+        row = per_type.setdefault(cfg["layer_type"], dict(
+            units=0, flops=f, ms=s * 1e3, mem_mb=m))
+        row["units"] += 1
+    for name, row in per_type.items():
+        log(f"   {name}: {json.dumps(row)}")
+    check(min(flops) > 0 and min(seconds) > 0,
+          f"no unit of {len(model_cfg)} profiles at 0 (static FLOPs, timed "
+          f"seconds)")
+    check(static.distinct_units == timed.distinct_units == len(per_type),
+          f"{timed.distinct_units} distinct units timed, "
+          f"{static.distinct_units} counted, one per unit type")
+    check(static_mem == timed_mem,
+          f"static and timed memory estimates equal "
+          f"({sum(static_mem) / 1024:.3f} GB in all)")
+    b1 = launches["flash_attention"]
+    check(b1 > 0 and launches == {**{n: 0 for n in launches},
+                                  "flash_attention": b1},
+          f"B1 launched {b1} times while profiling, B2/B3 never")
+
+    wm = worker_pool(4)
+    device_bench = proxy_device_benchmarker(
+        wm, devices=[device] if device is not None else None)
+    t0 = time.perf_counter()
+    results = device_bench.benchmark()
+    device_s = time.perf_counter() - t0
+    probe = torch.device(device) if device is not None else torch.device(
+        "cuda", 0)
+    free_mb = device_available_memory_mb(probe)
+    log(f"   device benchmark: {json.dumps(results)}")
+    times = {r["time"] for r in results.values()}
+    check(len(results) == 4 and len(times) == 1,
+          f"4 workers on one device timed once: {times}")
+    mems = [r["avai_mem"] for r in results.values()]
+    check(all(0 < m and abs(m - free_mb) <= 1024 for m in mems),
+          f"free memory {mems[0]:.0f} MB per worker, as read now "
+          f"({free_mb:.0f} MB)")
+    return static, timed, dict(
+        units=len(model_cfg), distinct_units=timed.distinct_units,
+        per_type=per_type, static_s=static_s, timed_s=timed_s,
+        flops_total=sum(flops), timed_seconds_total=sum(seconds),
+        mem_total_gb=sum(static_mem) / 1024, launches=launches,
+        device_benchmark=results, device_benchmark_s=device_s,
+        free_mb=free_mb)
+
+
+def launcher_env(workdir, preset="large", layers=24):
+    """The knobs of ``configs/bert_pipeline.py`` for the launcher phase."""
+    return dict(
+        SKYTPU_PRESET=preset, SKYTPU_LAYER_NUM=str(layers),
+        SKYTPU_SEQ_LEN=str(BERT_SEQ), SKYTPU_BATCH_SIZE=str(BERT_BATCH),
+        SKYTPU_FLASH="1", SKYTPU_CORE_NUM=str(BERT_WORKERS), STIMULATE="1",
+        SKYTPU_ALLOCATE_TYPE="optimal", SKYTPU_SCHEDULE="1f1b",
+        SKYTPU_MICROBATCHES=str(BERT_MICROBATCHES),
+        SKYTPU_MAX_ITERS=str(BERT_STEPS), SKYTPU_PROFILE="static",
+        SKYTPU_CKPT_DIR=str(workdir / "ckpt"),
+        SKYTPU_LOG_ROOT=str(workdir / "logs"))
+
+
+def launcher_path(torch, np, kernels, workdir, layers=24, preset="large",
+                  device=None):
+    """``launch.run`` on the port's config: BERT at ``layers`` encoder
+    layers, 4 stimulated workers, ``optimal``, 1F1B with 4 microbatches,
+    5 steps, with the stop, timer and checkpoint hooks.  Every kernel's
+    launches are set to 0 just before and read just after.  Then the
+    checkpoint is restored under ``even_allocate``."""
+    import os
+
+    from skycomputing_tpu_torch import launch
+    from skycomputing_tpu_torch.config import load_config
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ParameterServer,
+        WorkerManager,
+    )
+    from skycomputing_tpu_torch.ops import build_loss
+    from skycomputing_tpu_torch.parallel import PipelineModel, build_optimizer
+    from skycomputing_tpu_torch.runner import CheckpointHook, Hook
+    from skycomputing_tpu_torch.utils import Logger
+
+    env = launcher_env(workdir, preset, layers)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = load_config(str(
+            ROOT / "skycomputing_tpu_torch" / "configs" / "bert_pipeline.py"))
+        n_units = len(cfg.model_config)
+
+        class Record(Hook):
+            def __init__(self):
+                self.steps = []
+
+            def after_train_iter(self, runner):
+                self.steps.append(runner.model.stats.snapshot())
+
+        record = Record()
+        logger = Logger(**cfg.logging_config)
+        if device is None:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k["fn"].launches = 0
+        t0 = time.perf_counter()
+        run = launch.run(cfg, logger, device=device, hooks=[record])
+        if device is None:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k["fn"].launches for name, k in kernels.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(run is not None, "the launcher allocated and trained")
+    solved = run.allocator.last_result
+    ranges = solved.as_ranges(len(solved.device_order))
+    slices = [ranges[d] for d in solved.device_order]
+    partition = run.model.partition_signature()
+    check(partition == [b - a for a, b in slices]
+          and [a for a, _ in slices] == [0] + [b for _, b in slices[:-1]]
+          and slices[-1][1] == n_units,
+          f"partition {partition} is the solver's ({solved.path}, gap "
+          f"{solved.optimality_gap:.3g}): slices {slices} cover the "
+          f"{n_units} units contiguously")
+    even = [len(w.model_config) for w in Allocator(
+        cfg.model_config, worker_pool(BERT_WORKERS)).even_allocate()
+        .worker_pool]
+    check(partition != even, f"not the even split {even}")
+    steps = record.steps
+    losses = [s["loss"] for s in steps]
+    check(len(losses) == BERT_STEPS and all(np.isfinite(x) for x in losses)
+          and all(s["interleaved"] for s in steps),
+          f"{len(losses)} finite losses under 1F1B: {losses}")
+    per_step = 2 * layers * BERT_MICROBATCHES
+    check_launches(launches, {"flash_attention": per_step * BERT_STEPS},
+                   f"{per_step} B1 launches per step (2 x {layers} layers "
+                   f"x {BERT_MICROBATCHES} microbatches) x {BERT_STEPS} "
+                   f"steps, none while profiling")
+    step_s = [s["forward_s"] + s["backward_s"] + s["step_s"] for s in steps]
+    median = float(np.median(step_s[1:]))
+    params = sum(p.numel() for stage in run.model.stages
+                 for p in stage.parameters)
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = dict(
+        wall_s=wall, losses=losses, step_s=step_s,
+        step_s_median_2_5=median, tokens_per_s=tokens / median,
+        mfu=6.0 * params * tokens / median / PEAK_FLOPS["bfloat16"],
+        dispatch_s=[s["dispatch_s"] for s in steps],
+        peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if device is None else None),
+        partition=partition, even_partition=even,
+        device_order=solved.device_order, solver_path=solved.path,
+        solver_gap=solved.optimality_gap,
+        device_time=[r["time"] for r in
+                     run.device_benchmarker.benchmark().values()],
+        launches=launches)
+
+    # the checkpoint restores its parameters under another allocation and
+    # refuses its optimizer state there
+    hook = next(h for h in run.runner.hooks if isinstance(h, CheckpointHook))
+    check(hook.last_saved is not None, f"checkpoint {hook.last_saved}")
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config(cfg.worker_config)
+    Allocator(cfg.model_config, wm).even_allocate()
+    ps = ParameterServer(cfg.model_config,
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    ps.load_weights_from_file(hook.last_saved)
+    restored = PipelineModel(
+        wm, ps, build_optimizer(cfg.train_config["optim_cfg"]),
+        build_loss(cfg.train_config["loss_cfg"]),
+        devices=[torch.device(device)] if device is not None else None,
+        num_microbatches=BERT_MICROBATCHES, schedule="1f1b")
+    restored.sync_to_parameter_server()  # the stages' weights, read back
+    diff = max((a[key] - b[key]).abs().max().item()
+               for a, b in zip(ps.params, run.parameter_server.params)
+               for key in a)
+    check(restored.partition_signature() == even and diff == 0.0,
+          f"restored under {restored.partition_signature()}: parameters "
+          f"equal (max |diff| {diff})")
+    try:
+        restored.load_optimizer_state(run.model.get_optimizer_state())
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "its optimizer state is refused under the even split")
+    e2e["checkpoint"] = Path(hook.last_saved).name
+    log(f"   e2e: {json.dumps(e2e)}")
+    del run, restored, ps
+    return launches, e2e
+
+
+def headline(np, model_cfg, static_bench, model_bench, vocab_size,
+             devices=None):
+    """The package's headline pass (``dynamics/headline.py``) on the
+    trainer's model and batch, under the paper's slowdowns, with the
+    static model's prediction beside it.  Optimal must beat even at
+    every microbatch count."""
+    from skycomputing_tpu_torch.dynamics.headline import (
+        HEADLINE_MICROBATCHES,
+        headline_pass,
+        worker_slowdowns,
+    )
+
+    data, _ = bert_batch(np, vocab_size)
+    head = headline_pass(
+        model_cfg, model_bench, data, worker_slowdowns(BERT_WORKERS, "paper"),
+        static_bench.benchmark()[0], devices=devices,
+        log=lambda line: log(f"   {line}"))
+    for m in HEADLINE_MICROBATCHES:
+        even, opt = head["even_step_s"][m], head["optimal_step_s"][m]
+        check(opt < even,
+              f"M={m}: optimal {opt * 1e3:.1f} ms < even {even * 1e3:.1f} "
+              f"ms (means of {head['optimal']['step_s'][m] * 1e3:.1f}, "
+              f"{head['optimal_again']['step_s'][m] * 1e3:.1f} and "
+              f"{head['even']['step_s'][m] * 1e3:.1f}, "
+              f"{head['even_again']['step_s'][m] * 1e3:.1f}; "
+              f"{head['speedup'][m]:.1%} faster)")
+    return head
+
+
 def main() -> int:
     import torch
 
@@ -1388,7 +1692,6 @@ def main() -> int:
             f"steps 2-{BERT_STEPS}), {e2e['tokens_per_s']:.0f} tokens/s, "
             f"MFU {e2e['mfu']:.2%}, peak {e2e['peak_mem_gb']:.2f} GB")
         report["e2e_train"] = e2e
-        train_launches = launches
 
     with phase("profile: device time by kernel over one train step"):
         b1_before = flash_attention.launches
@@ -1421,6 +1724,48 @@ def main() -> int:
               f"card and CPU parameters within "
               f"{cmp['max_param_abs_diff']:.3g} <= 1e-5 after two steps")
         report["trainer_card_vs_cpu"] = cmp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    bert_cfg, bert_cfgs = bert_units()
+    with phase("profilers: BERT-large's 75 units and 4 workers"):
+        static_bench, timed_bench, prof = profilers(
+            torch, np, kernels, bert_cfgs, bert_cfg.vocab_size)
+        log(f"   {prof['distinct_units']} distinct units timed in "
+            f"{prof['timed_s']:.2f} s, counted in {prof['static_s']:.2f} s; "
+            f"memory estimate {prof['mem_total_gb']:.3f} GB; B1 launched "
+            f"{prof['launches'][B1]} times")
+        report["profilers"] = prof
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with phase("launcher: optimal allocation, 1F1B M=4, BERT-large"):
+        workdir = ROOT / "build" / "chip_smoke"
+        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            launcher_launches, e2e = launcher_path(torch, np, kernels,
+                                                   workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        gpipe = report["e2e_train"]
+        for key in ("step_s_median_2_5", "tokens_per_s", "mfu",
+                    "peak_mem_gb"):
+            log(f"   {key}: 1F1B optimal {e2e[key]:.6g}, GPipe even "
+                f"{gpipe[key]:.6g}")
+        report["e2e_launcher"] = e2e
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with phase("headline pass: even, calibration, optimal (paper slowdowns)"):
+        head = headline(np, bert_cfgs, static_bench, timed_bench,
+                        bert_cfg.vocab_size)
+        log(f"   partitions: even {head['even']['partition']}, optimal "
+            f"{head['optimal']['partition']} (solver gap "
+            f"{head['solver_gap']:.3g}); speedup "
+            f"{json.dumps(head['speedup'])}")
+        report["headline"] = head
+        gc.collect()
+        torch.cuda.empty_cache()
 
     def entry(name, kernel_launches, rows=attn, case="decode"):
         row = next(r for r in rows if r["kernel"] == name
@@ -1433,10 +1778,10 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     # each kernel's launches from the path that is its own: B2 from the
-    # fp serving path, B3 from the int8 path, B1 from the trainer
+    # fp serving path, B3 from the int8 path, B1 from the launcher's run
     line = {"kernels": [entry(B2, main_launches[B2]),
                         entry(B3, int8_launches[B3]),
-                        entry(B1, train_launches[B1], flash,
+                        entry(B1, launcher_launches[B1], flash,
                               "bert_large_L128")]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

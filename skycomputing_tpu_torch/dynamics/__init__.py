@@ -1,10 +1,30 @@
-"""Cluster membership, allocation and the host parameter store (the
-port of ``skycomputing_tpu/dynamics``: slice 3 ports the workers, even
-allocation and the parameter server)."""
+"""Cluster membership, profiling, allocation and the host parameter
+store (the port of ``skycomputing_tpu/dynamics``)."""
 
 from .allocator import Allocator
+from .benchmarker import (
+    DeviceBenchmarker,
+    ModelBenchmarker,
+    device_available_memory_mb,
+    proxy_device_benchmarker,
+)
+from .estimator import Estimator
 from .parameter_server import ParameterServer
+from .solver import PartitionResult, solve_contiguous_minmax
 from .worker import Worker
-from .worker_manager import WorkerManager
+from .worker_manager import WorkerManager, worker_pool_config
 
-__all__ = ["Allocator", "ParameterServer", "Worker", "WorkerManager"]
+__all__ = [
+    "Allocator",
+    "DeviceBenchmarker",
+    "Estimator",
+    "ModelBenchmarker",
+    "ParameterServer",
+    "PartitionResult",
+    "Worker",
+    "WorkerManager",
+    "device_available_memory_mb",
+    "proxy_device_benchmarker",
+    "solve_contiguous_minmax",
+    "worker_pool_config",
+]

@@ -13,6 +13,18 @@ from typing import Dict, List, Optional
 from .worker import Worker
 
 
+def worker_pool_config(num_workers: int, mem_limit: float = -1,
+                       prefix: str = "gpu") -> List[Dict]:
+    """Configs of ``num_workers`` pipeline workers, worker ``i`` on card
+    ``i`` (round-robined over the cards there are), no slowdown, and a
+    memory limit in MB (``-1``: the card's free memory)."""
+    return [
+        dict(name=f"{prefix}-{i}", device_config=dict(device_index=i),
+             extra_config=dict(slowdown=1.0, mem_limit=mem_limit))
+        for i in range(num_workers)
+    ]
+
+
 class WorkerManager:
     def __init__(self, reserve_host_rank: bool = False):
         self._worker_pool: List[Worker] = []
@@ -87,4 +99,4 @@ class WorkerManager:
         return manager
 
 
-__all__ = ["WorkerManager"]
+__all__ = ["WorkerManager", "worker_pool_config"]

@@ -218,7 +218,9 @@ def flash_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     check_blocks(q.shape[1], block_q, block_k)
-    if q.device.type == "cpu":
+    # a meta tensor computes nothing: the plain version gives the static
+    # profiler the output's shape and the FLOP counter the products
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_reference(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")

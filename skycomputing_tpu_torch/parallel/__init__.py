@@ -1,6 +1,13 @@
 """The MPMD pipeline engine (the port of ``skycomputing_tpu/parallel``:
-slice 3 ports the GPipe ``PipelineModel``)."""
+``PipelineModel`` under GPipe and 1F1B)."""
 
-from .pipeline import PipelineModel, PipelineStats, StageRuntime, sgd
+from .pipeline import (
+    PipelineModel,
+    PipelineStats,
+    StageRuntime,
+    build_optimizer,
+    sgd,
+)
 
-__all__ = ["PipelineModel", "PipelineStats", "StageRuntime", "sgd"]
+__all__ = ["PipelineModel", "PipelineStats", "StageRuntime",
+           "build_optimizer", "sgd"]

@@ -11,15 +11,23 @@
   returning the cotangents of its own (floating) inputs.  Stage 0 takes
   no input cotangent.  The forward pass itself runs under
   ``torch.no_grad()``, so no activation outlives its stage call;
-- **microbatching** is GPipe fill-drain: contiguous leading-axis chunks
-  of the batch (labels split the same way), every forward, then every
-  backward in reverse microbatch order, each loss scaled by ``1/M``
-  with its ``dlogits`` taken from the loss; the gradients accumulate in
-  the parameters' ``.grad`` in the JAX engine's summation order; the
-  last stage's outputs after the logits get no cotangent;
+- **microbatching** splits the batch into contiguous leading-axis
+  chunks (labels split the same way), each loss scaled by ``1/M`` with
+  its ``dlogits`` taken from the loss; the last stage's outputs after
+  the logits get no cotangent.  Two schedules, with the gradients
+  accumulating in the parameters' ``.grad`` in the JAX engine's
+  summation order for each: **GPipe** fill-drain (every forward, then
+  every backward in reverse microbatch order) and **1F1B** (each
+  microbatch's backward issued as soon as its forward clears the last
+  stage: warm-up forwards, alternating backward/forward, drain; a
+  stage's stored input is freed when its backward is issued, so live
+  inputs per stage are bounded by the depth, not by M);
 - each stage's **optimizer** is built by a factory over the stage's
-  parameters (:func:`sgd`: ``torch.optim.SGD(lr)``, the update of
-  ``optax.sgd``);
+  parameters (:func:`sgd`, or :func:`build_optimizer` from a config's
+  optax name with optax's defaults);
+- :meth:`PipelineModel.measure_stage_times` times each stage's forward
+  plus rematerialized backward on its device, for the allocator's
+  closed loop;
 - per-worker **slowdown** emulation sleeps ``elapsed x (slowdown - 1)``
   after each stage call, as in the JAX engine.
 
@@ -29,9 +37,7 @@ and its rematerialized forward under the same seed, so both see the
 same mask.
 
 Devices default to every CUDA device; with no card and no explicit
-``devices=[torch.device("cpu")]`` construction raises.  Not ported yet
-(slice 4): the 1F1B schedule and ``measure_stage_times``; optimizers
-other than SGD and optimizer-state checkpoints are not ported.
+``devices=[torch.device("cpu")]`` construction raises.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import json
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -50,20 +57,48 @@ from torch import nn
 from ..builder import as_tuple, build_layer_stack
 from ..dynamics.parameter_server import ParameterServer
 from ..dynamics.worker_manager import WorkerManager
-from ..utils import resolve_device
+from ..utils import resolve_devices
 
 OptimizerFactory = Callable[[List[nn.Parameter]], torch.optim.Optimizer]
-
-
-def _not_ported(feature: str):
-    raise NotImplementedError(
-        f"{feature} is not ported to the PyTorch pipeline yet (slice 4)"
-    )
 
 
 def sgd(learning_rate: float) -> OptimizerFactory:
     """``optax.sgd(learning_rate)``'s update as a per-stage factory."""
     return functools.partial(torch.optim.SGD, lr=learning_rate)
+
+
+# optax's factories -> (torch.optim class, optax's defaults, the map from
+# optax's argument names to torch's)
+_OPTAX = {
+    "sgd": (torch.optim.SGD, dict(momentum=None, nesterov=False),
+            lambda a: dict(momentum=a["momentum"] or 0.0,
+                           nesterov=a["nesterov"])),
+    "adam": (torch.optim.Adam, dict(b1=0.9, b2=0.999, eps=1e-8),
+             lambda a: dict(betas=(a["b1"], a["b2"]), eps=a["eps"])),
+    "adamw": (torch.optim.AdamW,
+              dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4),
+              lambda a: dict(betas=(a["b1"], a["b2"]), eps=a["eps"],
+                             weight_decay=a["weight_decay"])),
+}
+
+
+def build_optimizer(optim_cfg: Dict) -> OptimizerFactory:
+    """A per-stage optimizer factory from a config's optax spelling
+    (``optim_type`` in ``sgd``/``adam``/``adamw``, ``learning_rate`` and
+    optax's keyword names), with optax's defaults — ``adamw`` decays by
+    1e-4 as optax does, not by ``torch.optim.AdamW``'s 1e-2.  Anything
+    else raises."""
+    cfg = dict(optim_cfg)
+    name = str(cfg.pop("optim_type")).lower()
+    if name not in _OPTAX:
+        raise ValueError(
+            f"optimizer {name!r} is not ported; use one of {sorted(_OPTAX)}")
+    cls, defaults, to_torch = _OPTAX[name]
+    lr = cfg.pop("learning_rate")
+    unknown = sorted(set(cfg) - set(defaults))
+    if unknown:
+        raise ValueError(f"{name}: options {unknown} are not ported")
+    return functools.partial(cls, lr=lr, **to_torch({**defaults, **cfg}))
 
 
 def _to_device(acts: Tuple, device: torch.device) -> Tuple:
@@ -135,6 +170,10 @@ class StageRuntime:
         self.stage_index = stage_index
         self.device = torch.device(device)
         self.num_layers = len(layer_cfgs)
+        # stages sharing this key run the same modules on equal inputs,
+        # so their compute profile on one device is the same
+        self.config_key = json.dumps(list(layer_cfgs), sort_keys=True,
+                                     default=str)
         self.slowdown = float(slowdown)
         self._differentiable_inputs = differentiable_inputs
         self._optimizer_factory = optimizer
@@ -177,15 +216,16 @@ class StageRuntime:
                 train: bool = True) -> Tuple:
         """The stage forward without a graph: only its inputs are kept
         (by the caller) for the rematerializing backward."""
+        return self._emulated(lambda: self.forward_raw(inputs, seed, train))
+
+    def forward_raw(self, inputs: Tuple, seed: Optional[int] = None,
+                    train: bool = True) -> Tuple:
+        """:meth:`forward` without the slowdown emulation."""
         if self.stack.training != train:
             self.stack.train(train)
         inputs = _to_device(inputs, self.device)
-
-        def run():
-            with torch.no_grad(), self._dropout_seed(seed):
-                return as_tuple(self.stack(*inputs))
-
-        return self._emulated(run)
+        with torch.no_grad(), self._dropout_seed(seed):
+            return as_tuple(self.stack(*inputs))
 
     def backward(self, inputs: Tuple, dy: Tuple,
                  seed: Optional[int] = None) -> Optional[Tuple]:
@@ -194,28 +234,27 @@ class StageRuntime:
         cotangent): parameter gradients accumulate into ``.grad``.
         Returns the input cotangents (``None`` for stage 0 and for
         inputs that are not floating point)."""
+        return self._emulated(lambda: self.backward_raw(inputs, dy, seed))
+
+    def backward_raw(self, inputs: Tuple, dy: Tuple,
+                     seed: Optional[int] = None) -> Optional[Tuple]:
+        """:meth:`backward` without the slowdown emulation."""
         self.stack.train(True)
         dy = _to_device(dy, self.device)
-
-        def run():
-            with torch.enable_grad(), self._dropout_seed(seed):
-                xs = tuple(
-                    x.detach().requires_grad_(
-                        self._differentiable_inputs
-                        and x.is_floating_point())
-                    if isinstance(x, torch.Tensor) else x
-                    for x in inputs
-                )
-                outs = as_tuple(self.stack(*xs))
-                pairs = [(o, g) for o, g in zip(outs, dy)
-                         if g is not None and isinstance(o, torch.Tensor)
-                         and o.requires_grad]
-                if pairs:
-                    torch.autograd.backward([o for o, _ in pairs],
-                                            [g for _, g in pairs])
-            return xs
-
-        xs = self._emulated(run)
+        with torch.enable_grad(), self._dropout_seed(seed):
+            xs = tuple(
+                x.detach().requires_grad_(
+                    self._differentiable_inputs and x.is_floating_point())
+                if isinstance(x, torch.Tensor) else x
+                for x in inputs
+            )
+            outs = as_tuple(self.stack(*xs))
+            pairs = [(o, g) for o, g in zip(outs, dy)
+                     if g is not None and isinstance(o, torch.Tensor)
+                     and o.requires_grad]
+            if pairs:
+                torch.autograd.backward([o for o, _ in pairs],
+                                        [g for _, g in pairs])
         if not self._differentiable_inputs:
             return None
         return tuple(x.grad if isinstance(x, torch.Tensor) else None
@@ -248,13 +287,16 @@ class StageRuntime:
 class PipelineStats:
     """Wall-clock phase accounting for the last step: ``forward_s`` and
     ``backward_s`` end at device barriers, ``step_s`` is the update.
-    ``dispatch_s`` is the host's time issuing the loops and the update;
-    ``compute_wait_s`` the rest of the step's wall time."""
+    Under 1F1B forward and backward interleave: ``forward_s`` holds the
+    whole interleaved loop, ``backward_s`` is 0 and ``interleaved`` is
+    True.  ``dispatch_s`` is the host's time issuing the loops and the
+    update; ``compute_wait_s`` the rest of the step's wall time."""
 
     forward_s: float = 0.0
     backward_s: float = 0.0
     step_s: float = 0.0
     loss: float = 0.0
+    interleaved: bool = False
     dispatch_s: float = 0.0
     compute_wait_s: float = 0.0
 
@@ -277,19 +319,13 @@ class PipelineModel:
         num_microbatches: int = 1,
         schedule: str = "gpipe",
     ):
-        if schedule == "1f1b":
-            _not_ported("the 1F1B schedule")
-        if schedule != "gpipe":
+        if schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown schedule {schedule!r}")
         self._worker_manager = worker_manager
         self._parameter_server = parameter_server
         self._optimizer = optimizer
         self._loss_fn = loss_fn
-        if devices is None:
-            resolve_device(None)  # raises where there is no card
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
-        self._devices = [resolve_device(d) for d in devices]
+        self._devices = resolve_devices(devices)
         self.num_microbatches = num_microbatches
         self.schedule = schedule
         self.stats = PipelineStats()
@@ -395,7 +431,8 @@ class PipelineModel:
         total_loss = float(sum(loss.item() for loss in losses))
         self.stats = PipelineStats(
             forward_s=t1 - t0, backward_s=t2 - t1, step_s=t3 - t2,
-            loss=total_loss, dispatch_s=dispatch_s,
+            loss=total_loss, interleaved=self._interleaved,
+            dispatch_s=dispatch_s,
             compute_wait_s=max((t3 - t0) - dispatch_s, 0.0),
         )
         return total_loss
@@ -407,12 +444,14 @@ class PipelineModel:
             (dlogits,) = torch.autograd.grad(loss, lg)
         return loss.detach(), dlogits
 
-    def compute_gradients(self, data, labels,
-                          generator: Optional[torch.Generator] = None):
-        """GPipe fwd/bwd without the update: (per-stage gradient lists,
-        per-microbatch scaled losses, phase timestamps taken after
-        device barriers).  The gradients are the stages' ``.grad``
-        tensors; :meth:`apply_gradients` applies them."""
+    @property
+    def _interleaved(self) -> bool:
+        """True when gradients come from the interleaved 1F1B loop (one
+        microbatch has nothing to interleave)."""
+        return self.schedule == "1f1b" and self.num_microbatches > 1
+
+    def _step_inputs(self, data, labels, generator):
+        """(M, S, microbatch data, microbatch labels, 1/M, seeds)."""
         if generator is None:
             # deterministic default: a per-call counter, so identically
             # seeded runs replay identically
@@ -421,10 +460,24 @@ class PipelineModel:
             self._grad_call_count += 1
         M = self.num_microbatches
         S = len(self.stages)
-        micro_data = _split_microbatches(as_tuple(data), M)
-        micro_labels = _split_microbatches(labels, M)
-        scale = 1.0 / M
-        seeds = self._step_seeds(generator, M, S)
+        return (M, S, _split_microbatches(as_tuple(data), M),
+                _split_microbatches(labels, M), 1.0 / M,
+                self._step_seeds(generator, M, S))
+
+    def compute_gradients(self, data, labels,
+                          generator: Optional[torch.Generator] = None):
+        """Schedule-dispatched fwd/bwd without the update: (per-stage
+        gradient lists, per-microbatch scaled losses, phase timestamps
+        taken after device barriers).  The gradients are the stages'
+        ``.grad`` tensors; :meth:`apply_gradients` applies them.  Under
+        1F1B the middle timestamp equals the last."""
+        if self._interleaved:
+            return self._compute_gradients_1f1b(data, labels, generator)
+        return self._compute_gradients_gpipe(data, labels, generator)
+
+    def _compute_gradients_gpipe(self, data, labels, generator):
+        M, S, micro_data, micro_labels, scale, seeds = self._step_inputs(
+            data, labels, generator)
         last_device = self.stages[-1].device
 
         t0 = time.perf_counter()
@@ -471,13 +524,218 @@ class PipelineModel:
                     p.grad = g
             stage.apply_gradients()
 
-    def measure_stage_times(self, *args, **kwargs):
-        _not_ported("measure_stage_times")
+    def _compute_gradients_1f1b(self, data, labels, generator):
+        """One-forward-one-backward: a dependency-driven issue loop over
+        per-stage queues (warm-up forwards, then alternating
+        backward/forward, then drain), the JAX engine's loop.  A stage's
+        stored input for microbatch m is freed when its backward is
+        issued; gradients accumulate in microbatch order."""
+        M, S, micro_data, micro_labels, scale, seeds = self._step_inputs(
+            data, labels, generator)
+        last_device = self.stages[-1].device
+
+        t0 = time.perf_counter()
+        stage_inputs: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
+        stage_outputs: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
+        dys: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
+        losses: List[torch.Tensor] = []
+        fwd_next = [0] * S  # next microbatch each stage will forward
+        bwd_next = [0] * S  # next microbatch each stage will backward
+
+        def can_fwd(k):
+            m = fwd_next[k]
+            return m < M and (k == 0 or m in stage_outputs[k - 1])
+
+        def can_bwd(k):
+            m = bwd_next[k]
+            if m >= M or m not in stage_inputs[k]:
+                return False
+            # the cotangent comes from the loss on the last stage, from
+            # the next stage's input cotangent elsewhere
+            return m in (dys[k] if k == S - 1 else dys[k + 1])
+
+        def do_fwd(k):
+            m = fwd_next[k]
+            stage = self.stages[k]
+            acts = micro_data[m] if k == 0 else stage_outputs[k - 1].pop(m)
+            acts = _to_device(acts, stage.device)
+            stage_inputs[k][m] = acts
+            out = stage.forward(acts, seeds[m][k])
+            if k < S - 1:
+                stage_outputs[k][m] = out
+            else:
+                loss_m, dlogits = self._loss_and_dlogits(
+                    out[0], micro_labels[m].to(last_device), scale)
+                losses.append(loss_m)
+                dys[k][m] = (dlogits,) + (None,) * (len(out) - 1)
+            fwd_next[k] += 1
+
+        def do_bwd(k):
+            m = bwd_next[k]
+            dy = dys[k].pop(m) if k == S - 1 else dys[k + 1].pop(m)
+            dx = self.stages[k].backward(stage_inputs[k].pop(m), dy,
+                                         seeds[m][k])
+            if k > 0:
+                dys[k][m] = dx
+            bwd_next[k] += 1
+
+        # walk the stages last to first issuing backwards (they free
+        # memory), then first to last issuing forwards
+        while any(b < M for b in bwd_next):
+            progressed = False
+            for k in reversed(range(S)):
+                # stage k holds its first backward until S - k forwards
+                # are in flight or its forwards are done
+                if can_bwd(k) and (
+                        fwd_next[k] - bwd_next[k] >= min(S - k,
+                                                         M - bwd_next[k])
+                        or fwd_next[k] >= M):
+                    do_bwd(k)
+                    progressed = True
+            for k in range(S):
+                if can_fwd(k):
+                    do_fwd(k)
+                    progressed = True
+            if not progressed:  # pragma: no cover - deadlock guard
+                raise RuntimeError("1F1B schedule made no progress")
+
+        self._last_dispatch_s = time.perf_counter() - t0
+        _synchronize(self._stage_devices)
+        t2 = time.perf_counter()
+        grad_totals = [[p.grad for p in stage.parameters]
+                       for stage in self.stages]
+        # interleaved: forward_s carries the whole loop, backward_s is 0
+        return grad_totals, losses, (t0, t2, t2)
+
+    # --- profiling ----------------------------------------------------------
+    def measure_stage_times(
+        self,
+        data,
+        generator: Optional[torch.Generator] = None,
+        repeats: int = 3,
+        inner_iters=3,
+        dedup: bool = True,
+        auto_window_s: float = 0.5,
+        seed_times: Optional[Dict] = None,
+    ) -> List[float]:
+        """Per-stage seconds of one iteration — the stage's forward plus
+        its rematerialized backward against a zero cotangent, what a
+        train step issues per microbatch — on the stage's device.
+
+        After one warm iteration per stage, the median of ``repeats``
+        samples, each timing ``inner_iters`` chained iterations closed by
+        one synchronize.  The samples are taken round-robin over the
+        stages being timed, so a drift of the host's speed during the
+        pass lands on every stage alike.  ``inner_iters="auto"`` sizes
+        the chain per stage from one post-warm probe: ``clamp(round(
+        auto_window_s / t1), 1, 3)``.  ``dedup`` times a stage once per
+        (layer structure, input shapes and dtypes, device) and reuses the
+        time for its twins; the untimed forward still runs per stage to
+        feed the next.  ``seed_times`` is a (key -> raw seconds) map
+        carried across calls: keys present are trusted, new measurements
+        are written back.  Each reported time is the raw time multiplied
+        by the stage's ``slowdown`` (the timed calls bypass the slowdown
+        emulation); the map stores raw times."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        seeds = self._step_seeds(generator, 1, len(self.stages))[0]
+        acts = as_tuple(data)
+        seen: Dict = seed_times if seed_times is not None else {}
+        keys: List = []
+        samplers: Dict[int, Callable[[], float]] = {}  # by stage index
+        timing: set = set()  # keys a sampler of this call times
+        for k, (stage, seed) in enumerate(zip(self.stages, seeds)):
+            inputs = _to_device(acts, stage.device)
+            out = stage.forward_raw(inputs, seed)
+            key = (
+                stage.config_key,
+                tuple((tuple(x.shape), str(x.dtype)) for x in inputs),
+                str(stage.device),
+            )
+            keys.append(key)
+            if not (dedup and (key in seen or key in timing)):
+                samplers[k] = self._stage_sampler(stage, inputs, out, seed,
+                                                  inner_iters, auto_window_s)
+                timing.add(key)
+            acts = out
+        samples: Dict[int, List[float]] = {k: [] for k in samplers}
+        for _ in range(repeats):
+            for k, sample in samplers.items():
+                samples[k].append(sample())
+        raw = {k: float(np.median(v)) for k, v in samples.items()}
+        for k, t in raw.items():
+            seen[keys[k]] = t
+        for stage in self.stages:
+            stage.optimizer.zero_grad(set_to_none=True)
+        return [raw.get(k, seen[key]) * max(stage.slowdown, 1.0)
+                for k, (stage, key) in enumerate(zip(self.stages, keys))]
+
+    @staticmethod
+    def _stage_sampler(stage: StageRuntime, inputs, out, seed, inner_iters,
+                       auto_window_s: float) -> Callable[[], float]:
+        """Warm ``stage`` on ``inputs``; returns a callable that takes one
+        sample: seconds per iteration over a chain closed by a
+        synchronize."""
+        dy = tuple(torch.zeros_like(o) if o.is_floating_point() else None
+                   for o in out)
+
+        def one_iter():
+            stage.forward_raw(inputs, seed)
+            stage.backward_raw(inputs, dy, seed)
+
+        one_iter()  # warm
+        _synchronize([stage.device])
+        if inner_iters == "auto":
+            t0 = time.perf_counter()
+            one_iter()
+            _synchronize([stage.device])
+            t1 = time.perf_counter() - t0
+            inner = max(1, min(3, round(auto_window_s / max(t1, 1e-9))))
+        else:
+            inner = max(int(inner_iters), 1)
+
+        def sample() -> float:
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                one_iter()
+            _synchronize([stage.device])
+            return (time.perf_counter() - t0) / inner
+
+        return sample
 
     # --- training state -----------------------------------------------------
     def partition_signature(self) -> List[int]:
         """Layer counts per stage — identifies the current allocation."""
         return [stage.num_layers for stage in self.stages]
+
+    def get_optimizer_state(self) -> Dict:
+        """Host copies of every stage's optimizer state, tagged with the
+        partition they belong to: unlike the layer-indexed parameters,
+        optimizer state is shaped per stage, so it restores only under
+        the same allocation."""
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().to("cpu", copy=True)
+            if isinstance(x, dict):
+                return {k: host(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(host(v) for v in x)
+            return x
+
+        return {"partition": self.partition_signature(),
+                "stages": [host(stage.optimizer.state_dict())
+                           for stage in self.stages]}
+
+    def load_optimizer_state(self, state: Dict) -> None:
+        saved = list(state["partition"])
+        if saved != self.partition_signature():
+            raise ValueError(
+                f"optimizer state was saved under partition {saved}, "
+                f"current partition is {self.partition_signature()}; "
+                "re-allocate to match or restore parameters only"
+            )
+        for stage, stage_state in zip(self.stages, state["stages"]):
+            stage.optimizer.load_state_dict(stage_state)
 
     def sync_to_parameter_server(self) -> None:
         """Gather every stage's layer weights back into the host copy."""
@@ -502,5 +760,6 @@ __all__ = [
     "PipelineModel",
     "PipelineStats",
     "StageRuntime",
+    "build_optimizer",
     "sgd",
 ]

@@ -1,8 +1,13 @@
-"""The training loop and its hook base (the port of
-``skycomputing_tpu/runner``: slice 3 ports ``Hook`` and ``Runner.train``;
-the hook collection waits for slice 4)."""
+"""The training loop, its hook base and the hook collection (the port of
+``skycomputing_tpu/runner``)."""
 
 from .hooks import Hook
+from .hooks_collection import (
+    CheckpointHook,
+    DistributedTimerHelperHook,
+    StopHook,
+)
 from .runner import Runner
 
-__all__ = ["Hook", "Runner"]
+__all__ = ["CheckpointHook", "DistributedTimerHelperHook", "Hook", "Runner",
+           "StopHook"]

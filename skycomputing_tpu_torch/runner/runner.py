@@ -9,8 +9,8 @@ run after the current iteration; an epoch cut short is neither counted
 nor announced to ``after_train_epoch``.
 
 Not ported yet: pre-flight plan checking (``preflight=True`` raises
-``NotImplementedError``), the compile cache (PyTorch runs eagerly), the
-live-metrics surface and evaluation.
+``NotImplementedError``), the live-metrics surface and evaluation.  The
+JAX runner's compile cache has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -42,8 +42,9 @@ class Runner:
     ):
         if preflight:
             raise NotImplementedError(
-                "pre-flight plan checking is not ported to PyTorch yet "
-                "(slice 4); pass preflight=False"
+                "pre-flight plan checking is not ported to PyTorch yet (a "
+                "later slice, over analysis/plan_check.py); pass "
+                "preflight=False"
             )
         self.model = model
         self.parameter_server = parameter_server
@@ -76,9 +77,17 @@ class Runner:
     def epoch(self) -> int:
         return self._epoch
 
+    @epoch.setter
+    def epoch(self, value: int) -> None:
+        self._epoch = value
+
     @property
     def iter(self) -> int:
         return self._iter
+
+    @iter.setter
+    def iter(self, value: int) -> None:
+        self._iter = value
 
     @property
     def inner_iter(self) -> int:
@@ -99,6 +108,13 @@ class Runner:
     @property
     def logger(self) -> Logger:
         return self._logger
+
+    def snapshot_rng(self) -> torch.Tensor:
+        """The step-generator stream's state, for checkpointing."""
+        return self._generator.get_state()
+
+    def restore_rng(self, state: torch.Tensor) -> None:
+        self._generator.set_state(state)
 
     def request_stop(self) -> None:
         """Cooperative stop: finishes the current iteration then exits."""

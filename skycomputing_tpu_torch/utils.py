@@ -43,6 +43,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_devices(devices=None) -> List[torch.device]:
+    """Each of ``devices`` resolved, or every CUDA device when None (and
+    then, as :func:`resolve_device`, raising where there is none)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    return [resolve_device(d) for d in devices]
+
+
 class Logger:
     """Timestamped line logger writing to a file and/or stderr
     (``filename=None``: stderr only).  ``info`` writes ``[ts] message``;
@@ -148,4 +158,4 @@ class PhaseTimer:
 
 
 __all__ = ["DistributedTimer", "Logger", "PhaseTimer", "resolve_device",
-           "torch_dtype"]
+           "resolve_devices", "torch_dtype"]
