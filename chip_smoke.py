@@ -11,21 +11,25 @@ one.  Phases, each fatal on failure:
    the tensor-core and decode bodies must not spill;
 3. each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, with kernel / plain / library times and the
-   bound: paged attention at GPT-2 small's shapes (decode, prefill and
-   speculative-verify waves) over fp pages (kernel B2) and over int8
-   pages with per-page-per-head scales (kernel B3); flash attention
-   (kernel B1) at BERT-large's microbatch (B=8, L=128, H=16, D=64, a
-   padded tail of 32 keys), at L=512 and at L=100; then, checked but
-   not timed, each kernel body's edges (B1 at L=7, 64 and 65, head_dim
-   32, 40 and 128, B=1, every key masked; B2 and B3 with a row at index
-   0 and a row filling its whole table, head_dim 64 and 128, Lq 1, 5,
-   16 and 17).  Every row names the body that served it and what
-   ``ptxas -v`` reported for that body (registers, spills, shared
-   memory) beside its dynamic shared memory;
+   bound: paged attention at GPT-2 small's shapes (decode waves,
+   speculative-verify waves, prefill waves at R=4 and Lq 32, 128 and 256,
+   a chunked-prefill wave at Lq=64 with every row past index 0) over
+   fp pages (kernel B2) and over int8 pages with per-page-per-head
+   scales (kernel B3); flash attention (kernel B1) at BERT-large's
+   microbatch (B=8, L=128, H=16, D=64, a padded tail of 32 keys), at
+   L=512 and at L=100; then, checked but not timed, each kernel body's
+   edges (B1 at L=7, 64 and 65, head_dim 32, 40 and 128, B=1, every key
+   masked; B2 and B3 with a row at index 0, a row filling its whole
+   table and an all-sentinel pad row, head_dim 64 and 128, Lq 1, 5, 16,
+   17, 63, 64, 65 and 256).  Every row names the body that served it
+   and what ``ptxas -v`` reported for that body (registers, spills,
+   shared memory) beside its dynamic shared memory;
 4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
-   read from that run alone;
+   read from that run alone, by body too: every prefill wave on the
+   tensor-core body, every decode tick on the decode body (likewise
+   in phases 5-7);
 5. the same workload with ``kv_dtype="int8"`` (kernel B3 in every
    layer of every step, B2 never), beside the fp run's numbers;
 6. speculative decoding (``spec_k=4``, ``draft_blocks=2``) over fp
@@ -38,9 +42,10 @@ one.  Phases, each fatal on failure:
    the card must choose the CPU's token at at least 95% of positions
    (the free-running streams' agreement is reported); speculative
    streams on the card must equal the card's plain streams;
-9. a profiler breakdown of a few decode ticks, fp and int8 (device time
-   by kernel), and what the KV write (the int8 quantize-on-write, the fp
-   scatter) costs per tick;
+9. a profiler breakdown of one prefill wave and of a few decode ticks,
+   fp and int8 (device time by kernel, the card's idle share), and what
+   the KV write (the int8 quantize-on-write, the fp scatter) costs per
+   tick;
 10. bf16 flash on against off: BERT-large's width at depth 2, two
     steps in bfloat16 with ``use_flash_attention`` on (B1's
     tensor-core body inside the model) and off (the einsum path) from
@@ -261,7 +266,7 @@ def body_fields(ptxas, body, label, smem_bytes):
                 dynamic_smem_bytes=smem_bytes)
 
 
-def paged_body(ptxas, q, page_dtype, table):
+def paged_body(ptxas, q, page_dtype, table, page_size=16):
     """Which body of B2/B3 serves ``q`` over pages of ``page_dtype``."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         kernel_plan,
@@ -269,16 +274,18 @@ def paged_body(ptxas, q, page_dtype, table):
     )
 
     R, Lq, H, D = q.shape
-    body = kernel_plan(page_dtype, Lq, D)
+    body = kernel_plan(q.dtype, page_dtype, Lq, D, page_size)
     kv = _SHORT[str(page_dtype).replace("torch.", "")]
     t = _SHORT[str(q.dtype).replace("torch.", "")]
     if body == "decode":
         max_q = 1 if Lq == 1 else (8 if Lq <= 8 else 16)
         label = f"paged_attention_kernel_decode<{t}, {kv}, {max_q}>"
+    elif body == "tensor_core":
+        label = f"paged_attention_kernel_mma<{kv}, {D}>"
     else:
         label = f"paged_attention_kernel<{t}, {kv}>"
     return body_fields(ptxas, body, label, kernel_smem_bytes(
-        body, page_dtype, Lq, D, 16, table.shape[1]))
+        body, page_dtype, Lq, D, page_size, table.shape[1]))
 
 
 def flash_body(torch, ptxas, q):
@@ -306,13 +313,23 @@ def flash_body(torch, ptxas, q):
 # --------------------------------------------------------------------------
 
 
+# (case, R, Lq): decode and speculative-verify waves (the decode body),
+# prefill waves at buckets 128, 256 and 32 and a chunked-prefill wave of
+# 64 (bf16: the tensor-core body; float32: the query-tile body)
+PAGED_CASES = (("decode", 16, 1), ("prefill", 4, 128), ("verify", 16, 5),
+               ("prefill_256", 4, 256), ("chunk", 4, 64),
+               ("prefill_32", 4, 32))
+
+
 def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False):
     """GPT-2 small heads (H=12, D=64), page_size 16, a 512-page pool.
     Decode and verify waves: 12 live rows at positions 1..300 (every
     fourth row inactive); prefill: 2 live rows (one appending after a
-    64-token prefix) and 2 pad rows.  ``int8``: pages are N(0, 32)
-    rounded and clipped to int8, scales U(0.02, 0.04) per (page, head),
-    so the dequantized pages are of unit size like the fp ones."""
+    64-token prefix) and 2 pad rows; chunk: 4 live rows, each appending
+    a chunk after 64, 128, 192 or 256 positions.  ``int8``: pages are
+    N(0, 32) rounded and clipped to int8, scales U(0.02, 0.04) per
+    (page, head), so the dequantized pages are of unit size like the fp
+    ones."""
     H, D, PS, P, W = 12, 64, 16, 512, 32
     rng = np.random.default_rng(seed)
     pages = rng.permutation(P - 1)  # page P-1 is only ever a clamp target
@@ -324,6 +341,8 @@ def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False):
             if r % 4 == 3:
                 continue  # inactive row: index 0, all sentinels
             index[r] = rng.integers(1, 300)
+        elif name == "chunk":
+            index[r] = 64 * (r + 1)
         elif r >= 2:
             continue  # prefill pad row: index 0, all sentinels
         else:
@@ -424,13 +443,14 @@ def kernel_checks(torch, np, ptxas):
 
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     results = []
-    for kernel, int8 in (("paged_attention", False),
-                         ("paged_attention_int8", True)):
-        for name, R, Lq in (("decode", 16, 1), ("prefill", 4, 128),
-                            ("verify", 16, 5)):
-            for dtype in ("bfloat16", "float32"):
+    for ki, (kernel, int8) in enumerate((("paged_attention", False),
+                                         ("paged_attention_int8", True))):
+        for ci, (name, R, Lq) in enumerate(PAGED_CASES):
+            for di, dtype in enumerate(("bfloat16", "float32")):
+                # the first three cases keep their earlier seeds
+                seed = 6 * ki + 2 * ci + di + (0 if ci < 3 else 100)
                 case = attention_case(torch, np, name, R, Lq, dtype,
-                                      seed=len(results), int8=int8)
+                                      seed=seed, int8=int8)
                 args, kw = kernel_args(case)
                 out = paged_attention(*args, **kw)
                 ref = paged_attention_reference(*args, **kw)
@@ -460,13 +480,27 @@ def kernel_checks(torch, np, ptxas):
 
 
 def paged_edge_case(torch, np, D, Lq, dtype, int8, seed):
-    """page_size 16, H=12 at head_dim ``D``, a 12-page pool, four rows:
-    one at index 0 (its first query sees one position), one whose last
-    query fills all four of its pages, one mid-page and one inactive
-    (all sentinels).  ``int8`` pages as in :func:`attention_case`."""
-    H, PS, P, W = 12, 16, 12, 4
-    rows = [([3, 4], 0), ([5, 1, 7, 9], W * PS - Lq), ([2, 0, 11], 20),
-            ([], 0)]
+    """page_size 16, H=12 at head_dim ``D``, four rows: one at index 0
+    (its first query sees one position), one whose last query fills its
+    whole table, one at index 20 (mid-page) and one inactive (all
+    sentinels).  Up to Lq=17 a 12-page pool and tables of 4 pages; past
+    that tables of W = (Lq + 63) // 16 + 1 pages from a pool of 3 W + 2.
+    ``int8`` pages as in :func:`attention_case`."""
+    H, PS = 12, 16
+    if Lq <= 17:
+        P, W = 12, 4
+        rows = [([3, 4], 0), ([5, 1, 7, 9], W * PS - Lq), ([2, 0, 11], 20),
+                ([], 0)]
+    else:
+        W = (Lq + 63) // PS + 1
+        P = 3 * W + 2
+        pool = iter(np.random.default_rng(Lq).permutation(P - 1).tolist())
+
+        def take(n):
+            return [next(pool) for _ in range(n)]
+
+        rows = [(take((Lq + PS - 1) // PS), 0), (take(W), W * PS - Lq),
+                (take((20 + Lq + PS - 1) // PS), 20), ([], 0)]
     rng = np.random.default_rng(seed)
     table = np.full((len(rows), W), P, np.int32)
     index = np.zeros(len(rows), np.int32)
@@ -495,7 +529,10 @@ def paged_edge_case(torch, np, D, Lq, dtype, int8, seed):
 
 def paged_edge_checks(torch, np, ptxas):
     """B2 and B3 at each body's edges, in both dtypes, against the plain
-    version (checked, not timed)."""
+    version (checked, not timed): Lq 1, 5 and 16 (the decode body), 17,
+    63, 64, 65 and 256 (bf16: the tensor-core body, one query past one
+    warp, around a 64-query block, the largest bucket; float32: the
+    query-tile body), head_dim 64 and 128."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -506,7 +543,7 @@ def paged_edge_checks(torch, np, ptxas):
     for kernel, int8 in (("paged_attention", False),
                          ("paged_attention_int8", True)):
         for D in (64, 128):
-            for Lq in (1, 5, 16, 17):
+            for Lq in (1, 5, 16, 17, 63, 64, 65, 256):
                 for dtype in ("bfloat16", "float32"):
                     args, kw = paged_edge_case(torch, np, D, Lq, dtype, int8,
                                                seed=500 + len(results))
@@ -602,6 +639,8 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k["fn"].launches = 0
+        for body in getattr(k["fn"], "body_launches", {}):
+            k["fn"].body_launches[body] = 0
     t0 = time.perf_counter()
     for r in reqs[:12]:
         engine.submit(r)
@@ -617,6 +656,8 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k["fn"].launches for name, k in kernels.items()}
+    bodies = {name: dict(k["fn"].body_launches) for name, k in kernels.items()
+              if hasattr(k["fn"], "body_launches")}
     snap = engine.stats.snapshot()
     log(f"   stats: {json.dumps(snap)}")
     check(snap["finished"] == 16 and all(
@@ -633,7 +674,7 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
         tpot_p50_s=snap["tpot_p50_s"], tpot_p95_s=snap["tpot_p95_s"],
         prefill_waves=snap["prefill_waves"],
         decode_ticks=snap["decode_ticks"], spec_ticks=snap["spec_ticks"],
-        launches=launches,
+        launches=launches, body_launches=bodies,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
     log(f"   e2e: {json.dumps(e2e)}")
@@ -704,6 +745,16 @@ def check_launches(launches, expect, what):
           f"{what}: launches {json.dumps(launches)} == {json.dumps(expect)}")
 
 
+def check_bodies(e2e, kernel, prefill, decode):
+    """``kernel``'s launches by body in a serving run: every prefill (and
+    chunk) wave on the tensor-core body, every decode and verify tick on
+    the decode body, none on the query-tile body."""
+    expect = dict(query_tile=0, decode=decode, tensor_core=prefill)
+    got = e2e["body_launches"][kernel]
+    check(got == expect, f"{kernel} by body: {json.dumps(got)} == "
+          f"{json.dumps(expect)}")
+
+
 def kernel_rows(prof):
     """(device us, kernel name, count) per kernel of a profile, largest
     first."""
@@ -746,6 +797,35 @@ def profile_window(torch, run):
     else:
         log("   the profiler recorded no device time: not measured")
     return out, rows
+
+
+def profile_prefill_wave(torch, engine, kernel):
+    """``torch.profiler`` over the engine's first prefill wave alone
+    (the queue head's wave as admission would pick it): device time by
+    kernel, the card's idle share, and the paged kernel's launches by
+    body, its device time and share of the wave."""
+    wave = engine._select_paged_wave()
+    bucket = engine.bucketer.bucket_for(
+        int(wave[0][0].effective_prompt[wave[0][1].shared_tokens:].size))
+    before = dict(kernel.body_launches)
+    out, rows = profile_window(
+        torch, lambda: engine._prefill_wave_paged(wave))
+    kernel_us = sum(us for us, key, _ in rows
+                    if "paged_attention_kernel" in key)
+    busy_us = sum(us for us, _, _ in rows)
+    bodies = {b: n - before[b] for b, n in kernel.body_launches.items()}
+    out.update(rows=len(wave), bucket=bucket, body_launches=bodies,
+               paged_device_ms=kernel_us / 1e3,
+               paged_us_per_launch=kernel_us / max(sum(bodies.values()), 1),
+               paged_share=kernel_us / busy_us if busy_us else None,
+               paged_kernels=sorted({key[:100] for _, key, _ in rows
+                                     if "paged_attention" in key}))
+    check(bodies["tensor_core"] == LAYERS and sum(bodies.values()) == LAYERS,
+          f"the prefill wave (bucket {bucket}, {len(wave)} requests) ran the "
+          f"tensor-core body once per layer: {json.dumps(bodies)}")
+    log(f"   profile: "
+        f"{json.dumps({k: v for k, v in out.items() if k != 'top'})}")
+    return out
 
 
 def write_cost_per_tick(torch, np, engine, timer=time_ms):
@@ -1485,6 +1565,8 @@ def main() -> int:
         check_launches(launches, {B2: LAYERS * steps, B3: 0},
                        f"12 x ({snap['prefill_waves']} prefill waves + "
                        f"{snap['decode_ticks']} decode ticks) of B2")
+        check_bodies(e2e, B2, LAYERS * snap["prefill_waves"],
+                     LAYERS * snap["decode_ticks"])
         check(snap["prefix_hits"] >= 2 and snap["cow_copies"] >= 1,
               f"radix hits {snap['prefix_hits']}, COW clones "
               f"{snap['cow_copies']}")
@@ -1500,6 +1582,8 @@ def main() -> int:
         check_launches(launches, {B2: 0, B3: LAYERS * steps},
                        f"12 x ({snap['prefill_waves']} prefill waves + "
                        f"{snap['decode_ticks']} decode ticks) of B3")
+        check_bodies(e2e, B3, LAYERS * snap["prefill_waves"],
+                     LAYERS * snap["decode_ticks"])
         check(snap["quantized_pages"] > 0 and snap["dequant_blocks"] > 0,
               f"quantized pages {snap['quantized_pages']}, dequantized "
               f"blocks {snap['dequant_blocks']}")
@@ -1537,6 +1621,8 @@ def main() -> int:
                 launches, expect,
                 f"{kernel}: 12 x {snap['prefill_waves']} prefill waves + "
                 f"{snap['spec_ticks']} spec ticks x ({k} x {d} + 12)")
+            prefill = LAYERS * snap["prefill_waves"]
+            check_bodies(e2e, kernel, prefill, expect[kernel] - prefill)
             check(snap["spec_ticks"] > 0
                   and snap["accepted_draft_tokens"] > 0,
                   f"{snap['accepted_draft_tokens']} of "
@@ -1562,6 +1648,8 @@ def main() -> int:
             B2: LAYERS * (snap["prefill_waves"] + snap["decode_ticks"]),
             B3: 0}, f"12 x ({snap['prefill_waves']} chunk waves + "
                     f"{snap['decode_ticks']} decode ticks) of B2")
+        check_bodies(e2e, B2, LAYERS * snap["prefill_waves"],
+                     LAYERS * snap["decode_ticks"])
         e2e["agreement_with_fp"] = agreement(
             [list(r.tokens) for r in reqs], fp_streams)
         report["e2e_chunked"] = e2e
@@ -1580,6 +1668,8 @@ def main() -> int:
             B2: 0, B3: LAYERS * (snap["prefill_waves"]
                                  + snap["decode_ticks"])},
             "swap run: 12 x (prefill waves + decode ticks) of B3")
+        check_bodies(e2e, B3, LAYERS * snap["prefill_waves"],
+                     LAYERS * snap["decode_ticks"])
         e2e["victim_agreement_with_unpreempted"] = agreement(
             [list(reqs[victim].tokens)], [int8_streams[victim]])
         log(f"   the victim's stream agrees with the un-preempted int8 "
@@ -1625,7 +1715,8 @@ def main() -> int:
             fp_identical_requests=agree, int8_free_agreement=free_agree,
             int8_free_diffs=free_diffs, int8_lockstep=forced)
 
-    with phase("profile: device time by kernel over decode ticks"):
+    with phase("profile: device time by kernel over a prefill wave and "
+               "decode ticks"):
         prof_report = {}
         for label, kw, kernel in (("fp", {}, B2),
                                   ("int8", dict(kv_dtype="int8"), B3)):
@@ -1633,6 +1724,9 @@ def main() -> int:
                                   "cuda", **kw)
             for r in requests_for(np, Request, n=16, new_tokens=8, seed=3):
                 engine.submit(r)
+            log(f"   {label} pages, one prefill wave:")
+            prof_report[label + "_prefill"] = profile_prefill_wave(
+                torch, engine, kernels[kernel]["fn"])
             engine.step()  # admission + prefill waves + a first decode tick
             ticks0 = engine.stats.decode_ticks
             launches0 = kernels[kernel]["fn"].launches
@@ -1767,22 +1861,32 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    def entry(name, kernel_launches, rows=attn, case="decode"):
+    def entry(name, kernel_launches, rows=attn, case="decode", label=None):
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == "bfloat16")
         k = kernels[name]
-        return dict(name=name, route=k["route"], source=k["source"],
+        return dict(name=label or name, route=k["route"], source=k["source"],
                     replaces=k["replaces"], launches=kernel_launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     # each kernel's launches from the path that is its own: B2 from the
-    # fp serving path, B3 from the int8 path, B1 from the launcher's run
-    line = {"kernels": [entry(B2, main_launches[B2]),
-                        entry(B3, int8_launches[B3]),
-                        entry(B1, launcher_launches[B1], flash,
-                              "bert_large_L128")]}
+    # fp serving path, B3 from the int8 path, B1 from the launcher's run;
+    # the prefill entries are the tensor-core body's launches in those
+    # runs, beside its time at the prefill wave's shape
+    fp_bodies = report["e2e"]["body_launches"][B2]
+    int8_bodies = report["e2e_int8"]["body_launches"][B3]
+    line = {"kernels": [
+        entry(B2, main_launches[B2]),
+        entry(B2, fp_bodies["tensor_core"], case="prefill",
+              label=f"{B2}:prefill"),
+        entry(B3, int8_launches[B3]),
+        entry(B3, int8_bodies["tensor_core"], case="prefill",
+              label=f"{B3}:prefill"),
+        entry(B1, launcher_launches[B1], flash, "bert_large_L128")]}
+    check(all(k["launches"] > 0 for k in line["kernels"]),
+          "every kernel of the line launched on its path")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

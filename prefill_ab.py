@@ -1,0 +1,243 @@
+#!/usr/bin/env python
+"""A/B measurements of B2/B3's tensor-core prefill body on one NVIDIA GPU.
+
+Two parts, each run in one process so that both sides of a comparison
+meet the same card, allocator and host state:
+
+``kernel``: builds ``skycomputing_tpu_torch/ops/csrc/paged_attention.cu``
+as it is and in variants, each from a patched copy of the source under
+``build/variants/`` (one ``nvcc`` per variant, all started together):
+the tensor-core prefill body at 1, 2 and 4 warps per block
+(``kMmaWarps``), and at 4 warps with P rounded once to bf16 for P.V in
+place of its bf16 head and tail (``p_once``), with its block width the
+compile-time constant in place of ``blockDim.x`` (``constant_block``),
+and with that constant and its five strided copy loops kept rolled by
+hand (``rolled``).  Each variant runs the prefill and chunk waves of
+``chip_smoke.py``'s kernel phase (GPT-2 small's heads, R=4, Lq 32, 64,
+128 and 256, bf16 q over fp and int8 pages), checked against the plain
+version and timed as that phase times a kernel (median of 30 calls on
+the card's clock), the variants in turns, forward then backward; each
+row's ``ms`` is the mean of the two.  Every variant but ``p_once``
+keeps the shipped arithmetic and must agree within 2e-2.
+
+``serve``: ``chip_smoke.py``'s fp serving run (16 requests, GPT-2 small
+at full width, 12 layers, random weights), plain and speculative
+(``spec_k=4``, ``draft_blocks=2``), with the prefill waves on the body
+the plan names and forced onto the query-tile body, in turns, ``--reps``
+times.
+
+Prints one JSON object per row and writes them all to
+``chiprun_out/prefill_ab.json``.  Usage::
+
+    python3 prefill_ab.py [--part kernel|serve|all] [--reps 3]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import json
+import shutil
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+# variant -> (text of the shipped source, its replacement); each text must
+# occur exactly once
+_PV_TAIL = (
+    "        mma_bf16(o[2 * np], pt, vf[0], vf[1]);\n"
+    "        mma_bf16(o[2 * np + 1], pt, vf[2], vf[3]);\n"
+)
+_WARPS = "constexpr int kMmaWarps = 4;"
+_BLOCK = ("  const int threads = blockDim.x;\n"
+          "  const int warps = threads / 32;\n"
+          "  const int q_tile = warps * kMmaRows;\n")
+_CONSTANT = (_BLOCK, _BLOCK.replace("blockDim.x", "kMmaThreads"))
+# the body's strided copy loops, each with the newline before it
+_LOOPS = (
+    "\n  for (int e = tid; e < q_tile * kQChunks; e += threads) {",
+    "\n  for (int i = tid; i < width; i += threads)\n",
+    "\n      for (int e = tid; e < kKTile * kKVChunks; e += threads) {",
+    "\n        for (int j = tid; j < kKTile; j += threads) {",
+    "\n      for (int e = tid; e < 2 * kKTile * kKVChunks; e += threads) {",
+)
+VARIANTS = {
+    "warps_1": [(_WARPS, "constexpr int kMmaWarps = 1;")],
+    "warps_2": [(_WARPS, "constexpr int kMmaWarps = 2;")],
+    "warps_4": [],
+    "p_once": [(_PV_TAIL, "")],
+    "constant_block": [_CONSTANT],
+    "rolled": [_CONSTANT] + [(loop, "\n#pragma unroll 1" + loop)
+                             for loop in _LOOPS],
+}
+# (case, R, Lq) of chip_smoke.py's kernel phase that the prefill body serves
+PREFILL_CASES = (("prefill_32", 4, 32), ("chunk", 4, 64),
+                 ("prefill", 4, 128), ("prefill_256", 4, 256))
+
+
+def paged_module():
+    """The module ``ops/paged_attention.py`` (the package ``ops`` exports
+    its function of the same name)."""
+    return importlib.import_module(
+        "skycomputing_tpu_torch.ops.paged_attention")
+
+
+def build_variant(name, patches):
+    """Compile the patched source; returns (bound library, ptxas figures
+    of each instantiation by label)."""
+    from skycomputing_tpu_torch.ops import _build
+    from skycomputing_tpu_torch.ops.paged_attention import bind
+
+    source = (_build.CSRC / "paged_attention.cu").read_text()
+    for old, new in patches:
+        if source.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} is not in the source once")
+        source = source.replace(old, new)
+    work = _build.BUILD_DIR.parent / "variants" / name
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, work)
+    (work / "paged_attention.cu").write_text(source)
+    target = work / f"libpaged_attention_{name}.so"
+    proc = subprocess.run(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(target),
+         str(work / "paged_attention.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    ptxas = {cs.kernel_label(fn): info for fn, info in
+             _build.parse_ptxas(proc.stdout + proc.stderr).items()}
+    return bind(ctypes.CDLL(str(target))), ptxas
+
+
+def kernel_part(torch, np):
+    pa = paged_module()
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        built = dict(zip(VARIANTS, pool.map(
+            lambda item: build_variant(*item), VARIANTS.items())))
+    rows = []
+    for name, (_, ptxas) in built.items():
+        for label, info in sorted(ptxas.items()):
+            if label.startswith("paged_attention_kernel_mma<"):
+                row = dict(part="ptxas", variant=name, kernel_function=label,
+                           **info)
+                cs.log(json.dumps(row))
+                rows.append(row)
+    order = list(VARIANTS) + list(reversed(VARIANTS))
+    for int8 in (False, True):
+        for ci, (case_name, R, Lq) in enumerate(PREFILL_CASES):
+            case = cs.attention_case(torch, np, case_name, R, Lq, "bfloat16",
+                                     seed=900 + 10 * int8 + ci, int8=int8)
+            args, kw = cs.kernel_args(case)
+            cs.check(pa.kernel_plan(torch.bfloat16, case["k"].dtype, Lq, 64,
+                                    16) == "tensor_core",
+                     f"{case_name} takes the tensor-core body")
+            ref = pa.paged_attention_reference(*args, **kw).float()
+            library_ms = cs.time_ms(torch, cs.library_call(torch, case))
+            times = {name: [] for name in VARIANTS}
+            errs = {}
+            for name in order:
+                with mock.patch.object(pa, "_lib", built[name][0]):
+                    out = pa.paged_attention(*args, **kw)
+                    torch.cuda.synchronize()
+                    errs[name] = (out.float() - ref).abs().max().item()
+                    times[name].append(cs.time_ms(
+                        torch, lambda: pa.paged_attention(*args, **kw)))
+            for name in VARIANTS:
+                row = dict(part="kernel", variant=name, int8=int8,
+                           case=case_name, R=R, Lq=Lq,
+                           ms=sum(times[name]) / 2, ms_each=times[name],
+                           max_abs_err=errs[name], library_ms=library_ms)
+                cs.log(json.dumps(row))
+                rows.append(row)
+                if name != "p_once":  # the others keep the arithmetic
+                    cs.check(errs[name] <= 2e-2,
+                             f"{name} {case_name} int8={int8}: max |err| "
+                             f"{errs[name]:.3g} <= 0.02")
+            fastest = min((n for n in VARIANTS if n.startswith("warps_")),
+                          key=lambda n: sum(times[n]))
+            cs.log(f"   {case_name} int8={int8}: fastest {fastest}")
+    return rows
+
+
+def serve_part(torch, np, reps):
+    from skycomputing_tpu_torch.models import gpt as gpt_mod
+    from skycomputing_tpu_torch.serving import Request, ServingEngine
+
+    pa = paged_module()
+    kernels = {"paged_attention": dict(fn=pa.paged_attention),
+               "paged_attention_int8": dict(fn=pa.paged_attention_int8)}
+    planned = pa.kernel_plan
+
+    def query_tile(*args):
+        body = planned(*args)
+        return "query_tile" if body == "tensor_core" else body
+
+    rows = []
+    for rep in range(reps):
+        sides = ("tensor_core", "query_tile")
+        for side in sides if rep % 2 == 0 else sides[::-1]:
+            plan = planned if side == "tensor_core" else query_tile
+            for spec in (False, True):
+                kw = dict(spec_k=4, draft_blocks=2, quiet_after=2) if spec \
+                    else {}
+                with mock.patch.object(pa, "kernel_plan", plan):
+                    engine, _, snap, _, e2e = cs.serve(
+                        torch, np, gpt_mod, ServingEngine, Request, kernels,
+                        **kw)
+                bodies = e2e["body_launches"]["paged_attention"]
+                cs.check(bodies[side] == cs.LAYERS * snap["prefill_waves"],
+                         f"every prefill launch on the {side} body")
+                row = dict(part="serve", rep=rep, prefill_body=side,
+                           spec=spec, tokens_per_s=e2e["tokens_per_s"],
+                           ttft_p50_ms=e2e["ttft_p50_s"] * 1e3,
+                           tpot_p50_ms=e2e["tpot_p50_s"] * 1e3,
+                           wall_s=e2e["wall_s"],
+                           ticks=snap["spec_ticks"] or snap["decode_ticks"],
+                           body_launches=bodies)
+                cs.log(json.dumps(row))
+                rows.append(row)
+                del engine
+    return rows
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--part", choices=("kernel", "serve", "all"),
+                        default="all")
+    parser.add_argument("--reps", type=int, default=3)
+    opts = parser.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    cs.log(smi.stdout.strip())
+    rows = []
+    if opts.part in ("kernel", "all"):
+        rows += kernel_part(torch, np)
+    if opts.part in ("serve", "all"):
+        rows += serve_part(torch, np, opts.reps)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "prefill_ab.json").write_text(json.dumps(
+        dict(card=smi.stdout.strip(), rows=rows), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

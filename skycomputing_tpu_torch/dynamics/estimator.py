@@ -8,10 +8,16 @@
   elementwise work it does not see, so that no unit profiles at 0: one
   FLOP per output element of every pointwise op (adds, activations,
   the mask arithmetic), 8 per element of a LayerNorm and 5 per element
-  of a softmax.  XLA's cost model, which the JAX package reads, counts
-  elementwise work too (its erf-gelu at tens of FLOPs per element), so
-  the two agree per unit to within the ratio
-  ``tests/test_torch_dynamics.py`` states.  On ``meta`` the flash
+  of a softmax.  A dropout in train mode dispatches, on ``meta``, to
+  ``bernoulli_`` (the mask), then ``div_`` and ``mul`` (1 each); its
+  mask costs 55 per element, what XLA's ``cost_analysis`` charges for
+  ``jax.random.bernoulli`` (threefry bits, the float conversion and the
+  compare) on the CPU, in float32 and bfloat16 alike (57 per element
+  for a whole float32 flax ``Dropout``, 61 in bfloat16, where the
+  divide and select each add two converts).  XLA's cost model, which
+  the JAX package reads, counts elementwise work too (its erf-gelu at
+  tens of FLOPs per element), so the two agree per unit to within the
+  ratio ``tests/test_torch_dynamics.py`` states.  On ``meta`` the flash
   attention wrapper takes its plain version, so the attention products
   are counted.
 - Memory: the reference's formula over tensor shapes exactly — inputs +
@@ -44,6 +50,7 @@ _ELEMENT_FLOPS = {
     aten.native_layer_norm: 8,
     aten._softmax: 5,
     aten._to_copy: 1,
+    aten.bernoulli_: 55,  # a dropout mask, as XLA counts it
 }
 
 

@@ -1,13 +1,14 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
-Each ``csrc/*.cu`` file exports a plain C interface and is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ``<checkout>/build/kernels/``,
-then loaded with :mod:`ctypes`.  No PyTorch header is included, so a
-build takes seconds.  The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and never loaded
-stale; the compiler writes a temporary file that is renamed into place,
-so concurrent first uses in several processes cannot load a half-written
-library.
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes)
+exports a plain C interface and is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ``<checkout>/build/kernels/``, then loaded with
+:mod:`ctypes`.  No PyTorch header is included, so a build takes
+seconds.  The library's file name carries a hash of the source, the
+headers and the flags, so an edited source or header is rebuilt and
+never loaded stale; the compiler writes a temporary file that is
+renamed into place, so concurrent first uses in several processes
+cannot load a half-written library.
 """
 
 from __future__ import annotations
@@ -50,10 +51,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (content- and flag-hashed)."""
-    source = CSRC / f"{name}.cu"
+    """Where ``csrc/<name>.cu`` builds to (hashed over the source, the
+    headers beside it and the flags)."""
+    content = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        header.read_bytes() for header in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        content + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -12,21 +12,24 @@
 // entries clamp to page P-1 and are masked by that causal rule.  Softmax
 // statistics and the accumulator are float32; the output is rounded to
 // q's dtype.  An int8 element is dequantized as k.astype(f32) * k_scale
-// before it meets q, in the Pallas kernel's order.
+// before it meets q, in the Pallas kernel's order (the tensor-core body
+// folds the scale in after the product instead, the same in exact
+// arithmetic; see that body).
 //
 // What bounds it on an H100: the K/V bytes it reads.  A decode step
 // (Lq = 1) does 4*D flops per key position against 2*D*sizeof(KV) bytes
 // of K/V, far below the card's ~295 flops per byte, so it is memory
-// bound; prefill tiles of 16 queries stay below that line too.  The int8
-// pool halves those bytes against bf16 (plus 8 bytes of scales per page
-// and head), and no dequantized copy ever goes to device memory.  A
-// decode row holds only a few hundred positions, so what keeps the card
-// from that bound is latency: how many page round trips run one after
-// another.
+// bound; a prefill wave of Lq queries does Lq times the flops over the
+// same bytes, which at Lq <= 256 and D = 64 stays below that line too.
+// The int8 pool halves those bytes against bf16 (plus 8 bytes of scales
+// per page and head), and no dequantized copy ever goes to device memory.
+// A row holds only a few hundred positions, so what keeps the card from
+// that bound is latency: how many page round trips run one after another,
+// and, in prefill, how fast each gathered tile is consumed.
 //
-// Two bodies, chosen by the wrapper's plan
-// (skycomputing_tpu_torch/ops/paged_attention.py) from Lq, D and the
-// page type alone:
+// Three bodies, chosen by the wrapper's plan
+// (skycomputing_tpu_torch/ops/paged_attention.py) from the q and page
+// types, Lq, D and the page size alone:
 //
 // * Lq <= 16 (decode, speculative verify) with a K/V row of D elements a
 //   whole number of 16-byte chunks: paged_attention_kernel_decode.  One
@@ -43,11 +46,38 @@
 //   over two half-warps and joined with one shuffle; the softmax
 //   statistics are shuffles over 16 lanes; in P.V each lane owns head
 //   dims lane + 32 j.  Positions past the causal bound are never read.
-// * every other call (prefill waves, Lq > 16): paged_attention_kernel,
-//   the query-tile body.  One block per (row, head, tile of 16 queries)
-//   stages each page's K/V tile in float32 through shared memory, where
-//   every query of the tile reuses it; pages wholly past the tile's last
-//   query position are never read.
+// * Lq > 16 (prefill and chunked-prefill waves) with bfloat16 q, D a
+//   multiple of 16 and page_size a multiple of 16:
+//   paged_attention_kernel_mma, the tensor-core prefill body (B1's
+//   design over gathered pages).  One block of four warps per (row,
+//   head, tile of 64 queries), 16 queries per warp.  Each warp keeps its
+//   16 query rows as mma.sync A fragments for the whole walk.  K/V tiles
+//   of 64 positions (four pages of 16) are gathered with 16-byte
+//   cp.async, each chunk's address from the row's table copied once
+//   into shared memory, through a ring of three tiles, so that tiles
+//   t + 1 and t + 2 are in flight while tile t is consumed (int8 pages:
+//   their scales ride with them); rows are
+//   padded by 16 bytes so that ldmatrix / ldmatrix.trans are free of bank
+//   conflicts.  S = Q.K^T and O += P.V run on mma.sync.m16n8k16 (bf16 in,
+//   f32 accumulate); the f32 scores are multiplied by the softmax scale
+//   (q is never rounded after scaling), the online softmax runs in f32
+//   registers, and P enters P.V as a bf16 head and tail (two products),
+//   so the output is the f32 result's to about 16 bits before its own
+//   rounding.  Tiles wholly past a warp's last query are skipped, and the
+//   causal mask (by logical position index[r] + j) is applied only on the
+//   tiles that reach past a warp's first query.  Int8 pages (B3) are
+//   converted to bf16 in shared memory (exact), their scales folded into
+//   the f32 scores and into P (see the body).
+// * every other call (float32 q with Lq > 16, another head_dim or page
+//   size): paged_attention_kernel, the query-tile body.  One block per
+//   (row, head, tile of 16 queries) stages each page's K/V tile in
+//   float32 through shared memory, where every query of the tile reuses
+//   it, every product a float32 FMA (the exact float32 body); pages
+//   wholly past the tile's last query position are never read.
+//
+// Pad rows (index 0, every entry a sentinel) are computed like any other
+// row, over clamped page P-1, so the output equals the plain version on
+// every row.
 //
 // On the TPU the page walk was a grid axis carrying its state in VMEM
 // scratch; here blocks run in no order and share nothing, so the walk is
@@ -64,6 +94,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;     // four warps
@@ -71,22 +103,7 @@ constexpr int kQueryTile = 16;    // queries of one row and head per block
 constexpr int kMaxHeadDim = 128;  // the accumulator lives in registers
 constexpr int kAccPerThread = kQueryTile * kMaxHeadDim / kThreads;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared memory, in floats.  q and k rows are padded by one so that the
 // score loop, where neighbouring threads read neighbouring key rows, hits
@@ -284,19 +301,6 @@ constexpr int kMaxDecodeQ = 16;    // the largest Lq of the decode body
 constexpr int kDimsPerLane = kMaxHeadDim / 32;  // P.V: head dims lane + 32 j
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 (4) bytes from device memory into shared memory, asynchronously;
-// with `valid` false the bytes are zero-filled and nothing is read
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
@@ -304,14 +308,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // one 16-byte chunk of a K/V row as float32
 __device__ __forceinline__ void unpack16(const uint4& raw, float* out, float) {
   out[0] = __uint_as_float(raw.x);
@@ -632,6 +628,426 @@ cudaError_t launch_decode_q(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core prefill body (bfloat16 q, Lq > 16, D a multiple of 16,
+// page_size a multiple of 16)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 16;    // query rows of one warp (the mma's M)
+constexpr int kKTile = 64;      // positions of one K/V tile: 4 pages of 16
+constexpr int kMmaStages = 3;   // K/V tiles in the ring: two in flight
+// Warps per block.  A block's walk (its gathers, the int8 conversion and
+// the barriers), not the number of blocks, sets the time, and more warps
+// share that walk: 4 beat 1 and 2 at every prefill and chunk wave timed
+// on an H100 (prefill_ab.py builds the body at 1, 2 and 4 to compare).
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kMmaQTile = kMmaWarps * kMmaRows;  // queries of one block
+
+// two floats as two bf16 pairs whose sum holds them to about 16
+// significant bits: `head` rounded to bf16, `tail` the rounded remainder
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& head,
+                                          uint32_t& tail) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  head = *reinterpret_cast<const uint32_t*>(&h);
+  tail = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// Shared memory of the tensor-core prefill body, in bytes: the block's
+// query rows (then its output rows) and a ring of kMmaStages bf16 K and V
+// tiles, all with rows of D + 8 bf16 (16 bytes of padding); over int8
+// pages one bf16 K/V tile, fed by a ring of kMmaStages raw int8 tiles
+// (rows of D + 16 bytes) with each position's k and v scale; then the
+// row's clamped table.
+__host__ __device__ inline size_t mma_smem_bytes(int D, int kv_size,
+                                                 int width) {
+  const size_t row = (size_t)(D + 8) * sizeof(__nv_bfloat16);
+  const bool int8 = kv_size == 1;
+  size_t bytes = (size_t)kMmaQTile * row +
+                 2 * (size_t)(int8 ? 1 : kMmaStages) * kKTile * row;
+  if (int8)
+    bytes += (size_t)kMmaStages * 2 * kKTile * (D + 16 + sizeof(float));
+  return bytes + (size_t)((width + 3) / 4 * 4) * sizeof(int32_t);
+}
+
+// One block per (query tile of kMmaQTile rows, head, row).  Warp w owns
+// queries q0 + 16 w .. q0 + 16 w + 15.  In an m16n8 fragment lane l holds
+// rows l / 4 and l / 4 + 8, columns 2 (l % 4) and 2 (l % 4) + 1 of each
+// 8-column tile.
+//
+// KV: bf16 (B2) or int8 (B3).  Every int8 value (|x| <= 127) is exact in
+// bf16, so a staged int8 tile is converted to bf16 in shared memory and
+// runs the same mma; each score column is then multiplied by its page's
+// k_scale in f32, and each probability by its page's v_scale before it
+// is split into bf16 for P.V (the softmax sum takes it unscaled).  In
+// exact arithmetic that is the Pallas kernel's k.astype(f32) * k_scale
+// (and v likewise) before the products, since a scale is constant along
+// the head dim that each product sums over.
+template <typename KV, int kD>
+__global__ void __launch_bounds__(kMmaThreads)
+paged_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
+                           const KV* __restrict__ k_pages,
+                           const KV* __restrict__ v_pages,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int32_t* __restrict__ page_table,
+                           const int32_t* __restrict__ index,
+                           __nv_bfloat16* __restrict__ out, int Lq, int H,
+                           int num_pages, int page_size, int width,
+                           float scale) {
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr int kStride = kD + 8;        // padded bf16 row, in elements
+  constexpr int kRawStride = kD + 16;    // padded int8 row, in bytes
+  constexpr int kQChunks = kD / 8;       // 16-byte chunks of a bf16 row
+  constexpr int kKVElems = 16 / (int)sizeof(KV);
+  constexpr int kKVChunks = kD / kKVElems;  // ... of a stored K/V row
+  constexpr int kKSteps = kD / 16;       // k-steps of Q.K^T
+  constexpr int kDTiles = kD / 8;        // n-tiles of P.V
+  constexpr int kNTiles = kKTile / 8;    // n-tiles of Q.K^T
+  constexpr int kTileElems = kKTile * kStride;
+  constexpr int kBufs = kInt8 ? 1 : kMmaStages;  // bf16 K/V tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  // kMmaThreads wide, the block reads its width from blockDim.x, a number
+  // the compiler cannot see: compiled against the constant, its strided
+  // copy loops ran B3 9-15% slower on an H100 (prefill_ab.py, variant
+  // constant_block), and rolling them by hand spilled at <int8, 32>
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int q_tile = warps * kMmaRows;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + q_tile * kStride;    // [kBufs][kKTile][kStride]
+  __nv_bfloat16* vs = ks + kBufs * kTileElems;  // [kBufs][kKTile][kStride]
+  unsigned char* rest =
+      reinterpret_cast<unsigned char*>(vs + kBufs * kTileElems);
+  // int8: [stage][k|v][kKTile][kRawStride] bytes, then [stage][k|v][kKTile]
+  // scales
+  int8_t* raw = reinterpret_cast<int8_t*>(rest);
+  float* sc = reinterpret_cast<float*>(
+      rest + (kInt8 ? kMmaStages * 2 * kKTile * kRawStride : 0));
+  int32_t* table_s =
+      reinterpret_cast<int32_t*>(sc + (kInt8 ? kMmaStages * 2 * kKTile : 0));
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.y;
+  const int r = blockIdx.z;
+  const int q0 = blockIdx.x * q_tile;
+  const int64_t pos_stride = (int64_t)H * kD;  // one position of q or a page
+  const int idx = index[r];
+  // positions 0 .. n_pos - 1 are the only ones a query of this block sees
+  const int n_pos = min(width * page_size, idx + min(q0 + q_tile, Lq));
+  const int n_tiles = (n_pos + kKTile - 1) / kKTile;
+  const int tig2 = 2 * (lane % 4);
+  // a position's table entry and place in its page: a shift and a mask
+  // where the page size is a power of two (the engine's 16)
+  const int shift =
+      (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  auto page_of = [&](int pos) {
+    return shift >= 0 ? pos >> shift : pos / page_size;
+  };
+  auto row_in_page = [&](int pos) {
+    return shift >= 0 ? pos & (page_size - 1) : pos % page_size;
+  };
+
+  // the query tile (rows past Lq zero-filled) and the row's whole table
+  // are read at once, neither waiting on index[r]
+  const __nv_bfloat16* q_row =
+      q + (int64_t)r * Lq * pos_stride + (int64_t)h * kD;
+  for (int e = tid; e < q_tile * kQChunks; e += threads) {
+    const int qq = e / kQChunks, c = e % kQChunks;
+    const bool ok = q0 + qq < Lq;
+    cp_async16(qs + qq * kStride + c * 8,
+               q_row + (int64_t)(ok ? q0 + qq : 0) * pos_stride + c * 8, ok);
+  }
+  const int32_t* table_row = page_table + (int64_t)r * width;
+  for (int i = tid; i < width; i += threads)
+    table_s[i] = min(max(table_row[i], 0), num_pages - 1);
+  __syncthreads();  // the gathers below read the table
+  // queue a K/V tile (and, over int8 pages, each position's scales), each
+  // 16-byte chunk gathered through the row's table (positions past n_pos
+  // zero-filled), then commit a group (an empty one past the last tile,
+  // so every step waits the same way)
+  auto load_kv = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = tile * kKTile;
+      const int s = tile % kMmaStages;
+      for (int e = tid; e < kKTile * kKVChunks; e += threads) {
+        const int j = e / kKVChunks, c = e % kKVChunks;
+        const int pos = k0 + j;
+        const bool ok = pos < n_pos;
+        int64_t off = 0;
+        if (ok)
+          off = ((int64_t)table_s[page_of(pos)] * page_size +
+                 row_in_page(pos)) * pos_stride +
+                (int64_t)h * kD + c * kKVElems;
+        if constexpr (kInt8) {
+          int8_t* kb = raw + (size_t)(2 * s) * kKTile * kRawStride;
+          int8_t* vb = kb + kKTile * kRawStride;
+          cp_async16(kb + j * kRawStride + c * 16, k_pages + off, ok);
+          cp_async16(vb + j * kRawStride + c * 16, v_pages + off, ok);
+        } else {
+          __nv_bfloat16* kb = ks + s * kTileElems;
+          __nv_bfloat16* vb = vs + s * kTileElems;
+          cp_async16(kb + j * kStride + c * 8, k_pages + off, ok);
+          cp_async16(vb + j * kStride + c * 8, v_pages + off, ok);
+        }
+      }
+      if constexpr (kInt8) {
+        float* scs = sc + s * 2 * kKTile;
+        for (int j = tid; j < kKTile; j += threads) {
+          const int pos = k0 + j;
+          const bool ok = pos < n_pos;
+          const int64_t at = ok ? (int64_t)table_s[page_of(pos)] * H + h : 0;
+          cp_async4(scs + j, k_scale + at, ok);
+          cp_async4(scs + kKTile + j, v_scale + at, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // the query tile lands with tile 0
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) load_kv(i);
+
+  uint32_t qf[kKSteps][4];              // this warp's Q, A fragments
+  float o[kDTiles][4];                  // output accumulator
+  float m[2] = {-INFINITY, -INFINITY};  // rows lane/4, lane/4 + 8; log2
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+  // the positions of this warp's first and last query, and of this lane's
+  const int warp_first = idx + q0 + warp * kMmaRows;
+  const int warp_last = warp_first + kMmaRows - 1;
+  const int qpos_lo = warp_first + lane / 4;  // rows lane/4 and lane/4 + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kKTile;
+    // tile t (and, at t = 0, the query tile) has landed ...
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // ... for every thread, and tile t - 1 is read
+    load_kv(t + kMmaStages - 1);  // into the buffers tile t - 1 used
+    const __nv_bfloat16* kb = ks;
+    const __nv_bfloat16* vb = vs;
+    const float* sct = sc + (t % kMmaStages) * 2 * kKTile;  // int8 scales
+    if constexpr (kInt8) {
+      // tile t's int8 rows to bf16 (exact)
+      const int8_t* rk =
+          raw + (size_t)(2 * (t % kMmaStages)) * kKTile * kRawStride;
+      for (int e = tid; e < 2 * kKTile * kKVChunks; e += threads) {
+        const int which = e / (kKTile * kKVChunks);
+        const int j = (e / kKVChunks) % kKTile, c = e % kKVChunks;
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            rk + ((size_t)which * kKTile + j) * kRawStride + c * 16);
+        float f[16];
+        unpack16(w, f, int8_t());
+        uint4 lo, hi;
+        lo.x = pack_bf16(f[0], f[1]);
+        lo.y = pack_bf16(f[2], f[3]);
+        lo.z = pack_bf16(f[4], f[5]);
+        lo.w = pack_bf16(f[6], f[7]);
+        hi.x = pack_bf16(f[8], f[9]);
+        hi.y = pack_bf16(f[10], f[11]);
+        hi.z = pack_bf16(f[12], f[13]);
+        hi.w = pack_bf16(f[14], f[15]);
+        uint4* dst = reinterpret_cast<uint4*>((which ? vs : ks) +
+                                              j * kStride + c * 16);
+        dst[0] = lo;
+        dst[1] = hi;
+      }
+      __syncthreads();
+    } else {
+      kb += (t % kMmaStages) * kTileElems;
+      vb += (t % kMmaStages) * kTileElems;
+    }
+
+    if (t == 0) {
+      const __nv_bfloat16* qw = qs + warp * kMmaRows * kStride;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldmatrix_x4(qf[kk], qw + (lane % 16) * kStride + kk * 16 +
+                                (lane / 16) * 8);
+    }
+    // a tile wholly past this warp's last query holds nothing it sees
+    // (tile 0 never is: position 0 is visible to every query); a warp
+    // whose rows all lie past Lq has nothing to compute, only to load
+    if (k0 > warp_last || q0 + warp * kMmaRows >= Lq) continue;
+
+    // S = Q . K^T over this tile's 64 positions
+    float s[kNTiles][4];
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kb +
+                            (np * 16 + (lane % 8) + (lane / 16) * 8) * kStride +
+                            kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // f32 scores * scale (* k_scale), in log2 units; the causal mask only
+    // where the tile reaches past this warp's first query or past n_pos
+    const bool masked = k0 + kKTile - 1 > warp_first || k0 + kKTile > n_pos;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + tig2 + (e % 2);
+        float x = s[n][e] * scale2;
+        if constexpr (kInt8) x *= sct[col];
+        if (masked && (k0 + col > qpos_lo + 8 * (e / 2) || k0 + col >= n_pos))
+          x = -INFINITY;
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // tile 0 holds position 0, which every query sees, so the running
+      // max is finite from the first tile on
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);  // exp2(-inf) = 0 on the first tile
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e / 2]);  // exp2(-inf) = 0
+        l[e / 2] += p;
+        if constexpr (kInt8)
+          s[n][e] = p * sct[kKTile + n * 8 + tig2 + (e % 2)];
+        else
+          s[n][e] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < kDTiles; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P . V, V by ldmatrix.trans, P from the score registers as a
+    // bf16 head and tail (two products): one bf16 rounding of P would
+    // move an output by up to 2^-9 of its size, enough to round it to the
+    // neighbouring bf16 value of the float32 result
+#pragma unroll
+    for (int kk = 0; kk < kKTile / 16; ++kk) {
+      uint32_t ph[4], pt[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pt[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pt[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pt[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pt[3]);
+#pragma unroll
+      for (int np = 0; np < kDTiles / 2; ++np) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(
+            vf, vb + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * kStride +
+                    np * 16 + (lane / 16) * 8);
+        mma_bf16(o[2 * np], ph, vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], ph, vf[2], vf[3]);
+        mma_bf16(o[2 * np], pt, vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], pt, vf[2], vf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc / max(l, 1e-30) in bf16, through this warp's own query rows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+  __nv_bfloat16* ow = qs + warp * kMmaRows * kStride;
+  const int row = lane / 4;
+#pragma unroll
+  for (int n = 0; n < kDTiles; ++n) {
+    *reinterpret_cast<uint32_t*>(ow + row * kStride + n * 8 + tig2) =
+        pack_bf16(o[n][0] * l[0], o[n][1] * l[0]);
+    *reinterpret_cast<uint32_t*>(ow + (row + 8) * kStride + n * 8 + tig2) =
+        pack_bf16(o[n][2] * l[1], o[n][3] * l[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* o_row = out + (int64_t)r * Lq * pos_stride + (int64_t)h * kD;
+  for (int e = lane; e < kMmaRows * kQChunks; e += 32) {
+    const int qq = e / kQChunks, c = e % kQChunks;
+    const int qi = q0 + warp * kMmaRows + qq;
+    if (qi < Lq)
+      *reinterpret_cast<uint4*>(o_row + (int64_t)qi * pos_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(ow + qq * kStride + c * 8);
+  }
+}
+
+template <typename KV, int kD>
+cudaError_t launch_mma_dim(const void* q, const void* k, const void* v,
+                           const float* k_scale, const float* v_scale,
+                           const int32_t* table, const int32_t* index,
+                           void* out, int R, int Lq, int H, int num_pages,
+                           int page_size, int width, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes(kD, sizeof(KV), width);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel_mma<KV, kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((Lq + kMmaQTile - 1) / kMmaQTile, H, R);
+  paged_attention_kernel_mma<KV, kD><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), k_scale, v_scale, table, index,
+      static_cast<__nv_bfloat16*>(out), Lq, H, num_pages, page_size, width,
+      scale);
+  return cudaGetLastError();
+}
+
+template <typename KV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const float* k_scale, const float* v_scale,
+                       const int32_t* table, const int32_t* index, void* out,
+                       int R, int Lq, int H, int D, int num_pages,
+                       int page_size, int width, float scale,
+                       cudaStream_t stream) {
+  switch (D) {
+#define SKY_MMA_CASE(d)                                                       \
+  case d:                                                                     \
+    return launch_mma_dim<KV, d>(q, k, v, k_scale, v_scale, table, index,    \
+                                 out, R, Lq, H, num_pages, page_size, width,  \
+                                 scale, stream);
+    SKY_MMA_CASE(16)
+    SKY_MMA_CASE(32)
+    SKY_MMA_CASE(48)
+    SKY_MMA_CASE(64)
+    SKY_MMA_CASE(80)
+    SKY_MMA_CASE(96)
+    SKY_MMA_CASE(112)
+    SKY_MMA_CASE(128)
+#undef SKY_MMA_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // the decode body's query bound: 1 (decode), 8 (speculative verify) or 16
 int decode_max_q(int Lq) { return Lq == 1 ? 1 : (Lq <= 8 ? 8 : kMaxDecodeQ); }
 
@@ -643,10 +1059,15 @@ bool decode_fits(int Lq, int D, int kv_size) {
   return Lq <= kMaxDecodeQ && (D * kv_size) % 16 == 0;
 }
 
-// body: 0 = the query-tile body, 1 = the decode body
+bool mma_fits(int D, int page_size) {
+  return D % 16 == 0 && page_size % 16 == 0;
+}
+
+// body: 0 = the query-tile body, 1 = the decode body, 2 = the tensor-core
+// prefill body (T bf16 only)
 template <typename T, typename KV>
-cudaError_t launch(int body, const void* q, const void* k, const void* v,
-                   const float* k_scale, const float* v_scale,
+cudaError_t launch(int body, const void* q, const void* k,
+                   const void* v, const float* k_scale, const float* v_scale,
                    const int32_t* table, const int32_t* index, void* out,
                    int R, int Lq, int H, int D, int num_pages, int page_size,
                    int width, float scale, cudaStream_t stream) {
@@ -654,6 +1075,17 @@ cudaError_t launch(int body, const void* q, const void* k, const void* v,
     return launch_tile<T, KV>(q, k, v, k_scale, v_scale, table, index, out,
                               R, Lq, H, D, num_pages, page_size, width, scale,
                               stream);
+  if (body == 2) {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (!mma_fits(D, page_size) || !aligned16(q) || !aligned16(k) ||
+          !aligned16(v) || !aligned16(out))
+        return cudaErrorInvalidValue;
+      return launch_mma<KV>(q, k, v, k_scale, v_scale, table, index, out, R,
+                            Lq, H, D, num_pages, page_size, width, scale,
+                            stream);
+    }
+    return cudaErrorInvalidValue;  // the body takes bfloat16 q only
+  }
   if (body != 1 || !decode_fits(Lq, D, sizeof(KV)) || !aligned16(k) ||
       !aligned16(v))
     return cudaErrorInvalidValue;
@@ -684,10 +1116,12 @@ bool bad_shape(int R, int Lq, int H, int D, int num_pages, int page_size,
 extern "C" {
 
 // body: 0 = the query-tile body, 1 = the decode body (Lq <= 16, D times
-// the page element size a multiple of 16 bytes, pages 16-byte aligned);
-// the Python wrapper picks it.  dtype: 0 = float32, 1 = bfloat16.
-// Returns a cudaError_t (0 = launched).  Shapes are checked by the Python
-// wrapper; this rejects only what the chosen body cannot hold.
+// the page element size a multiple of 16 bytes, pages 16-byte aligned),
+// 2 = the tensor-core prefill body (bfloat16, D and page_size multiples
+// of 16, q, pages and out 16-byte aligned); the Python wrapper picks it.
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 =
+// launched).  Shapes are checked by the Python wrapper; this rejects only
+// what the chosen body cannot hold.
 int sky_paged_attention(int body, int dtype, const void* q,
                         const void* k_pages, const void* v_pages,
                         const void* page_table, const void* index, void* out,
@@ -746,6 +1180,7 @@ int sky_paged_attention_int8(int body, int dtype, const void* q,
 // page element of kv_size bytes (4, 2 or 1).
 int sky_paged_attention_smem(int body, int kv_size, int Lq, int D,
                              int page_size, int width) {
+  if (body == 2) return (int)mma_smem_bytes(D, kv_size, width);
   if (body == 1) {
     const int max_q = decode_max_q(Lq);
     const int warps = decode_warps(D, kv_size, max_q, width);

@@ -10,21 +10,31 @@ launches the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 the plain PyTorch version of the same function.  Nothing else picks the
 path: a CUDA call either launches the kernel or raises.
 
-The kernel never materializes a row's gathered K/V view.  It has two
-bodies, and :func:`kernel_plan` picks one from Lq, head_dim and the page
-type alone.  Decode and speculative-verify waves (``Lq <= 16``) run the
-decode body: one block of eight warps per (row, head), each warp walking
-its own 16-position chunks of the row through a ``cp.async`` double
-buffer with a private float32 online softmax, the warps' states merged
-at the end.  Prefill waves (``Lq > 16``), and a head_dim whose K/V row
-is not a whole number of 16-byte chunks, run the query-tile body: one
-block per (row, head, tile of 16 queries) stages each page's K/V tile
-through shared memory.  An int8 tile is multiplied by its page's scale
-as it is read, in both.  ``csrc/paged_attention.cu`` says what bounds
-the kernel on the card and what each body does about that.
+The kernel never materializes a row's gathered K/V view.  It has three
+bodies, and :func:`kernel_plan` picks one from the q and page types,
+Lq, head_dim and the page size alone.  Decode and speculative-verify
+waves (``Lq <= 16``) run the decode body: one block of eight warps per
+(row, head), each warp walking its own 16-position chunks of the row
+through a ``cp.async`` double buffer with a private float32 online
+softmax, the warps' states merged at the end.  Prefill and
+chunked-prefill waves (``Lq > 16``) with bfloat16 q, a head_dim and a
+page size that are multiples of 16 run the tensor-core body: one block
+of four warps per (row, head, 64 queries), each warp holding 16 queries
+as ``mma.sync`` fragments while 64-position K/V tiles
+(four pages of 16) are gathered through the table with ``cp.async``, two
+tiles in flight while one is consumed; an int8 tile is converted to
+bfloat16 in shared memory (exact) and its scales are folded into the
+float32 scores and into P.  Every other call (float32 q with
+``Lq > 16``, and a head_dim or page size the other bodies do not take)
+runs the query-tile body: one block per (row, head, tile of 16 queries)
+stages each page's K/V tile through shared memory in float32, where an
+int8 tile is multiplied by its page's scale as it is read.
+``csrc/paged_attention.cu`` says what bounds the kernel on the card and
+what each body does about that.
 
 Each pool's kernel counts its own launches: ``paged_attention.launches``
-for the fp pool, ``paged_attention_int8.launches`` for the int8 pool.
+for the fp pool, ``paged_attention_int8.launches`` for the int8 pool,
+and, at the same place, each wrapper's ``body_launches[body]``.
 """
 
 from __future__ import annotations
@@ -37,8 +47,31 @@ import torch
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _MAX_DECODE_Q = 16
-_BODIES = ("query_tile", "decode")  # the kernel's body codes 0 and 1
+_MMA_TILE = 16  # head_dim and page-size granule of the tensor-core body
+# the kernel's body codes 0, 1 and 2
+_BODIES = ("query_tile", "decode", "tensor_core")
 _lib = None
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from
+    ``csrc/paged_attention.cu``; returns ``lib``."""
+    # body, dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
+    # page_size, width; scale; stream
+    lib.sky_paged_attention.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    # the same with k_scale, v_scale after v
+    lib.sky_paged_attention_int8.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_void_p]
+    )
+    lib.sky_paged_attention.restype = ctypes.c_int
+    lib.sky_paged_attention_int8.restype = ctypes.c_int
+    lib.sky_paged_attention_smem.argtypes = [ctypes.c_int] * 6
+    lib.sky_paged_attention_smem.restype = ctypes.c_int
+    return lib
 
 
 def _library():
@@ -46,34 +79,27 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = _build.load("paged_attention")
-        # body, dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
-        # page_size, width; scale; stream
-        lib.sky_paged_attention.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        # the same with k_scale, v_scale after v
-        lib.sky_paged_attention_int8.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        lib.sky_paged_attention.restype = ctypes.c_int
-        lib.sky_paged_attention_int8.restype = ctypes.c_int
-        lib.sky_paged_attention_smem.argtypes = [ctypes.c_int] * 6
-        lib.sky_paged_attention_smem.restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(_build.load("paged_attention"))
     return _lib
 
 
-def kernel_plan(page_dtype, Lq: int, D: int) -> str:
-    """Which body of the kernel serves a call, from the page type, Lq
-    and head_dim alone: ``"decode"`` where ``Lq <= 16`` and a K/V row of
-    ``D`` elements is a whole number of 16-byte chunks, else
-    ``"query_tile"``."""
+def kernel_plan(q_dtype, page_dtype, Lq: int, D: int, page_size: int) -> str:
+    """Which body of the kernel serves a call, from the q and page
+    types, Lq, head_dim and the page size alone:
+
+    - ``"decode"`` where ``Lq <= 16`` and a K/V row of ``D`` elements is
+      a whole number of 16-byte chunks (its warps per block are the
+      kernel's: 8, or 4 where 8 would not fit in shared memory);
+    - ``"tensor_core"`` for the other calls (``Lq > 16``) with bfloat16
+      q and ``D`` and ``page_size`` multiples of 16 (4 warps of 16
+      queries per block);
+    - ``"query_tile"`` for the rest (16 queries on 4 warps)."""
     row_bytes = D * page_dtype.itemsize
     if Lq <= _MAX_DECODE_Q and row_bytes % 16 == 0 and D <= _MAX_HEAD_DIM:
         return "decode"
+    if (q_dtype == torch.bfloat16 and D % _MMA_TILE == 0
+            and D <= _MAX_HEAD_DIM and page_size % _MMA_TILE == 0):
+        return "tensor_core"
     return "query_tile"
 
 
@@ -93,8 +119,8 @@ def _row_index(index, R: int, device) -> torch.Tensor:
 
 def _launch_args(q, pages, page_dtype, page_table, index):
     """Check what the kernel takes (raising on anything else) and return
-    the common launch arguments: (body code, table, index, R, Lq, H, D,
-    P, page_size)."""
+    the common launch arguments: (body, table, index, R, Lq, H, D, P,
+    page_size)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     R, Lq, H, D = q.shape
@@ -124,12 +150,14 @@ def _launch_args(q, pages, page_dtype, page_table, index):
         raise ValueError(
             f"page_table must be [R={R}, W>=1], got {tuple(page_table.shape)}"
         )
-    body = kernel_plan(page_dtype, Lq, D)
-    if body == "decode" and any(t.data_ptr() % 16 for t in pages):
+    body = kernel_plan(q.dtype, page_dtype, Lq, D, page_size)
+    if body != "query_tile" and any(t.data_ptr() % 16 for t in pages):
         raise ValueError("k_pages and v_pages must be 16-byte aligned")
+    if body == "tensor_core" and q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     idx = _row_index(index, R, q.device)
-    return _BODIES.index(body), table, idx, R, Lq, H, D, P, page_size
+    return body, table, idx, R, Lq, H, D, P, page_size
 
 
 def _check_rc(rc: int) -> None:
@@ -164,10 +192,11 @@ def paged_attention(
 
     CPU tensors take :func:`paged_attention_reference`.  CUDA tensors
     launch the kernel (q float32 or bfloat16, ``D <= 128``; the body
-    from :func:`kernel_plan`) and count
-    the launch in ``paged_attention.launches`` (fp pages) or
-    ``paged_attention_int8.launches`` (int8 pages); anything the kernel
-    does not take raises.
+    from :func:`kernel_plan`) and count the launch in
+    ``paged_attention.launches`` (fp pages) or
+    ``paged_attention_int8.launches`` (int8 pages), and in that
+    wrapper's ``body_launches``; anything the kernel does not take
+    raises.
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass k_scale AND v_scale together (int8) "
@@ -191,17 +220,19 @@ def paged_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().sky_paged_attention(
-            body, _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), R, Lq, H, D, P, page_size, table.shape[1],
-            float(softmax_scale), stream,
+            _BODIES.index(body), _DTYPE_CODES[q.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
+            idx.data_ptr(), out.data_ptr(), R, Lq, H, D, P, page_size,
+            table.shape[1], float(softmax_scale), stream,
         )
     _check_rc(rc)
     paged_attention.launches += 1
+    paged_attention.body_launches[body] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.body_launches = dict.fromkeys(_BODIES, 0)
 
 
 def paged_attention_int8(
@@ -245,17 +276,20 @@ def paged_attention_int8(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().sky_paged_attention_int8(
-            body, _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, Lq, H, D,
-            P, page_size, table.shape[1], float(softmax_scale), stream,
+            _BODIES.index(body), _DTYPE_CODES[q.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), table.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), R, Lq, H, D, P, page_size, table.shape[1],
+            float(softmax_scale), stream,
         )
     _check_rc(rc)
     paged_attention_int8.launches += 1
+    paged_attention_int8.body_launches[body] += 1
     return out
 
 
 paged_attention_int8.launches = 0
+paged_attention_int8.body_launches = dict.fromkeys(_BODIES, 0)
 
 
 def paged_attention_reference(
@@ -304,5 +338,5 @@ def paged_attention_reference(
     return torch.einsum("bhlm,bmhd->blhd", p, v_virt).to(q.dtype)
 
 
-__all__ = ["kernel_plan", "kernel_smem_bytes", "paged_attention",
+__all__ = ["bind", "kernel_plan", "kernel_smem_bytes", "paged_attention",
            "paged_attention_int8", "paged_attention_reference"]

@@ -40,7 +40,8 @@ SHAPES = {
     # decode: a page-boundary crossing, a short row, an inactive row
     "decode": (10, 4, 2, 16, 1,
                [([7, 2, 5], 8), ([0, 9], 4), ([], 0), ([1, 3, 4, 6, 8], 16)]),
-    # prefill longer than one 16-query tile, with a pad row
+    # prefill longer than one 16-query tile, with a pad row (page size
+    # 8: the query-tile body in both dtypes)
     "prefill_two_tiles": (12, 8, 2, 32, 24,
                           [([3, 1, 7, 9], 0), ([5, 2, 0, 11, 6], 8),
                            ([], 0)]),
@@ -60,19 +61,47 @@ def _edge_rows(Lq):
     return [([3, 4], 0), ([5, 1, 7, 9], 64 - Lq), ([2, 0, 11], 20), ([], 0)]
 
 
-# page_size 16 (the engine's) at both bodies' edges: Lq 1, 5 and 16 take
-# the decode body, 17 the query-tile body
+# page_size 16 (the engine's) at the bodies' edges: Lq 1, 5 and 16 take
+# the decode body, 17 the tensor-core body in bfloat16 and the query-tile
+# body in float32
 EDGE_SHAPES = {
     f"ps16_d{D}_lq{Lq}": (12, 16, 2, D, Lq, _edge_rows(Lq))
     for D in (64, 128) for Lq in (1, 5, 16, 17)
 }
-ALL_SHAPES = {**SHAPES, **EDGE_SHAPES}
+
+
+def _prefill_rows(Lq):
+    """Over a table of W pages of 16: a row at index 0, a row whose last
+    query fills the whole table, a row at index 20 (mid-page) and an
+    all-sentinel pad row; pages drawn from a pool of 3 W + 2."""
+    W = (Lq + 63) // 16 + 1
+    need = lambda idx: (idx + Lq + 15) // 16  # noqa: E731
+    pages = iter(np.random.default_rng(Lq).permutation(3 * W + 1).tolist())
+    return 3 * W + 2, [
+        ([next(pages) for _ in range(need(0))], 0),
+        ([next(pages) for _ in range(W)], 16 * W - Lq),
+        ([next(pages) for _ in range(need(20))], 20),
+        ([], 0),
+    ]
+
+
+# the tensor-core prefill body's edges (bfloat16; float32 takes the
+# query-tile body): Lq around one and four 16-row warps, the largest
+# prefill bucket, head_dim 64 and 128
+PREFILL_SHAPES = {
+    f"prefill_d{D}_lq{Lq}": (_prefill_rows(Lq)[0], 16, 2, D, Lq,
+                             _prefill_rows(Lq)[1])
+    for D in (64, 128) for Lq in (17, 63, 64, 65, 256)
+}
+ALL_SHAPES = {**SHAPES, **EDGE_SHAPES, **PREFILL_SHAPES}
 
 
 def _seed(name):
     if name in SHAPES:
         return sorted(SHAPES).index(name)
-    return 50 + sorted(EDGE_SHAPES).index(name)
+    if name in EDGE_SHAPES:
+        return 50 + sorted(EDGE_SHAPES).index(name)
+    return 150 + sorted(PREFILL_SHAPES).index(name)
 
 
 def _case(name, dtype):
@@ -120,22 +149,32 @@ def card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-def _expected_paged_body(page_dtype, Lq, D):
-    row_bytes = D * page_dtype.itemsize
-    return "decode" if Lq <= 16 and row_bytes % 16 == 0 else "query_tile"
+def _paged_body(q, pages):
+    """The body :func:`paged_kernel_plan` names for ``q`` over ``pages``,
+    checked against the rule it states."""
+    Lq, D = q.shape[1], q.shape[3]
+    body = paged_kernel_plan(q.dtype, pages.dtype, Lq, D, pages.shape[1])
+    if Lq <= 16 and D * pages.element_size() % 16 == 0:
+        assert body == "decode"
+    elif (q.dtype == torch.bfloat16 and D % 16 == 0
+          and pages.shape[1] % 16 == 0):
+        assert body == "tensor_core"
+    else:
+        assert body == "query_tile"
+    return body
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))
 @pytest.mark.parametrize("name", sorted(ALL_SHAPES))
 def test_paged_attention_kernel_matches_plain_version(card, name, dtype):
     args = _case(name, dtype)
-    Lq, D = args[0].shape[1], args[0].shape[3]
-    assert paged_kernel_plan(args[1].dtype, Lq, D) == (
-        _expected_paged_body(args[1].dtype, Lq, D))
+    body = _paged_body(args[0], args[1])
     before = paged_attention.launches
+    body_before = paged_attention.body_launches[body]
     out = paged_attention(*args)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
+    assert paged_attention.body_launches[body] == body_before + 1
     ref = paged_attention_reference(*args)
     assert out.dtype == args[0].dtype and out.shape == args[0].shape
     assert bool(torch.isfinite(out).all())
@@ -147,13 +186,14 @@ def test_paged_attention_kernel_matches_plain_version(card, name, dtype):
 @pytest.mark.parametrize("name", sorted(ALL_SHAPES))
 def test_paged_attention_int8_kernel_matches_plain_version(card, name, dtype):
     q, k, v, ks, vs, table, index = _int8_case(name, dtype)
-    assert paged_kernel_plan(torch.int8, q.shape[1], q.shape[3]) == (
-        _expected_paged_body(torch.int8, q.shape[1], q.shape[3]))
+    body = _paged_body(q, k)
     before = (paged_attention.launches, paged_attention_int8.launches)
+    body_before = paged_attention_int8.body_launches[body]
     out = paged_attention(q, k, v, table, index, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert (paged_attention.launches,
             paged_attention_int8.launches) == (before[0], before[1] + 1)
+    assert paged_attention_int8.body_launches[body] == body_before + 1
     ref = paged_attention_reference(q, k, v, table, index, k_scale=ks,
                                     v_scale=vs)
     assert out.dtype == q.dtype and out.shape == q.shape

@@ -7,6 +7,7 @@ injected profiles (the contracts of ``tests/test_dynamics.py``), the
 config loader, the data generators and the builder factories."""
 
 import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -23,6 +24,9 @@ from skycomputing_tpu.dynamics import Allocator as JaxAllocator
 from skycomputing_tpu.dynamics import Estimator as JaxEstimator
 from skycomputing_tpu.dynamics import ModelBenchmarker as JaxModelBench
 from skycomputing_tpu.dynamics import WorkerManager as JaxWorkerManager
+from skycomputing_tpu.dynamics.solver import (
+    solve_contiguous_minmax as jax_solve_contiguous_minmax,
+)
 from skycomputing_tpu.models import bert_config as jax_bert_config
 from skycomputing_tpu.models import bert_layer_configs as jax_bert_layers
 from skycomputing_tpu_torch.builder import (
@@ -48,6 +52,7 @@ from skycomputing_tpu_torch.dynamics import (
     device_available_memory_mb,
 )
 from skycomputing_tpu_torch.dynamics.allocator import unit_groups
+from skycomputing_tpu_torch.dynamics.solver import solve_contiguous_minmax
 from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
 from skycomputing_tpu_torch.runner import StopHook
 from skycomputing_tpu_torch.stimulator import Stimulator
@@ -55,33 +60,58 @@ from skycomputing_tpu_torch.stimulator import Stimulator
 pytestmark = pytest.mark.torch_port
 
 CPU = [torch.device("cpu")]
+LAUNCH_CONFIG = (Path(__file__).resolve().parents[1]
+                 / "skycomputing_tpu_torch" / "configs" / "bert_pipeline.py")
 
-# port FLOPs / JAX FLOPs per unit type.  The products agree; the rest
-# is elementwise work, which XLA counts with its own costs (its erf-gelu
-# at tens of FLOPs per element, the port at 1, so the body reads 0.8;
-# in bfloat16 XLA also counts the cast of the whole embedding table,
-# which the port never makes: it gathers first, then casts)
+# port FLOPs / JAX FLOPs per unit type, by (dtype, dropout on).  The
+# products agree; the rest is elementwise work, which XLA counts with its
+# own costs (its erf-gelu at tens of FLOPs per element, the port at 1, so
+# the body reads 0.8; in bfloat16 XLA also counts the cast of the whole
+# embedding table, which the port never makes: it gathers first, then
+# casts).  With dropout on, both count its mask generation at 55 FLOPs
+# per element (XLA's threefry bits and compare; the port's bernoulli_),
+# which outweighs the rest of a small unit: the embeddings then read
+# 0.98 in float32 and 0.45 in bfloat16 (the table cast still counted by
+# XLA alone; at BERT-large's vocabulary against batch 32 x 128 it reads
+# 0.72).
 FLOP_RATIO = {
-    "float32": {"BertEmbeddings": (0.80, 0.90)},
-    "bfloat16": {"BertEmbeddings": (0.10, 0.20),
-                 "BertPooler": (0.70, 0.85),
-                 "BertTailForClassification": (0.70, 0.85)},
+    ("float32", False): {"BertEmbeddings": (0.80, 0.90)},
+    ("bfloat16", False): {"BertEmbeddings": (0.10, 0.20),
+                          "BertPooler": (0.70, 0.85),
+                          "BertTailForClassification": (0.70, 0.85)},
+    ("float32", True): {"BertEmbeddings": (0.90, 1.05)},
+    ("bfloat16", True): {"BertEmbeddings": (0.40, 0.50),
+                         "BertPooler": (0.70, 0.85)},
 }
 DEFAULT_RATIO = (0.75, 1.10)
 
 
-def _cfgs(pkg_config, pkg_layers, dtype, flash, units=2):
-    cfg = pkg_config("tiny", dtype=dtype, hidden_dropout_prob=0.0,
-                     attention_probs_dropout_prob=0.0,
+def _cfgs(pkg_config, pkg_layers, dtype, flash, units=2, dropout=False):
+    """BERT ``tiny`` units, deterministic; with ``dropout``, hidden
+    dropout 0.1 and (einsum attention only: the flash kernel has none)
+    attention dropout 0.1, the units as the launcher builds them."""
+    cfg = pkg_config("tiny", dtype=dtype,
+                     hidden_dropout_prob=0.1 if dropout else 0.0,
+                     attention_probs_dropout_prob=(
+                         0.1 if dropout and not flash else 0.0),
                      use_flash_attention=flash)
-    return pkg_layers(cfg, num_encoder_units=units, deterministic=True)
+    return pkg_layers(cfg, num_encoder_units=units,
+                      deterministic=not dropout)
 
 
-@pytest.mark.parametrize("flash", [False, True], ids=["einsum", "flash"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_static_profile_matches_jax(dtype, flash):
-    port_cfg = _cfgs(bert_config, bert_layer_configs, dtype, flash)
-    jax_cfg = _cfgs(jax_bert_config, jax_bert_layers, dtype, flash)
+@pytest.mark.parametrize("dtype, flash, dropout", [
+    pytest.param(dtype, flash, dropout,
+                 id=f"{dtype}-{'flash' if flash else 'einsum'}"
+                 + ("-dropout" if dropout else ""))
+    for dropout in (False, True)
+    for dtype in ("float32", "bfloat16")
+    for flash in (False, True)
+])
+def test_static_profile_matches_jax(dtype, flash, dropout):
+    port_cfg = _cfgs(bert_config, bert_layer_configs, dtype, flash,
+                     dropout=dropout)
+    jax_cfg = _cfgs(jax_bert_config, jax_bert_layers, dtype, flash,
+                    dropout=dropout)
     bench = ModelBenchmarker(port_cfg, RandomTokenGenerator(2, 16, 1024))
     flops, mem = bench.benchmark()
     ref_flops, ref_mem = JaxModelBench(jax_cfg,
@@ -90,10 +120,67 @@ def test_static_profile_matches_jax(dtype, flash):
     assert bench.distinct_units == 6
     assert all(f > 0 for f in flops)
     for unit, got, ref in zip(port_cfg, flops, ref_flops):
-        lo, hi = FLOP_RATIO[dtype].get(unit["layer_type"], DEFAULT_RATIO)
+        lo, hi = FLOP_RATIO[dtype, dropout].get(unit["layer_type"],
+                                                DEFAULT_RATIO)
         assert lo <= got / ref <= hi, (unit["layer_type"], got / ref)
     assert flops[1:4] == flops[4:7]  # repeated encoder trios
     assert bench.benchmark() is bench.benchmark()  # computed once
+
+
+DRAWS = [3.32, 2.32, 3.58, 3.09]  # the stimulator's draws at 4 workers
+
+
+def _launcher_profiles():
+    """The launcher's own units (``configs/bert_pipeline.py`` as the
+    environment sets it, preset large) and the JAX package's for the
+    same config, each
+    profiled statically by its package at batch 32 x 128: (port units,
+    (FLOPs, memory), (JAX FLOPs, JAX memory))."""
+    port_units = load_config(str(LAUNCH_CONFIG)).model_config
+    cfg = port_units[0]["config"]
+    jax_units = jax_bert_layers(
+        jax_bert_config("large",
+                        use_flash_attention=cfg["use_flash_attention"],
+                        attention_probs_dropout_prob=cfg[
+                            "attention_probs_dropout_prob"]),
+        num_encoder_units=(len(port_units) - 3) // 3, num_classes=3)
+    assert port_units[0]["config"] == jax_units[0]["config"]
+    vocab = cfg["vocab_size"]
+    port = ModelBenchmarker(port_units,
+                            RandomTokenGenerator(32, 128, vocab)).benchmark()
+    ref = JaxModelBench(jax_units, JaxTokens(32, 128, vocab)).benchmark()
+    return port_units, port, ref
+
+
+def _ratio_by_type(units, flops, ref_flops):
+    ratios = {}
+    for unit, got, ref in zip(units, flops, ref_flops):
+        ratios.setdefault(unit["layer_type"], got / ref)
+    return ratios
+
+
+def _partition(result):
+    return [end - start for start, end in result.slices], result.device_order
+
+
+def test_launcher_static_partition_equals_jax(monkeypatch):
+    """The launcher's own units (``configs/bert_pipeline.py`` at 24
+    layers with flash: BERT-large, bf16, hidden dropout 0.1), profiled
+    statically at batch 32 x 128 by each package and solved over the
+    stimulator's draws with unbounded memory, give one partition and
+    one device order: dropout's mask generation is counted alike."""
+    for key, value in (("SKYTPU_LAYER_NUM", "24"), ("SKYTPU_FLASH", "1"),
+                       ("SKYTPU_PRESET", "large")):
+        monkeypatch.setenv(key, value)
+    units, (flops, mem), (ref_flops, ref_mem) = _launcher_profiles()
+    assert len(units) == 75
+    assert all(u["deterministic"] is False for u in units)
+    assert units[0]["config"]["hidden_dropout_prob"] == 0.1
+    assert mem == ref_mem
+    unbounded = [float("inf")] * 4
+    got = solve_contiguous_minmax(flops, mem, DRAWS, unbounded)
+    ref = jax_solve_contiguous_minmax(ref_flops, ref_mem, DRAWS, unbounded)
+    assert _partition(got) == _partition(ref)
 
 
 def test_proxy_layers_profile_and_forward_match_jax():
@@ -570,3 +657,46 @@ def test_build_factories(tmp_path):
         build_hook(dict(type="NoSuchHook"))
     stack = build_module_from_cfg(PROXY, rank=3)
     assert len(stack) == 1 and isinstance(stack[0], proxy_layers.MatmulStack)
+
+
+if __name__ == "__main__":
+    # The numbers behind FLOP_RATIO and the launcher's partition:
+    # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_dynamics.py
+    #   [--without-dropout-mask]   (the port's count before it counted
+    #                               the dropout mask)
+    import os
+    import sys
+
+    from skycomputing_tpu_torch.dynamics import estimator
+
+    if "--without-dropout-mask" in sys.argv:
+        del estimator._ELEMENT_FLOPS[torch.ops.aten.bernoulli_]
+    for dropout in (False, True):
+        for dtype in ("float32", "bfloat16"):
+            for flash in (False, True):
+                port_cfg = _cfgs(bert_config, bert_layer_configs, dtype,
+                                 flash, dropout=dropout)
+                flops, _ = ModelBenchmarker(
+                    port_cfg, RandomTokenGenerator(2, 16, 1024)).benchmark()
+                ref_flops, _ = JaxModelBench(
+                    _cfgs(jax_bert_config, jax_bert_layers, dtype, flash,
+                          dropout=dropout),
+                    JaxTokens(2, 16, 1024)).benchmark()
+                ratios = _ratio_by_type(port_cfg, flops, ref_flops)
+                print(json.dumps(dict(
+                    preset="tiny", dtype=dtype, flash=flash,
+                    dropout=dropout,
+                    ratios={k: round(v, 3) for k, v in ratios.items()})))
+    os.environ.update(SKYTPU_LAYER_NUM="24", SKYTPU_FLASH="1",
+                      SKYTPU_PRESET="large")
+    units, (flops, mem), (ref_flops, ref_mem) = _launcher_profiles()
+    unbounded = [float("inf")] * 4
+    print(json.dumps(dict(
+        preset="large", layers=24, dtype="bfloat16", flash=True,
+        hidden_dropout=0.1,
+        ratios={k: round(v, 3) for k, v in
+                _ratio_by_type(units, flops, ref_flops).items()},
+        port_partition=_partition(solve_contiguous_minmax(
+            flops, mem, DRAWS, unbounded)),
+        jax_partition=_partition(jax_solve_contiguous_minmax(
+            ref_flops, ref_mem, DRAWS, unbounded)))))

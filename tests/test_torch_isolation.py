@@ -1,9 +1,9 @@
 """The port stands alone: no module of ``skycomputing_tpu_torch`` and
-nothing in ``chip_smoke.py`` imports ``jax``, ``flax`` or the JAX
-package; the package imports with those blocked; an engine or a
-pipeline asked for no device refuses to fall back to the CPU; and
-``chip_smoke.py`` fails without a CUDA device, also when it stands alone
-in a directory."""
+nothing in ``chip_smoke.py`` or ``prefill_ab.py`` imports ``jax``,
+``flax`` or the JAX package; the package imports with those blocked; an
+engine or a pipeline asked for no device refuses to fall back to the
+CPU; and ``chip_smoke.py`` fails without a CUDA device, also when it
+stands alone in a directory."""
 
 import ast
 import os
@@ -23,7 +23,7 @@ FORBIDDEN = ("jax", "flax", "skycomputing_tpu")
 
 def _port_files():
     files = sorted((ROOT / "skycomputing_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "prefill_ab.py"]
 
 
 def _imported_roots(path: Path):

@@ -6,7 +6,7 @@ themselves run only on the card (``tests/test_torch_cuda.py``)."""
 import pytest
 import torch
 
-from skycomputing_tpu_torch.ops._build import parse_ptxas
+from skycomputing_tpu_torch.ops._build import CSRC, parse_ptxas
 from skycomputing_tpu_torch.ops.flash_attention import (
     kernel_plan as flash_kernel_plan,
 )
@@ -45,20 +45,52 @@ def test_flash_tensor_core_blocks_fill_the_card(B, L, H, warps):
     assert blocks >= H100_SMS or warps == 1
 
 
-@pytest.mark.parametrize("page_dtype, Lq, D, body", [
-    (torch.bfloat16, 1, 64, "decode"),  # a decode tick
-    (torch.bfloat16, 5, 64, "decode"),  # speculative verify, k = 4
-    (torch.int8, 1, 64, "decode"),
-    (torch.int8, 16, 128, "decode"),
-    (torch.float32, 16, 128, "decode"),
-    (torch.bfloat16, 17, 64, "query_tile"),  # a prefill wave
-    (torch.int8, 128, 64, "query_tile"),
-    (torch.int8, 1, 40, "query_tile"),  # a 40-byte row
-    (torch.bfloat16, 1, 40, "decode"),  # an 80-byte row: five chunks
+@pytest.mark.parametrize("q_dtype, page_dtype, Lq, D, page_size, body", [
+    (torch.bfloat16, torch.bfloat16, 1, 64, 16, "decode"),  # a decode tick
+    (torch.bfloat16, torch.bfloat16, 5, 64, 16, "decode"),  # verify, k = 4
+    (torch.bfloat16, torch.int8, 1, 64, 16, "decode"),
+    (torch.bfloat16, torch.int8, 16, 128, 16, "decode"),
+    (torch.float32, torch.float32, 16, 128, 16, "decode"),
+    (torch.float32, torch.int8, 1, 40, 16, "query_tile"),  # a 40-byte row
+    (torch.bfloat16, torch.bfloat16, 1, 40, 16, "decode"),  # 80 bytes
+    # prefill waves: bfloat16 q with head_dim and page size multiples of
+    # 16 take the tensor-core body, over fp and int8 pages alike
+    (torch.bfloat16, torch.bfloat16, 17, 64, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 128, 64, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 256, 64, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 17, 128, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 128, 128, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 256, 128, 16, "tensor_core"),
+    (torch.bfloat16, torch.int8, 17, 64, 16, "tensor_core"),
+    (torch.bfloat16, torch.int8, 128, 64, 16, "tensor_core"),
+    (torch.bfloat16, torch.int8, 256, 128, 16, "tensor_core"),
+    (torch.bfloat16, torch.bfloat16, 128, 64, 32, "tensor_core"),
+    # the exact float32 body keeps float32 prefill
+    (torch.float32, torch.float32, 128, 64, 16, "query_tile"),
+    (torch.float32, torch.int8, 128, 64, 16, "query_tile"),
+    (torch.float32, torch.float32, 17, 64, 16, "query_tile"),
+    # pages of 4 (the JAX tests') and head_dim 40 keep the query-tile body
+    (torch.bfloat16, torch.bfloat16, 128, 64, 4, "query_tile"),
+    (torch.bfloat16, torch.int8, 24, 64, 8, "query_tile"),
+    (torch.bfloat16, torch.bfloat16, 128, 40, 16, "query_tile"),
 ])
-def test_paged_body_depends_on_lq_head_dim_and_page_type(page_dtype, Lq, D,
-                                                          body):
-    assert paged_kernel_plan(page_dtype, Lq, D) == body
+def test_paged_body_depends_on_lq_head_dim_and_page_type(
+        q_dtype, page_dtype, Lq, D, page_size, body):
+    assert paged_kernel_plan(q_dtype, page_dtype, Lq, D, page_size) == body
+
+
+@pytest.mark.parametrize("Lq", [17, 32, 64, 128, 256])
+def test_paged_tensor_core_blocks_take_four_warps(Lq):
+    """Every prefill and chunk bucket takes the tensor-core body, whose
+    block is a constant 4 warps of 16 queries (4 beat 1 and 2 on the
+    card at Lq 32, 64, 128 and 256: the walk of a block, not the number
+    of blocks, sets the time; ``prefill_ab.py`` times them)."""
+    for page_dtype in (torch.bfloat16, torch.int8):
+        assert paged_kernel_plan(torch.bfloat16, page_dtype, Lq, 64,
+                                 16) == "tensor_core"
+    source = (CSRC / "paged_attention.cu").read_text()
+    assert "constexpr int kMmaWarps = 4;" in source
+    assert "constexpr int kMmaQTile = kMmaWarps * kMmaRows;" in source
 
 
 def test_parse_ptxas_reads_each_kernel():
@@ -79,3 +111,17 @@ ptxas info    : Used 255 registers, used 1 barriers, 2048 bytes smem
                          spill_load_bytes=16, registers=255,
                          static_smem_bytes=2048),
     }
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every ``csrc/*.cuh`` header
+    beside it, so an edited shared header rebuilds each source."""
+    from skycomputing_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build.library_path("k") != first
