@@ -71,7 +71,9 @@ one.  Phases, each fatal on failure:
     from ``mem_get_info``);
 15. the launcher's path: ``launch.run`` on
     ``skycomputing_tpu_torch/configs/bert_pipeline.py`` — BERT-large at
-    24 layers, seq 128, batch 32, flash on, 4 workers on the card with
+    24 layers, seq 128, batch 32, flash on, on the config's GLUE
+    dataset (its seeded synthetic MNLI corpus: lengths 8-128, padded
+    tails), 4 workers on the card with
     the stimulator, ``optimal`` allocation from the static profile, 1F1B
     with 4 microbatches, 5 steps, with the stop, timer and checkpoint
     hooks: the partition is the solver's, contiguous and not the even
@@ -90,7 +92,28 @@ one.  Phases, each fatal on failure:
     time (``schedule_step_time``) at 4 and 16 microbatches; the even
     allocation is measured in the order even, optimal, optimal, even
     and each side's step is the mean of its two; the optimal step must
-    be below the even one at both.
+    be below the even one at both;
+17. the GLUE path: a vocabulary and MNLI ``train.tsv`` /
+    ``dev_matched.tsv`` written from a seed under ``build/``, then
+    ``launch.run`` on the port's config pointed at them
+    (``SKYTPU_GLUE_DIR``, ``SKYTPU_VOCAB_FILE``) with ``EvalHook``,
+    ``MetricsHook`` and ``NanGuardHook``: 5 steps, one evaluation at the
+    epoch's end, a metrics JSONL of a ``run_start`` header and one line
+    per step; then ``Runner.evaluate(dev, task="mnli")`` over the 100
+    dev rows (3 batches of 32 and one of 4): a finite loss, accuracy in
+    [0, 1], every row counted, and B1 launched exactly 24 times per
+    batch (an eval-mode forward, no rematerialization), read from that
+    window alone; a profile of one eval batch (the card's idle share,
+    B1's share); and, at BERT-large's width, depth 2, float32, the same
+    evaluation on the card and on the CPU from the same weights: losses
+    within 1e-4 relative, equal predictions;
+18. the bench: ``python -m skycomputing_tpu_torch.bench`` as a
+    subprocess at its defaults (64 workers with the paper's slowdowns,
+    BERT-large at 53 encoder layers as 215 units at ffn/2, M=256) under
+    a 300 s deadline: exactly one JSON line on stdout, a complete run on
+    the card
+    (``partial`` null, a finite value) whose even and optimal
+    partitions each cover every unit; its fields are printed.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel;
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
@@ -1468,6 +1491,316 @@ def headline(np, model_cfg, static_bench, model_bench, vocab_size,
     return head
 
 
+
+# --------------------------------------------------------------------------
+# phases 17-18: the GLUE path with evaluation, and the bench
+# --------------------------------------------------------------------------
+
+GLUE_VOCAB = [
+    "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
+    "the", "movie", "was", "great", "terrible", "fine",
+    "a", "film", "it", "truly", "##ly", "good", "bad",
+]
+GLUE_TRAIN_ROWS = BERT_BATCH * BERT_STEPS  # one epoch of the run's steps
+GLUE_DEV_ROWS = 100  # three full batches and a ragged one of 4
+# the bench at its defaults (64 workers, 53 encoder layers at ffn/2:
+# about half a minute on an H100), under a deadline well inside the
+# smoke's time
+BENCH_SMOKE_ENV = dict(SKYTPU_BENCH_DEADLINE_S="300")
+
+
+def write_glue(np, root):
+    """A WordPiece vocabulary and MNLI-format ``train.tsv`` and
+    ``dev_matched.tsv`` (text_a in column 8, text_b in 9, the label
+    last) written from a seed: the label is set by a keyword, as in
+    ``tests/test_glue_real_data.py``.  Returns (data dir, vocab file)."""
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    vocab = root / "vocab.txt"
+    vocab.write_text("\n".join(GLUE_VOCAB) + "\n")
+    labels = ["contradiction", "entailment", "neutral"]
+    keyword = dict(contradiction="terrible", entailment="great",
+                   neutral="fine")
+    header = "\t".join(f"col{i}" for i in range(12))
+    rows = []
+    for i in range(GLUE_TRAIN_ROWS + GLUE_DEV_ROWS):
+        label = labels[int(rng.integers(0, 3))]
+        text_a = f"the movie was {keyword[label]}"
+        text_b = "it was a film truly " + " ".join(
+            rng.choice(["good", "bad", "fine"], size=int(rng.integers(1, 6))))
+        rows.append("\t".join([str(i)] + ["x"] * 7
+                              + [text_a, text_b, "x", label]))
+    (root / "train.tsv").write_text(
+        "\n".join([header] + rows[:GLUE_TRAIN_ROWS]) + "\n")
+    (root / "dev_matched.tsv").write_text(
+        "\n".join([header] + rows[GLUE_TRAIN_ROWS:]) + "\n")
+    return str(root), str(vocab)
+
+
+def glue_loader(data_cfg, split, batch):
+    """The config's GLUE dataset at ``split``, batched in the order the
+    model takes, the last batch kept however short."""
+    from skycomputing_tpu_torch.builder import build_dataloader_from_cfg
+    from skycomputing_tpu_torch.launch import BatchAdapter
+
+    return BatchAdapter(build_dataloader_from_cfg(dict(
+        dataset_cfg=dict(data_cfg["dataset_cfg"], split=split),
+        dataloader_cfg=dict(batch_size=batch, drop_last=False))))
+
+
+def glue_path(torch, np, kernels, workdir, layers=24, preset="large",
+              device=None, ptxas=None):
+    """``launch.run`` on the port's config over MNLI TSVs written from a
+    seed (``SKYTPU_GLUE_DIR``, ``SKYTPU_VOCAB_FILE``), with ``EvalHook``,
+    ``MetricsHook`` and ``NanGuardHook``; then ``Runner.evaluate`` on the
+    dev split with every kernel's launches set to 0 just before and read
+    just after: a forward without rematerialization, one B1 launch per
+    encoder layer per batch.  On the card, a profile of one eval batch
+    and B1 against its plain version at the eval path's own calls."""
+    import os
+
+    from skycomputing_tpu_torch import launch
+    from skycomputing_tpu_torch.builder import build_hook
+    from skycomputing_tpu_torch.config import load_config
+    from skycomputing_tpu_torch.runner import EvalHook, NanGuardHook
+    from skycomputing_tpu_torch.utils import Logger
+
+    data_dir, vocab_file = write_glue(np, workdir / "mnli")
+    env = dict(launcher_env(workdir, preset, layers), SKYTPU_CKPT_DIR="",
+               SKYTPU_GLUE_DIR=data_dir, SKYTPU_VOCAB_FILE=vocab_file)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        cfg = load_config(str(
+            ROOT / "skycomputing_tpu_torch" / "configs" / "bert_pipeline.py"))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    dev = glue_loader(cfg.data_config, "dev", BERT_BATCH)
+    check(not dev._loader.dataset.synthetic
+          and len(dev._loader.dataset) == GLUE_DEV_ROWS,
+          f"the dev split read from the TSVs: {GLUE_DEV_ROWS} rows, "
+          f"{len(dev)} batches")
+    metrics_path = workdir / "metrics.jsonl"
+    hooks = [EvalHook(dev, interval=1, max_batches=1),
+             build_hook(dict(type="MetricsHook", path=str(metrics_path))),
+             build_hook(dict(type="NanGuardHook", action="raise"))]
+    check(isinstance(hooks[2], NanGuardHook), "the hooks build by name")
+    run = launch.run(cfg, Logger(**cfg.logging_config), device=device,
+                     hooks=hooks)
+    check(run is not None, "the launcher allocated and trained on MNLI")
+    train_ds = run.runner.data_loader._loader.dataset
+    mask = train_ds.input_mask
+    check(not train_ds.synthetic and len(train_ds) == GLUE_TRAIN_ROWS,
+          f"trained on the TSVs: {len(train_ds)} rows, real lengths "
+          f"{int(mask.sum(1).min())}-{int(mask.sum(1).max())} of "
+          f"{mask.shape[1]}")
+    check(run.runner.iter == BERT_STEPS
+          and len(run.runner.eval_history) == 1,
+          f"{run.runner.iter} steps, then EvalHook at the epoch's end: "
+          f"{json.dumps(run.runner.eval_history)}")
+    records = [json.loads(line)
+               for line in metrics_path.read_text().splitlines()]
+    check(records[0]["event"] == "run_start"
+          and len(records) == 1 + BERT_STEPS
+          and all(r["run_id"] == records[0]["run_id"]
+                  and np.isfinite(r["loss"]) for r in records[1:]),
+          f"metrics JSONL: a run_start header (config_hash "
+          f"{records[0]['config_hash']}) and {len(records) - 1} finite "
+          f"iteration records")
+
+    for k in kernels.values():
+        k["fn"].launches = 0
+    if device is None:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = run.runner.evaluate(dev, task="mnli")
+    if device is None:
+        torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {name: k["fn"].launches for name, k in kernels.items()}
+    check(np.isfinite(metrics["loss"]) and 0.0 <= metrics["accuracy"] <= 1.0
+          and metrics["num_examples"] == GLUE_DEV_ROWS,
+          f"evaluate: {json.dumps(metrics)}")
+    check_launches(launches, {"flash_attention": layers * len(dev)},
+                   f"B1 {layers} x {len(dev)} eval batches (a forward, no "
+                   f"remat)")
+    out = dict(eval=metrics, eval_s=eval_s, eval_s_per_batch=eval_s
+               / len(dev), launches=launches,
+               train_losses=[r["loss"] for r in records[1:]],
+               partition=run.model.partition_signature())
+    if device is None:
+        flash = kernels["flash_attention"]["fn"]
+        before = flash.launches
+        prof, rows = profile_window(
+            torch, lambda: run.runner.evaluate(dev, max_batches=1))
+        b1_us = sum(us for us, key, _ in rows
+                    if "flash_attention_kernel" in key)
+        total_us = sum(us for us, _, _ in rows)
+        prof.update(flash_launches=flash.launches - before,
+                    flash_device_ms=b1_us / 1e3,
+                    flash_share=b1_us / total_us if total_us else None)
+        out["profile_eval_batch"] = {k: v for k, v in prof.items()
+                                     if k != "top"}
+        log(f"   profile one eval batch: "
+            f"{json.dumps(out['profile_eval_batch'])}")
+        out["flash_eval_shapes"] = flash_eval_checks(torch, np, ptxas, run,
+                                                     dev)
+    log(f"   glue: {json.dumps(out)}")
+    del run
+    return launches, dev, out
+
+
+def flash_eval_checks(torch, np, ptxas, run, dev):
+    """B1 at the calls the eval path makes: ``Runner.evaluate`` feeds the
+    whole dev batch (32 rows, and the ragged last 4) through each layer
+    in the model's dtype, with a bias row of -10000 on all but the 13-17
+    live keys of 128.  One more evaluation records the first layer's
+    (q, k, v, bias) for each batch size; the kernel is then held against
+    the plain version on those tensors, and on q/k/v ~ N(0, 1) of the
+    same shape and dtype under the same bias, and timed beside the plain
+    version and SDPA on the recorded ones."""
+    import torch.nn.functional as F
+    from skycomputing_tpu_torch.models import bert as bert_mod
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    seen = {}
+    real = bert_mod.flash_attention
+
+    def record(q, k, v, bias):
+        seen.setdefault(q.shape[0], tuple(t.detach().clone()
+                                          for t in (q, k, v, bias)))
+        return real(q, k, v, bias)
+
+    bert_mod.flash_attention = record
+    try:
+        run.runner.evaluate(dev)
+    finally:
+        bert_mod.flash_attention = real
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rows = []
+    for B in sorted(seen, reverse=True):
+        q, k, v, bias = seen[B]
+        rng = np.random.default_rng(700 + B)
+        normal = tuple(torch.from_numpy(rng.standard_normal(tuple(q.shape))
+                                        .astype(np.float32)).to(q)
+                       for _ in range(3))
+        live = (bias == 0).sum(-1)
+        for inputs, what in (((q, k, v), "activations"),
+                             (normal, "normal")):
+            scale = q.shape[-1] ** -0.5
+            out = flash_attention(*inputs, bias)
+            ref = flash_attention_reference(*inputs, bias, scale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            finite = bool(torch.isfinite(out).all())
+            row = dict(kernel="flash_attention", case=f"eval_B{B}_{what}",
+                       B=B, L=q.shape[1], H=q.shape[2], D=q.shape[3],
+                       live_keys=[int(live.min()), int(live.max())],
+                       dtype=str(q.dtype).replace("torch.", ""),
+                       max_abs_err=err, tol=tol[q.dtype],
+                       out_abs_max=out.float().abs().max().item(),
+                       **flash_body(torch, ptxas, q))
+            if what == "activations":
+                qh, kh, vh = (t.transpose(1, 2).contiguous()
+                              for t in inputs)
+                mask = bias[:, None, None, :]
+                row.update(
+                    ms=time_ms(torch, lambda: flash_attention(*inputs, bias)),
+                    plain_ms=time_ms(torch, lambda: flash_attention_reference(
+                        *inputs, bias, scale)),
+                    library_ms=time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=mask)))
+                row["bound_ms"], row["bound_by"] = flash_bound(
+                    q, bias, row["dtype"])
+            log(f"   {json.dumps(row)}")
+            check(finite and err <= tol[q.dtype],
+                  f"flash_attention eval B={B} {what} {row['dtype']} "
+                  f"({row['body']}): max |err| {err:.3g} <= "
+                  f"{tol[q.dtype]}")
+            rows.append(row)
+    check(sorted(seen) == sorted({len(labels) for _, labels in dev}),
+          f"B1 checked at every eval batch size: {sorted(seen)}")
+    return rows
+
+
+def eval_card_vs_cpu(torch, np, dev):
+    """``Runner.evaluate`` at BERT-large's width, depth 2, float32, flash
+    on, on the card and on the CPU from the same weights, over the dev
+    loader's first two batches: the losses and every prediction."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.runner import Runner
+
+    cfg = bert_config("large", dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      use_flash_attention=True)
+    model_cfg = bert_layer_configs(cfg, num_encoder_units=2, num_classes=3,
+                                   deterministic=True)
+    card, card_ps, wm = build_trainer(torch, model_cfg)
+    host, host_ps, host_wm = build_trainer(
+        torch, model_cfg, devices=[torch.device("cpu")],
+        state_dicts=card_ps.params)
+    batches = [batch for _, batch in zip(range(2), dev)]
+    out = {}
+    for name, model, ps, pool in (("cuda", card, card_ps, wm),
+                                  ("cpu", host, host_ps, host_wm)):
+        runner = Runner(model, ps, pool, max_epochs=0, max_iters=0)
+        metrics = runner.evaluate(batches, task="mnli")
+        model.train(False)
+        preds = [model.forward(data).float().argmax(-1).cpu().numpy()
+                 for data, _ in batches]
+        model.train(True)
+        out[name] = dict(metrics=metrics,
+                         predictions=np.concatenate(preds).tolist())
+    out["loss_rel_diff"] = (abs(out["cuda"]["metrics"]["loss"]
+                                - out["cpu"]["metrics"]["loss"])
+                            / abs(out["cpu"]["metrics"]["loss"]))
+    return out
+
+
+def bench_run(np, env_extra, timeout_s):
+    """``python -m skycomputing_tpu_torch.bench`` in a subprocess; its
+    stdout must be exactly one JSON line, a complete run on the card
+    whose even and optimal partitions each cover every unit."""
+    import os
+
+    env = dict(os.environ, **env_extra)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "skycomputing_tpu_torch.bench"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines()[-40:]:
+        log(f"   | {line}")
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"the bench exited {proc.returncode} after {wall:.1f} s with "
+          f"{len(lines)} stdout line(s)")
+    line = json.loads(lines[0])
+    for key in ("metric", "value", "vs_baseline", "platform", "device_kind",
+                "units", "even_partition", "optimal_partition", "solver_gap",
+                "refine_steps", "even_steps", "polish_moves",
+                "final_remeasure", "calibration", "value_ffn1_model",
+                "phases_skipped", "partial", "pass_s", "elapsed_s"):
+        log(f"   bench {key}: {json.dumps(line.get(key))}")
+    check(line["platform"] == "gpu" and line["partial"] is None
+          and line["value"] is not None and np.isfinite(line["value"]),
+          f"a complete run on the card: {line['value']}% "
+          f"(vs_baseline {line['vs_baseline']})")
+    for side in ("even_partition", "optimal_partition"):
+        counts = line[side]
+        check(sum(counts) == line["units"] and min(counts) > 0,
+              f"{side} {counts} covers the {line['units']} units")
+    line["wall_s"] = wall
+    return line
+
 def main() -> int:
     import torch
 
@@ -1861,6 +2194,31 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    with phase("GLUE path: MNLI from TSVs, the launcher with eval, metrics "
+               "and NaN-guard hooks, then Runner.evaluate"):
+        workdir = ROOT / "build" / "chip_smoke_glue"
+        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            eval_launches, dev, glue = glue_path(torch, np, kernels, workdir,
+                                                 ptxas=ptxas)
+            cmp = eval_card_vs_cpu(torch, np, dev)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        log(f"   card against CPU: {json.dumps(cmp)}")
+        check(cmp["loss_rel_diff"] <= 1e-4,
+              f"eval losses on the card and the CPU (depth 2, float32) "
+              f"within {cmp['loss_rel_diff']:.3g} <= 1e-4 relative")
+        check(cmp["cuda"]["predictions"] == cmp["cpu"]["predictions"],
+              f"equal predictions on the card and the CPU "
+              f"({len(cmp['cpu']['predictions'])} examples)")
+        report["glue"] = glue
+        report["eval_card_vs_cpu"] = cmp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    with phase("bench: python -m skycomputing_tpu_torch.bench"):
+        report["bench"] = bench_run(np, BENCH_SMOKE_ENV, timeout_s=420)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None):
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == "bfloat16")
@@ -1872,7 +2230,8 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     # each kernel's launches from the path that is its own: B2 from the
-    # fp serving path, B3 from the int8 path, B1 from the launcher's run;
+    # fp serving path, B3 from the int8 path, B1 from the launcher's run
+    # and the GLUE path's evaluation;
     # the prefill entries are the tensor-core body's launches in those
     # runs, beside its time at the prefill wave's shape
     fp_bodies = report["e2e"]["body_launches"][B2]
@@ -1884,7 +2243,12 @@ def main() -> int:
         entry(B3, int8_launches[B3]),
         entry(B3, int8_bodies["tensor_core"], case="prefill",
               label=f"{B3}:prefill"),
-        entry(B1, launcher_launches[B1], flash, "bert_large_L128")]}
+        entry(B1, launcher_launches[B1] + eval_launches[B1], flash,
+              "bert_large_L128")]}
+    # B1's error: the worst over its main case and the eval path's calls
+    line["kernels"][-1]["max_abs_err"] = max(
+        [line["kernels"][-1]["max_abs_err"]]
+        + [r["max_abs_err"] for r in report["glue"]["flash_eval_shapes"]])
     check(all(k["launches"] > 0 for k in line["kernels"]),
           "every kernel of the line launched on its path")
     out_dir = ROOT / "chiprun_out"

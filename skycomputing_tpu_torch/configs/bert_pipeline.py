@@ -1,8 +1,15 @@
 """The launcher's experiment config (the port of ``experiment/config.py``):
-BERT-large fine-tuned MNLI-style with SGD over a pool of pipeline
-workers, on ``RandomBertDataset`` (synthetic rows with padded tails).
+BERT-large fine-tuned on MNLI with SGD over a pool of pipeline workers.
+The data is ``GlueDataset``'s MNLI train split read from
+``SKYTPU_GLUE_DIR`` (``train.tsv``, ``dev_matched.tsv``) with the
+WordPiece vocabulary ``SKYTPU_VOCAB_FILE``; where either is unset or
+missing, its seeded synthetic corpus (512 class-conditional rows of
+lengths 8 to ``SKYTPU_SEQ_LEN``, zero-padded), as the JAX config does.
 
 Environment overrides (all optional):
+
+- ``SKYTPU_GLUE_DIR`` / ``SKYTPU_VOCAB_FILE``: the MNLI directory and
+  the vocabulary (the synthetic corpus when unset)
 
 - ``SKYTPU_ALLOCATE_TYPE``: even | optimal | dynamic (default even)
 - ``SKYTPU_CORE_NUM``: number of pipeline workers (4)
@@ -65,13 +72,14 @@ logging_config = dict(filename=osp.join(__LOG_ROOT, "allocation.log"))
 # worker pool: logical stages round-robined over the cards
 worker_config = __worker_pool_config(CORE_NUM)
 
-# one epoch covers the run's iterations
 data_config = dict(
     dataset_cfg=dict(
-        type="RandomBertDataset",
-        num_samples=BATCH_SIZE * MAX_ITERS,
+        type="GlueDataset",
+        data_dir=os.getenv("SKYTPU_GLUE_DIR", ""),
+        vocab_file=os.getenv("SKYTPU_VOCAB_FILE", None),
         max_seq_length=MAX_SEQ_LENGTH,
-        vocab_size=__bert_cfg.vocab_size,
+        do_lower_case=False,
+        processor="mnli",
     ),
     dataloader_cfg=dict(batch_size=BATCH_SIZE, shuffle=True),
 )

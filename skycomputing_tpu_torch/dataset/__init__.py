@@ -1,8 +1,11 @@
 """Host-side data for the trainer (the port of
-``skycomputing_tpu/dataset``'s generators, synthetic BERT dataset and
-loader; numpy only)."""
+``skycomputing_tpu/dataset``: generators, the GLUE dataset and its
+preprocessing, synthetic datasets and the loader; numpy and stdlib
+only)."""
 
 from ..registry import DATASET
+from . import glue
+from .bert_dataset import GlueDataset
 from .data_generator import (
     BaseGenerator,
     DataloaderGenerator,
@@ -10,14 +13,18 @@ from .data_generator import (
     RandomTokenGenerator,
 )
 from .dataloader import DataLoader
-from .datasets import RandomBertDataset
+from .datasets import RandomBertDataset, RandomImageDataset, RandomMlpDataset
 
 __all__ = [
     "BaseGenerator",
     "DATASET",
     "DataLoader",
     "DataloaderGenerator",
+    "GlueDataset",
     "RandomBertDataset",
+    "RandomImageDataset",
+    "RandomMlpDataset",
     "RandomTensorGenerator",
     "RandomTokenGenerator",
+    "glue",
 ]

@@ -1,13 +1,49 @@
 """Synthetic datasets (the port's numpy copy of
-``skycomputing_tpu/dataset/datasets.py``: the BERT dataset the
-launcher's config trains on; the others and ``GlueDataset`` are not
-ported)."""
+``skycomputing_tpu/dataset/datasets.py``): MLP features, CIFAR-shaped
+images and MNLI-shaped BERT rows.  The LM and CIFAR-10 datasets are not
+ported: no model of the port consumes them yet."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..registry import DATASET
+
+
+@DATASET.register_module
+class RandomMlpDataset:
+    """Random-feature classification rows for MLP smoke tests."""
+
+    def __init__(self, num_samples: int = 256, in_features: int = 32,
+                 num_classes: int = 4, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.features = rng.normal(
+            size=(num_samples, in_features)).astype(np.float32)
+        self.labels = rng.integers(0, num_classes, size=(num_samples,))
+
+    def __len__(self):
+        return len(self.features)
+
+    def __getitem__(self, idx):
+        return (self.features[idx],), int(self.labels[idx])
+
+
+@DATASET.register_module
+class RandomImageDataset:
+    """CIFAR-shaped random images (an offline stand-in for CIFAR-10)."""
+
+    def __init__(self, num_samples: int = 256, shape=(3, 32, 32),
+                 num_classes: int = 10, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.images = rng.normal(
+            size=(num_samples, *shape)).astype(np.float32)
+        self.labels = rng.integers(0, num_classes, size=(num_samples,))
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        return (self.images[idx],), int(self.labels[idx])
 
 
 @DATASET.register_module
@@ -43,4 +79,4 @@ class RandomBertDataset:
         )
 
 
-__all__ = ["RandomBertDataset"]
+__all__ = ["RandomBertDataset", "RandomImageDataset", "RandomMlpDataset"]

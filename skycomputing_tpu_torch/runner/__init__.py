@@ -5,9 +5,14 @@ from .hooks import Hook
 from .hooks_collection import (
     CheckpointHook,
     DistributedTimerHelperHook,
+    EvalHook,
+    MetricsHook,
+    NanGuardHook,
     StopHook,
+    WatchdogHook,
 )
 from .runner import Runner
 
-__all__ = ["CheckpointHook", "DistributedTimerHelperHook", "Hook", "Runner",
-           "StopHook"]
+__all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
+           "Hook", "MetricsHook", "NanGuardHook", "Runner", "StopHook",
+           "WatchdogHook"]

@@ -8,15 +8,21 @@ replay exactly.  ``max_iters`` and :meth:`Runner.request_stop` end the
 run after the current iteration; an epoch cut short is neither counted
 nor announced to ``after_train_epoch``.
 
+:meth:`Runner.evaluate` scores a loader with the pipeline's eval-mode
+forward (no dropout, no rematerialization) under the ``*_val_*`` hook
+lifecycle: mean loss weighted per example, accuracy, and a GLUE task's
+own metrics.
+
 Not ported yet: pre-flight plan checking (``preflight=True`` raises
-``NotImplementedError``), the live-metrics surface and evaluation.  The
-JAX runner's compile cache has no counterpart: PyTorch runs eagerly.
+``NotImplementedError``) and the live-metrics surface.  The JAX runner's
+compile cache has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ..dynamics import ParameterServer, WorkerManager
@@ -64,6 +70,8 @@ class Runner:
         # the in-flight (data, labels) pair, for hooks that need a batch
         self.current_batch = None
         self.aborted = False
+        # one metrics dict per EvalHook evaluation, in order
+        self.eval_history: List[Dict] = []
         if loss_cfg is not None:
             # the model already owns a loss; loss_cfg overrides it
             self.model.set_loss_fn(build_loss(loss_cfg))
@@ -195,6 +203,80 @@ class Runner:
             self._call_hook("after_train_epoch")
             if self._iter >= self._max_iters:
                 break
+
+    # --- evaluation ----------------------------------------------------------
+    def evaluate(self, data_loader, max_batches: Optional[int] = None,
+                 task: Optional[str] = None) -> Dict:
+        """Mean loss and accuracy over ``data_loader`` (at most
+        ``max_batches`` batches) with the pipeline's eval-mode forward,
+        under the ``*_val_*`` hook lifecycle; train mode is restored
+        afterwards.  The loss is weighted per example, so a ragged final
+        batch counts no more than a full one.  Classification logits
+        ``[B, C]`` are scored against their labels; token logits
+        ``[B, L, V]`` against the next token.  ``task`` adds the GLUE
+        task's own metrics (``ops/metrics.py``: F1 for mrpc, Matthews
+        for cola, ...) over all predictions.  The logits come to the host
+        once per batch; the loss is computed there."""
+        if task is not None:
+            from ..ops.metrics import TASK_METRICS
+
+            if task.lower() not in TASK_METRICS:
+                raise ValueError(
+                    f"unknown task {task!r}; known: {sorted(TASK_METRICS)}")
+
+        self.model.train(False)
+        self._call_hook("before_val_epoch")
+        loss_sum = 0.0
+        correct = num_predictions = num_examples = 0
+        all_preds: List[np.ndarray] = []
+        all_labels: List[np.ndarray] = []
+        try:
+            for i, (data, labels) in enumerate(data_loader):
+                if max_batches is not None and i >= max_batches:
+                    break
+                self._call_hook("before_val_iter")
+                with torch.no_grad():
+                    logits = self.model.forward(data).to("cpu")
+                labels = np.asarray(labels)
+                n = len(labels)
+                loss_sum += float(self.model._loss_fn(
+                    logits, torch.from_numpy(labels))) * n
+                preds = logits.float().argmax(dim=-1).numpy()
+                if logits.dim() == 3:
+                    if task is not None:
+                        raise ValueError(
+                            "task metrics need per-example classification "
+                            "logits; got token-level logits "
+                            f"{tuple(logits.shape)}")
+                    # the logit at position t predicts token t + 1
+                    targets = labels[:, 1:]
+                    correct += int((preds[:, :-1] == targets).sum())
+                    num_predictions += targets.size
+                else:
+                    correct += int((preds == labels).sum())
+                    num_predictions += n
+                    if task is not None:
+                        all_preds.append(preds)
+                        all_labels.append(labels)
+                num_examples += n
+                self._call_hook("after_val_iter")
+            self._call_hook("after_val_epoch")
+        finally:
+            self.model.train(True)
+        result = {
+            "loss": loss_sum / num_examples if num_examples else float("nan"),
+            "accuracy": (correct / num_predictions if num_predictions
+                         else float("nan")),
+            "num_examples": num_examples,
+        }
+        if all_preds:
+            from ..ops.metrics import compute_task_metrics
+
+            task_metrics = compute_task_metrics(
+                task, np.concatenate(all_preds), np.concatenate(all_labels))
+            result.update({k: v for k, v in task_metrics.items()
+                           if k not in result})
+        return result
 
 
 __all__ = ["Runner"]

@@ -23,7 +23,8 @@ FORBIDDEN = ("jax", "flax", "skycomputing_tpu")
 
 def _port_files():
     files = sorted((ROOT / "skycomputing_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "prefill_ab.py"]
+    return files + [ROOT / name for name in (
+        "chip_smoke.py", "prefill_ab.py", "launcher_ab.py")]
 
 
 def _imported_roots(path: Path):

@@ -76,9 +76,12 @@ def test_launcher_trains_to_finite_losses(tiny_env, monkeypatch, allocate,
         assert out.model_benchmarker.distinct_units == 6
     hooks = {type(h): h for h in out.runner.hooks}
     assert StopHook in hooks
-    # one epoch covers the 3 iterations: the epoch's checkpoint
+    # the config's GLUE corpus (512 synthetic rows) outlasts the 3
+    # iterations: the run's final checkpoint, mid-epoch
     assert hooks[CheckpointHook].last_saved == str(tiny_env / "ckpt"
-                                                   / "epoch_1.pt")
+                                                   / "iter_3.pt")
+    dataset = out.runner.data_loader._loader.dataset
+    assert type(dataset).__name__ == "GlueDataset" and dataset.synthetic
     # SKYTPU_FLASH: every attention unit takes the flash path (its plain
     # version on the CPU)
     heads = [m for stage in out.model.stages for m in stage.stack.layers
