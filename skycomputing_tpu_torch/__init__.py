@@ -11,6 +11,10 @@ the BERT pipeline trainer: ``models/bert.py`` split into units over a
 :class:`~.dynamics.ParameterServer`, an :class:`~.dynamics.Allocator`
 (even split), the GPipe :class:`~.parallel.PipelineModel` and the
 :class:`~.runner.Runner`, with the flash-attention kernel in CUDA.
+Later slices add the paper's main path (profilers, solver, allocation,
+1F1B, the launcher), the bench, GLUE data and evaluation, and the
+trainer's safety net: the pre-flight plan verifier (:mod:`.analysis`),
+the telemetry core (:mod:`.telemetry`), fault injection and self-heal.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on a CPU tensor each kernel wrapper runs its plain PyTorch version.

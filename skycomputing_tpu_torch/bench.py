@@ -76,10 +76,12 @@ Left out of the port: the JAX bench's accelerator probe ladder, its
 watcher log and its CPU fallback (here a box without a card raises
 unless ``--device`` names another device); the XLA compile cache and
 ``SKYTPU_HOTPATH`` (PyTorch runs eagerly); the MFU side artifact
-(``tools/bench_mfu.py`` is not ported).  The JAX bench's pre-flight
-``verify_plan`` waits for the port of ``analysis/plan_check.py``; until
-then :func:`check_partition` refuses, before each pipeline is built, an
-allocation that is not a contiguous cover of every unit.
+(``tools/bench_mfu.py`` is not ported).  As the JAX bench does, each
+allocation is verified before its pipeline is built
+(``analysis/plan_check.py:verify_plan`` with the profile's ``layer_mem``
+and ``memory="warn"``): every issue and the summary go to stderr as
+``{label}: pre-flight ...`` notes, and a plan with an error raises
+``PlanError``.
 """
 
 from __future__ import annotations
@@ -97,6 +99,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .analysis.plan_check import verify_plan
 from .dataset import RandomTokenGenerator
 from .dynamics.allocator import Allocator
 from .dynamics.benchmarker import ModelBenchmarker, proxy_device_benchmarker
@@ -233,20 +236,6 @@ class BenchResult:
         print(json.dumps(out), flush=True)
 
 
-def check_partition(model_cfg: Sequence[Dict], wm: WorkerManager) -> None:
-    """Refuse an allocation that is not a contiguous cover of every
-    unit: the non-empty workers, in rank order (the pipeline's stage
-    order), must hold ``model_cfg``'s units exactly once each, in order."""
-    held = [unit for w in sorted(wm.worker_pool, key=lambda w: w.rank)
-            for unit in (w.model_config or [])]
-    if [id(u) for u in held] != [id(u) for u in model_cfg]:
-        counts = [len(w.model_config or [])
-                  for w in sorted(wm.worker_pool, key=lambda w: w.rank)]
-        raise ValueError(
-            f"allocation {counts} is not a contiguous cover of the "
-            f"{len(model_cfg)} units")
-
-
 def _stage_workers(wm: WorkerManager) -> List:
     """The workers that hold units, in pipeline order."""
     return [w for w in sorted(wm.worker_pool, key=lambda w: w.rank)
@@ -338,7 +327,7 @@ class Bench:
         and restored afterwards."""
         t0 = time.time()
         was_seeded = bool(seed_times)
-        check_partition(self.model_cfg, wm)
+        self.preflight(wm, label)
         stages = _stage_workers(wm)
         stage_slowdowns = [float(w.extra_config["slowdown"]) for w in stages]
         saved = {id(w): w.extra_config.get("slowdown", 1.0)
@@ -366,6 +355,20 @@ class Bench:
                   f"{[round(t, 6) for t in measured]} slowdowns="
                   f"{stage_slowdowns}; pass {self.last_pass_s:.1f}s")
         return step, measured
+
+    def preflight(self, wm: WorkerManager, label: str) -> None:
+        """Verify ``wm``'s allocation before its pipeline is built: a
+        malformed plan raises ``PlanError`` with its diagnostics.  Memory
+        surfaces as warnings: the even baseline ignores budgets by
+        design, and the allocator already enforced them for the optimal
+        side."""
+        report = verify_plan(
+            self.model_cfg, wm, self.data,
+            layer_mem=self.layer_mem or None, memory="warn")
+        for issue in report.issues:
+            self.note(f"{label}: pre-flight {issue.format()}")
+        report.raise_if_failed()
+        self.note(f"{label}: pre-flight {report.summary()}")
 
     def solver_budget(self) -> float:
         """Wall budget of one solve: bounded, so the solver's anneal
@@ -817,7 +820,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return 0
 
 
-__all__ = ["Bench", "BenchResult", "Knobs", "check_partition", "main"]
+__all__ = ["Bench", "BenchResult", "Knobs", "main"]
 
 
 if __name__ == "__main__":

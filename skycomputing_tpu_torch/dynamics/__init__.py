@@ -1,5 +1,5 @@
-"""Cluster membership, profiling, allocation and the host parameter
-store (the port of ``skycomputing_tpu/dynamics``)."""
+"""Cluster membership, profiling, allocation, the host parameter store
+and seeded fault injection (the port of ``skycomputing_tpu/dynamics``)."""
 
 from .allocator import Allocator
 from .benchmarker import (
@@ -14,10 +14,16 @@ from .solver import PartitionResult, solve_contiguous_minmax
 from .worker import Worker
 from .worker_manager import WorkerManager, worker_pool_config
 
+# last: faults imports the runner's Hook, whose package imports the names
+# above
+from .faults import FaultInjectionHook, FaultPlan  # noqa: E402
+
 __all__ = [
     "Allocator",
     "DeviceBenchmarker",
     "Estimator",
+    "FaultInjectionHook",
+    "FaultPlan",
     "ModelBenchmarker",
     "ParameterServer",
     "PartitionResult",

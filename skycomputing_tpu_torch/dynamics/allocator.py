@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry import trace_span
 from ..utils import Logger
 from .solver import solve_contiguous_minmax
 from .worker_manager import WorkerManager
@@ -187,20 +188,25 @@ class Allocator:
         slow host the binary-search + local-search solution is returned
         once the budget is spent, with whatever certified gap it reached.
         """
-        (worker_ranks, device_time, device_mem, layer_flops,
-         layer_mem) = self._profiles()
+        with trace_span("allocator.profiles", "dynamics", "allocator"):
+            (worker_ranks, device_time, device_mem, layer_flops,
+             layer_mem) = self._profiles()
         self._logger.info(
             f"optimal_allocate: {len(layer_flops)} layers over "
             f"{len(worker_ranks)} workers; device_time={device_time}"
         )
 
-        result = solve_contiguous_minmax(
-            layer_cost=layer_flops,
-            layer_mem=layer_mem,
-            device_time=device_time,
-            device_mem=device_mem,
-            anneal_seconds=max_time,
-        )
+        with trace_span(
+            "allocator.solve", "dynamics", "allocator",
+            {"layers": len(layer_flops), "workers": len(worker_ranks)},
+        ):
+            result = solve_contiguous_minmax(
+                layer_cost=layer_flops,
+                layer_mem=layer_mem,
+                device_time=device_time,
+                device_mem=device_mem,
+                anneal_seconds=max_time,
+            )
         # exposed for callers that report provenance (the certified
         # optimality gap, the solver's path)
         self.last_result = result
@@ -577,15 +583,19 @@ class Allocator:
         """
         if attribute == "devices":
             # validates the measurement list itself (stage_divergence)
-            self.calibrate_device_speeds(measured_stage_times,
-                                         damping=damping)
+            with trace_span("allocator.calibrate", "dynamics", "allocator",
+                            {"attribute": attribute}):
+                self.calibrate_device_speeds(measured_stage_times,
+                                             damping=damping)
         elif attribute == "layers":
             workers = self._ordered_stage_workers(measured_stage_times)
-            self.calibrate_costs(
-                [len(w.model_config) for w in workers],
-                measured_stage_times,
-                damping=damping,
-            )
+            with trace_span("allocator.calibrate", "dynamics", "allocator",
+                            {"attribute": attribute}):
+                self.calibrate_costs(
+                    [len(w.model_config) for w in workers],
+                    measured_stage_times,
+                    damping=damping,
+                )
         else:
             raise ValueError(
                 f"unknown attribute {attribute!r}; use 'layers' or 'devices'"

@@ -32,6 +32,7 @@ from torch.utils._pytree import tree_leaves
 from ..builder import build_layer, build_layer_stack
 from ..dataset import BaseGenerator, RandomTensorGenerator
 from ..stimulator import Stimulator
+from ..telemetry import trace_span
 from ..utils import resolve_device, resolve_devices
 from .estimator import Estimator, memory_mb, meta_like
 from .worker_manager import WorkerManager
@@ -104,8 +105,10 @@ class DeviceBenchmarker(BaseBenchmarker):
         """Time the proxy model on one worker's device; probe free memory."""
         device = _device_for(worker, self._devices)
         if device not in self._device_time_cache:
-            self._device_time_cache[device] = self._measure_device(device,
-                                                                   data)
+            with trace_span("bench.device", "dynamics", "benchmark",
+                            {"device": str(device)}):
+                self._device_time_cache[device] = self._measure_device(
+                    device, data)
         elapsed = self._device_time_cache[device]
         mem_limit = worker.extra_config.get("mem_limit", -1)
         if mem_limit and mem_limit > 0:
@@ -204,7 +207,11 @@ class ModelBenchmarker(BaseBenchmarker):
 
     def benchmark(self) -> Tuple[List[float], List[float]]:
         if self._result is None:
-            self._result = self._benchmark()
+            with trace_span(
+                "bench.model", "dynamics", "benchmark",
+                {"layers": len(self._model_config), "timed": self._timed},
+            ):
+                self._result = self._benchmark()
         return self._result
 
     def _benchmark(self) -> Tuple[List[float], List[float]]:

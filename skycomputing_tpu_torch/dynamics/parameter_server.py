@@ -15,12 +15,15 @@ checkpoint survives re-allocation.  Weights come from one of:
 - ``state_dicts`` (e.g. :func:`~..convert.params_from_jax`).
 
 Whole-model checkpoints are single files written with ``torch.save``
-and published atomically (a temporary file renamed into place).  Orbax
+and published atomically (a temporary file renamed into place); the
+write and the read of an existing file retry transient ``OSError``s
+with :func:`~..utils.retry_call`, as the JAX store does.  Orbax
 directories are not ported.
 """
 
 from __future__ import annotations
 
+import io
 import math
 import os
 from typing import Dict, List, Optional, Sequence
@@ -29,6 +32,7 @@ import torch
 from torch import nn
 
 from ..builder import build_layer_stack
+from ..utils import retry_call
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -116,21 +120,35 @@ class ParameterServer:
     def save_weights_to_file(self, checkpoint: str) -> None:
         """Write ``checkpoint + ".tmp"`` and rename it into place, so a
         crash at any point leaves the previous checkpoint whole."""
-        tmp = f"{checkpoint}.tmp"
-        torch.save({"layers": self.params}, tmp)
-        os.replace(tmp, checkpoint)
+        def write():
+            tmp = f"{checkpoint}.tmp"
+            torch.save({"layers": self.params}, tmp)
+            os.replace(tmp, checkpoint)
+
+        retry_call(write, retry_on=(OSError,),
+                   describe=f"checkpoint save {checkpoint}")
 
     def load_weights_from_file(self, checkpoint: str) -> None:
         if not os.path.exists(checkpoint):
+            # a missing file fails fast: only reads of an existing
+            # checkpoint get the transient-fault retries
             raise FileNotFoundError(f"no checkpoint at {checkpoint!r}")
+
+        def read():
+            with open(checkpoint, "rb") as fh:
+                return fh.read()
+
+        raw = retry_call(read, retry_on=(OSError,),
+                         describe=f"checkpoint read {checkpoint}")
         try:
-            restored = torch.load(checkpoint, map_location="cpu",
+            restored = torch.load(io.BytesIO(raw), map_location="cpu",
                                   weights_only=True)
         except Exception as exc:
             # a torn file otherwise surfaces as a deep unpickler
             # traceback with no mention of which file was bad
             raise ValueError(
-                f"corrupt or truncated checkpoint {checkpoint!r}: {exc}"
+                f"corrupt or truncated checkpoint {checkpoint!r} "
+                f"({len(raw)} bytes): {exc}"
             ) from exc
         if not isinstance(restored, dict) or "layers" not in restored:
             raise ValueError(

@@ -6,8 +6,9 @@ from .pipeline import (
     PipelineStats,
     StageRuntime,
     build_optimizer,
+    device_put_elided,
     sgd,
 )
 
 __all__ = ["PipelineModel", "PipelineStats", "StageRuntime",
-           "build_optimizer", "sgd"]
+           "build_optimizer", "device_put_elided", "sgd"]

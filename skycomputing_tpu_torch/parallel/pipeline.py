@@ -38,6 +38,18 @@ same mask.
 
 Devices default to every CUDA device; with no card and no explicit
 ``devices=[torch.device("cpu")]`` construction raises.
+
+Tracing (``telemetry.enable_tracing``, or a ``TraceHook``) records the
+reference's timeline: per stage a lane ``stage {k} [{device}]`` with
+``fwd``/``bwd`` spans per microbatch (``{"mb": m}``) under both
+schedules and an ``update`` span; one ``host_dispatch`` span per step
+whose duration is :attr:`PipelineStats.dispatch_s`; and a ``transfer``
+or ``transfer_elided`` instant at each placement of stage inputs,
+labels and cotangents (:func:`device_put_elided`).  The lanes are looked
+up once per call (:meth:`PipelineModel._trace_lanes`), and nothing is
+recorded while tracing is off.  The spans time the host issuing work,
+as the reference's do: none synchronizes.  The reference's
+``xla_compile`` spans have no counterpart: nothing compiles.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ from torch import nn
 from ..builder import as_tuple, build_layer_stack
 from ..dynamics.parameter_server import ParameterServer
 from ..dynamics.worker_manager import WorkerManager
+from ..telemetry import get_tracer
 from ..utils import resolve_devices
 
 OptimizerFactory = Callable[[List[nn.Parameter]], torch.optim.Optimizer]
@@ -110,11 +123,40 @@ def _to_device(acts: Tuple, device: torch.device) -> Tuple:
     )
 
 
+def device_put_elided(tree, device: torch.device):
+    """``tree`` (a tuple, or one leaf) on ``device``, as :func:`_to_device`
+    places it, counting its leaves the way the reference's
+    ``device_put_elided`` does: a tensor already on ``device`` is
+    resident, a host array or a tensor elsewhere moves.  With tracing on,
+    one ``transfer`` instant (something moved) or ``transfer_elided``
+    (nothing did) on lane ``("transfers", str(device))``."""
+    single = not isinstance(tree, tuple)
+    leaves = (tree,) if single else tree
+    tracer = get_tracer()
+    if tracer is not None:
+        arrays = [x for x in leaves
+                  if isinstance(x, (torch.Tensor, np.ndarray))]
+        moved = sum(1 for x in arrays
+                    if not (isinstance(x, torch.Tensor)
+                            and x.device == device))
+        lane = tracer.lane("transfers", str(device))
+        if moved:
+            tracer.instant("transfer", lane, {
+                "moved": moved, "elided": len(arrays) - moved})
+        else:
+            tracer.instant("transfer_elided", lane,
+                           {"leaves": len(arrays)})
+    placed = _to_device(leaves, device)
+    return placed[0] if single else placed
+
+
 def _split_microbatches(tree, num_microbatches: int):
     """Leading-axis split of every leaf (numpy or tensor) into equal
-    contiguous chunks; a tuple comes back as a list of tuples."""
+    contiguous chunks; a tuple comes back as a list of tuples.  Host
+    arrays stay host arrays (views) until they are placed."""
     def split(x):
-        x = torch.as_tensor(x)
+        if not isinstance(x, np.ndarray):
+            x = torch.as_tensor(x)
         if x.shape[0] % num_microbatches != 0:
             raise ValueError(
                 f"batch size {x.shape[0]} not divisible by "
@@ -170,6 +212,9 @@ class StageRuntime:
         self.stage_index = stage_index
         self.device = torch.device(device)
         self.num_layers = len(layer_cfgs)
+        # trace-lane name: one process row per (stage, device); the trace
+        # analysis keys stage utilization on the "stage N" prefix
+        self.lane_name = f"stage {stage_index} [{self.device}]"
         # stages sharing this key run the same modules on equal inputs,
         # so their compute profile on one device is the same
         self.config_key = json.dumps(list(layer_cfgs), sort_keys=True,
@@ -215,7 +260,9 @@ class StageRuntime:
     def forward(self, inputs: Tuple, seed: Optional[int] = None,
                 train: bool = True) -> Tuple:
         """The stage forward without a graph: only its inputs are kept
-        (by the caller) for the rematerializing backward."""
+        (by the caller) for the rematerializing backward.  The caller
+        places ``inputs`` on this stage's device
+        (:func:`device_put_elided`)."""
         return self._emulated(lambda: self.forward_raw(inputs, seed, train))
 
     def forward_raw(self, inputs: Tuple, seed: Optional[int] = None,
@@ -223,7 +270,6 @@ class StageRuntime:
         """:meth:`forward` without the slowdown emulation."""
         if self.stack.training != train:
             self.stack.train(train)
-        inputs = _to_device(inputs, self.device)
         with torch.no_grad(), self._dropout_seed(seed):
             return as_tuple(self.stack(*inputs))
 
@@ -234,13 +280,14 @@ class StageRuntime:
         cotangent): parameter gradients accumulate into ``.grad``.
         Returns the input cotangents (``None`` for stage 0 and for
         inputs that are not floating point)."""
+        dy = device_put_elided(tuple(dy), self.device)
         return self._emulated(lambda: self.backward_raw(inputs, dy, seed))
 
     def backward_raw(self, inputs: Tuple, dy: Tuple,
                      seed: Optional[int] = None) -> Optional[Tuple]:
-        """:meth:`backward` without the slowdown emulation."""
+        """:meth:`backward` without the slowdown emulation (``dy`` already
+        on this stage's device)."""
         self.stack.train(True)
-        dy = _to_device(dy, self.device)
         with torch.enable_grad(), self._dropout_seed(seed):
             xs = tuple(
                 x.detach().requires_grad_(
@@ -299,6 +346,15 @@ class PipelineStats:
     interleaved: bool = False
     dispatch_s: float = 0.0
     compute_wait_s: float = 0.0
+
+    #: metric classification (``telemetry.MetricsRegistry``): the model
+    #: rebinds ``stats`` to a fresh object every step, so every field is
+    #: a per-step gauge
+    FIELD_TYPES = {
+        "forward_s": "gauge", "backward_s": "gauge", "step_s": "gauge",
+        "loss": "gauge", "interleaved": "gauge", "dispatch_s": "gauge",
+        "compute_wait_s": "gauge",
+    }
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-able field dict."""
@@ -413,6 +469,7 @@ class PipelineModel:
             seeds = self._step_seeds(generator, 1, len(self.stages))[0]
         acts = as_tuple(data)
         for stage, seed in zip(self.stages, seeds):
+            acts = device_put_elided(acts, stage.device)
             acts = stage.forward(acts, seed, train=self._train)
         return acts[0]
 
@@ -435,7 +492,26 @@ class PipelineModel:
             dispatch_s=dispatch_s,
             compute_wait_s=max((t3 - t0) - dispatch_s, 0.0),
         )
+        tracer = get_tracer()
+        if tracer is not None:
+            # one span per step whose duration IS dispatch_s, placed
+            # ending now, so the trace carries the engine's dispatch share
+            end = tracer.now()
+            tracer.complete(
+                "host_dispatch", tracer.lane("host", "dispatch"),
+                max(end - dispatch_s * 1e6, 0.0), dur_us=dispatch_s * 1e6,
+            )
         return total_loss
+
+    def _trace_lanes(self):
+        """(tracer, per-stage lane list), or (None, None) when tracing is
+        off: one accessor call and S lane lookups per call, none per
+        microbatch."""
+        tracer = get_tracer()
+        if tracer is None:
+            return None, None
+        return tracer, [tracer.lane(stage.lane_name, "dispatch")
+                        for stage in self.stages]
 
     def _loss_and_dlogits(self, logits, labels, scale: float):
         with torch.enable_grad():
@@ -475,21 +551,35 @@ class PipelineModel:
             return self._compute_gradients_1f1b(data, labels, generator)
         return self._compute_gradients_gpipe(data, labels, generator)
 
+    def _prefetch(self, micro_data, micro_labels):
+        """Every microbatch's inputs on the first stage's device and its
+        labels on the last's, issued before the first forward."""
+        first, last = self.stages[0].device, self.stages[-1].device
+        return ([device_put_elided(md, first) for md in micro_data],
+                [device_put_elided(ml, last) for ml in micro_labels])
+
     def _compute_gradients_gpipe(self, data, labels, generator):
         M, S, micro_data, micro_labels, scale, seeds = self._step_inputs(
             data, labels, generator)
         last_device = self.stages[-1].device
+        tracer, lanes = self._trace_lanes()
 
         t0 = time.perf_counter()
+        micro_data, micro_labels = self._prefetch(micro_data, micro_labels)
         # ---- forward (fill): per microbatch, per stage; keep stage inputs
         stage_inputs: List[List[Optional[Tuple]]] = [[] for _ in self.stages]
         final_acts: List[Tuple] = []
         for m in range(M):
             acts = micro_data[m]
             for k, stage in enumerate(self.stages):
-                acts = _to_device(acts, stage.device)
+                acts = device_put_elided(acts, stage.device)
                 stage_inputs[k].append(acts)
-                acts = stage.forward(acts, seeds[m][k])
+                if tracer is None:
+                    acts = stage.forward(acts, seeds[m][k])
+                else:
+                    span0 = tracer.now()
+                    acts = stage.forward(acts, seeds[m][k])
+                    tracer.complete("fwd", lanes[k], span0, {"mb": m})
             final_acts.append(acts)
         dispatch_s = time.perf_counter() - t0
         _synchronize(self._stage_devices)
@@ -500,13 +590,19 @@ class PipelineModel:
         for m in reversed(range(M)):
             acts = final_acts[m]
             loss_m, dlogits = self._loss_and_dlogits(
-                acts[0], micro_labels[m].to(last_device), scale
-            )
+                acts[0], device_put_elided(micro_labels[m], last_device),
+                scale)
             losses.append(loss_m)
             dy: Optional[Tuple] = (dlogits,) + (None,) * (len(acts) - 1)
             for k in reversed(range(S)):
-                dy = self.stages[k].backward(stage_inputs[k][m], dy,
-                                             seeds[m][k])
+                if tracer is None:
+                    dy = self.stages[k].backward(stage_inputs[k][m], dy,
+                                                 seeds[m][k])
+                else:
+                    span0 = tracer.now()
+                    dy = self.stages[k].backward(stage_inputs[k][m], dy,
+                                                 seeds[m][k])
+                    tracer.complete("bwd", lanes[k], span0, {"mb": m})
                 stage_inputs[k][m] = None  # dead once its backward ran
         dispatch_s += time.perf_counter() - t1
         self._last_dispatch_s = dispatch_s
@@ -518,11 +614,17 @@ class PipelineModel:
 
     def apply_gradients(self, grad_totals) -> None:
         """Apply per-stage gradient lists with each stage's optimizer."""
-        for stage, grads in zip(self.stages, grad_totals):
+        tracer, lanes = self._trace_lanes()
+        for k, (stage, grads) in enumerate(zip(self.stages, grad_totals)):
             for p, g in zip(stage.parameters, grads):
                 if p.grad is not g:
                     p.grad = g
-            stage.apply_gradients()
+            if tracer is None:
+                stage.apply_gradients()
+            else:
+                span0 = tracer.now()
+                stage.apply_gradients()
+                tracer.complete("update", lanes[k], span0)
 
     def _compute_gradients_1f1b(self, data, labels, generator):
         """One-forward-one-backward: a dependency-driven issue loop over
@@ -533,8 +635,10 @@ class PipelineModel:
         M, S, micro_data, micro_labels, scale, seeds = self._step_inputs(
             data, labels, generator)
         last_device = self.stages[-1].device
+        tracer, lanes = self._trace_lanes()
 
         t0 = time.perf_counter()
+        micro_data, micro_labels = self._prefetch(micro_data, micro_labels)
         stage_inputs: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
         stage_outputs: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
         dys: List[Dict[int, Tuple]] = [dict() for _ in range(S)]
@@ -558,14 +662,20 @@ class PipelineModel:
             m = fwd_next[k]
             stage = self.stages[k]
             acts = micro_data[m] if k == 0 else stage_outputs[k - 1].pop(m)
-            acts = _to_device(acts, stage.device)
+            acts = device_put_elided(acts, stage.device)
             stage_inputs[k][m] = acts
-            out = stage.forward(acts, seeds[m][k])
+            if tracer is None:
+                out = stage.forward(acts, seeds[m][k])
+            else:
+                span0 = tracer.now()
+                out = stage.forward(acts, seeds[m][k])
+                tracer.complete("fwd", lanes[k], span0, {"mb": m})
             if k < S - 1:
                 stage_outputs[k][m] = out
             else:
                 loss_m, dlogits = self._loss_and_dlogits(
-                    out[0], micro_labels[m].to(last_device), scale)
+                    out[0], device_put_elided(micro_labels[m], last_device),
+                    scale)
                 losses.append(loss_m)
                 dys[k][m] = (dlogits,) + (None,) * (len(out) - 1)
             fwd_next[k] += 1
@@ -573,8 +683,14 @@ class PipelineModel:
         def do_bwd(k):
             m = bwd_next[k]
             dy = dys[k].pop(m) if k == S - 1 else dys[k + 1].pop(m)
-            dx = self.stages[k].backward(stage_inputs[k].pop(m), dy,
-                                         seeds[m][k])
+            if tracer is None:
+                dx = self.stages[k].backward(stage_inputs[k].pop(m), dy,
+                                             seeds[m][k])
+            else:
+                span0 = tracer.now()
+                dx = self.stages[k].backward(stage_inputs[k].pop(m), dy,
+                                             seeds[m][k])
+                tracer.complete("bwd", lanes[k], span0, {"mb": m})
             if k > 0:
                 dys[k][m] = dx
             bwd_next[k] += 1
@@ -645,7 +761,7 @@ class PipelineModel:
         samplers: Dict[int, Callable[[], float]] = {}  # by stage index
         timing: set = set()  # keys a sampler of this call times
         for k, (stage, seed) in enumerate(zip(self.stages, seeds)):
-            inputs = _to_device(acts, stage.device)
+            inputs = device_put_elided(acts, stage.device)
             out = stage.forward_raw(inputs, seed)
             key = (
                 stage.config_key,
@@ -761,5 +877,6 @@ __all__ = [
     "PipelineStats",
     "StageRuntime",
     "build_optimizer",
+    "device_put_elided",
     "sgd",
 ]

@@ -8,11 +8,13 @@ from .hooks_collection import (
     EvalHook,
     MetricsHook,
     NanGuardHook,
+    SelfHealHook,
     StopHook,
+    TraceHook,
     WatchdogHook,
 )
 from .runner import Runner
 
 __all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
-           "Hook", "MetricsHook", "NanGuardHook", "Runner", "StopHook",
-           "WatchdogHook"]
+           "Hook", "MetricsHook", "NanGuardHook", "Runner", "SelfHealHook",
+           "StopHook", "TraceHook", "WatchdogHook"]

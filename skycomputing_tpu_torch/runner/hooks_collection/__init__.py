@@ -1,14 +1,17 @@
 """The hooks the launcher's configs name (the port of
 ``skycomputing_tpu/runner/hooks_collection``: stop, timer, checkpoint,
-evaluation, metrics, NaN guard and watchdog; self-heal, heartbeat,
-trace and autotune are later slices)."""
+evaluation, metrics, NaN guard, watchdog, trace and self-heal;
+heartbeat and autotune are later slices)."""
 
 from .checkpoint_hook import CheckpointHook
 from .eval_hook import EvalHook
 from .metrics_hook import MetricsHook
+from .selfheal_hook import SelfHealHook
 from .stop_hook import StopHook
 from .timer_hook import DistributedTimerHelperHook
+from .trace_hook import TraceHook
 from .watchdog_hook import NanGuardHook, WatchdogHook
 
 __all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
-           "MetricsHook", "NanGuardHook", "StopHook", "WatchdogHook"]
+           "MetricsHook", "NanGuardHook", "SelfHealHook", "StopHook",
+           "TraceHook", "WatchdogHook"]

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from ...registry import HOOKS
+from ...telemetry import trace_span
 from ..hooks import Hook
 
 
@@ -108,6 +109,10 @@ class CheckpointHook(Hook):
             self._save(runner, f"iter_{runner.iter}")
 
     def _save(self, runner, tag: str) -> None:
+        with trace_span("checkpoint", "runner", "lifecycle", {"tag": tag}):
+            self._save_traced(runner, tag)
+
+    def _save_traced(self, runner, tag: str) -> None:
         os.makedirs(self._save_path, exist_ok=True)
         runner.model.sync_to_parameter_server()
         path = osp.join(self._save_path, f"{tag}.pt")

@@ -13,26 +13,37 @@ forward (no dropout, no rematerialization) under the ``*_val_*`` hook
 lifecycle: mean loss weighted per example, accuracy, and a GLUE task's
 own metrics.
 
-Not ported yet: pre-flight plan checking (``preflight=True`` raises
-``NotImplementedError``) and the live-metrics surface.  The JAX runner's
-compile cache has no counterpart: PyTorch runs eagerly.
+Before the first ``train_step`` (and again after anything re-arms it,
+such as a self-heal rebuild) the runner verifies the pipeline's plan on
+the batch in hand (``analysis/plan_check.py``: coverage, boundary
+shapes on ``meta``, memory, the backward's cotangents) under a
+``preflight`` span; a rejected plan raises ``PlanError`` before any
+stage runs.  ``preflight=False`` or ``SKYTPU_PREFLIGHT=0`` opts out.
+
+``self.metrics`` (a ``MetricsRegistry``) reads the pipeline's per-step
+``PipelineStats`` under ``"pipeline"``; ``enable_timeseries()`` samples
+it once per iteration.  The HTTP exporter is queue A item 4.  The JAX
+runner's compile cache has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..analysis.plan_check import has_plan, verify_pipeline
 from ..dynamics import ParameterServer, WorkerManager
 from ..ops import build_loss
 from ..parallel import PipelineModel
+from ..telemetry import LiveMetricsMixin, MetricsRegistry, trace_span
 from ..utils import DistributedTimer, Logger, PhaseTimer
 from .hooks import Hook
 
 
-class Runner:
+class Runner(LiveMetricsMixin):
     def __init__(
         self,
         model: PipelineModel,
@@ -44,14 +55,8 @@ class Runner:
         timer_cfg: Optional[Dict] = None,
         logging_cfg: Optional[Dict] = None,
         seed: int = 0,
-        preflight: bool = False,
+        preflight: bool = True,
     ):
-        if preflight:
-            raise NotImplementedError(
-                "pre-flight plan checking is not ported to PyTorch yet (a "
-                "later slice, over analysis/plan_check.py); pass "
-                "preflight=False"
-            )
         self.model = model
         self.parameter_server = parameter_server
         self.worker_manager = worker_manager
@@ -63,9 +68,24 @@ class Runner:
         self._max_iters = max_iters
         self._stop = False
         self._generator = torch.Generator().manual_seed(seed)
+        # pre-flight plan verification against the first real batch,
+        # before the first train step (SKYTPU_PREFLIGHT=0 opts out)
+        self._preflight_enabled = preflight
+        self._preflight_done = False
+        #: the reports of this runner's pre-flight checks, in order
+        self.preflight_reports: List = []
         self._logger = Logger(**(logging_cfg or {}))
         self._timer = DistributedTimer(**(timer_cfg or {}))
         self.phase_timer = PhaseTimer()
+        # one snapshot() over the pipeline's per-step counters (the
+        # callable form survives the model rebinding `stats` every step)
+        self.metrics = MetricsRegistry()
+        self.metrics.register(
+            "pipeline", lambda: self.model.stats.snapshot(),
+            types=getattr(type(getattr(self.model, "stats", None)),
+                          "FIELD_TYPES", None),
+        )
+        self.timeseries = None
         self.data_loader = None
         # the in-flight (data, labels) pair, for hooks that need a batch
         self.current_batch = None
@@ -128,6 +148,54 @@ class Runner:
         """Cooperative stop: finishes the current iteration then exits."""
         self._stop = True
 
+    # --- pre-flight ---------------------------------------------------------
+    def rearm_preflight(self) -> None:
+        """Re-run plan verification before the next train step: called
+        after anything that changes the plan mid-run (``SelfHealHook``'s
+        rebuild), so the new allocation is verified like the first."""
+        self._preflight_done = False
+
+    def _preflight(self, data) -> None:
+        """Verify the plan against ``data`` once, before a train step.
+
+        A malformed allocation — a stage boundary that does not
+        type-check, an over-budget slice, a backward that cannot hand a
+        cotangent across — is rejected here with a precise diagnostic.
+        """
+        if self._preflight_done:
+            return
+        if not self._preflight_enabled or \
+                os.environ.get("SKYTPU_PREFLIGHT", "1") == "0":
+            self._preflight_done = True
+            return
+        if not has_plan(self.model):
+            self._logger.info(
+                f"pre-flight: skipped — "
+                f"{type(self.model).__name__} exposes no allocation"
+            )
+            self._preflight_done = True
+            return
+        with trace_span("preflight", "runner", "lifecycle"):
+            report = verify_pipeline(self.model, data)
+        self.preflight_reports.append(report)
+        for issue in report.issues:
+            self._logger.info(f"pre-flight: {issue.format()}")
+        # done only on success: a rejected plan is re-verified on a
+        # retried train(), also when the caller fixed it without going
+        # through rearm_preflight
+        report.raise_if_failed()
+        self._preflight_done = True
+        self._logger.info(f"pre-flight: {report.summary()}")
+
+    # --- live observability (LiveMetricsMixin provides the wiring) ----------
+    def _health_snapshot(self) -> Dict:
+        return dict(
+            status="aborted" if getattr(self, "aborted", False) else "ok",
+            epoch=self._epoch,
+            iter=self._iter,
+            max_iters=self._max_iters,
+        )
+
     # --- hooks --------------------------------------------------------------
     def register_hook(self, hook: Hook) -> None:
         if not isinstance(hook, Hook):
@@ -167,6 +235,7 @@ class Runner:
 
                 self._logger.info(f"epoch: {self._epoch}, iter: {self._iter}")
                 self.current_batch = (data, labels)
+                self._preflight(data)
                 self._call_hook("before_train_iter")
 
                 step_generator = torch.Generator().manual_seed(
@@ -192,6 +261,8 @@ class Runner:
 
                 self._iter += 1
                 self._inner_iter += 1
+                if self.timeseries is not None:
+                    self.timeseries.sample()
                 self._call_hook("after_train_iter")
 
             if not exhausted:

@@ -22,7 +22,7 @@ import torch
 from skycomputing_tpu.dynamics import Allocator as JaxAllocator
 from skycomputing_tpu.dynamics import WorkerManager as JaxWorkerManager
 from skycomputing_tpu_torch import bench
-from skycomputing_tpu_torch.dynamics import Allocator, WorkerManager
+from skycomputing_tpu_torch.dynamics import Allocator
 
 pytestmark = pytest.mark.torch_port
 
@@ -104,22 +104,33 @@ def test_no_card_and_no_device_refuses(monkeypatch, capsys):
     assert line["partial"].startswith("crashed: RuntimeError: no CUDA")
 
 
-def test_check_partition_refuses_a_gap_or_a_reorder():
-    model_cfg = [dict(layer_type="x", i=i) for i in range(6)]
-    wm = WorkerManager()
-    wm.load_worker_pool_from_config([
-        dict(name=f"n{i}", device_config=dict(device_index=0))
-        for i in range(3)])
+def test_preflight_refuses_a_gap_or_a_reorder():
+    """Before each pipeline is built the bench verifies the allocation
+    (``verify_plan``, as the JAX bench does): a good even split passes
+    with a summary note; a dropped unit and two swapped stages raise
+    ``PlanError`` naming ``coverage``."""
+    from skycomputing_tpu_torch.analysis import PlanError
+
+    notes = []
+    run = InjectedBench(_knobs())
+    run.note = notes.append
+    model_cfg = run.model_cfg
+    wm = run.pool()
     Allocator(model_cfg, wm).even_allocate()
-    bench.check_partition(model_cfg, wm)
-    wm.get_by_rank(1).model_config = model_cfg[3:4]  # unit 2 dropped
-    with pytest.raises(ValueError, match="contiguous cover"):
-        bench.check_partition(model_cfg, wm)
-    wm.get_by_rank(1).model_config = model_cfg[2:4]
-    first, second = wm.get_by_rank(0), wm.get_by_rank(1)
+    run.preflight(wm, "even")
+    assert notes[-1].startswith("even: pre-flight plan-check ok: 8 stages "
+                                "/ 27 layers, checks=[coverage, shapes, "
+                                "memory, donation]")
+    second = wm.get_by_rank(1)
+    kept = second.model_config
+    second.model_config = kept[1:]  # its first unit dropped
+    with pytest.raises(PlanError, match="coverage"):
+        run.preflight(wm, "gap")
+    second.model_config = kept
+    first = wm.get_by_rank(0)
     first.rank, second.rank = 1, 0  # stages 0 and 1 swapped
-    with pytest.raises(ValueError, match="contiguous cover"):
-        bench.check_partition(model_cfg, wm)
+    with pytest.raises(PlanError, match="coverage"):
+        run.preflight(wm, "reorder")
 
 
 # --- the pass driven by injected stage times --------------------------------

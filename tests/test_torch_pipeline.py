@@ -379,5 +379,10 @@ def test_what_slice_3_leaves_unported_raises():
         Allocator(model_cfg, wm).serving_allocate(None)
     with pytest.raises(NotImplementedError, match="later slice"):
         Allocator(model_cfg, wm).mesh_allocate()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Runner(model, ps, wm, max_epochs=1, max_iters=1, preflight=True)
+    # pre-flight is ported (tests/test_torch_plan_check.py) and on by
+    # default; the live-metrics exporter waits for queue A item 4
+    runner = Runner(model, ps, wm, max_epochs=1, max_iters=1)
+    runner.train([_batch()])
+    assert [r.ok for r in runner.preflight_reports] == [True]
+    with pytest.raises(NotImplementedError, match="queue A item 4"):
+        runner.start_exporter()
