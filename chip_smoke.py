@@ -125,7 +125,7 @@ one.  Phases, each fatal on failure:
     after the build (worker 0's last unit dropped) is refused by
     ``Runner.train`` with ``PlanError`` (coverage) at iteration 0 and
     no B1 launch; then a fresh ``Runner`` trains 20 steps with
-    ``TraceHook``, ``FaultInjectionHook`` (worker 0 4x slower from
+    ``TraceHook``, ``FaultInjectionHook`` (worker 0 6x slower from
     iteration 4) and ``SelfHealHook`` on real clocks: pre-flight runs
     before step 1 and again after the heal (both ``ok``), one heal whose
     largest divergence is worker 0's, worker 0 sheds units and the cover
@@ -139,9 +139,33 @@ one.  Phases, each fatal on failure:
     (measure, solve, rebuild), the partitions, the pre-flight seconds,
     bubble fraction and dispatch share, peak memory, and the step with
     tracing on against 5 untraced steps.  The trace is written to
-    ``chiprun_out/selfheal_trace.json``.
+    ``chiprun_out/selfheal_trace.json``;
+20. serving allocation and multi-stage serving: GPT-2 small (26 units,
+    bf16) profiled for decode by ``DecodeModelBenchmarker`` at the
+    serving phases' operating point (16 rows, 512-token span, 512 pages
+    of 16; fp and int8) and partitioned by ``Allocator.serving_allocate``
+    over four workers with the launcher phase's stimulated speeds and
+    budgets of 1,000 MB over the stimulator's memory draws (they bind:
+    the partition is printed with each stage's charged MB against its
+    budget, and the fp and int8 pages must give different partitions);
+    ``ServingEngine(worker_manager=wm)`` serves the 16-request workload
+    as those stages on the card (the pre-flight passing first), with
+    streams, scheduling and each body's launches equal to phases 4 and
+    5; speculation (``spec_k=4, draft_blocks=2``) over ``partition=[7, 7,
+    6, 6]`` (the draft inside stage 0) equal to phase 6's fp run; a
+    ``reconfigure`` to 384 pages at tick 3 (every running request
+    re-seated by recomputation, every stage's slabs rebuilt; the card's
+    memory before, at its peak during and after) and to buckets up to
+    512 at tick 10 (no eviction), at four stages and at one, on equal
+    streams and launches; and a worker manager whose stage with the
+    most pages gets its units' MB plus half its pages is refused by the
+    pre-flight with ``torch.cuda.memory_allocated`` unchanged.  Printed:
+    tokens/s, TTFT and TPOT p50/p95 and peak memory, stages against one
+    in turns (4, 1, 1, 4 stages, fp and int8; a process's later phases
+    run slower than its first, so phases 4-5 are no baseline for these).
 
-The line before last is ``{"kernels": [...]}``, one entry per kernel;
+The line before last is ``{"kernels": [...]}``, one entry per kernel
+(B2's and B3's launches from their serving phases and phase 20);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -167,6 +191,7 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
 SEED = 0
 LAYERS = 12
+B1, B2, B3 = "flash_attention", "paged_attention", "paged_attention_int8"
 
 
 def log(msg: str) -> None:
@@ -666,15 +691,18 @@ def build_engine(ServingEngine, cfg_mod, depth, dtype, device, seed=SEED,
 
 
 def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
-          quiet_after=None, **kw):
+          quiet_after=None, reconfigure=(), **kw):
     """One full-width (12-layer, bf16) run of the 16-request workload:
     12 requests arrive, one tick later the last 4 (two of them prefix
     sharers, so their radix hits find the first wave's registered
     prompts).  ``preempt`` = (tick, request position, mode) preempts
-    that request before that tick's step.  A 4-request warm-up on
-    another engine of the same knobs runs first (cuBLAS handles,
-    allocator pools) and is not counted.  Every kernel's launch count is
-    set to 0 just before the run and read just after it."""
+    that request before that tick's step; ``reconfigure`` = [(tick,
+    knobs), ...] calls ``engine.reconfigure(**knobs)`` before that
+    tick's step, recording the card's memory before it, its peak during
+    it and after it.  A 4-request warm-up on another engine of the same
+    knobs runs first (cuBLAS handles, allocator pools) and is not
+    counted.  Every kernel's launch count is set to 0 just before the
+    run and read just after it."""
     warm = build_engine(ServingEngine, gpt_mod, LAYERS, "bfloat16", "cuda",
                         quiet_after=quiet_after, **kw)
     warm.run(requests_for(np, Request, n=4, new_tokens=4, seed=99))
@@ -690,6 +718,8 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
         k["fn"].launches = 0
         for body in getattr(k["fn"], "body_launches", {}):
             k["fn"].body_launches[body] = 0
+    changes = dict(reconfigure)
+    reconfigured = []
     t0 = time.perf_counter()
     for r in reqs[:12]:
         engine.submit(r)
@@ -700,6 +730,9 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
                 engine.submit(r)
         if preempt is not None and tick == preempt[0]:
             engine.preempt(reqs[preempt[1]].request_id, mode=preempt[2])
+        if tick in changes:
+            reconfigured.append(reconfigure_on_card(torch, engine, tick,
+                                                    changes[tick]))
         engine.step()
         tick += 1
     torch.cuda.synchronize()
@@ -724,10 +757,41 @@ def serve(torch, np, gpt_mod, ServingEngine, Request, kernels, preempt=None,
         prefill_waves=snap["prefill_waves"],
         decode_ticks=snap["decode_ticks"], spec_ticks=snap["spec_ticks"],
         launches=launches, body_launches=bodies,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_mem_gb=max([torch.cuda.max_memory_allocated() / 1e9]
+                        + [max(r["peak_gb"], r["run_peak_gb"])
+                           for r in reconfigured]),
+        stages=[len(st.modules) for st in engine.stages],
     )
+    if reconfigured:
+        e2e["reconfigured"] = reconfigured
     log(f"   e2e: {json.dumps(e2e)}")
     return engine, reqs, snap, launches, e2e
+
+
+def reconfigure_on_card(torch, engine, tick, knobs):
+    """``engine.reconfigure(**knobs)``, with the card's allocated memory
+    before, the peak during (a geometry change builds every stage's new
+    slabs beside the old ones) and after, in GB, the run's peak until
+    then, and the seconds it took (the work queued before it
+    included)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    run_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine.reconfigure(**knobs)
+    torch.cuda.synchronize()
+    row = dict(tick=tick, knobs={k: list(v) if isinstance(v, tuple) else v
+                                 for k, v in knobs.items()},
+               seconds=time.perf_counter() - t0,
+               before_gb=before / 1e9,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               after_gb=torch.cuda.memory_allocated() / 1e9,
+               run_peak_gb=run_peak / 1e9,
+               preemptions=engine.stats.preemptions)
+    torch.cuda.reset_peak_memory_stats()
+    log(f"   reconfigure: {json.dumps(row)}")
+    return row
 
 
 def agreement(a, b) -> float:
@@ -771,8 +835,8 @@ def lockstep_int8(torch, np, gpt_mod, ServingEngine, Request):
                     card.tokens[j] = host.tokens[j]
     entries = steps = 0
     scale_rel = 0.0
-    for card_pair, host_pair in zip(engines["cuda"].stage.slabs,
-                                    engines["cpu"].stage.slabs):
+    for card_pair, host_pair in zip(engines["cuda"].stages[0].slabs,
+                                    engines["cpu"].stages[0].slabs):
         for card, host in zip(card_pair, host_pair):
             d = (card.values.cpu().int() - host.values.int()).abs()
             entries += int((d > 0).sum())
@@ -781,7 +845,7 @@ def lockstep_int8(torch, np, gpt_mod, ServingEngine, Request):
                    / host.scale.abs().clamp_min(1e-30))
             scale_rel = max(scale_rel, float(rel.max()))
     total_entries = sum(2 * k.values.numel()
-                        for k, _ in engines["cpu"].stage.slabs)
+                        for k, _ in engines["cpu"].stages[0].slabs)
     return dict(agreement=same / total, positions=total, diffs=diffs,
                 int8_entries_differing=entries, pool_entries=total_entries,
                 max_int8_steps_apart=steps, max_scale_rel_diff=scale_rel)
@@ -898,11 +962,11 @@ def write_cost_per_tick(torch, np, engine, timer=time_ms):
     for r in active:
         valid[r.slot] = r.index + 1
     width = engine._table_width(valid)
-    slabs = engine.stage.slabs
+    slabs = engine.stages[0].slabs
     k0 = slabs[0][0]
     device = slab_device(k0)
     plan = write_plan(k0, tables[:, :width], index, valid, 1).to(device)
-    spec = engine.stage.specs[0]
+    spec = engine.stages[0].specs[0]
     rng = np.random.default_rng(5)
     new = torch.from_numpy(rng.standard_normal(
         (len(index), 1, spec.num_heads, spec.head_dim), np.float32)).to(
@@ -1855,7 +1919,10 @@ def bench_run(np, env_extra, timeout_s):
 # phase 19: pre-flight, tracing and self-heal
 # --------------------------------------------------------------------------
 
-HEAL_STEPS, HEAL_FAULT_ITER, HEAL_FACTOR, UNTRACED_STEPS = 20, 4, 4.0, 5
+# a 6x stage: at 4x a fast host's straggler era can read 1.55x its
+# baseline, where SelfHealHook's EWMA and its baseline's upward drift
+# (alpha 0.4) meet its 1.35 threshold and no heal fires (selfheal_ab.py)
+HEAL_STEPS, HEAL_FAULT_ITER, HEAL_FACTOR, UNTRACED_STEPS = 20, 4, 6.0, 5
 
 
 def strict_json(text):
@@ -1871,7 +1938,7 @@ def selfheal_path(torch, np, kernels, model_cfg, vocab_size, static_bench,
     GPipe M=4, from an ``Allocator`` over the static profile.  First a
     tampered plan (worker 0's last unit dropped) must be refused by the
     pre-flight before any step; then ``Runner.train`` for 20 steps with
-    ``TraceHook``, a 4x slowdown of worker 0 at iteration 4 and
+    ``TraceHook``, a 6x slowdown of worker 0 at iteration 4 and
     ``SelfHealHook`` on real clocks: one heal away from worker 0,
     verified again before the next step; then 5 untraced steps.  Every
     kernel's launches are set to 0 just before the run and read just
@@ -2111,6 +2178,260 @@ def selfheal_path(torch, np, kernels, model_cfg, vocab_size, static_bench,
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# phase 20: serving allocation and multi-stage serving
+# --------------------------------------------------------------------------
+
+SERVE_MEM_LIMIT_MB = 1000.0  # per worker: GPT-2 small's units need 1,542 MB
+
+
+def serving_allocation(torch, np, gpt_mod, kv_dtype):
+    """``Allocator.serving_allocate`` over GPT-2 small's 26 units (bf16)
+    at the serving phases' operating point: ``DecodeModelBenchmarker``
+    (16 rows, 512-token span, 512 pages of 16, ``kv_dtype``), four
+    workers with the launcher phase's stimulated speeds (the proxy model
+    timed on the card, times the stimulator's draws) and memory
+    (``mem_limit`` over the stimulator's memory draws: budgets that
+    bind, so the pages' size moves the partition).  Returns (the worker
+    manager, a report)."""
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        proxy_device_benchmarker,
+    )
+    from skycomputing_tpu_torch.serving import (
+        DecodeModelBenchmarker,
+        paged_kv_mb_per_layer,
+    )
+    from skycomputing_tpu_torch.stimulator import Stimulator
+
+    layer_cfgs = gpt_mod.gpt_layer_configs(
+        gpt_mod.GptConfig(dropout_prob=0.0, dtype="bfloat16"),
+        num_blocks=LAYERS)
+    wm = worker_pool(4)
+    for w in wm.worker_pool:
+        w.extra_config["mem_limit"] = SERVE_MEM_LIMIT_MB
+    devices = proxy_device_benchmarker(wm, stimulator=Stimulator(4))
+    decode = DecodeModelBenchmarker(layer_cfgs, slots=16, max_len=512,
+                                    num_pages=512, page_size=16,
+                                    kv_dtype=kv_dtype)
+    t0 = time.perf_counter()
+    flops, mem = decode.benchmark()
+    profile_s = time.perf_counter() - t0
+    alloc = Allocator(layer_cfgs, wm, None, devices)
+    t0 = time.perf_counter()
+    alloc.serving_allocate(decode, max_time=5)
+    solve_s = time.perf_counter() - t0
+    budgets = {name: r["avai_mem"]
+               for name, r in devices.benchmark().items()}
+    kv_mb = paged_kv_mb_per_layer(layer_cfgs, 512, 16, kv_dtype=kv_dtype)
+    stages, cursor = [], 0
+    for w in sorted((w for w in wm.worker_pool if w.model_config),
+                    key=lambda w: w.rank):
+        n = len(w.model_config)
+        stages.append(dict(
+            worker=w.name, rank=w.rank, units=n,
+            charged_mb=float(sum(mem[cursor:cursor + n])),
+            kv_mb=float(sum(kv_mb[cursor:cursor + n])),
+            solver_budget_mb=budgets[f"worker{w.rank}"],
+            verifier_budget_mb=w.extra_config["mem_limit"]))
+        cursor += n
+    for row in stages:
+        log(f"   {kv_dtype or 'fp'} stage {json.dumps(row)}")
+    check(cursor == len(layer_cfgs) and len(stages) > 1 and all(
+        r["charged_mb"] <= r["solver_budget_mb"] for r in stages),
+          f"{kv_dtype or 'fp'} pages: partition "
+          f"{[r['units'] for r in stages]} covers the "
+          f"{len(layer_cfgs)} units over {len(stages)} stages, each "
+          f"stage's charged MB within its budget")
+    return wm, dict(partition=[r["units"] for r in stages], stages=stages,
+                    profile_s=profile_s, solve_s=solve_s,
+                    operating_point=decode.operating_point,
+                    bottleneck=alloc.last_result.bottleneck,
+                    gap=alloc.last_result.optimality_gap)
+
+
+def same_run(what, e2e, one, kernel, streams, one_streams):
+    """A multi-stage run against its one-stage twin: equal token streams,
+    equal scheduling, and ``kernel``'s launches equal by body."""
+    check(streams == one_streams,
+          f"{what}: greedy streams equal the one-stage engine's "
+          f"({len(streams)} requests x {len(streams[0])} tokens)")
+    for key in ("prefill_waves", "decode_ticks", "spec_ticks"):
+        check(e2e[key] == one[key], f"{what}: {key} {e2e[key]} == "
+              f"{one[key]} at one stage")
+    check(e2e["body_launches"][kernel] == one["body_launches"][kernel]
+          and e2e["launches"] == one["launches"],
+          f"{what}: {kernel} launches by body "
+          f"{json.dumps(e2e['body_launches'][kernel])} equal the "
+          f"one-stage engine's")
+
+
+def stage_line(stage_runs, one_runs):
+    """End-to-end numbers of runs at several stages against runs at one,
+    taken in turns in one phase (a process's later phases run slower
+    than its earlier ones, so only runs side by side compare): each
+    run's value, then each side's mean."""
+    keys = ("tokens_per_s", "ttft_p50_s", "ttft_p95_s", "tpot_p50_s",
+            "tpot_p95_s", "peak_mem_gb")
+    out = {}
+    for key in keys:
+        a = [e[key] for e in stage_runs]
+        b = [e[key] for e in one_runs]
+        ratio = (sum(a) * len(b)) / (sum(b) * len(a)) if sum(b) else None
+        out[key] = dict(stages=a, one=b, ratio=ratio)
+        log(f"   {key}: {len(stage_runs[0]['stages'])} stages "
+            f"{', '.join(f'{v:.6g}' for v in a)}; 1 stage "
+            f"{', '.join(f'{v:.6g}' for v in b)}; ratio of the means "
+            f"{ratio}")
+    return out
+
+
+SPEC_PARTITION = (7, 7, 6, 6)  # stage 0 holds the draft's 5 units
+
+
+def serving_stages_path(torch, serve_args, one_stage):
+    """Phase 20.  ``one_stage``: the one-stage runs to hold the stages
+    against, ``{"fp" | "int8" | "spec": (e2e, token streams)}``.  Returns
+    (a report, the phase's launches by kernel, its tensor-core prefill
+    launches by kernel)."""
+    _, np, gpt_mod, ServingEngine, _, _ = serve_args
+    from skycomputing_tpu_torch.analysis import PlanError
+
+    stages_report, stage_launches = {}, {B1: 0, B2: 0, B3: 0}
+    stage_prefill = {B2: 0, B3: 0}
+
+    def count(e2e):
+        for name, n in e2e["launches"].items():
+            stage_launches[name] += n
+        for name in stage_prefill:
+            stage_prefill[name] += e2e["body_launches"][name][
+                "tensor_core"]
+
+    # 1-3: a serving allocation over four workers, fp and int8 pages,
+    # served as stages of one engine on the card
+    for kv_dtype, kernel, (one, one_streams) in (
+            (None, B2, one_stage["fp"]), ("int8", B3, one_stage["int8"])):
+        label = kv_dtype or "fp"
+        wm, alloc = serving_allocation(torch, np, gpt_mod, kv_dtype)
+        engine, reqs, snap, launches, e2e = serve(
+            *serve_args, worker_manager=wm, kv_dtype=kv_dtype)
+        count(e2e)
+        check(e2e["stages"] == alloc["partition"],
+              f"{label}: the engine's stages {e2e['stages']} are the "
+              f"allocation's")
+        steps = snap["prefill_waves"] + snap["decode_ticks"]
+        check_launches(launches, {kernel: LAYERS * steps},
+                       f"{label}, {len(e2e['stages'])} stages: 12 x "
+                       f"{steps} steps of {kernel}")
+        # 4: the same tokens and the same launches as one stage
+        same_run(f"{label}, {len(e2e['stages'])} stages", e2e, one,
+                 kernel, [list(r.tokens) for r in reqs], one_streams)
+        del engine
+        # 8: end-to-end at four stages against one, in turns (4, 1, 1, 4)
+        turns = {"stages": [e2e], "one": []}
+        for side, kw in (("one", {}), ("one", {}),
+                         ("stages", dict(worker_manager=wm))):
+            engine, _, _, _, again = serve(*serve_args, kv_dtype=kv_dtype,
+                                           **kw)
+            count(again)
+            turns[side].append(again)
+            del engine
+        alloc.update(e2e=e2e, in_turns=stage_line(turns["stages"],
+                                                  turns["one"]))
+        stages_report[label] = alloc
+        if kv_dtype is None:
+            fp_wm = wm
+    check(stages_report["fp"]["partition"]
+          != stages_report["int8"]["partition"],
+          f"the KV pages' size moves the partition: fp "
+          f"{stages_report['fp']['partition']}, int8 "
+          f"{stages_report['int8']['partition']}")
+
+    # 5: speculation over an explicit partition whose stage 0 holds
+    # the draft (embeddings and 2 blocks: 5 units)
+    k, d, partition = 4, 2, list(SPEC_PARTITION)
+    engine, reqs, snap, launches, e2e = serve(
+        *serve_args, partition=partition, spec_k=k, draft_blocks=d,
+        quiet_after=d)
+    count(e2e)
+    check(e2e["stages"] == partition and engine._draft_mb > 0,
+          f"speculation over {partition}, the draft in stage 0, its "
+          f"head charged {engine._draft_mb:.3f} MB there")
+    one, one_streams = one_stage["spec"]
+    same_run(f"speculative, {len(partition)} stages", e2e, one, B2,
+             [list(r.tokens) for r in reqs], one_streams)
+    stages_report["spec"] = dict(partition=partition, e2e=e2e,
+                                 draft_mb=engine._draft_mb)
+    del engine
+
+    # 6: reconfigure mid-run (a page-count change, then a larger
+    # bucket), at four stages and at one, on the same schedule
+    changes = [(3, dict(num_pages=384)),
+               (10, dict(buckets=(32, 64, 128, 256, 512)))]
+    runs = {}
+    for name, kw in (("stages", dict(worker_manager=fp_wm)),
+                     ("one", {})):
+        engine, reqs, snap, launches, e2e = serve(
+            *serve_args, reconfigure=changes, **kw)
+        count(e2e)
+        check(engine.num_pages == 384
+              and engine.bucketer.max_bucket == 512
+              and all(len(st.slabs) == 0 or st.slabs[0][0].shape[0]
+                      == 384 for st in engine.stages),
+              f"{name}: 384 pages in every stage's slabs, buckets to "
+              f"512")
+        check(snap["preemptions"] == e2e["reconfigured"][0][
+            "preemptions"] > 0 and e2e["reconfigured"][1][
+            "preemptions"] == snap["preemptions"],
+              f"{name}: the page-count change re-seated "
+              f"{snap['preemptions']} running requests, the bucket "
+              f"change none")
+        runs[name] = (e2e, [list(r.tokens) for r in reqs])
+        del engine
+    same_run("reconfigured, 4 stages", runs["stages"][0], runs["one"][0],
+             B2, runs["stages"][1], runs["one"][1])
+    stages_report["reconfigure"] = dict(
+        changes=[dict(tick=t, knobs={n: list(v) if isinstance(v, tuple)
+                                     else v for n, v in c.items()})
+                 for t, c in changes],
+        stages=runs["stages"][0], one=runs["one"][0],
+        in_turns=stage_line([runs["stages"][0]], [runs["one"][0]]),
+        agreement_with_unreconfigured=agreement(runs["stages"][1],
+                                                one_stage["fp"][1]))
+    log(f"   reconfigured streams agree with the unreconfigured fp "
+        f"run at {stages_report['reconfigure']['agreement_with_unreconfigured']:.3f}"
+        f" of positions (reported: recomputed KV of evicted requests)")
+
+    # 7: a plan over budget is refused before any slab is allocated: the
+    # stage with the most KV pages gets a budget that holds its units
+    # but not half its pages
+    row = max(stages_report["fp"]["stages"], key=lambda r: r["kv_mb"])
+    budget = row["charged_mb"] - row["kv_mb"] / 2
+    next(w for w in fp_wm.worker_pool
+         if w.name == row["worker"]).extra_config["mem_limit"] = budget
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        build_engine(ServingEngine, gpt_mod, LAYERS, "bfloat16", "cuda",
+                     worker_manager=fp_wm)
+    except PlanError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("an over-budget plan was not refused")
+    after = torch.cuda.memory_allocated()
+    log(f"   refused: {refused.splitlines()[1].strip()}")
+    check(after == before and "KV pages" in refused
+          and f"KV slabs are {row['kv_mb']:.6g} MB" in refused,
+          f"the pre-flight refused {row['worker']} at {budget:.1f} MB (its "
+          f"units and half its {row['kv_mb']:.1f} MB of pages), naming the "
+          f"KV pages; card memory {before} B before, {after} B after")
+    stages_report["refused"] = refused
+    stages_report["launches"] = stage_launches
+    return stages_report, stage_launches, stage_prefill
+
+
+
 def main() -> int:
     import torch
 
@@ -2153,7 +2474,6 @@ def main() -> int:
             replaces="skycomputing_tpu/ops/flash_attention.py:26"),
     }
     serve_args = (torch, np, gpt_mod, ServingEngine, Request, kernels)
-    B1, B2, B3 = "flash_attention", "paged_attention", "paged_attention_int8"
 
     with phase("card"):
         smi = subprocess.run(
@@ -2251,7 +2571,7 @@ def main() -> int:
 
     with phase("speculative path: spec_k=4, draft_blocks=2"):
         k, d = 4, 2
-        spec = {}
+        spec, spec_streams = {}, {}
         for kv_dtype, kernel in ((None, B2), ("int8", B3)):
             engine, reqs, snap, launches, e2e = serve(
                 *serve_args, spec_k=k, draft_blocks=d, kv_dtype=kv_dtype,
@@ -2278,6 +2598,7 @@ def main() -> int:
                 f"{e2e['tokens_per_s']:.1f}, TPOT p50 "
                 f"{e2e['tpot_p50_s'] * 1e3:.2f} ms")
             spec[kv_dtype or "fp"] = e2e
+            spec_streams[kv_dtype or "fp"] = [list(r.tokens) for r in reqs]
             del engine
         report["e2e_spec"] = spec
 
@@ -2553,6 +2874,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    with phase("serving allocation and multi-stage serving: GPT-2 small, "
+               "4 workers"):
+        stages_report, stage_launches, stage_prefill = serving_stages_path(
+            torch, serve_args, dict(
+                fp=(report["e2e"], fp_streams),
+                int8=(report["e2e_int8"], int8_streams),
+                spec=(report["e2e_spec"]["fp"], spec_streams["fp"])))
+        report["serving_stages"] = stages_report
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None):
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == "bfloat16")
@@ -2563,19 +2895,22 @@ def main() -> int:
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
-    # each kernel's launches from the path that is its own: B2 from the
-    # fp serving path, B3 from the int8 path, B1 from the launcher's run,
-    # the GLUE path's evaluation and the self-heal run;
+    # each kernel's launches from the paths that are its own: B2 from the
+    # fp serving path and the multi-stage phase, B3 from the int8 path and
+    # the multi-stage phase, B1 from the launcher's run, the GLUE path's
+    # evaluation and the self-heal run;
     # the prefill entries are the tensor-core body's launches in those
     # runs, beside its time at the prefill wave's shape
     fp_bodies = report["e2e"]["body_launches"][B2]
     int8_bodies = report["e2e_int8"]["body_launches"][B3]
     line = {"kernels": [
-        entry(B2, main_launches[B2]),
-        entry(B2, fp_bodies["tensor_core"], case="prefill",
+        entry(B2, main_launches[B2] + stage_launches[B2]),
+        entry(B2, fp_bodies["tensor_core"] + stage_prefill[B2],
+              case="prefill",
               label=f"{B2}:prefill"),
-        entry(B3, int8_launches[B3]),
-        entry(B3, int8_bodies["tensor_core"], case="prefill",
+        entry(B3, int8_launches[B3] + stage_launches[B3]),
+        entry(B3, int8_bodies["tensor_core"] + stage_prefill[B3],
+              case="prefill",
               label=f"{B3}:prefill"),
         entry(B1, launcher_launches[B1] + eval_launches[B1]
               + heal_launches[B1], flash, "bert_large_L128")]}

@@ -10,6 +10,7 @@ from .plan_check import (
     has_plan,
     verify_pipeline,
     verify_plan,
+    verify_tuning_knobs,
 )
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "has_plan",
     "verify_pipeline",
     "verify_plan",
+    "verify_tuning_knobs",
 ]

@@ -34,15 +34,23 @@ Checks (codes, severities and message text as in the reference)
 A shape diagnostic ends in ``{type}: {text}`` of PyTorch's own
 exception, where the reference's ends in JAX's.
 
-Not ported yet: ``verify_plan(serving=...)`` (queue A item 1, serving
-allocation); ``verify_allocation_payload`` (item 3, elastic),
+With ``serving=`` (an engine's operating point), each stage's KV slabs
+or pages, and on stage 0 a speculative draft's head copy, count against
+its budget, and a failed fit names the serving context.
+:func:`verify_tuning_knobs` checks a knob-level change (buckets, rows,
+page geometry, chunk size, ``spec_k``) with nothing to trace.
+
+Not ported yet: ``verify_allocation_payload`` (queue A item 3, elastic),
 ``verify_mesh_payload`` (item 3, mesh); ``verify_scale_payload``,
-``verify_handoff_payload``, ``verify_fault_plan`` and
-``verify_tuning_knobs`` (item 4, the planes that call them).
+``verify_handoff_payload`` and ``verify_fault_plan`` (item 4, the planes
+that call them).
 
 Wiring: ``Runner`` runs :func:`verify_pipeline` on its first batch before
 the first train step and again after a self-heal rebuild; the bench
-verifies each allocation before building its pipeline.
+verifies each allocation before building its pipeline; the serving
+engine verifies a worker manager's plan under its serving context before
+it allocates a slab, and ``reconfigure`` verifies its knobs (and that
+plan again) before it changes anything.
 """
 
 from __future__ import annotations
@@ -67,7 +75,7 @@ from ..builder import as_tuple, build_layer
 class PlanIssue:
     """One verifier diagnostic."""
 
-    code: str       # coverage | shape | memory | donation
+    code: str       # coverage | shape | memory | donation | knobs
     severity: str   # error | warning | info
     message: str
 
@@ -269,6 +277,134 @@ def _worker_slice(worker, start: int, end: int) -> Dict:
     )
 
 
+def _serving_kv_profile(
+    model_cfg: List[Dict], serving: Dict, issues: List[PlanIssue],
+    memory: str,
+) -> Optional[List[float]]:
+    """Per-layer KV MB for a serving context, or None when the context
+    is unusable (a diagnostic is appended).
+
+    ``serving``: the SLOT operating point (``slots`` + ``max_len``,
+    both required) or the PAGED one (``num_pages`` + ``page_size``,
+    both required, with optional ``max_pages_per_request`` and
+    ``kv_dtype``: ``"int8"`` charges the quantized width plus the scale
+    slabs through ``serving/paging.paged_pool_mb``, the allocator's own
+    formula); plus an optional ``bucket`` (named in diagnostics) and an
+    optional explicit ``kv_mb_per_layer`` (one entry per layer; else
+    computed from the config by the engine's slab formula).
+    """
+    severity = "error" if memory == "error" else "warning"
+    paged = "num_pages" in serving or "page_size" in serving
+    kv_dtype = serving.get("kv_dtype")
+    if kv_dtype is not None and not paged:
+        issues.append(PlanIssue(
+            "memory", severity,
+            f"serving kv_dtype={kv_dtype!r} requires the paged "
+            f"operating point (num_pages/page_size) — slot slabs store "
+            f"the model dtype"
+        ))
+        return None
+    if paged:
+        try:
+            slots = int(serving["num_pages"])
+            max_len = int(serving["page_size"])
+        except (KeyError, TypeError, ValueError):
+            issues.append(PlanIssue(
+                "memory", severity,
+                f"paged serving context must carry integer 'num_pages' "
+                f"and 'page_size' (got {serving!r}) — cannot account "
+                f"for page-pool memory"
+            ))
+            return None
+        if kv_dtype is not None:
+            from ..serving.paging import KV_DTYPE_ITEMSIZE
+
+            if str(kv_dtype) not in KV_DTYPE_ITEMSIZE:
+                issues.append(PlanIssue(
+                    "memory", severity,
+                    f"serving kv_dtype {kv_dtype!r} is not a known KV "
+                    f"storage dtype ({sorted(KV_DTYPE_ITEMSIZE)}) — "
+                    f"cannot account for page-pool memory"
+                ))
+                return None
+    else:
+        try:
+            slots = int(serving["slots"])
+            max_len = int(serving["max_len"])
+        except (KeyError, TypeError, ValueError):
+            issues.append(PlanIssue(
+                "memory", severity,
+                f"serving context must carry integer 'slots' and "
+                f"'max_len' (got {serving!r}) — cannot account for "
+                f"KV-slab memory"
+            ))
+            return None
+    explicit = serving.get("kv_mb_per_layer")
+    if explicit is not None:
+        # malformed input degrades to a precise diagnostic, never a crash
+        if not isinstance(explicit, (list, tuple)):
+            issues.append(PlanIssue(
+                "memory", severity,
+                f"serving kv_mb_per_layer must be a list of per-layer "
+                f"MB, got {type(explicit).__name__}"
+            ))
+            return None
+        if len(explicit) != len(model_cfg):
+            issues.append(PlanIssue(
+                "memory", severity,
+                f"serving kv_mb_per_layer holds {len(explicit)} entries "
+                f"for {len(model_cfg)} layers — the KV profile does not "
+                f"match this model config"
+            ))
+            return None
+        try:
+            return [float(m) for m in explicit]
+        except (TypeError, ValueError):
+            issues.append(PlanIssue(
+                "memory", severity,
+                f"serving kv_mb_per_layer entries must be numbers, got "
+                f"{explicit!r}"
+            ))
+            return None
+    if paged:
+        from ..serving.kv_cache import paged_kv_mb_per_layer
+
+        return paged_kv_mb_per_layer(
+            model_cfg, slots, max_len,
+            kv_dtype=str(kv_dtype) if kv_dtype is not None else None,
+        )
+    from ..serving.kv_cache import kv_mb_per_layer
+
+    return kv_mb_per_layer(model_cfg, slots, max_len)
+
+
+def _serving_label(serving: Dict) -> str:
+    """The serving operating point as a memory diagnostic names it."""
+    bucket = serving.get("bucket")
+    try:
+        tail = f", bucket {int(bucket)}" if bucket is not None else ""
+    except (TypeError, ValueError):
+        tail = f", bucket {bucket!r}"
+    if "num_pages" in serving or "page_size" in serving:
+        mpr = serving.get("max_pages_per_request")
+        try:
+            span = (
+                f", {int(mpr)} pages/request" if mpr is not None else ""
+            )
+        except (TypeError, ValueError):
+            span = f", {mpr!r} pages/request"
+        kvd = serving.get("kv_dtype")
+        quant = f", {kvd} pages + scale slabs" if kvd is not None else ""
+        return (
+            f"{int(serving['num_pages'])} KV pages x page_size "
+            f"{int(serving['page_size'])}{span}{quant}{tail}"
+        )
+    return (
+        f"{int(serving['slots'])} KV slots x max_len "
+        f"{int(serving['max_len'])}{tail}"
+    )
+
+
 def _verify_slices(
     model_cfg: List[Dict],
     slices: List[Dict],
@@ -279,13 +415,21 @@ def _verify_slices(
     check_shapes: bool = True,
     check_donation: bool = True,
     param_scale: int = 2,
+    serving: Optional[Dict] = None,
 ) -> PlanReport:
     """Shared engine.  ``slices``: dicts with keys ``label`` (e.g.
     'worker rank 3'), ``start``, ``end``, ``mem_budget_mb`` (None = no
-    budget configured)."""
+    budget configured).  ``serving`` (optional): the engine's operating
+    point — each stage's preallocated KV slabs or pages then count
+    against its budget, and memory diagnostics name the context."""
     t0 = time.perf_counter()
     report = PlanReport(stages=len(slices), layers=len(model_cfg))
     issues = report.issues
+
+    kv_per_layer: Optional[List[float]] = None
+    if serving is not None:
+        kv_per_layer = _serving_kv_profile(model_cfg, serving, issues,
+                                           memory)
 
     # ---- shape threading + per-layer memory, deduped by structure
     if layer_mem is not None and len(layer_mem) != len(model_cfg):
@@ -350,20 +494,56 @@ def _verify_slices(
                 break
 
     # ---- memory fit
+    draft_mb = 0.0
+    if serving is not None and serving.get("draft_mb") is not None:
+        # the speculative draft's LM-head copy is resident on the FIRST
+        # stage (serving/speculative.py): charged there
+        try:
+            draft_mb = float(serving["draft_mb"])
+            if draft_mb < 0:
+                raise ValueError
+        except (TypeError, ValueError):
+            issues.append(PlanIssue(
+                "memory", "error" if memory == "error" else "warning",
+                f"serving draft_mb must be a non-negative number "
+                f"(speculative draft's resident params), got "
+                f"{serving['draft_mb']!r}"
+            ))
+            draft_mb = 0.0
     if memory != "skip" and not any(m is None for m in mem_per_layer):
         report.checks.append("memory")
-        for s in slices:
+        for stage_k, s in enumerate(slices):
             budget = s.get("mem_budget_mb")
             need = float(sum(mem_per_layer[s["start"]:s["end"]]))
+            kv_need = 0.0
+            if kv_per_layer is not None:
+                kv_need = float(sum(kv_per_layer[s["start"]:s["end"]]))
+                need += kv_need
+            draft_need = draft_mb if stage_k == 0 else 0.0
+            need += draft_need
             if budget is None:
                 continue
             if need > float(budget):
+                # a serving failure names its operating point: the fix
+                # is usually fewer slots or pages, not another partition
+                detail = ""
+                if kv_per_layer is not None:
+                    detail = (
+                        f" (serving {_serving_label(serving)}: "
+                        f"preallocated KV slabs are {kv_need:.6g} MB "
+                        f"of the need"
+                        + (f", speculative draft params "
+                           f"{draft_need:.6g} MB"
+                           if draft_need else "")
+                        + ")"
+                    )
                 issues.append(PlanIssue(
                     "memory", "error" if memory == "error" else "warning",
                     f"{s['label']} (layers {s['start']}..{s['end'] - 1}) "
                     f"needs {need:.6g} MB but its budget is "
                     f"{float(budget):.6g} MB "
                     f"({need / float(budget):.2f}x over)"
+                    f"{detail}"
                 ))
 
     # ---- donation: the gradient each stage hands across its boundary
@@ -433,15 +613,13 @@ def verify_plan(
     fail the plan, surface as warnings (the bench's even baseline
     deliberately ignores budgets), or are not checked.
 
-    ``serving`` (a serving operating point whose KV slabs count against
-    the budgets) belongs to the serving allocation, queue A item 1, and
-    raises ``NotImplementedError``.
+    ``serving``: optional serving operating point (``slots`` and
+    ``max_len``, or ``num_pages`` and ``page_size``; optional
+    ``bucket``, ``kv_dtype``, ``draft_mb`` and an explicit
+    ``kv_mb_per_layer``) — each stage's preallocated KV memory then
+    counts against its budget and a failed fit names the serving
+    context.  The serving engine runs this before it allocates any slab.
     """
-    if serving is not None:
-        raise NotImplementedError(
-            "verify_plan(serving=...) is not ported to PyTorch yet (queue "
-            "A item 1: serving allocation and multi-stage serving)"
-        )
     workers = _stage_workers(worker_manager)
     slices: List[Dict] = []
     issues: List[PlanIssue] = []
@@ -479,6 +657,7 @@ def verify_plan(
         model_cfg, slices, example_inputs,
         layer_mem=layer_mem, memory=memory, check_shapes=check_shapes,
         check_donation=check_donation, param_scale=param_scale,
+        serving=serving,
     )
     report.checks.insert(0, "coverage")
     return report
@@ -519,6 +698,234 @@ def verify_pipeline(
     )
 
 
+# --------------------------------------------------------------------------
+# knob-level verification (the serving engine's reconfigure)
+# --------------------------------------------------------------------------
+
+
+def _pos_int(v) -> bool:
+    return (
+        not isinstance(v, bool) and isinstance(v, int) and v > 0
+    )
+
+
+def _verify_serving_payload(serving: Any) -> List[str]:
+    """Problems with a serving operating point.
+
+    Slot layout: ``slots`` / ``max_len`` positive ints.  Paged layout
+    (any of ``num_pages`` / ``page_size`` / ``max_pages_per_request``
+    present): all three positive ints, and the per-request span is
+    ``max_pages_per_request x page_size``.  Either way, optional
+    ``buckets`` is a strictly increasing list of positive ints none of
+    which exceeds the per-request span.
+    """
+    if not isinstance(serving, dict):
+        return [
+            f"'serving' must be an object, got {type(serving).__name__}"
+        ]
+    problems: List[str] = []
+    paged = any(
+        k in serving
+        for k in ("num_pages", "page_size", "max_pages_per_request")
+    )
+    if paged:
+        for key in ("num_pages", "page_size", "max_pages_per_request"):
+            v = serving.get(key)
+            if not _pos_int(v):
+                problems.append(
+                    f"serving.{key} must be a positive int (paged KV "
+                    f"pool shape), got {v!r}"
+                )
+        np_, ps, mpr = (
+            serving.get("num_pages"), serving.get("page_size"),
+            serving.get("max_pages_per_request"),
+        )
+        if _pos_int(np_) and _pos_int(mpr) and mpr > np_:
+            problems.append(
+                f"serving.max_pages_per_request {mpr} exceeds "
+                f"serving.num_pages {np_} — one request could never "
+                f"be charged"
+            )
+        serving = dict(serving)
+        if _pos_int(ps) and _pos_int(mpr):
+            serving.setdefault("max_len", ps * mpr)
+        kvd = serving.get("kv_dtype")
+        if kvd is not None:
+            from ..serving.paging import KV_DTYPE_ITEMSIZE
+
+            if not isinstance(kvd, str) or kvd not in KV_DTYPE_ITEMSIZE:
+                problems.append(
+                    f"serving.kv_dtype {kvd!r} is not a known KV "
+                    f"storage dtype ({sorted(KV_DTYPE_ITEMSIZE)}) — "
+                    f"the page pool cannot be byte-accounted"
+                )
+    else:
+        for key in ("slots", "max_len"):
+            v = serving.get(key)
+            if not _pos_int(v):
+                problems.append(
+                    f"serving.{key} must be a positive int (KV slot "
+                    f"pool shape), got {v!r}"
+                )
+        if serving.get("kv_dtype") is not None:
+            problems.append(
+                f"serving.kv_dtype {serving['kv_dtype']!r} requires "
+                f"the paged operating point — slot slabs store the "
+                f"model dtype"
+            )
+    buckets = serving.get("buckets")
+    if buckets is not None:
+        if not isinstance(buckets, list) or not buckets:
+            problems.append(
+                f"serving.buckets must be a non-empty list of prompt "
+                f"buckets, got {buckets!r}"
+            )
+        else:
+            for i, b in enumerate(buckets):
+                if not _pos_int(b):
+                    problems.append(
+                        f"serving.buckets[{i}] = {b!r} is not a "
+                        f"positive int"
+                    )
+            ints = [b for b in buckets if _pos_int(b)]
+            if ints != sorted(set(ints)):
+                problems.append(
+                    f"serving.buckets {buckets!r} must be strictly "
+                    f"increasing (each prompt pads to the smallest "
+                    f"bucket that holds it)"
+                )
+            max_len = serving.get("max_len")
+            if ints and _pos_int(max_len) and ints[-1] > max_len:
+                problems.append(
+                    f"serving.buckets largest bucket {ints[-1]} "
+                    f"exceeds serving.max_len {max_len} — prompts "
+                    f"padded past the KV slab depth"
+                )
+    chunk = serving.get("prefill_chunk")
+    if chunk is not None:
+        if not _pos_int(chunk):
+            problems.append(
+                f"serving.prefill_chunk must be a positive int "
+                f"(chunked-prefill chunk size), got {chunk!r}"
+            )
+        elif isinstance(buckets, list):
+            ints = [b for b in buckets if _pos_int(b)]
+            if ints and chunk not in ints:
+                problems.append(
+                    f"serving.prefill_chunk {chunk} is not one of "
+                    f"serving.buckets {ints} — chunk waves must reuse "
+                    f"a bucket's compiled prefill shape"
+                )
+    sk = serving.get("spec_k")
+    if sk is not None and (
+            isinstance(sk, bool) or not isinstance(sk, int) or sk < 0):
+        problems.append(
+            f"serving.spec_k must be a non-negative int (draft tokens "
+            f"per speculative tick; 0 disables), got {sk!r}"
+        )
+    dmb = serving.get("draft_mb")
+    if dmb is not None and (
+            isinstance(dmb, bool)
+            or not isinstance(dmb, (int, float)) or dmb < 0):
+        problems.append(
+            f"serving.draft_mb must be a non-negative number "
+            f"(speculative draft's resident params MB), got {dmb!r}"
+        )
+    return problems
+
+
+def verify_tuning_knobs(
+    *,
+    schedule: Optional[str] = None,
+    num_microbatches: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    buckets: Optional[Sequence[int]] = None,
+    max_len: Optional[int] = None,
+    num_slots: Optional[int] = None,
+    prefill_batch: Optional[int] = None,
+    num_pages: Optional[int] = None,
+    page_size: Optional[int] = None,
+    max_pages_per_request: Optional[int] = None,
+    prefill_chunk: Optional[int] = None,
+    spec_k: Optional[int] = None,
+) -> PlanReport:
+    """Pre-flight a knob-level operating-point change (nothing traced).
+
+    Schedule swaps, microbatch counts, bucket sets, row counts, page
+    geometry, chunk size and ``spec_k`` change no layer partition; what
+    can go wrong is arithmetic (a microbatch count that does not divide
+    the batch, a bucket past the cache depth).  Each knob passed is
+    checked (code ``knobs``) before the caller applies it; the serving
+    engine's ``reconfigure`` calls this first.
+    """
+    t0 = time.perf_counter()
+    issues: List[PlanIssue] = []
+
+    def err(msg: str) -> None:
+        issues.append(PlanIssue("knobs", "error", msg))
+
+    if schedule is not None and schedule not in ("gpipe", "1f1b"):
+        err(f"unknown schedule {schedule!r}; use 'gpipe' or '1f1b'")
+    if num_microbatches is not None:
+        if not _pos_int(num_microbatches):
+            err(f"num_microbatches must be a positive int, got "
+                f"{num_microbatches!r}")
+        elif batch_size is not None and batch_size % num_microbatches:
+            err(f"microbatch count {num_microbatches} does not divide "
+                f"batch size {batch_size} — a ragged split would "
+                f"silently drop examples")
+    if num_slots is not None and not _pos_int(num_slots):
+        err(f"num_slots must be a positive int, got {num_slots!r}")
+    if prefill_batch is not None and not _pos_int(prefill_batch):
+        err(f"prefill_batch must be a positive int, got {prefill_batch!r}")
+    for name, v in (("num_pages", num_pages), ("page_size", page_size),
+                    ("max_pages_per_request", max_pages_per_request)):
+        if v is not None and not _pos_int(v):
+            err(f"{name} must be a positive int, got {v!r}")
+    if (_pos_int(num_pages) and _pos_int(max_pages_per_request)
+            and max_pages_per_request > num_pages):
+        err(f"max_pages_per_request {max_pages_per_request} exceeds "
+            f"num_pages {num_pages} — one request could never be "
+            f"charged")
+    if prefill_chunk is not None:
+        if not _pos_int(prefill_chunk):
+            err(f"prefill_chunk must be a positive int (the chunked-"
+                f"prefill chunk size in tokens), got {prefill_chunk!r}")
+        elif buckets is not None:
+            well_formed = [b for b in buckets if _pos_int(b)]
+            if well_formed and prefill_chunk not in well_formed:
+                err(f"prefill_chunk {prefill_chunk} is not one of the "
+                    f"buckets {sorted(set(well_formed))} — chunk waves "
+                    f"must reuse a bucket's compiled prefill shape")
+    if spec_k is not None:
+        if isinstance(spec_k, bool) or not isinstance(spec_k, int) \
+                or spec_k < 0:
+            err(f"spec_k must be a non-negative int (draft tokens per "
+                f"speculative tick; 0 disables), got {spec_k!r}")
+        elif _pos_int(max_len) and spec_k + 1 > max_len:
+            err(f"spec_k {spec_k} needs a verify window of "
+                f"{spec_k + 1} positions, more than max_len {max_len}")
+    if (_pos_int(page_size) and _pos_int(max_pages_per_request)
+            and max_len is None):
+        # the paged per-request span IS the bucket bound
+        max_len = page_size * max_pages_per_request
+    if buckets is not None:
+        # a max_len fallback from the WELL-FORMED buckets only: a
+        # malformed entry surfaces as a PlanIssue, never a TypeError
+        well_formed = [b for b in buckets if _pos_int(b)]
+        problems = _verify_serving_payload(
+            dict(slots=num_slots if _pos_int(num_slots) else 1,
+                 max_len=max_len if _pos_int(max_len) else (
+                     max(well_formed) if well_formed else 1),
+                 buckets=list(buckets))
+        )
+        for p in problems:
+            err(p)
+
+    return PlanReport(issues=issues, checks=["knobs"],
+                      elapsed_s=time.perf_counter() - t0)
+
+
 __all__ = [
     "PlanError",
     "PlanIssue",
@@ -526,4 +933,5 @@ __all__ = [
     "has_plan",
     "verify_pipeline",
     "verify_plan",
+    "verify_tuning_knobs",
 ]

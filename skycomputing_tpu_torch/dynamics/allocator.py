@@ -18,8 +18,8 @@ The closed loop folds measured stage times back into the model:
 ``calibrate_costs_by_group`` (one scale per group of units: the port's
 own, well posed at a few stages), ``calibrate_device_speeds`` (the gap
 attributed to devices) and ``refine_allocation`` (a calibration, then
-a re-solve).  Serving and
-mesh allocation are later slices and raise ``NotImplementedError``.
+a re-solve).  ``serving_allocate`` solves over a decode-step profile.
+Mesh allocation is a later slice and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -230,10 +230,31 @@ class Allocator:
                 pos += 1
         return self._apply_partition(worker_ranks, ranges, orders)
 
-    # ------------------------------------------------ later slices
-    def serving_allocate(self, decode_benchmarker, max_time: float = 300):
-        _not_ported("serving_allocate", "the serving allocation, with "
-                    "Estimator.benchmark_decode_step")
+    # --------------------------------------------------------------- serving
+    def serving_allocate(self, decode_benchmarker,
+                         max_time: float = 300) -> WorkerManager:
+        """Bottleneck-optimal partition for DECODE-step serving load: the
+        solver of :meth:`optimal_allocate` over another profile.
+        ``decode_benchmarker`` (a
+        :class:`~..serving.profile.DecodeModelBenchmarker`) supplies one
+        decode iteration's FLOPs as cost and parameters plus KV memory
+        as memory, so each stage's slabs or pages must fit its
+        ``mem_limit``.
+
+        A training-calibrated cost override (:meth:`calibrate_costs` and
+        its kin) is set aside for the solve, since it was learned at
+        training granularity, and restored after it, with the training
+        profiler.  The device-speed override stays: a slow node is slow
+        for any workload."""
+        saved_bench = self._model_benchmarker
+        saved_override = self._cost_override
+        self._model_benchmarker = decode_benchmarker
+        self._cost_override = None
+        try:
+            return self.optimal_allocate(max_time=max_time)
+        finally:
+            self._model_benchmarker = saved_bench
+            self._cost_override = saved_override
 
     # ----------------------------------------------------- closed-loop refine
     def calibrate_costs(

@@ -1,25 +1,29 @@
 """Static and timed measurement helpers (the port of
 ``skycomputing_tpu/dynamics/estimator.py``).
 
-- FLOPs: one forward of the unit on the ``meta`` device (no parameter
-  is materialized, nothing is computed) under
-  ``torch.utils.flop_counter.FlopCounterMode``, which counts the
-  products (matmuls, convolutions, attention), plus a count of the
-  elementwise work it does not see, so that no unit profiles at 0: one
-  FLOP per output element of every pointwise op (adds, activations,
-  the mask arithmetic), 8 per element of a LayerNorm and 5 per element
-  of a softmax.  A dropout in train mode dispatches, on ``meta``, to
-  ``bernoulli_`` (the mask), then ``div_`` and ``mul`` (1 each); its
-  mask costs 55 per element, what XLA's ``cost_analysis`` charges for
-  ``jax.random.bernoulli`` (threefry bits, the float conversion and the
-  compare) on the CPU, in float32 and bfloat16 alike (57 per element
-  for a whole float32 flax ``Dropout``, 61 in bfloat16, where the
-  divide and select each add two converts).  XLA's cost model, which
-  the JAX package reads, counts elementwise work too (its erf-gelu at
-  tens of FLOPs per element), so the two agree per unit to within the
-  ratio ``tests/test_torch_dynamics.py`` states.  On ``meta`` the flash
-  attention wrapper takes its plain version, so the attention products
-  are counted.
+- FLOPs: one forward (or, for serving, one decode step) of the unit on
+  the ``meta`` device (no parameter is materialized, nothing is
+  computed) under ``torch.utils.flop_counter.FlopCounterMode``, which
+  counts the products (matmuls, convolutions, attention), plus a count
+  of the work it does not see, charged as XLA's cost model charges the
+  reference on the CPU, where the JAX package reads it: one FLOP per
+  output element of every pointwise op (adds, the mask arithmetic), 8
+  per element of a LayerNorm, 5 of a softmax, 64 of the erf-gelu; a
+  dropout in train mode dispatches, on ``meta``, to ``bernoulli_`` (the
+  mask), then ``div_`` and ``mul`` (1 each), and its mask costs 55 per
+  element (``jax.random.bernoulli``'s threefry bits, the float
+  conversion and the compare).  A layout copy (``clone``, einsum's
+  contiguous operand) is a move and costs nothing.  XLA's CPU backend
+  computes bfloat16 in float32, so in bf16 every operand of a product
+  or an elementwise op converts up and every result converts back, one
+  FLOP an element each; a write into a bf16 slab (the KV cache) converts
+  the slab back; and an embedding lookup whose rows are cast to bf16
+  costs two FLOPs per table element, the cast of the whole table that
+  flax's ``Embed(dtype=...)`` makes.  So the two agree per unit to
+  within the ratios ``tests/test_torch_dynamics.py`` (training) and
+  ``tests/test_torch_serving_alloc.py`` (decode) state.  On ``meta`` the
+  flash attention wrapper takes its plain version, so the attention
+  products are counted.
 - Memory: the reference's formula over tensor shapes exactly — inputs +
   2 x outputs + ``param_scale`` x parameters, at 4 bytes a number, in
   MB.
@@ -31,7 +35,7 @@
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +55,25 @@ _ELEMENT_FLOPS = {
     aten._softmax: 5,
     aten._to_copy: 1,
     aten.bernoulli_: 55,  # a dropout mask, as XLA counts it
+    aten.clone: 0,  # a layout copy (einsum's contiguous operand): a move
+    aten.gelu: 64,  # the erf form, as XLA counts it
 }
+
+
+# XLA's CPU backend, on which the reference's cost model ran, computes
+# bfloat16 arithmetic in float32: every bf16 operand of a product or an
+# elementwise op converts up and every bf16 result converts back (one
+# FLOP an element each), and a write into a bf16 slab converts the whole
+# slab back
+_PRODUCTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
+_HALF_WRITES = {aten.scatter_, aten.index_copy_}
+# a table lookup whose rows are then cast to bf16: the reference casts
+# the whole table first (flax's Embed(dtype=...))
+_LOOKUPS = {aten.embedding}
+
+
+def _half_numel(tensors) -> int:
+    return sum(t.numel() for t in tensors if t.dtype == torch.bfloat16)
 
 
 def _as_tuple(data) -> Tuple:
@@ -92,26 +114,46 @@ class _ElementwiseFlops(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.flops = 0
+        # id(rows) -> (rows, table elements) of each embedding lookup
+        self._lookups = {}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        per = _ELEMENT_FLOPS.get(func.overloadpacket)
-        if per is None and torch.Tag.pointwise in func.tags:
+        packet = func.overloadpacket
+        if packet in _LOOKUPS:
+            self._lookups[id(out)] = (out, args[0].numel())
+        elif packet is aten._to_copy and id(args[0]) in self._lookups \
+                and out.dtype == torch.bfloat16:
+            # XLA charges the table's cast both ways on its CPU backend
+            self.flops += 2 * self._lookups[id(args[0])][1]
+        per = _ELEMENT_FLOPS.get(packet)
+        pointwise = torch.Tag.pointwise in func.tags
+        if per is None and pointwise:
             per = 1
-        if per:
-            first = next((t for t in tree_leaves(out)
-                          if isinstance(t, torch.Tensor)
-                          and t.is_floating_point()), None)
-            if first is not None:
-                self.flops += per * first.numel()
+        first = next((t for t in tree_leaves(out)
+                      if isinstance(t, torch.Tensor)
+                      and t.is_floating_point()), None)
+        if per and first is not None:
+            self.flops += per * first.numel()
+        if packet in _HALF_WRITES:
+            # the slab converts back after the write (its reader, a
+            # product, pays the convert up)
+            self.flops += _half_numel([args[0]])
+        elif pointwise or packet in _PRODUCTS:
+            # each half-precision operand converts up, a half result
+            # converts back
+            self.flops += _half_numel(
+                [a for a in args if isinstance(a, torch.Tensor)
+                 and a.dim() > 0] + ([first] if first is not None else []))
         return out
 
 
-def count_flops(module, inputs: Sequence[torch.Tensor]):
-    """(outputs, products + elementwise FLOPs) of one forward."""
+def count_flops(fn, inputs: Sequence[torch.Tensor]):
+    """(outputs, products + elementwise FLOPs) of one call of ``fn`` (a
+    module's forward, or a method such as a unit's ``decode``)."""
     elementwise = _ElementwiseFlops()
     with FlopCounterMode(display=False) as products, elementwise:
-        out = module(*inputs)
+        out = fn(*inputs)
     return out, float(products.get_total_flops() + elementwise.flops)
 
 
@@ -201,12 +243,41 @@ class Estimator:
         return outputs, best
 
     @staticmethod
-    def benchmark_decode_step(*args, **kwargs):
-        raise NotImplementedError(
-            "Estimator.benchmark_decode_step is not ported to PyTorch yet (a "
-            "later slice: the serving allocation, with "
-            "Allocator.serving_allocate)"
-        )
+    def benchmark_decode_step(module, data: Sequence[Any],
+                              cache_avals: Optional[Sequence[Any]] = None,
+                              index: Any = None, param_scale: int = 2):
+        """(output meta tensors, FLOPs, mem_MB) for ONE decode iteration
+        of a unit — static, the serving counterpart of
+        :meth:`benchmark_model`.  The unit runs on ``meta`` under the
+        same FLOP counter:
+
+        - attention units (``cache_avals`` given: the (k, v) slot slabs
+          ``[S, max_len, heads, head_dim]``) run ``decode(data, k, v,
+          index)`` against the full slabs;
+        - units with a ``decode`` method (the embeddings) run
+          ``decode(data, index)``;
+        - every other unit runs ``forward``.
+
+        ``mem_MB`` is the reference formula over the DATA outputs only:
+        an attention decode also returns its caches, but they are the
+        slabs it was given, written in place, not activations of the
+        step.  The slab memory itself is a pool-level charge the serving
+        profile adds (``serving/kv_cache.kv_mb_per_layer``), one formula
+        shared with the pre-flight verifier."""
+        inputs = tuple(meta_like(x) for x in _as_tuple(data))
+        module = module.to("meta")
+        if cache_avals is not None:
+            args = inputs + tuple(meta_like(c) for c in cache_avals) + (
+                meta_like(index),)
+            fn = module.decode
+        elif hasattr(module, "decode"):
+            args, fn = inputs + (meta_like(index),), module.decode
+        else:
+            args, fn = inputs, module
+        with torch.no_grad():
+            out, flops = count_flops(fn, args)
+        data_out = out[0] if cache_avals is not None else out
+        return out, flops, memory_mb(inputs, data_out, module, param_scale)
 
 
 __all__ = ["Estimator", "count_flops", "memory_mb", "meta_like",

@@ -3,14 +3,21 @@
 The port of ``skycomputing_tpu/models/gpt.py``'s decode half: the same
 registered units, the same layer-config lists, the same numerics —
 
-==========================  =======================================
-registered name             paged decode step
-==========================  =======================================
-``GptEmbeddings``           ``decode(ids, index)`` -> hidden
-``GptBlock_Attn``           ``decode_paged(hidden, k, v, ...)``
-``GptBlock_Mlp``            ``forward(hidden)`` -> hidden
-``GptLmHead``               ``forward(hidden)`` -> logits [R, Lq, V]
-==========================  =======================================
+====================  ===================================  =======================
+registered name       paged decode step                    full-sequence forward
+====================  ===================================  =======================
+``GptEmbeddings``     ``decode(ids, index)`` -> hidden     ``forward(ids)``
+``GptBlock_Attn``     ``decode_paged(hidden, k, v, ...)``  ``forward(hidden)``
+``GptBlock_Mlp``      ``forward(hidden)`` -> hidden        the same
+``GptLmHead``         ``forward(hidden)`` -> logits        the same
+====================  ===================================  =======================
+
+``GptBlock_Attn.decode`` is the slot-layout step (one ``[B, max_len,
+heads, head_dim]`` slab pair per unit): the engine serves from pages,
+and the decode profile (``serving/profile.py``) counts this step, as the
+reference's profile does.  The full-sequence forwards are what the
+pre-flight verifier (``analysis/plan_check.py``) threads shapes through
+on ``meta``.
 
 Numerics follow flax's ``dtype``/``param_dtype`` pair: parameters are
 float32, dense layers and embeddings compute in ``cfg.dtype``,
@@ -20,13 +27,14 @@ LayerNorm runs in float32 with eps 1e-5 and its output is cast to
 int8 pages), its plain version on the CPU.  :func:`draft_slice_indices`
 cuts the speculative draft out of a stack.
 
-Not ported yet: the full-sequence training forward, ring attention,
-the slot-layout ``decode``, ``GptBlock_MoeMlp`` and ``generate``.
+Not ported yet: training (the units' dropout runs, but no trainer
+drives GPT), ring attention, ``GptBlock_MoeMlp`` and ``generate``.
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -36,7 +44,7 @@ from torch import nn
 from ..ops.paged_attention import paged_attention
 from ..registry import LAYER
 from ..utils import torch_dtype
-from .bert import ACT2FN, _Dense, _embed, _layer_norm
+from .bert import ACT2FN, _Dense, _dropout, _embed, _layer_norm
 
 # serving/kv_cache.py is imported function-locally, as in the JAX
 # package: the serving package imports this module, never the reverse
@@ -101,6 +109,22 @@ class GptEmbeddings(nn.Module):
         std = cfg.initializer_range
         self.wte = _embed(cfg.vocab_size, cfg.hidden_size, std)
         self.wpe = _embed(cfg.max_position_embeddings, cfg.hidden_size, std)
+        self.drop = _dropout(cfg.dropout_prob, deterministic)
+
+    def forward(self, input_ids):
+        """Embed ``input_ids`` [B, L] at positions 0..L-1."""
+        cfg = self.config
+        seq_len = input_ids.shape[1]
+        if seq_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {seq_len} exceeds "
+                f"max_position_embeddings={cfg.max_position_embeddings}"
+            )
+        dt = torch_dtype(cfg.dtype)
+        positions = torch.arange(seq_len, device=input_ids.device)[None, :]
+        hidden = (self.wte(input_ids.long()).to(dt)
+                  + self.wpe(positions).to(dt))
+        return self.drop(hidden)
 
     def decode(self, input_ids, index):
         """Embed ``input_ids`` [B, Lq] at positions index..index+Lq-1
@@ -130,6 +154,7 @@ class GptBlock_Attn(nn.Module):
         self.k_proj = _Dense(H, H, dt, cfg.initializer_range)
         self.v_proj = _Dense(H, H, dt, cfg.initializer_range)
         self.c_proj = _Dense(H, H, dt, cfg.initializer_range)
+        self.drop = _dropout(cfg.dropout_prob, deterministic)
 
     def _qkv(self, hidden):
         cfg = self.config
@@ -142,6 +167,53 @@ class GptBlock_Attn(nn.Module):
 
         return (split_heads(self.q_proj(x)), split_heads(self.k_proj(x)),
                 split_heads(self.v_proj(x)))
+
+    def _attend(self, q, k, v, visible):
+        """Softmax attention of q [B, Lq, heads, D] over k/v [B, M, heads,
+        D] where ``visible`` [B|1, Lq, M] allows: scores in the model
+        dtype over sqrt(D), a float32 softmax, the context projected back
+        into the model dtype."""
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        head_dim = cfg.hidden_size // cfg.num_attention_heads
+        scores = torch.einsum("blhd,bmhd->bhlm", q, k.to(dt)) / math.sqrt(
+            head_dim)
+        scores = torch.where(visible[:, None], scores, -math.inf)
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        ctx = torch.einsum("bhlm,bmhd->blhd", probs, v.to(dt))
+        return self.c_proj(ctx.reshape(ctx.shape[0], ctx.shape[1],
+                                       cfg.hidden_size))
+
+    def forward(self, hidden):
+        """Causal self-attention over the whole sequence [B, L, H]."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ring attention is not ported to PyTorch yet")
+        q, k, v = self._qkv(hidden)
+        L = q.shape[1]
+        causal = torch.ones(L, L, dtype=torch.bool,
+                            device=q.device).tril()[None]
+        return hidden + self.drop(self._attend(q, k, v, causal))
+
+    def decode(self, hidden, k_cache, v_cache, index):
+        """One incremental step against SLOT slabs.
+
+        ``hidden``: [B, Lq, H] new positions index..index+Lq-1;
+        ``k_cache``/``v_cache``: [B, max_len, heads, head_dim], written in
+        place (:func:`~..serving.kv_cache.update_kv_cache`) before
+        attention reads them; ``index`` a scalar or a per-row [B] tensor.
+        Positions past a row's own are masked
+        (:func:`~..serving.kv_cache.decode_visibility`).  Returns
+        (new_hidden, k_cache, v_cache).
+        """
+        from ..serving.kv_cache import decode_visibility, update_kv_cache
+
+        q, k_new, v_new = self._qkv(hidden)
+        k_cache, v_cache = update_kv_cache(k_cache, v_cache, k_new, v_new,
+                                           index)
+        visible = decode_visibility(index, q.shape[1], k_cache.shape[1])
+        return (hidden + self._attend(q, k_cache, v_cache, visible),
+                k_cache, v_cache)
 
     def decode_paged(self, hidden, k_slab, v_slab, page_table, index,
                      write):
@@ -339,48 +411,74 @@ def draft_slice_indices(modules, draft_blocks: int) -> list:
     return list(range(cut)) + [len(modules) - 1]
 
 
+def paged_step_inputs(slab, page_table, index, valid_len, query_len: int,
+                      device):
+    """One paged step's shared inputs on ``device``: (page table [R, W]
+    int32, index [R] int32, write plan).  ``page_table``, ``index`` and
+    ``valid_len`` may lie on the host (numpy or CPU tensors); the write
+    plan (:func:`~..serving.kv_cache.write_plan`, for slabs like
+    ``slab``) is computed there and moved with the table, so planning
+    costs no device synchronisation.  Every attention unit of every
+    stage on ``device`` shares the result; ``slab`` None (no attention
+    unit to write) gives no plan."""
+    from ..serving.kv_cache import write_plan
+
+    table = torch.as_tensor(np.asarray(page_table, np.int32))
+    index_h = torch.as_tensor(np.asarray(index, np.int32)).reshape(-1)
+    write = None
+    if slab is not None:
+        write = write_plan(slab, table, index_h, np.asarray(valid_len),
+                           query_len).to(device)
+    return table.to(device).contiguous(), index_h.to(device), write
+
+
 @torch.no_grad()
-def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
-    """Thread one PAGED step through a module slice.
+def run_paged_step(modules, data, slabs, step):
+    """Thread one PAGED step through a module slice, given the step's
+    inputs on the slice's device (:func:`paged_step_inputs`).
 
     ``data`` is token ids [R, Lq] when the slice starts with
     :class:`GptEmbeddings`, else a hidden state; ``slabs`` is one
     ``[num_pages, page_size, heads, head_dim]`` (k, v) pair per attention
     unit (plain tensors, or ``QuantizedPages`` for an int8 pool), updated
-    in place; ``page_table`` [R, W] / ``index`` [R] / ``valid_len`` [R]
-    are shared by every layer and may lie on the host (numpy or CPU
-    tensors) — the write plan is computed there once and moved to the
-    slabs' device with the table and index.  Prefill (``Lq = bucket``),
-    decode (``Lq = 1``) and speculative verify (``Lq = k + 1``) are this
-    one function at different shapes.  Returns (output, slabs).
+    in place.  Returns (output, slabs).
     """
-    from ..serving.kv_cache import slab_device, write_plan
-
     n_attn = len(attn_indices(modules))
     if len(slabs) != n_attn:
         raise ValueError(
             f"got {len(slabs)} cache pairs for {n_attn} attention units"
         )
-    k0 = slabs[0][0]
-    device = slab_device(k0)
-    table = torch.as_tensor(np.asarray(page_table, np.int32))
-    index_h = torch.as_tensor(np.asarray(index, np.int32)).reshape(-1)
-    write = write_plan(k0, table, index_h, np.asarray(valid_len),
-                       data.shape[1]).to(device)
-    table = table.to(device).contiguous()
-    index_d = index_h.to(device)
+    table, index, write = step
     cache_i = 0
     for module in modules:
         if isinstance(module, GptEmbeddings):
-            data = module.decode(data, index_d)
+            data = module.decode(data, index)
         elif isinstance(module, GptBlock_Attn):
             k, v = slabs[cache_i]
-            data, k, v = module.decode_paged(data, k, v, table, index_d,
+            data, k, v = module.decode_paged(data, k, v, table, index,
                                              write)
             cache_i += 1
         else:
             data = module(data)
     return data, slabs
+
+
+def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
+    """Thread one PAGED step through a module slice on its own:
+    :func:`paged_step_inputs` on the slabs' device (``data``'s for a
+    slice without attention units), then :func:`run_paged_step`.
+    ``page_table`` [R, W] / ``index`` [R] / ``valid_len`` [R] are shared
+    by every layer.  Prefill (``Lq = bucket``), decode (``Lq = 1``) and
+    speculative verify (``Lq = k + 1``) are this one function at
+    different shapes.  Returns (output, slabs).
+    """
+    from ..serving.kv_cache import slab_device
+
+    slab = slabs[0][0] if slabs else None
+    device = slab_device(slab) if slab is not None else data.device
+    step = paged_step_inputs(slab, page_table, index, valid_len,
+                             data.shape[1], device)
+    return run_paged_step(modules, data, slabs, step)
 
 
 __all__ = [
@@ -395,5 +493,7 @@ __all__ = [
     "decode_modules",
     "draft_slice_indices",
     "gpt_layer_configs",
+    "paged_step_inputs",
     "random_state_dicts",
+    "run_paged_step",
 ]

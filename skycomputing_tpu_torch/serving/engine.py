@@ -1,7 +1,12 @@
 """ServingEngine: iteration-level continuous batching over a paged KV pool.
 
-The port of ``skycomputing_tpu/serving/engine.py``'s paged layout on one
-stage and one device.  Every tick the engine (1) admits queued requests
+The port of ``skycomputing_tpu/serving/engine.py``'s paged layout, on one
+stage or on several: stage placement comes from an allocator-written
+worker pool (``worker_manager``, e.g. ``Allocator.serving_allocate``
+over a ``DecodeModelBenchmarker``) or an explicit ``partition`` of layer
+counts, each stage on ``devices[w.device_index % len(devices)]`` (stages
+on one card take turns on it, as the trainer's do).  Every tick the
+engine (1) admits queued requests
 — through bucketed prefill waves, through swap-in of preempted
 requests, or, with ``prefill_chunk`` set, by enrolling them for chunked
 prefill — while decode rows AND pages allow, (2) advances chunked
@@ -18,9 +23,12 @@ float32 scales, quantized at write time.  The host bookkeeping —
 free-list allocator, refcounts, radix prefix cache, copy-on-write
 grants, chunk budget, preemption policy — is :mod:`.paging`, a verbatim
 copy of the JAX package's.  Every step is one function
-(``models/gpt.apply_kv_paged``) at some query length, and each goes
-through the paged-attention kernel (``ops/paged_attention.py``; its int8
-twin for an int8 pool) on the card.
+(``models/gpt.run_paged_step``) at some query length, threaded through
+the stages in order (:meth:`ServingEngine._run_paged_stages`); each
+attention layer goes through the paged-attention kernel
+(``ops/paged_attention.py``; its int8 twin for an int8 pool) on the
+card.  One page pool and one row ledger serve every stage: page ``p`` is
+row ``p`` of every stage's slabs.
 
 A running request can be preempted (:meth:`ServingEngine.preempt`): by
 recomputation (it re-queues and its KV is rebuilt by prefill on
@@ -34,14 +42,19 @@ bounds prefill padding.  Inactive decode rows still ride through each
 step (``index = 0``, ``valid = 0``, all-sentinel tables): their writes
 drop and their attention reads stay inside the pool.
 
+A worker-manager plan is verified before any slab is allocated
+(``analysis/plan_check.verify_plan`` with the serving context: the KV
+pages count against each stage's budget).  :meth:`ServingEngine.reconfigure`
+changes the operating point in place, verify-then-apply.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-slot layout, multi-stage placement (``worker_manager``/``partition``),
-``reconfigure``, handoff export/import, and the live-metrics exporter.
+slot layout, handoff export/import, and the live-metrics exporter.
 There is no tracer and no autotuner hook.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import time
 from dataclasses import dataclass, field
@@ -50,16 +63,22 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..analysis.plan_check import (
+    _stage_workers,
+    verify_plan,
+    verify_tuning_knobs,
+)
 from ..builder import build_layer_stack
 from ..models.gpt import (
     GptEmbeddings,
     _gcfg,
-    apply_kv_paged,
     attn_indices,
     decode_modules,
     draft_slice_indices,
+    paged_step_inputs,
+    run_paged_step,
 )
-from ..utils import resolve_device
+from ..utils import resolve_device, resolve_devices
 from .batcher import (
     AdmissionQueue,
     FAILED,
@@ -78,7 +97,7 @@ from .paging import (
     choose_preempt_mode,
     pages_for,
 )
-from .speculative import DraftModel, greedy_accept_count
+from .speculative import DraftModel, greedy_accept_count, tree_param_mb
 
 
 @dataclass
@@ -166,9 +185,10 @@ class ServingStats:
 
 
 class _PagedServingStage:
-    """The one stage: module slice + device + per-attention-layer page
-    slabs ``[num_pages, page_size, heads, head_dim]`` (``QuantizedPages``
-    pairs under ``kv_dtype="int8"``)."""
+    """One pipeline stage: module slice + device + per-attention-layer
+    page slabs ``[num_pages, page_size, heads, head_dim]``
+    (``QuantizedPages`` pairs under ``kv_dtype="int8"``); a stage
+    without attention units holds no slabs."""
 
     def __init__(self, modules: Sequence[Any], state_dicts: Sequence[Any],
                  device: torch.device, num_pages: int, page_size: int,
@@ -187,7 +207,9 @@ class _PagedServingStage:
 
     def build_slabs(self, num_pages: int, page_size: int):
         """Fresh zeroed page slabs, one (k, v) pair per attention layer;
-        int8 values plus float32 scale slabs under ``kv_dtype="int8"``."""
+        int8 values plus float32 scale slabs under ``kv_dtype="int8"``
+        (at construction, and as ``reconfigure``'s pre-build, so an
+        allocation failure surfaces while the engine is intact)."""
         return init_paged_caches(self.specs, num_pages, page_size,
                                  device=self.device, kv_dtype=self.kv_dtype)
 
@@ -260,17 +282,19 @@ class _PagedServingStage:
                 else:
                     put(slab, host)
 
-    def step(self, data, tables, index, valid):
-        """One paged step through every module; returns the output."""
-        out, self.slabs = apply_kv_paged(
-            self.modules, data, self.slabs, tables, index, valid
-        )
+    def step(self, data, step_inputs):
+        """One paged step through the stage's modules, given the step's
+        (table, index, write plan) on this stage's device; returns the
+        output."""
+        out, self.slabs = run_paged_step(self.modules, data, self.slabs,
+                                         step_inputs)
         return out
 
 
 def _host_leaves(data):
-    """The tensors of a swap record's payload, in order (per-layer (k,
-    v) pairs, each a tensor or a ``QuantizedPages`` of values + scale)."""
+    """The tensors of a swap record's payload, in order.  The payload
+    nests as the reference's does: stages -> per-layer (k, v) pairs ->
+    a tensor or a ``QuantizedPages`` of values + scale."""
     if isinstance(data, (list, tuple)):
         for item in data:
             yield from _host_leaves(item)
@@ -280,8 +304,9 @@ def _host_leaves(data):
 
 def _swap_record_checksum(pages: int, index: int, data: List[Any]) -> str:
     """sha256 over a swap record's host payload: page count, resume
-    index and every host tensor's bytes (an int8 record's scale rows
-    too).  Stamped at swap-out, verified at swap-in."""
+    index and every host tensor's bytes, stage by stage and layer by
+    layer (an int8 record's scale rows too).  Stamped at swap-out,
+    verified at swap-in."""
     h = hashlib.sha256()
     h.update(f"{int(pages)}:{int(index)}".encode())
     for t in _host_leaves(data):
@@ -302,15 +327,25 @@ def _not_ported(feature: str):
 
 
 class ServingEngine:
-    """Continuous-batching GPT serving over a paged KV pool, one stage
-    on one device.
+    """Continuous-batching GPT serving over a paged KV pool, on stages
+    placed by an allocator.
 
     ``model_cfg`` is the layer-config list (``gpt_layer_configs``
     output, the same dicts the JAX package builds); ``params_list`` the
     matching per-layer state dicts (``convert.params_from_jax`` or
-    ``models.gpt.random_state_dicts``).  ``device`` defaults to CUDA;
-    without a CUDA device construction raises unless the caller passes
-    ``device="cpu"``.
+    ``models.gpt.random_state_dicts``).
+
+    Placement: ``worker_manager`` (an allocator-written pool; stages in
+    the verifier's order, ``plan_check._stage_workers``) or
+    ``partition`` (layer counts per stage), else one stage.  Stage ``k``
+    runs on ``devices[w.device_index % len(devices)]`` (a partition's
+    stage ``k`` on ``devices[k % len(devices)]``).  ``devices`` defaults
+    to every CUDA device and ``device`` is the one-device spelling of
+    ``devices=[device]``; without a CUDA device construction raises
+    unless the caller names the CPU.  With ``preflight`` (the default) a
+    worker manager's plan is verified under the serving context before
+    any slab is allocated (:class:`~..analysis.PlanError` when a stage's
+    pages, parameters and activations outgrow its ``mem_limit``).
 
     Feature knobs, as in the JAX engine: ``kv_dtype="int8"`` stores
     pages quantized; ``spec_k`` > 0 with ``draft_blocks`` decodes
@@ -348,14 +383,15 @@ class ServingEngine:
         device=None,
         worker_manager=None,
         partition: Optional[Sequence[int]] = None,
+        devices: Optional[Sequence[Any]] = None,
+        preflight: bool = True,
     ):
         if kv_layout == "slot":
             _not_ported("the slot KV layout")
         if kv_layout != "paged":
             raise ValueError(f"kv_layout must be 'paged', got {kv_layout!r}")
-        if worker_manager is not None or (
-                partition is not None and len(partition) > 1):
-            _not_ported("multi-stage placement")
+        if device is not None and devices is not None:
+            raise ValueError("pass device OR devices, not both")
         if preempt_policy not in ("auto", "recompute", "swap"):
             raise ValueError(
                 f"preempt_policy must be 'auto', 'recompute' or 'swap', "
@@ -373,7 +409,13 @@ class ServingEngine:
             )
         self.kv_dtype = kv_dtype
         self.preempt_policy = preempt_policy
-        self.device = resolve_device(device)
+        self._devices = (
+            resolve_devices(devices) if devices is not None
+            else [resolve_device(device)] if device is not None
+            else resolve_devices(None)
+        )
+        if not self._devices:
+            raise ValueError("devices is empty")
         modules = decode_modules(build_layer_stack(list(model_cfg)))
         if not attn_indices(modules) or not isinstance(
             modules[0], GptEmbeddings
@@ -386,7 +428,6 @@ class ServingEngine:
                 f"got {len(params_list)} param trees for "
                 f"{len(modules)} layers"
             )
-        model_dtype = str(_gcfg(modules[0].config).dtype)
         max_pos = _gcfg(modules[0].config).max_position_embeddings
         # the paged operating point: max_len becomes the PER-REQUEST
         # virtual span (max_pages_per_request x page_size), and the pool
@@ -475,23 +516,150 @@ class ServingEngine:
         # FIFO, which chunk waves honor head-first)
         self._prefilling: Dict[int, Request] = {}
         self._finished: List[Request] = []
+        # kept for reconfigure's second pre-flight against a proposed
+        # operating point (the opt-out carries over)
+        self._model_cfg = list(model_cfg)
+        self._worker_manager = worker_manager
+        self._preflight = bool(preflight)
+        self._enable_prefix_cache = bool(enable_prefix_cache)
+        self._max_prefix_entries = int(max_prefix_entries)
+        counts, stage_devices = self._resolve_stage_plan(
+            worker_manager, partition, len(modules)
+        )
+        # the draft's only resident charge: the LM head's parameters on
+        # stage 0 when the head lives on another stage — known before
+        # the pre-flight, which charges it
+        self._draft_mb = (
+            tree_param_mb(list(params_list)[-1])
+            if self.spec_k > 0 and len(counts) > 1 else 0.0
+        )
+        if preflight and worker_manager is not None:
+            # slabs allocate below: an over-budget serving plan fails
+            # here, before any of them exists, naming the serving context
+            verify_plan(
+                self._model_cfg, worker_manager,
+                (np.zeros((self.num_slots, 1), np.int32),),
+                memory="error", check_donation=False,
+                serving=self._serving_context(),
+            ).raise_if_failed()
+        # ONE page pool governs the page-id space of every stage (page p
+        # is row p of each stage's slabs) and one row ledger the decode
+        # rows
         self._pool = PagedKVCachePool(
             self.num_pages, self.page_size, self.max_pages_per_request,
-            enable_prefix_cache=bool(enable_prefix_cache),
-            max_prefix_entries=int(max_prefix_entries),
-            kv_dtype=kv_dtype or model_dtype,
+            enable_prefix_cache=self._enable_prefix_cache,
+            max_prefix_entries=self._max_prefix_entries,
+            kv_dtype=self._pool_kv_dtype(),
         )
         self._rows = RowAllocator(self.max_concurrency)
         # request_id -> host page copies + resume state (the swap pool)
         self._swapped: Dict[int, Dict[str, Any]] = {}
-        self.stage = _PagedServingStage(
-            modules, list(params_list), self.device, self.num_pages,
-            self.page_size, kv_dtype=kv_dtype,
-        )
+        # banked totals of pools a geometry reconfigure replaced, so an
+        # engine-lifetime counter never goes backwards
+        self._pool_base = dict(prefix_hits=0, prefix_tokens_reused=0,
+                               cow_copies=0, prefix_evictions=0)
+        self.stages: List[_PagedServingStage] = []
+        cursor = 0
+        for n, dev in zip(counts, stage_devices):
+            self.stages.append(_PagedServingStage(
+                modules[cursor:cursor + n],
+                list(params_list)[cursor:cursor + n], dev, self.num_pages,
+                self.page_size, kv_dtype=kv_dtype,
+            ))
+            cursor += n
+        # token ids enter on stage 0's device, logits leave the last's
+        self.device = self.stages[0].device
+        self._last_device = self.stages[-1].device
         self._draft: Optional[DraftModel] = None
         if self.spec_k > 0:
-            idx = draft_slice_indices(self.stage.modules, self.draft_blocks)
-            self._draft = DraftModel([self.stage.modules[i] for i in idx])
+            self._draft = self._build_draft()
+            self._draft_mb = self._draft.extra_param_mb
+
+    def _pool_kv_dtype(self) -> str:
+        """The page pool's storage dtype: the quantization knob when set,
+        else the model dtype — what the allocator accounts and the
+        verifier charges (one formula, ``paging.paged_pool_mb``)."""
+        if self.kv_dtype is not None:
+            return self.kv_dtype
+        return str(_gcfg(self._model_cfg[0]["config"]).dtype)
+
+    def _serving_context(self) -> Dict[str, Any]:
+        """The operating point the pre-flight verifier charges."""
+        ctx = dict(
+            num_pages=self.num_pages, page_size=self.page_size,
+            max_pages_per_request=self.max_pages_per_request,
+            bucket=self.bucketer.max_bucket,
+        )
+        if self.kv_dtype is not None:
+            # the quantized width (+ scale slabs) is what the slabs
+            # allocate: the verifier charges the same formula
+            ctx["kv_dtype"] = self.kv_dtype
+        if self._draft_mb:
+            ctx["draft_mb"] = self._draft_mb
+        return ctx
+
+    def _resolve_stage_plan(self, worker_manager, partition,
+                            n_layers: int):
+        """(layer counts, devices) per stage, from an allocator-written
+        worker pool, an explicit partition, or the one-stage default."""
+        if worker_manager is not None and partition is not None:
+            raise ValueError("pass worker_manager OR partition, not both")
+        n_dev = len(self._devices)
+        if worker_manager is not None:
+            # the verifier's stage order (rank-sorted non-empty
+            # workers): one definition, so engine and pre-flight agree
+            workers = _stage_workers(worker_manager)
+            counts = [len(w.model_config) for w in workers]
+            stage_devices = [self._devices[w.device_index % n_dev]
+                             for w in workers]
+        else:
+            counts = ([int(c) for c in partition]
+                      if partition is not None else [n_layers])
+            stage_devices = [self._devices[k % n_dev]
+                             for k in range(len(counts))]
+        if sum(counts) != n_layers or any(c < 1 for c in counts):
+            raise ValueError(
+                f"partition {counts} does not cover {n_layers} layers"
+            )
+        return counts, stage_devices
+
+    def _build_draft(self) -> DraftModel:
+        """The prefix-slice draft on stage 0 (fallible: called before any
+        state changes, at construction and when ``reconfigure`` turns
+        speculation on).
+
+        The draft's layers are stage 0's own modules, reading and
+        writing stage 0's first slab pairs.  With more than one stage
+        the LM head lives on the last: the draft runs it on stage 0's
+        device, moving a copy there only when the devices differ (stages
+        that share a card share the head's parameters).  The charge,
+        ``extra_param_mb``, is the head's parameter MB whenever there is
+        more than one stage, as the reference charges it, so both
+        verifiers report the same plan alike."""
+        full_modules = [m for st in self.stages for m in st.modules]
+        idx = draft_slice_indices(full_modules, self.draft_blocks)
+        cut = idx[-2] + 1  # prefix length (idx = range(cut) + [head])
+        stage0, last = self.stages[0], self.stages[-1]
+        if cut > len(stage0.modules):
+            raise ValueError(
+                f"draft_blocks={self.draft_blocks} needs the first "
+                f"{cut} layers resident on stage 0, which holds only "
+                f"{len(stage0.modules)} — shrink the draft or deepen "
+                f"stage 0 (the draft shares stage 0's params and slabs)"
+            )
+        head = full_modules[-1]
+        if last.device != stage0.device:
+            head = copy.deepcopy(head).to(stage0.device)
+        return DraftModel(list(stage0.modules[:cut]) + [head],
+                          extra_param_mb=self._pending_draft_mb())
+
+    def _pending_draft_mb(self) -> float:
+        """The draft memory turning speculation on would ADD to stage 0
+        (the LM head's parameters; 0 with one stage), computed without
+        allocating anything so the pre-flight can charge it first."""
+        if len(self.stages) <= 1:
+            return 0.0
+        return tree_param_mb(self.stages[-1].modules[-1])
 
     def _set_chunking(self, prefill_chunk: int,
                       max_chunk_rows: Optional[int]) -> None:
@@ -514,10 +682,245 @@ class ServingEngine:
         self.prefill_chunk = int(prefill_chunk)
         self.max_chunk_rows = rows
 
-    # --- features of the JAX engine this port does not have yet ------------
-    def reconfigure(self, **knobs):
-        _not_ported("reconfigure")
+    # --- reconfigure: a new operating point in place -----------------------
+    def reconfigure(
+        self,
+        *,
+        buckets: Optional[Sequence[int]] = None,
+        num_slots: Optional[int] = None,
+        prefill_batch: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        page_size: Optional[int] = None,
+        max_pages_per_request: Optional[int] = None,
+        max_concurrency: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        max_chunk_rows: Optional[int] = None,
+        spec_k: Optional[int] = None,
+    ) -> None:
+        """Apply a new serving operating point IN PLACE, between steps
+        (the reference's paged ``reconfigure``).
 
+        Knob classes: ``buckets`` and ``prefill_batch`` evict nothing
+        (the queue re-buckets); ``max_concurrency`` (``num_slots`` is its
+        alias here: decode rows are the paged engine's slots) re-seats
+        the running batch recomputation-style on the SAME pool, swap
+        records intact; ``num_pages`` / ``page_size`` /
+        ``max_pages_per_request`` rebuild the pool and every stage's
+        slabs — running requests resume by recomputation, the prefix
+        cache restarts cold with its counters banked, and swap records
+        (whose page shapes died) become recompute resumes.
+        ``prefill_chunk`` and ``spec_k``: None keeps, 0 disables;
+        disabling chunking re-queues mid-prefill requests; enabling
+        speculation needs an engine built with ``draft_blocks``.
+
+        Verify, then apply: :func:`~..analysis.plan_check.verify_tuning_knobs`,
+        then (an engine built from a worker manager, on a geometry
+        change, a larger bucket or a draft newly made resident) the
+        serving pre-flight again, charged at old + new pool depth for a
+        geometry change (both pools are held for a moment), then every
+        live request proven to fit, then every stage's new slabs, the
+        pool and the draft built — all before any state changes, so a
+        rejected reconfigure (``PlanError``, ``ValueError``, an
+        allocation failure) leaves the engine exactly as it was.
+        """
+        if buckets is not None:
+            # the constructor's normalisation; a malformed entry stays
+            # raw for the knob verifier to name
+            try:
+                new_buckets = tuple(sorted(set(int(b) for b in buckets)))
+            except (TypeError, ValueError):
+                new_buckets = tuple(buckets)
+        else:
+            new_buckets = self.bucketer.buckets
+        if max_concurrency is not None and num_slots is not None and (
+                int(max_concurrency) != int(num_slots)):
+            raise ValueError(
+                "num_slots aliases max_concurrency on a paged engine; "
+                f"got conflicting {num_slots} and {max_concurrency}"
+            )
+        new_rows = int(
+            max_concurrency if max_concurrency is not None
+            else num_slots if num_slots is not None
+            else self.max_concurrency
+        )
+        new_batch = (int(prefill_batch) if prefill_batch is not None
+                     else self.prefill_batch)
+        new_pages = int(num_pages) if num_pages is not None \
+            else self.num_pages
+        new_psize = int(page_size) if page_size is not None \
+            else self.page_size
+        new_mpr = (int(max_pages_per_request)
+                   if max_pages_per_request is not None
+                   else self.max_pages_per_request)
+        new_virtual = new_mpr * new_psize if (
+            new_mpr > 0 and new_psize > 0) else self.max_len
+        new_chunk = (self.prefill_chunk if prefill_chunk is None
+                     else (int(prefill_chunk) or None))
+        new_chunk_rows = (int(max_chunk_rows) if max_chunk_rows is not None
+                          else self.max_chunk_rows)
+        if max_chunk_rows is not None and new_chunk is None:
+            raise ValueError("max_chunk_rows requires prefill_chunk")
+        new_spec = self.spec_k if spec_k is None else int(spec_k)
+        verify_tuning_knobs(
+            buckets=new_buckets, max_len=new_virtual,
+            num_slots=new_rows, prefill_batch=new_batch,
+            num_pages=new_pages, page_size=new_psize,
+            max_pages_per_request=new_mpr,
+            prefill_chunk=new_chunk, spec_k=new_spec,
+        ).raise_if_failed()
+        if new_spec > 0 and self._draft is None and (
+                self.draft_blocks is None):
+            raise ValueError(
+                "reconfigure rejected: spec_k > 0 requires an engine "
+                "built with draft_blocks (the draft's layer slice is "
+                "construction state)"
+            )
+        max_pos = _gcfg(
+            self.stages[0].modules[0].config).max_position_embeddings
+        if new_virtual > max_pos:
+            raise ValueError(
+                f"max_pages_per_request x page_size = {new_virtual} "
+                f"exceeds max_position_embeddings={max_pos}"
+            )
+        geometry_change = (
+            new_pages != self.num_pages or new_psize != self.page_size
+            or new_mpr != self.max_pages_per_request
+        )
+        must_evict = geometry_change or new_rows != self.max_concurrency
+        # turning speculation on makes the draft's head newly resident
+        # on stage 0: the verifier sees it before it exists
+        enabling_spec = new_spec > 0 and self._draft is None
+        charged_draft_mb = (self._pending_draft_mb() if enabling_spec
+                            else self._draft_mb)
+        if (self._preflight and self._worker_manager is not None
+                and (geometry_change
+                     or max(new_buckets) > self.bucketer.max_bucket
+                     or (enabling_spec and charged_draft_mb > 0))):
+            # a geometry change pre-builds a second slab set while the
+            # old one is resident: charge the transient peak
+            charged = new_pages + (self.num_pages if geometry_change else 0)
+            ctx = dict(num_pages=charged, page_size=new_psize,
+                       max_pages_per_request=new_mpr,
+                       bucket=max(new_buckets))
+            if self.kv_dtype is not None:
+                ctx["kv_dtype"] = self.kv_dtype
+            if charged_draft_mb > 0:
+                ctx["draft_mb"] = charged_draft_mb
+            verify_plan(
+                self._model_cfg, self._worker_manager,
+                (np.zeros((new_rows, 1), np.int32),),
+                memory="error", check_donation=False, serving=ctx,
+            ).raise_if_failed()
+        new_bucketer = ShapeBucketer(new_buckets)
+        # feasibility before any change: swap records survive only a
+        # geometry-preserving change, so under one every swapped request
+        # must be able to resume by recomputation
+        live = (list(self._running.values())
+                + list(self._prefilling.values())
+                + list(self._queue.requests))
+        for r in live:
+            length = int(r.effective_prompt.size)
+            if length + r.remaining > new_virtual:
+                raise ValueError(
+                    f"reconfigure rejected: request {r.request_id} "
+                    f"spans {length + r.remaining} positions; the new "
+                    f"virtual span is {new_virtual}"
+                )
+            if r.request_id in self._swapped and not geometry_change:
+                continue  # resumes from host pages, needs no bucket
+            try:
+                new_bucketer.bucket_for(length)
+            except ValueError as exc:
+                raise ValueError(
+                    f"reconfigure rejected: request {r.request_id} "
+                    f"cannot resume under buckets {list(new_buckets)}: "
+                    f"{exc}"
+                ) from None
+        # build everything fallible before touching request state
+        new_slabs = ([st.build_slabs(new_pages, new_psize)
+                      for st in self.stages] if geometry_change else None)
+        new_pool = PagedKVCachePool(
+            new_pages, new_psize, new_mpr,
+            enable_prefix_cache=self._enable_prefix_cache,
+            max_prefix_entries=self._max_prefix_entries,
+            kv_dtype=self._pool_kv_dtype(),
+        ) if geometry_change else None
+        new_row_alloc = RowAllocator(new_rows) if must_evict else None
+        new_policy = None
+        if new_chunk is not None:
+            rows = new_chunk_rows if new_chunk_rows is not None \
+                else new_batch
+            new_policy = ChunkBudgetPolicy(
+                new_chunk, max_chunk_rows=rows,
+                idle_chunk_rows=max(rows, new_batch * 2),
+            )
+        new_draft = self._draft
+        if new_spec > 0 and new_draft is None:
+            new_draft = self._build_draft()
+
+        evicted: List[Request] = []
+
+        def evict(r: Request, prefilling: bool) -> None:
+            if prefilling:
+                self._prefilling.pop(r.request_id)
+                r.prefilled_len = 0  # recompute replays the tail
+            else:
+                self._running.pop(r.request_id)
+            self._rows.release(r.slot)
+            self._pool.release(r.request_id)
+            r.slot = None
+            r.preemptions += 1
+            self.stats.preemptions += 1
+            evicted.append(r)
+
+        if must_evict:
+            for r in list(self._running.values()):
+                evict(r, prefilling=False)
+            for r in list(self._prefilling.values()):
+                evict(r, prefilling=True)
+        elif new_chunk is None and self._prefilling:
+            # chunking turned off mid-watermark: no chunk tick would
+            # finish them, so they re-queue recompute-style
+            for r in list(self._prefilling.values()):
+                evict(r, prefilling=True)
+        queued = self._queue.drain()
+        if geometry_change:
+            for key in self._pool_base:
+                self._pool_base[key] += getattr(self._pool, key)
+            self._pool = new_pool
+            for st, slabs in zip(self.stages, new_slabs):
+                st.num_pages = new_pages
+                st.slabs = slabs
+            self._swapped.clear()
+            self.num_pages = new_pages
+            self.page_size = new_psize
+            self.max_pages_per_request = new_mpr
+            self.max_len = new_virtual
+        if new_row_alloc is not None:
+            self._rows = new_row_alloc
+            self.max_concurrency = new_rows
+            self.num_slots = new_rows
+        self.bucketer = new_bucketer
+        self.prefill_batch = new_batch
+        self.prefill_chunk = new_chunk
+        self.max_chunk_rows = (new_policy.max_chunk_rows
+                               if new_policy is not None else None)
+        self._chunk_policy = new_policy
+        self.spec_k = new_spec
+        if new_spec > 0:
+            self._draft = new_draft
+            self._draft_mb = new_draft.extra_param_mb
+        self._queue = AdmissionQueue(new_bucketer, prefill_batch=new_batch,
+                                     max_queue=self.max_queue)
+        # evicted requests were admitted before anything still queued:
+        # they re-enter at the head
+        for r in evicted + queued:
+            self._queue.submit(
+                r, force=True,
+                require_bucket=r.request_id not in self._swapped)
+        self.stats.queue_depth = self._queue.depth
+
+    # --- features of the JAX engine this port does not have yet ------------
     def export_handoff(self, request_id: int):
         _not_ported("KV handoff export")
 
@@ -643,7 +1046,7 @@ class ServingEngine:
             )
             held = self._pool.table(request_id)
             table[: len(held)] = held
-            data = self.stage.swap_out(table)
+            data = [st.swap_out(table) for st in self.stages]
             swap_record = dict(
                 pages=len(held), index=request.index, data=data,
                 nbytes=_swap_record_nbytes(data),
@@ -721,18 +1124,27 @@ class ServingEngine:
         self._admit_paged()
         if self._chunk_policy is not None:
             self._chunk_tick()
-        if self._draft is not None:
+        if self.spec_k > 0 and self._draft is not None:
             self._spec_tick()
         else:
             self._decode_tick_paged()
         self.stats.iterations += 1
         self.stats.queue_depth = self._queue.depth
         self.stats.batch_occupancy = self._rows.occupancy
-        pool = self._pool
-        self.stats.prefix_hits = pool.prefix_hits
-        self.stats.prefix_tokens_reused = pool.prefix_tokens_reused
-        self.stats.cow_copies = pool.cow_copies
-        self.stats.prefix_evictions = pool.prefix_evictions
+        self._sync_paged_stats()
+
+    def _sync_paged_stats(self) -> None:
+        """Mirror the page pool's counters and gauges into
+        ``ServingStats``; ``_pool_base`` banks the totals of pools a
+        geometry reconfigure replaced, so no engine-lifetime counter
+        goes backwards."""
+        pool, base = self._pool, self._pool_base
+        self.stats.prefix_hits = base["prefix_hits"] + pool.prefix_hits
+        self.stats.prefix_tokens_reused = (
+            base["prefix_tokens_reused"] + pool.prefix_tokens_reused)
+        self.stats.cow_copies = base["cow_copies"] + pool.cow_copies
+        self.stats.prefix_evictions = (
+            base["prefix_evictions"] + pool.prefix_evictions)
         self.stats.pages_in_use = pool.pages_in_use
         self.stats.free_pages = pool.free_pages
 
@@ -802,9 +1214,7 @@ class ServingEngine:
         if row is None:  # the caller checked free rows
             raise RuntimeError("chunked enrollment found no free row")
         request.slot = row
-        plan = self._pool.cow_plan(grant)
-        if plan:
-            self.stage.apply_cow_plan(plan)
+        self._apply_cow_plan(self._pool.cow_plan(grant))
         self._queue.remove(request)
         request.prefilled_len = grant.shared_tokens
         request.status = RUNNING
@@ -892,12 +1302,11 @@ class ServingEngine:
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(wave))
         t0 = time.perf_counter()
-        data = self.stage.step(
+        data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
             index, valid,
         )
-        last = torch.from_numpy(lengths.astype(np.int64) - 1).to(self.device)
-        logits = data[torch.arange(rows, device=self.device), last]
+        logits = self._last_logits(data, lengths)
         tokens_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
@@ -1017,19 +1426,16 @@ class ServingEngine:
         # partial page becomes the sharer's private page, so the tail's
         # appends never write a shared page
         for _, g in wave:
-            plan = self._pool.cow_plan(g)
-            if plan:
-                self.stage.apply_cow_plan(plan)
+            self._apply_cow_plan(self._pool.cow_plan(g))
 
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(wave))
         t0 = time.perf_counter()
-        data = self.stage.step(
+        data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
             index, valid,
         )
-        last = torch.from_numpy(lengths.astype(np.int64) - 1).to(self.device)
-        logits = data[torch.arange(rows, device=self.device), last]  # [rows, V]
+        logits = self._last_logits(data, lengths)  # [rows, V]
         tokens_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
@@ -1087,6 +1493,36 @@ class ServingEngine:
             self.stats.quantized_pages += int(touched.sum())
         self.stats.dequant_blocks += int(rows) * int(width)
 
+    def _apply_cow_plan(self, plan) -> None:
+        """A grant's copy-on-write plan, on every stage's slabs."""
+        if plan:
+            for st in self.stages:
+                st.apply_cow_plan(plan)
+
+    def _run_paged_stages(self, data, tables, index, valid):
+        """Thread one paged step through every stage in order — the one
+        dispatch idiom of prefill waves, chunk waves, decode ticks and
+        the speculative verify.  The step's table, index and write plan
+        are planned on the host once and moved once per distinct device
+        (stages on one card share them); the hidden state moves only
+        where the next stage's device differs (``.to`` is a no-op
+        otherwise).  Returns the last stage's output."""
+        slab = next((st.slabs[0][0] for st in self.stages if st.slabs),
+                    None)
+        inputs: Dict[torch.device, Any] = {}
+        for st in self.stages:
+            if st.device not in inputs:
+                inputs[st.device] = paged_step_inputs(
+                    slab, tables, index, valid, data.shape[1], st.device)
+            data = st.step(data.to(st.device), inputs[st.device])
+        return data
+
+    def _last_logits(self, data, lengths):
+        """Each row's logits at its last true position: [rows, V]."""
+        dev = self._last_device
+        last = torch.from_numpy(lengths.astype(np.int64) - 1).to(dev)
+        return data[torch.arange(data.shape[0], device=dev), last]
+
     def _swap_in(self, request: Request) -> bool:
         """Re-seat a swapped-out request: fresh pages, host copies
         scattered back, NO prefill — decoding continues from exactly
@@ -1124,7 +1560,8 @@ class ServingEngine:
             (self.max_pages_per_request,), self.num_pages, np.int32
         )
         table[: len(pages)] = pages
-        self.stage.swap_in(table, record["data"])
+        for st, host_pairs in zip(self.stages, record["data"]):
+            st.swap_in(table, host_pairs)
         del self._swapped[request.request_id]
         self._queue.remove(request)
         request.slot = row
@@ -1164,7 +1601,7 @@ class ServingEngine:
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(active))
         t0 = time.perf_counter()
-        data = self.stage.step(
+        data = self._run_paged_stages(
             torch.from_numpy(tokens[:, None]).to(self.device),
             tables[:, :width], index, valid,
         )
@@ -1225,11 +1662,11 @@ class ServingEngine:
         t0 = time.perf_counter()
         d = self._draft.num_attn
         drafted = self._draft.draft_k(
-            torch.from_numpy(tokens).to(self.device), self.stage.slabs[:d],
-            tables, index0, reserve, k,
+            torch.from_numpy(tokens).to(self.device),
+            self.stages[0].slabs[:d], tables, index0, reserve, k,
         )
         verify_in = np.concatenate([tokens[:, None], drafted], axis=1)
-        logits3 = self.stage.step(
+        logits3 = self._run_paged_stages(
             torch.from_numpy(verify_in).to(self.device), tables, index0,
             valid,
         )  # [rows, k+1, V]

@@ -1,6 +1,9 @@
 """Paged KV-cache device math: the port of the paged half of
 ``skycomputing_tpu/serving/kv_cache.py``, for pools in the model dtype
-and for int8 pools (:class:`QuantizedPages`).
+and for int8 pools (:class:`QuantizedPages`), with the slot-slab write
+(:func:`update_kv_cache`) the decode profile counts and the KV memory
+formulas the allocator and the pre-flight verifier charge
+(:func:`kv_mb_per_layer`, :func:`paged_kv_mb_per_layer`).
 
 Pages are ``[num_pages, page_size, heads, head_dim]`` slabs, one (k, v)
 pair per attention layer, shared by every row through per-row page
@@ -38,6 +41,29 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 
 from ..utils import torch_dtype
+
+
+def update_kv_cache(k_cache, v_cache, k_new, v_new, index):
+    """Write ``k_new``/``v_new`` [B, Lq, heads, head_dim] into SLOT slabs
+    ``k_cache``/``v_cache`` [B, max_len, heads, head_dim] at per-row
+    positions, in place; returns the caches.
+
+    ``index`` is a scalar (every row writes at one offset) or a [B]
+    vector (each row at its own).  A start past ``max_len - Lq`` clamps
+    to it, as ``jax.lax.dynamic_update_slice`` clamps in the reference,
+    so an inactive row never writes outside itself.  The engine serves
+    from pages; this slot write is what the decode profile
+    (:class:`~.profile.DecodeModelBenchmarker`) runs, as JAX's does.
+    """
+    B, Lq = k_new.shape[0], k_new.shape[1]
+    max_len = k_cache.shape[1]
+    start = torch.as_tensor(index, device=k_cache.device).long()
+    start = start.reshape(-1).expand(B).clamp(0, max_len - Lq)
+    pos = start[:, None] + torch.arange(Lq, device=k_cache.device)
+    pos = pos[:, :, None, None].expand(k_new.shape)
+    k_cache.scatter_(1, pos, k_new.to(k_cache.dtype))
+    v_cache.scatter_(1, pos, v_new.to(v_cache.dtype))
+    return k_cache, v_cache
 
 
 def decode_positions(index, query_len: int) -> torch.Tensor:
@@ -327,6 +353,10 @@ class KVCacheSpec:
     head_dim: int
     dtype: str = "float32"
 
+    def slab_shape(self, slots: int) -> Tuple[int, int, int, int]:
+        """One slot slab's shape ``[slots, max_len, heads, head_dim]``."""
+        return (slots, self.max_len, self.num_heads, self.head_dim)
+
     def slab_mb(self, slots: int) -> float:
         """Size of the (k, v) slab PAIR in MB."""
         n = float(slots * self.max_len * self.num_heads * self.head_dim)
@@ -387,6 +417,60 @@ def init_paged_caches(
     return caches
 
 
+def paged_kv_mb_per_layer(
+    model_cfg: Sequence[dict],
+    num_pages: int,
+    page_size: int,
+    attn_layer_type: str = "GptBlock_Attn",
+    kv_dtype: Optional[str] = None,
+) -> List[float]:
+    """Per-layer paged-pool MB for a layer-config list, the paged twin of
+    :func:`kv_mb_per_layer`: 0.0 for a unit without a cache, the (k, v)
+    pool pair for an attention unit.  ``kv_dtype=None`` charges the
+    model dtype (:meth:`KVCacheSpec.slab_mb` at ``num_pages`` rows of
+    ``page_size``); an explicit ``kv_dtype`` charges through
+    ``paging.paged_pool_mb``, the one formula the allocator, the profile
+    and the pre-flight verifier share (int8 values plus the float32
+    scale slabs).  Equal to the reference's to the last digit."""
+    from .paging import paged_pool_mb
+
+    out: List[float] = []
+    for cfg in model_cfg:
+        if cfg.get("layer_type") == attn_layer_type:
+            spec = kv_spec_from_config(cfg.get("config", {}), page_size)
+            if kv_dtype is None:
+                out.append(spec.slab_mb(num_pages))
+            else:
+                out.append(paged_pool_mb(
+                    num_pages, page_size, spec.num_heads,
+                    spec.head_dim, kv_dtype=kv_dtype,
+                ))
+        else:
+            out.append(0.0)
+    return out
+
+
+def kv_mb_per_layer(
+    model_cfg: Sequence[dict],
+    slots: int,
+    max_len: int,
+    attn_layer_type: str = "GptBlock_Attn",
+) -> List[float]:
+    """Per-layer KV-slab MB of the SLOT layout for a layer-config list:
+    0.0 for a unit without a cache, the (k, v) slab pair at ``slots`` x
+    ``max_len`` for an attention unit — the memory the serving profile
+    and the pre-flight verifier add to the parameter and activation
+    formula."""
+    out: List[float] = []
+    for cfg in model_cfg:
+        if cfg.get("layer_type") == attn_layer_type:
+            spec = kv_spec_from_config(cfg.get("config", {}), max_len)
+            out.append(spec.slab_mb(slots))
+        else:
+            out.append(0.0)
+    return out
+
+
 __all__ = [
     "KVCacheSpec",
     "PageRequant",
@@ -397,7 +481,9 @@ __all__ = [
     "decode_visibility",
     "gather_kv_pages",
     "init_paged_caches",
+    "kv_mb_per_layer",
     "kv_spec_from_config",
+    "paged_kv_mb_per_layer",
     "paged_update_kv",
     "paged_write_plan",
     "quantize_pages",
@@ -406,5 +492,6 @@ __all__ = [
     "scatter_paged_kv",
     "scatter_quantized_kv",
     "slab_device",
+    "update_kv_cache",
     "write_plan",
 ]

@@ -72,13 +72,17 @@ class DraftModel:
 
     ``modules`` is the already-sliced module list (the engine slices the
     full stack with ``models/gpt.draft_slice_indices``); the modules are
-    the target's own, so on one stage the draft adds no parameter memory
-    (the JAX engine's multi-stage head copy, which
-    :func:`tree_param_mb` sizes, does not arise).
+    the target's own, the LM head copied to stage 0's device only where
+    the last stage's device differs.  ``extra_param_mb`` is the resident
+    memory the engine charges for the draft on stage 0 (the head's
+    parameters, :func:`tree_param_mb`, whenever the engine has more than
+    one stage; 0 on one stage).
     """
 
-    def __init__(self, modules: Sequence[Any]):
+    def __init__(self, modules: Sequence[Any], *,
+                 extra_param_mb: float = 0.0):
         self.modules = list(modules)
+        self.extra_param_mb = float(extra_param_mb)
         self.num_attn = len(attn_indices(self.modules))
         if self.num_attn < 1:
             raise ValueError(

@@ -364,8 +364,9 @@ def test_data_generators_and_loader_match_jax():
 def test_what_slice_3_leaves_unported_raises():
     """What slice 3 left is ported now (1F1B, ``measure_stage_times``,
     the profile-driven allocations: ``tests/test_torch_schedule.py`` and
-    ``tests/test_torch_dynamics.py``); what is still unported raises,
-    naming its later slice."""
+    ``tests/test_torch_dynamics.py``; the serving allocation:
+    ``tests/test_torch_serving_alloc.py``); what is still unported
+    raises, naming its later slice."""
     model_cfg = _model_cfg()
     model, ps, wm = _port(model_cfg)
     PipelineModel(wm, ps, sgd(LR), tlosses.cross_entropy_loss,
@@ -375,8 +376,6 @@ def test_what_slice_3_leaves_unported_raises():
                       devices=CPU, schedule="zigzag")
     assert len(model.measure_stage_times(_batch()[0], repeats=1,
                                          inner_iters=1)) == 3
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Allocator(model_cfg, wm).serving_allocate(None)
     with pytest.raises(NotImplementedError, match="later slice"):
         Allocator(model_cfg, wm).mesh_allocate()
     # pre-flight is ported (tests/test_torch_plan_check.py) and on by

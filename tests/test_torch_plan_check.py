@@ -176,11 +176,27 @@ def test_layer_trace_cache_dedupes_across_splits():
     assert tpc._exc_line(ValueError("boom\nmore")) == "boom"
 
 
-def test_serving_context_waits_for_its_queue_item():
+def test_serving_context_counts_kv_memory():
+    """The reference's ``test_serving_kv_memory_failure_names_context``,
+    replayed on both packages: per-layer KV slabs of 1 MB blow a 1.5 MB
+    budget the bare units fit, and the diagnostic names the serving
+    operating point; without the context the plan passes."""
     cfg = _mm_cfg()
-    with pytest.raises(NotImplementedError, match="queue A item 1"):
-        tpc.verify_plan(cfg, _pool(WorkerManager, _counts(cfg, [8])), (X,),
-                        serving=dict(slots=2, max_len=8))
+    serving = dict(slots=32, max_len=128, bucket=64,
+                   kv_mb_per_layer=[1.0] * N_UNITS)
+    reports = [
+        pc.verify_plan(cfg, _pool(manager, _counts(cfg, [4, 4]),
+                                  mem_limit=1.5), (X,), memory="error",
+                       serving=dict(serving))
+        for pc, manager in ((tpc, WorkerManager), (jpc, JaxWorkerManager))]
+    assert reports[0].checks == reports[1].checks
+    assert [(i.code, i.severity, i.message) for i in reports[0].issues] == [
+        (i.code, i.severity, i.message) for i in reports[1].issues]
+    msg = reports[0].errors[0].message
+    assert "32 KV slots x max_len 128, bucket 64" in msg
+    assert "KV slabs are 4 MB of the need" in msg
+    assert tpc.verify_plan(cfg, _pool(WorkerManager, _counts(cfg, [4, 4]),
+                                      mem_limit=1.5), (X,)).ok
 
 
 class _NoMetaBackward(torch.autograd.Function):

@@ -157,7 +157,7 @@ def test_corrupt_swap_record_falls_back_to_recompute(gpt):
         engine.step()
     victim = reqs[0]
     engine.preempt(victim.request_id)  # preempt_policy="swap"
-    k_host, _ = engine._swapped[victim.request_id]["data"][0]
+    k_host, _ = engine._swapped[victim.request_id]["data"][0][0]
     k_host.view(-1)[0] += 1.0  # host-pool rot
     engine.run()
     assert engine.stats.swap_corruptions == 1

@@ -101,7 +101,7 @@ def test_int8_engine_token_identical_to_jax(gpt, attn_impl):
     snap = port.stats.snapshot()
     assert snap["quantized_pages"] > 0 and snap["dequant_blocks"] > 0
     assert snap["cow_copies"] >= 1 and snap["prefix_hits"] >= 1
-    k, v = port.stage.slabs[0]
+    k, v = port.stages[0].slabs[0]
     assert isinstance(k, QuantizedPages) and isinstance(v, QuantizedPages)
     assert port._pool.kv_dtype == "int8"
 
