@@ -164,8 +164,27 @@ one.  Phases, each fatal on failure:
     in turns (4, 1, 1, 4 stages, fp and int8; a process's later phases
     run slower than its first, so phases 4-5 are no baseline for these).
 
+21. the serving bench (``skycomputing_tpu_torch/bench_serving.py``): its
+    six sections called in-process at its full-run operating points on
+    GPT-2 small (12 layers, hidden 768, vocabulary 50,257; the spec
+    section on its own 1,024-token vocabulary), float32, random weights
+    from the seed — continuous against static batching (slot layout),
+    paged against slot at equal pool MB with shared-prefix TTFT, the
+    chunked backlog, speculative decoding (draft exact), the live table
+    width against the full one and int8 pages — and the kernel section
+    again in bf16 (the tensor-core prefill bodies); one JSON line per
+    section (gates, headline numbers, B2/B3 launches by body, counted
+    from 0 per section).  Every mechanics gate is asserted (token
+    identity with the one-shot ``generate``, equal pool MB, counters, no
+    kernel library built in a measured window); the timing and int8
+    fidelity gates (and the bf16 rerun's identity gates) are printed
+    with their values.  Then the kernel against its plain version on the
+    bench's tiny instance (``kernel_matches_plain``, asserted; its
+    launches not counted).
+
 The line before last is ``{"kernels": [...]}``, one entry per kernel
-(B2's and B3's launches from their serving phases and phase 20);
+(B2's and B3's launches from their serving phases, phase 20 and phase
+21);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -684,7 +703,8 @@ def build_engine(ServingEngine, cfg_mod, depth, dtype, device, seed=SEED,
             for layer in (1 + 2 * block, 2 + 2 * block):  # attn, mlp
                 params[layer]["c_proj.weight"] *= 0.1
     return ServingEngine(
-        layer_cfgs, params, page_size=16, buckets=(32, 64, 128, 256),
+        layer_cfgs, params, kv_layout="paged", page_size=16,
+        buckets=(32, 64, 128, 256),
         max_len=512, max_concurrency=16, prefill_batch=4, num_pages=512,
         device=device, **kw,
     )
@@ -2431,6 +2451,145 @@ def serving_stages_path(torch, serve_args, one_stage):
     return stages_report, stage_launches, stage_prefill
 
 
+# --------------------------------------------------------------------------
+# phase 21: the serving bench
+# --------------------------------------------------------------------------
+
+# GPT-2 small's width and depth in the bench's own dtype (float32, so the
+# identity gates mean what they mean in the reference's bench)
+BENCH_MODEL = dict(vocab_size=50257, hidden_size=768, num_hidden_layers=LAYERS,
+                   num_attention_heads=12, max_position_embeddings=1024,
+                   dropout_prob=0.0, dtype="float32")
+# the bf16 rerun's identity gates are findings: a bf16 one-shot forward
+# and the kernel round in different places
+BF16_REPORTED = frozenset({"live_token_identical",
+                           "live_matches_full_gather"})
+
+
+def bench_section(torch, kernels, name, run, reported=frozenset()):
+    """One section of the serving bench with every paged kernel's count
+    set to 0 just before it and read just after: its report, launches
+    and launches by body.  Prints one JSON line (the gates, the section's
+    headline numbers, its launches) and asserts every mechanics gate;
+    the timing and int8-fidelity gates (and ``reported``) are printed
+    with their values, not asserted."""
+    from skycomputing_tpu_torch import bench_serving as bench
+
+    paged = {k: v for k, v in kernels.items() if k != B1}
+    for k in paged.values():
+        k["fn"].launches = 0
+        for body in k["fn"].body_launches:
+            k["fn"].body_launches[body] = 0
+    t0 = time.perf_counter()
+    section = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v["fn"].launches for k, v in paged.items()}
+    bodies = {k: dict(v["fn"].body_launches) for k, v in paged.items()}
+    soft = bench.TIMING_GATES | bench.FIDELITY_GATES | reported
+    findings = {g: v for g, v in section["gates"].items() if g in soft}
+    numbers = {
+        key: section[key] for key in (
+            "throughput_speedup", "concurrency_gain",
+            "itl_tail_ratio_unchunked", "itl_tail_ratio_chunked",
+            "tokens_per_s_speedup", "accept_rate", "decode_per_token_speedup",
+            "pages_per_mb_gain", "int8_agreement",
+            "int8_first_token_agreement") if key in section}
+    if "shared_prefix" in section:
+        numbers["ttft_warm_over_cold"] = section["shared_prefix"][
+            "ttft_warm_over_cold"]
+    if "chunked" in section:
+        for key in ("tpot_tail_ratio", "itl_p95_s", "ttft_p95_s"):
+            numbers[f"chunked_{key}"] = section["chunked"][key]
+        numbers["unchunked_itl_p95_s"] = section["unchunked"]["itl_p95_s"]
+    print(json.dumps(dict(bench_section=name, seconds=seconds,
+                          gates=section["gates"], numbers=numbers,
+                          launches=launches, body_launches=bodies,
+                          identity_findings=section.get(
+                              "identity_findings", []))), flush=True)
+    for gate, value in section["gates"].items():
+        if gate in soft:
+            log(f"   finding {name}.{gate}: {value}")
+        else:
+            check(value, f"{name}: mechanics gate {gate}")
+    section.update(seconds=seconds, launches=launches, body_launches=bodies,
+                   findings=findings)
+    return section
+
+
+def serving_bench_path(torch, np, kernels, gpt_mod):
+    """Phase 21.  The serving bench's sections (``bench_serving.py``) at
+    its full-run operating points on GPT-2 small (12 layers, hidden 768,
+    vocabulary 50,257, float32, random weights from the seed), one card;
+    the kernel section once more in bf16; then the kernel against its
+    plain version on the bench's own tiny instance, uncounted.  Returns
+    (a report, the phase's launches by kernel, its tensor-core prefill
+    launches by kernel)."""
+    from skycomputing_tpu_torch import bench_serving as bench
+
+    dev = torch.device("cuda")
+    _, bench_cfg, paged_cfg, chunk_cfg, spec_cfg, kernel_cfg = (
+        bench.operating_points(smoke=False))
+    for op in (bench_cfg, paged_cfg, chunk_cfg, spec_cfg, kernel_cfg):
+        op.update(partition=None, device=dev)
+    layer_cfgs = gpt_mod.gpt_layer_configs(
+        gpt_mod.GptConfig(**BENCH_MODEL), deterministic=True)
+    bf16_cfgs = gpt_mod.gpt_layer_configs(
+        gpt_mod.GptConfig(**dict(BENCH_MODEL, dtype="bfloat16")),
+        deterministic=True)
+    params = gpt_mod.random_state_dicts(layer_cfgs, SEED)
+    specs = bench.build_workload(
+        np.random.default_rng(SEED), bench_cfg["n_requests"],
+        list(bench_cfg["buckets"]), bench_cfg["max_len"],
+        bench_cfg["lo_new"], bench_cfg["hi_new"])
+    runs = (
+        ("continuous_vs_static", lambda: bench.continuous_vs_static(
+            layer_cfgs, params, specs, bench_cfg), frozenset()),
+        ("paged_vs_slot", lambda: bench.paged_vs_slot(
+            layer_cfgs, params, paged_cfg, SEED, False), frozenset()),
+        ("chunked_backlog", lambda: bench.chunked_backlog(
+            layer_cfgs, params, chunk_cfg, SEED, False), frozenset()),
+        ("speculative", lambda: bench.speculative(
+            dict(BENCH_MODEL), spec_cfg, SEED, False), frozenset()),
+        ("kernel_quant", lambda: bench.kernel_quant(
+            layer_cfgs, params, kernel_cfg, SEED, False), frozenset()),
+        ("kernel_quant_bf16", lambda: bench.kernel_quant(
+            bf16_cfgs, params, kernel_cfg, SEED, False), BF16_REPORTED),
+    )
+    report, launches, prefill = {}, {B2: 0, B3: 0}, {B2: 0, B3: 0}
+    for name, run, reported in runs:
+        section = bench_section(torch, kernels, name, run, reported)
+        report[name] = section
+        for kernel in (B2, B3):
+            launches[kernel] += section["launches"][kernel]
+            prefill[kernel] += section["body_launches"][kernel][
+                "tensor_core"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ("paged_vs_slot", "chunked_backlog", "speculative",
+                 "kernel_quant"):
+        check(report[name]["launches"][B2] > 0,
+              f"{name}: B2 launched {report[name]['launches'][B2]} times")
+    bf16 = report["kernel_quant_bf16"]["body_launches"]
+    f32 = report["kernel_quant"]["body_launches"]
+    check(bf16[B2]["tensor_core"] > 0 and bf16[B3]["tensor_core"] > 0
+          and f32[B2]["query_tile"] > 0 and f32[B3]["query_tile"] > 0
+          and f32[B2]["decode"] > 0 and f32[B3]["decode"] > 0,
+          f"kernel section prefill on the tensor-core body in bf16 "
+          f"(B2 {bf16[B2]['tensor_core']}, B3 {bf16[B3]['tensor_core']}) "
+          f"and the query-tile body in float32 (B2 {f32[B2]['query_tile']},"
+          f" B3 {f32[B3]['query_tile']}); decode on the decode body")
+    # the kernel against its plain version: a comparison, so run after
+    # the counts were read and not added to them
+    leg = bench.kernel_leg(SEED, dev)
+    log(f"   kernel leg: {json.dumps(leg['gates'])}; kernel launches "
+        f"{json.dumps(leg['kernel']['kernel_launches'])}")
+    for gate, value in leg["gates"].items():
+        check(value, f"kernel leg: mechanics gate {gate}")
+    report["kernel_leg"] = leg
+    return report, launches, prefill
+
+
 
 def main() -> int:
     import torch
@@ -2885,6 +3044,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    with phase("serving bench: its six sections at GPT-2 small, float32, "
+               "the kernel section again in bf16"):
+        bench_report, bench_launches, bench_prefill = serving_bench_path(
+            torch, np, kernels, gpt_mod)
+        report["serving_bench"] = bench_report
+        gc.collect()
+        torch.cuda.empty_cache()
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None):
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == "bfloat16")
@@ -2896,22 +3063,22 @@ def main() -> int:
                     bound_by=row["bound_by"], library_ms=row["library_ms"])
 
     # each kernel's launches from the paths that are its own: B2 from the
-    # fp serving path and the multi-stage phase, B3 from the int8 path and
-    # the multi-stage phase, B1 from the launcher's run, the GLUE path's
-    # evaluation and the self-heal run;
-    # the prefill entries are the tensor-core body's launches in those
-    # runs, beside its time at the prefill wave's shape
+    # fp serving path, the multi-stage phase and the serving bench, B3
+    # from the int8 path, the multi-stage phase and the serving bench, B1
+    # from the launcher's run, the GLUE path's evaluation and the
+    # self-heal run; the prefill entries are the tensor-core body's
+    # launches in those runs, beside its time at the prefill wave's shape
     fp_bodies = report["e2e"]["body_launches"][B2]
     int8_bodies = report["e2e_int8"]["body_launches"][B3]
     line = {"kernels": [
-        entry(B2, main_launches[B2] + stage_launches[B2]),
-        entry(B2, fp_bodies["tensor_core"] + stage_prefill[B2],
-              case="prefill",
-              label=f"{B2}:prefill"),
-        entry(B3, int8_launches[B3] + stage_launches[B3]),
-        entry(B3, int8_bodies["tensor_core"] + stage_prefill[B3],
-              case="prefill",
-              label=f"{B3}:prefill"),
+        entry(B2, main_launches[B2] + stage_launches[B2]
+              + bench_launches[B2]),
+        entry(B2, fp_bodies["tensor_core"] + stage_prefill[B2]
+              + bench_prefill[B2], case="prefill", label=f"{B2}:prefill"),
+        entry(B3, int8_launches[B3] + stage_launches[B3]
+              + bench_launches[B3]),
+        entry(B3, int8_bodies["tensor_core"] + stage_prefill[B3]
+              + bench_prefill[B3], case="prefill", label=f"{B3}:prefill"),
         entry(B1, launcher_launches[B1] + eval_launches[B1]
               + heal_launches[B1], flash, "bert_large_L128")]}
     # B1's error: the worst over its main case and the eval path's calls

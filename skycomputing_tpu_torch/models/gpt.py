@@ -13,22 +13,30 @@ registered name       paged decode step                    full-sequence forward
 ====================  ===================================  =======================
 
 ``GptBlock_Attn.decode`` is the slot-layout step (one ``[B, max_len,
-heads, head_dim]`` slab pair per unit): the engine serves from pages,
-and the decode profile (``serving/profile.py``) counts this step, as the
-reference's profile does.  The full-sequence forwards are what the
-pre-flight verifier (``analysis/plan_check.py``) threads shapes through
-on ``meta``.
+heads, head_dim]`` slab pair per unit): :func:`apply_kv_cached` threads
+it through a module slice for the serving engine's slot layout, the
+single-request :class:`CachedGptDecoder` and the decode profile
+(``serving/profile.py``).  The full-sequence forwards are what
+:func:`generate` decodes against (the one-shot reference the serving
+bench holds every engine to) and what the pre-flight verifier
+(``analysis/plan_check.py``) threads shapes through on ``meta``.
 
 Numerics follow flax's ``dtype``/``param_dtype`` pair: parameters are
 float32, dense layers and embeddings compute in ``cfg.dtype``,
 LayerNorm runs in float32 with eps 1e-5 and its output is cast to
-``cfg.dtype``, and logits come out in float32.  Attention goes through
-``ops/paged_attention.py``: the CUDA kernel on the card (over fp or
-int8 pages), its plain version on the CPU.  :func:`draft_slice_indices`
-cuts the speculative draft out of a stack.
+``cfg.dtype``, and logits come out in float32.  Paged attention goes
+through ``ops/paged_attention.py``: the CUDA kernel on the card (over fp
+or int8 pages), its plain version on the CPU or where the caller asks
+for it (``plain=True``).  :func:`draft_slice_indices` cuts the
+speculative draft out of a stack.
+
+Sampling (``temperature > 0``) in :func:`generate` and
+:func:`generate_cached` draws from a ``torch.Generator``, so the two
+agree with each other; greedy decoding is the reference's token for
+token.
 
 Not ported yet: training (the units' dropout runs, but no trainer
-drives GPT), ring attention, ``GptBlock_MoeMlp`` and ``generate``.
+drives GPT), ring attention and ``GptBlock_MoeMlp``.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.paged_attention import paged_attention
+from ..ops.paged_attention import paged_attention, paged_attention_reference
 from ..registry import LAYER
 from ..utils import torch_dtype
 from .bert import ACT2FN, _Dense, _dropout, _embed, _layer_norm
@@ -216,7 +224,7 @@ class GptBlock_Attn(nn.Module):
                 k_cache, v_cache)
 
     def decode_paged(self, hidden, k_slab, v_slab, page_table, index,
-                     write):
+                     write, plain: bool = False):
         """One incremental step against PAGED slabs.
 
         ``hidden``: [R, Lq, H] new positions index..index+Lq-1 per row;
@@ -228,19 +236,21 @@ class GptBlock_Attn(nn.Module):
         ``write``: the step's plan for this slab type
         (:func:`~..serving.kv_cache.write_plan`).  The new K/V are
         written into the slabs in place BEFORE attention reads them.
-        Returns (new_hidden, k_slab, v_slab).
+        ``plain`` runs the kernel's plain version on any device (the
+        serving engine's ``attn_impl="plain"``); otherwise the kernel's
+        wrapper picks by device.  Returns (new_hidden, k_slab, v_slab).
         """
         from ..serving.kv_cache import QuantizedPages, scatter_kv
 
         cfg = self.config
+        attend = paged_attention_reference if plain else paged_attention
         q, k_new, v_new = self._qkv(hidden)
         scatter_kv(k_slab, v_slab, k_new, v_new, write)
         if isinstance(k_slab, QuantizedPages):
-            ctx = paged_attention(q, k_slab.values, v_slab.values,
-                                  page_table, index, k_scale=k_slab.scale,
-                                  v_scale=v_slab.scale)
+            ctx = attend(q, k_slab.values, v_slab.values, page_table, index,
+                         k_scale=k_slab.scale, v_scale=v_slab.scale)
         else:
-            ctx = paged_attention(q, k_slab, v_slab, page_table, index)
+            ctx = attend(q, k_slab, v_slab, page_table, index)
         ctx = ctx.to(torch_dtype(cfg.dtype))
         ctx = ctx.reshape(ctx.shape[0], ctx.shape[1], cfg.hidden_size)
         return hidden + self.c_proj(ctx), k_slab, v_slab
@@ -433,7 +443,7 @@ def paged_step_inputs(slab, page_table, index, valid_len, query_len: int,
 
 
 @torch.no_grad()
-def run_paged_step(modules, data, slabs, step):
+def run_paged_step(modules, data, slabs, step, plain: bool = False):
     """Thread one PAGED step through a module slice, given the step's
     inputs on the slice's device (:func:`paged_step_inputs`).
 
@@ -441,7 +451,8 @@ def run_paged_step(modules, data, slabs, step):
     :class:`GptEmbeddings`, else a hidden state; ``slabs`` is one
     ``[num_pages, page_size, heads, head_dim]`` (k, v) pair per attention
     unit (plain tensors, or ``QuantizedPages`` for an int8 pool), updated
-    in place.  Returns (output, slabs).
+    in place; ``plain`` asks every attention unit for the kernel's plain
+    version.  Returns (output, slabs).
     """
     n_attn = len(attn_indices(modules))
     if len(slabs) != n_attn:
@@ -456,14 +467,15 @@ def run_paged_step(modules, data, slabs, step):
         elif isinstance(module, GptBlock_Attn):
             k, v = slabs[cache_i]
             data, k, v = module.decode_paged(data, k, v, table, index,
-                                             write)
+                                             write, plain)
             cache_i += 1
         else:
             data = module(data)
     return data, slabs
 
 
-def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
+def apply_kv_paged(modules, data, slabs, page_table, index, valid_len,
+                   plain: bool = False):
     """Thread one PAGED step through a module slice on its own:
     :func:`paged_step_inputs` on the slabs' device (``data``'s for a
     slice without attention units), then :func:`run_paged_step`.
@@ -478,7 +490,185 @@ def apply_kv_paged(modules, data, slabs, page_table, index, valid_len):
     device = slab_device(slab) if slab is not None else data.device
     step = paged_step_inputs(slab, page_table, index, valid_len,
                              data.shape[1], device)
-    return run_paged_step(modules, data, slabs, step)
+    return run_paged_step(modules, data, slabs, step, plain)
+
+
+@torch.no_grad()
+def apply_kv_cached(modules, data, caches, index):
+    """Thread one SLOT decode step through a module slice.
+
+    ``data`` is token ids [B, Lq] when the slice starts with
+    :class:`GptEmbeddings`, else the hidden state handed over from the
+    previous stage; ``caches`` is one ``[B, max_len, heads, head_dim]``
+    (k, v) slab pair per attention unit, written in place
+    (:meth:`GptBlock_Attn.decode`); ``index`` a scalar or a per-row [B]
+    vector (host or device).  Returns (output, caches).  The one
+    slot-threading implementation: :class:`CachedGptDecoder` runs it over
+    the whole stack, the serving engine's slot stages over their slices.
+    """
+    n_attn = len(attn_indices(modules))
+    if len(caches) != n_attn:
+        raise ValueError(
+            f"got {len(caches)} cache pairs for {n_attn} attention units"
+        )
+    index = torch.as_tensor(
+        index, device=caches[0][0].device if caches else data.device)
+    cache_i = 0
+    for module in modules:
+        if isinstance(module, GptEmbeddings):
+            data = module.decode(data, index)
+        elif isinstance(module, GptBlock_Attn):
+            k, v = caches[cache_i]
+            data, _, _ = module.decode(data, k, v, index)
+            cache_i += 1
+        else:
+            data = module(data)
+    return data, caches
+
+
+def _next_tokens(logits, temperature: float, generator) -> torch.Tensor:
+    """Each row's next token from its logits [B, V], as a CPU int64 [B]:
+    the argmax, or with ``temperature > 0`` a draw from
+    ``softmax(logits / temperature)`` taken on the host with
+    ``generator`` (so a decoder on any device draws the same tokens)."""
+    if temperature <= 0.0:
+        return logits.argmax(dim=-1).cpu()
+    probs = torch.softmax(logits.float().cpu() / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def _check_context(prompt, max_new_tokens: int, context_length: int):
+    prompt = np.asarray(prompt)
+    if prompt.ndim == 1:
+        prompt = prompt[None]
+    if prompt.shape[1] + max_new_tokens > context_length:
+        raise ValueError(
+            f"prompt ({prompt.shape[1]}) + new tokens ({max_new_tokens}) "
+            f"exceed context_length={context_length}"
+        )
+    return prompt.astype(np.int32)
+
+
+@torch.no_grad()
+def generate(forward_fn, prompt, max_new_tokens: int, context_length: int,
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None, pad_id: int = 0):
+    """Autoregressive decoding against any fixed-shape forward function.
+
+    ``forward_fn(input_ids) -> logits [B, L, V]`` takes a CPU int64
+    tensor [B, context_length] (moving it to its own device), e.g. a
+    full-sequence GPT stack (:func:`one_shot_forward`).  The prompt
+    ([L] or [B, L]) is right-padded to ``context_length``, so every call
+    has one shape; greedy when ``temperature == 0``, else a draw per step
+    from ``generator`` (a CPU ``torch.Generator``, seeded 0 when None).
+    Returns the int32 array [B, L + max_new_tokens].
+    """
+    prompt = _check_context(prompt, max_new_tokens, context_length)
+    batch, length = prompt.shape
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    tokens = np.full((batch, context_length), pad_id, dtype=np.int32)
+    tokens[:, :length] = prompt
+    for _ in range(max_new_tokens):
+        logits = forward_fn(torch.from_numpy(tokens).long())
+        nxt = _next_tokens(logits[:, length - 1], temperature, generator)
+        tokens[:, length] = nxt.numpy().astype(np.int32)
+        length += 1
+    return tokens[:, :length]
+
+
+def one_shot_forward(layer_cfgs: Sequence[dict], state_dicts: Sequence[Any],
+                     device=None):
+    """A full-sequence forward over the whole stack for :func:`generate`:
+    the stack built from ``layer_cfgs``, loaded from ``state_dicts``, in
+    eval mode on ``device`` (the card unless the caller names another);
+    the returned function takes CPU token ids and returns the logits."""
+    from ..builder import build_layer_stack
+    from ..utils import resolve_device
+
+    dev = resolve_device(device)
+    stack = build_layer_stack(list(layer_cfgs))
+    for module, sd in zip(stack.layers, state_dicts):
+        module.load_state_dict(sd, strict=True)
+    stack = stack.to(dev).eval()
+
+    @torch.no_grad()
+    def forward(ids):
+        return stack(ids.to(dev))
+
+    return forward
+
+
+class CachedGptDecoder:
+    """KV-cache incremental decoding over the decomposed GPT layer stack:
+    the stack's own modules (and weights) with one fixed-shape slot cache
+    ``[B, max_len, heads, head_dim]`` per attention unit, written in
+    place — O(L) work per token."""
+
+    def __init__(self, stack):
+        self.modules = decode_modules(stack)
+        self._attn_idx = attn_indices(self.modules)
+        if not self._attn_idx or not isinstance(
+            self.modules[0], GptEmbeddings
+        ):
+            raise ValueError(
+                "expected a GPT stack: GptEmbeddings + GptBlock_Attn units"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.modules[0].parameters()).device
+
+    def init_cache(self, batch: int, max_len: int):
+        """Zeroed fixed-shape KV caches on the stack's device: [(k, v)]
+        per attention unit."""
+        from ..serving.kv_cache import init_layer_caches, kv_spec_from_config
+
+        specs = [
+            kv_spec_from_config(self.modules[i].config.to_dict(), max_len)
+            for i in self._attn_idx
+        ]
+        return init_layer_caches(specs, batch, device=self.device)
+
+    def apply_cached(self, tokens, caches, index):
+        """Forward ``tokens`` [B, Lq] at positions index..index+Lq-1;
+        returns (logits [B, Lq, V], caches)."""
+        return apply_kv_cached(self.modules, tokens, caches, index)
+
+
+@torch.no_grad()
+def generate_cached(stack, prompt, max_new_tokens: int, context_length: int,
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
+    """KV-cache autoregressive decoding over ``stack`` (a loaded
+    ``LayerStack`` or module list, on its own device): one prefill over
+    the prompt, then single-token steps.  Token-identical to
+    :func:`generate` over the same weights; sampled draws take the same
+    ``generator`` sequence, so they match too."""
+    prompt = _check_context(prompt, max_new_tokens, context_length)
+    decoder = CachedGptDecoder(stack)
+    max_pos = decoder.modules[0].config.max_position_embeddings
+    if context_length > max_pos:
+        raise ValueError(
+            f"context_length={context_length} exceeds "
+            f"max_position_embeddings={max_pos}"
+        )
+    if max_new_tokens == 0:
+        return prompt
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    batch, start = prompt.shape
+    dev = decoder.device
+    caches = decoder.init_cache(batch, context_length)
+    logits, caches = decoder.apply_cached(
+        torch.from_numpy(prompt).to(dev), caches, 0)
+    out = [_next_tokens(logits[:, -1], temperature, generator)]
+    for index in range(start, start + max_new_tokens - 1):
+        logits, caches = decoder.apply_cached(
+            out[-1][:, None].to(dev), caches, index)
+        out.append(_next_tokens(logits[:, 0], temperature, generator))
+    new = torch.stack(out, dim=1).numpy().astype(np.int32)
+    return np.concatenate([prompt, new], axis=1)
 
 
 __all__ = [
@@ -488,11 +678,16 @@ __all__ = [
     "GptBlock_Attn",
     "GptBlock_Mlp",
     "GptLmHead",
+    "CachedGptDecoder",
+    "apply_kv_cached",
     "apply_kv_paged",
     "attn_indices",
     "decode_modules",
     "draft_slice_indices",
+    "generate",
+    "generate_cached",
     "gpt_layer_configs",
+    "one_shot_forward",
     "paged_step_inputs",
     "random_state_dicts",
     "run_paged_step",

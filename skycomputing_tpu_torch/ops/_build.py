@@ -123,11 +123,18 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first if
-    needed; loaded once per process."""
+    needed; loaded once per process.  ``load.count`` counts the loads (a
+    kernel's first use in a process, with its build where the library
+    was not on disk): the port's twin of a compile, which a measured
+    window must not contain."""
     lib = _loaded.get(name)
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+        load.count += 1
     return lib
+
+
+load.count = 0
 
 
 __all__ = ["BUILD_DIR", "CSRC", "build", "library_path", "load", "nvcc_path",

@@ -1,7 +1,8 @@
-"""ServingEngine: iteration-level continuous batching over a paged KV pool.
+"""ServingEngine: iteration-level continuous batching over slot slabs or a
+paged KV pool.
 
-The port of ``skycomputing_tpu/serving/engine.py``'s paged layout, on one
-stage or on several: stage placement comes from an allocator-written
+The port of ``skycomputing_tpu/serving/engine.py``, both KV layouts, on
+one stage or on several: stage placement comes from an allocator-written
 worker pool (``worker_manager``, e.g. ``Allocator.serving_allocate``
 over a ``DecodeModelBenchmarker``) or an explicit ``partition`` of layer
 counts, each stage on ``devices[w.device_index % len(devices)]`` (stages
@@ -15,9 +16,22 @@ tick over all decode rows: a single-token step, or with ``spec_k > 0`` a
 speculative tick (a prefix-slice draft proposes ``spec_k`` tokens, the
 target verifies them in one ``Lq = spec_k + 1`` forward).  Requests join
 and leave the running batch only between ticks (Orca, OSDI '22).
+``static_batching=True`` is the naive baseline on the same steps:
+requests join only when the running batch has drained.
 
-KV lives in per-layer page pools ``[num_pages, page_size, heads,
-head_dim]`` addressed through per-request page tables — in the model
+The slot layout (``kv_layout="slot"``, the default, as in the
+reference) gives every request one row ``[max_len, heads, head_dim]``
+of fixed per-layer slabs for its lifetime, so concurrency is capped at
+``num_slots``.  A prefill wave fills a bucket-sized scratch cache and
+scatters its rows into the wave's slots (pad rows carry the sentinel
+slot id and their writes drop); a decode tick runs every slot row with
+its own position.  Attention over slot slabs is plain PyTorch, as the
+reference's is XLA: no kernel serves the slot layout.  A slot engine
+preempts by recomputation only.
+
+The paged layout (``kv_layout="paged"``) keeps KV in per-layer page
+pools ``[num_pages, page_size, heads, head_dim]`` addressed through
+per-request page tables — in the model
 dtype, or with ``kv_dtype="int8"`` as int8 values plus per-page-per-head
 float32 scales, quantized at write time.  The host bookkeeping —
 free-list allocator, refcounts, radix prefix cache, copy-on-write
@@ -27,8 +41,11 @@ copy of the JAX package's.  Every step is one function
 the stages in order (:meth:`ServingEngine._run_paged_stages`); each
 attention layer goes through the paged-attention kernel
 (``ops/paged_attention.py``; its int8 twin for an int8 pool) on the
-card.  One page pool and one row ledger serve every stage: page ``p`` is
-row ``p`` of every stage's slabs.
+card (``attn_impl="plain"`` asks for its plain version instead, as the
+reference's bench asks for XLA; ``gather_pages="full"`` gives every step
+the whole table width, the baseline the bench measures the live width
+against).  One page pool and one row ledger serve every stage: page
+``p`` is row ``p`` of every stage's slabs.
 
 A running request can be preempted (:meth:`ServingEngine.preempt`): by
 recomputation (it re-queues and its KV is rebuilt by prefill on
@@ -37,19 +54,20 @@ checksum and scattered back into fresh pages on re-admission, with no
 prefill).
 
 PyTorch runs eagerly, so there are no compiled programs to key, donate
-or warm: the page slabs are updated in place and the bucket set only
-bounds prefill padding.  Inactive decode rows still ride through each
-step (``index = 0``, ``valid = 0``, all-sentinel tables): their writes
-drop and their attention reads stay inside the pool.
+or warm: the slabs are updated in place and the bucket set only bounds
+prefill padding.  Inactive decode rows still ride through each step
+(``index = 0``; paged: ``valid = 0`` and all-sentinel tables): their
+writes drop or land in a free row, and their attention reads stay
+inside the slabs.
 
 A worker-manager plan is verified before any slab is allocated
 (``analysis/plan_check.verify_plan`` with the serving context: the KV
 pages count against each stage's budget).  :meth:`ServingEngine.reconfigure`
 changes the operating point in place, verify-then-apply.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-slot layout, handoff export/import, and the live-metrics exporter.
-There is no tracer and no autotuner hook.
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+handoff export/import and the live-metrics exporter.  There is no tracer
+and no autotuner hook.
 """
 
 from __future__ import annotations
@@ -72,6 +90,7 @@ from ..builder import build_layer_stack
 from ..models.gpt import (
     GptEmbeddings,
     _gcfg,
+    apply_kv_cached,
     attn_indices,
     decode_modules,
     draft_slice_indices,
@@ -89,7 +108,12 @@ from .batcher import (
     Request,
     ShapeBucketer,
 )
-from .kv_cache import QuantizedPages, init_paged_caches, kv_spec_from_config
+from .kv_cache import (
+    QuantizedPages,
+    SlotKVCachePool,
+    init_paged_caches,
+    kv_spec_from_config,
+)
 from .paging import (
     ChunkBudgetPolicy,
     PagedKVCachePool,
@@ -192,9 +216,10 @@ class _PagedServingStage:
 
     def __init__(self, modules: Sequence[Any], state_dicts: Sequence[Any],
                  device: torch.device, num_pages: int, page_size: int,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, plain: bool = False):
         self.device = device
         self.kv_dtype = kv_dtype
+        self.plain = plain
         for module, sd in zip(modules, state_dicts):
             module.load_state_dict(sd, strict=True)
         self.modules = [m.to(device) for m in modules]
@@ -287,7 +312,58 @@ class _PagedServingStage:
         (table, index, write plan) on this stage's device; returns the
         output."""
         out, self.slabs = run_paged_step(self.modules, data, self.slabs,
-                                         step_inputs)
+                                         step_inputs, self.plain)
+        return out
+
+
+class _SlotServingStage:
+    """One pipeline stage under the SLOT layout: module slice + device +
+    a :class:`SlotKVCachePool` (per-attention-layer slabs ``[num_slots,
+    max_len, heads, head_dim]`` and the stage's slot ledger)."""
+
+    def __init__(self, modules: Sequence[Any], state_dicts: Sequence[Any],
+                 device: torch.device, num_slots: int, max_len: int):
+        self.device = device
+        for module, sd in zip(modules, state_dicts):
+            module.load_state_dict(sd, strict=True)
+        self.modules = [m.to(device) for m in modules]
+        self.specs = [
+            kv_spec_from_config(self.modules[i].config.to_dict(), max_len)
+            for i in attn_indices(self.modules)
+        ]
+        self.pool = SlotKVCachePool(self.specs, num_slots, device=device)
+
+    def build_pool(self, num_slots: int) -> SlotKVCachePool:
+        """A fresh pool for a new slot count (``reconfigure``'s
+        pre-build, so an allocation failure surfaces while the engine is
+        intact)."""
+        return SlotKVCachePool(self.specs, num_slots, device=self.device)
+
+    def decode(self, data, index):
+        """One decode step over every slot row: ``index`` [num_slots] on
+        this stage's device, each row at its own position."""
+        out, _ = apply_kv_cached(self.modules, data, self.pool.slabs, index)
+        return out
+
+    def prefill(self, data, dst, src):
+        """A prefill wave: ``data`` [rows, bucket] through a scratch cache
+        the size of the bucket, then scratch row ``src[i]`` copied into
+        slot ``dst[i]``'s positions ``[:bucket]`` of every slab (the
+        filled scratch is exactly the prefix the slots must hold).  Pad
+        rows carry the sentinel slot id and are left out of ``dst`` /
+        ``src`` on the host, so their writes drop with no device
+        synchronisation."""
+        rows, bucket = data.shape[0], data.shape[1]
+        scratch = [
+            tuple(torch.zeros((rows, bucket, s.num_heads, s.head_dim),
+                              dtype=slab.dtype, device=self.device)
+                  for slab in pair)
+            for s, pair in zip(self.specs, self.pool.slabs)
+        ]
+        out, scratch = apply_kv_cached(self.modules, data, scratch, 0)
+        for filled, pair in zip(scratch, self.pool.slabs):
+            for part, slab in zip(filled, pair):
+                slab[dst, :bucket] = part[src]
         return out
 
 
@@ -327,8 +403,8 @@ def _not_ported(feature: str):
 
 
 class ServingEngine:
-    """Continuous-batching GPT serving over a paged KV pool, on stages
-    placed by an allocator.
+    """Continuous-batching GPT serving over slot slabs or a paged KV
+    pool, on stages placed by an allocator.
 
     ``model_cfg`` is the layer-config list (``gpt_layer_configs``
     output, the same dicts the JAX package builds); ``params_list`` the
@@ -345,14 +421,28 @@ class ServingEngine:
     unless the caller names the CPU.  With ``preflight`` (the default) a
     worker manager's plan is verified under the serving context before
     any slab is allocated (:class:`~..analysis.PlanError` when a stage's
-    pages, parameters and activations outgrow its ``mem_limit``).
+    KV slabs or pages, parameters and activations outgrow its
+    ``mem_limit``).
 
-    Feature knobs, as in the JAX engine: ``kv_dtype="int8"`` stores
+    Layouts, as in the JAX engine: ``kv_layout="slot"`` (the default)
+    holds ``num_slots`` rows of ``max_len``; ``kv_layout="paged"`` holds
+    ``num_pages`` pages of ``page_size`` behind per-request tables of
+    ``max_pages_per_request`` and decodes ``max_concurrency`` rows.
+    ``static_batching`` admits only when the running batch is empty, on
+    either layout.
+
+    Paged-only knobs, as in the JAX engine: ``kv_dtype="int8"`` stores
     pages quantized; ``spec_k`` > 0 with ``draft_blocks`` decodes
     speculatively (greedy streams are unchanged); ``prefill_chunk`` (one
     of the buckets) with ``max_chunk_rows`` prefills in budgeted chunks
     that ride ticks beside decode; ``preempt_policy`` ("auto",
-    "recompute" or "swap") is the default mode of :meth:`preempt`.
+    "recompute" or "swap") is the default mode of :meth:`preempt`;
+    ``attn_impl`` (None, "plain" or "kernel", the reference's None,
+    "xla" and "pallas"): None runs the paged-attention kernel on the
+    card and its plain version on the CPU, "kernel" raises on a stage
+    off the card, "plain" runs the plain version everywhere;
+    ``gather_pages`` ("live" or "full") sizes each step's page table to
+    the wave's live span or to ``max_pages_per_request``.
     """
 
     def __init__(
@@ -367,7 +457,8 @@ class ServingEngine:
         max_queue: Optional[int] = None,
         queue_policy: str = "reject",
         pad_id: int = 0,
-        kv_layout: str = "paged",
+        static_batching: bool = False,
+        kv_layout: str = "slot",
         page_size: int = 16,
         num_pages: Optional[int] = None,
         max_pages_per_request: Optional[int] = None,
@@ -380,16 +471,18 @@ class ServingEngine:
         spec_k: int = 0,
         draft_blocks: Optional[int] = None,
         kv_dtype: Optional[str] = None,
+        attn_impl: Optional[str] = None,
+        gather_pages: str = "live",
         device=None,
         worker_manager=None,
         partition: Optional[Sequence[int]] = None,
         devices: Optional[Sequence[Any]] = None,
         preflight: bool = True,
     ):
-        if kv_layout == "slot":
-            _not_ported("the slot KV layout")
-        if kv_layout != "paged":
-            raise ValueError(f"kv_layout must be 'paged', got {kv_layout!r}")
+        if kv_layout not in ("slot", "paged"):
+            raise ValueError(
+                f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}"
+            )
         if device is not None and devices is not None:
             raise ValueError("pass device OR devices, not both")
         if preempt_policy not in ("auto", "recompute", "swap"):
@@ -402,12 +495,44 @@ class ServingEngine:
                 f"kv_dtype must be None (model dtype) or 'int8', "
                 f"got {kv_dtype!r}"
             )
+        if attn_impl not in (None, "plain", "kernel"):
+            raise ValueError(
+                f"attn_impl must be None (by device), 'plain' or "
+                f"'kernel', got {attn_impl!r}"
+            )
+        if gather_pages not in ("live", "full"):
+            raise ValueError(
+                f"gather_pages must be 'live' or 'full', "
+                f"got {gather_pages!r}"
+            )
         if queue_policy not in ("reject", "shed"):
             raise ValueError(
                 f"queue_policy must be 'reject' or 'shed', "
                 f"got {queue_policy!r}"
             )
+        self.kv_layout = kv_layout
+        self._paged = kv_layout == "paged"
+        if not self._paged and (kv_dtype is not None
+                                or attn_impl is not None
+                                or gather_pages != "live"):
+            raise ValueError(
+                "kv_dtype/attn_impl/gather_pages require "
+                "kv_layout='paged' (the kernel, the quantized pool and "
+                "the bounded table gather are page-table machinery)"
+            )
+        if not self._paged and prefill_chunk:
+            raise ValueError(
+                "prefill_chunk requires kv_layout='paged' (partial "
+                "prefill state lives in page tables)"
+            )
+        if not self._paged and spec_k:
+            raise ValueError(
+                "spec_k requires kv_layout='paged' (the draft shares the "
+                "target's stage-0 page slabs)"
+            )
         self.kv_dtype = kv_dtype
+        self.gather_pages = gather_pages
+        self.static_batching = bool(static_batching)
         self.preempt_policy = preempt_policy
         self._devices = (
             resolve_devices(devices) if devices is not None
@@ -429,40 +554,49 @@ class ServingEngine:
                 f"{len(modules)} layers"
             )
         max_pos = _gcfg(modules[0].config).max_position_embeddings
-        # the paged operating point: max_len becomes the PER-REQUEST
-        # virtual span (max_pages_per_request x page_size), and the pool
-        # depth decouples from it — num_pages defaults to num_slots
-        # requests of max_len each
-        self.page_size = int(page_size)
-        if self.page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
-        if max_pages_per_request is not None:
-            self.max_pages_per_request = int(max_pages_per_request)
-        else:
-            # cover max_len, but never round the span past the model's
-            # position table
-            derived = pages_for(max_len, self.page_size)
-            if derived * self.page_size > max_pos:
-                derived = max_pos // self.page_size
-            if derived < 1:
-                raise ValueError(
-                    f"page_size={self.page_size} exceeds "
-                    f"max_position_embeddings={max_pos}"
-                )
-            self.max_pages_per_request = derived
-        max_len = self.max_pages_per_request * self.page_size
-        self.num_pages = (
-            int(num_pages) if num_pages is not None
-            else int(num_slots) * pages_for(max_len, self.page_size)
-        )
-        self.max_concurrency = (
-            int(max_concurrency) if max_concurrency is not None
-            else min(self.num_pages, int(num_slots) * 4)
-        )
-        if self.max_concurrency < 1:
-            raise ValueError(
-                f"max_concurrency must be >= 1, got {self.max_concurrency}"
+        if self._paged:
+            # the paged operating point: max_len becomes the PER-REQUEST
+            # virtual span (max_pages_per_request x page_size), and the
+            # pool depth decouples from it — num_pages defaults to
+            # num_slots requests of max_len each
+            self.page_size = int(page_size)
+            if self.page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if max_pages_per_request is not None:
+                self.max_pages_per_request = int(max_pages_per_request)
+            else:
+                # cover max_len, but never round the span past the
+                # model's position table
+                derived = pages_for(max_len, self.page_size)
+                if derived * self.page_size > max_pos:
+                    derived = max_pos // self.page_size
+                if derived < 1:
+                    raise ValueError(
+                        f"page_size={self.page_size} exceeds "
+                        f"max_position_embeddings={max_pos}"
+                    )
+                self.max_pages_per_request = derived
+            max_len = self.max_pages_per_request * self.page_size
+            self.num_pages = (
+                int(num_pages) if num_pages is not None
+                else int(num_slots) * pages_for(max_len, self.page_size)
             )
+            self.max_concurrency = (
+                int(max_concurrency) if max_concurrency is not None
+                else min(self.num_pages, int(num_slots) * 4)
+            )
+            if self.max_concurrency < 1:
+                raise ValueError(
+                    f"max_concurrency must be >= 1, "
+                    f"got {self.max_concurrency}"
+                )
+            # decode rows are the concurrency lanes ("slots")
+            num_slots = self.max_concurrency
+        else:
+            self.page_size = None
+            self.num_pages = None
+            self.max_pages_per_request = None
+            self.max_concurrency = None
         if max_len > max_pos:
             raise ValueError(
                 f"max_len={max_len} exceeds "
@@ -474,8 +608,7 @@ class ServingEngine:
                 f"largest bucket {self.bucketer.max_bucket} exceeds "
                 f"max_len={max_len}"
             )
-        # decode rows are the concurrency lanes ("slots")
-        self.num_slots = self.max_concurrency
+        self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.pad_id = int(pad_id)
         self.max_queue = None if max_queue is None else int(max_queue)
@@ -526,6 +659,16 @@ class ServingEngine:
         counts, stage_devices = self._resolve_stage_plan(
             worker_manager, partition, len(modules)
         )
+        if self._paged:
+            on_card = all(d.type == "cuda" for d in stage_devices)
+            if attn_impl == "kernel" and not on_card:
+                raise ValueError(
+                    "attn_impl='kernel' needs every stage on a CUDA "
+                    "device; the kernel has no CPU build"
+                )
+            self.attn_impl = attn_impl or ("kernel" if on_card else "plain")
+        else:
+            self.attn_impl = None
         # the draft's only resident charge: the LM head's parameters on
         # stage 0 when the head lives on another stage — known before
         # the pre-flight, which charges it
@@ -542,30 +685,42 @@ class ServingEngine:
                 memory="error", check_donation=False,
                 serving=self._serving_context(),
             ).raise_if_failed()
-        # ONE page pool governs the page-id space of every stage (page p
-        # is row p of each stage's slabs) and one row ledger the decode
-        # rows
-        self._pool = PagedKVCachePool(
-            self.num_pages, self.page_size, self.max_pages_per_request,
-            enable_prefix_cache=self._enable_prefix_cache,
-            max_prefix_entries=self._max_prefix_entries,
-            kv_dtype=self._pool_kv_dtype(),
-        )
-        self._rows = RowAllocator(self.max_concurrency)
-        # request_id -> host page copies + resume state (the swap pool)
+        # swap records: request_id -> host page copies + resume state
+        # (paged only; a slot engine preempts by recomputation)
         self._swapped: Dict[int, Dict[str, Any]] = {}
         # banked totals of pools a geometry reconfigure replaced, so an
         # engine-lifetime counter never goes backwards
         self._pool_base = dict(prefix_hits=0, prefix_tokens_reused=0,
                                cow_copies=0, prefix_evictions=0)
-        self.stages: List[_PagedServingStage] = []
+        if self._paged:
+            # ONE page pool governs the page-id space of every stage
+            # (page p is row p of each stage's slabs) and one row ledger
+            # the decode rows
+            self._pool = PagedKVCachePool(
+                self.num_pages, self.page_size, self.max_pages_per_request,
+                enable_prefix_cache=self._enable_prefix_cache,
+                max_prefix_entries=self._max_prefix_entries,
+                kv_dtype=self._pool_kv_dtype(),
+            )
+            self._rows = RowAllocator(self.max_concurrency)
+        else:
+            # slot ids are global across stages: each stage's pool holds
+            # the same ids (allocated on stage 0, acquired on the rest)
+            self._pool = None
+            self._rows = None
+        self.stages: List[Any] = []
         cursor = 0
         for n, dev in zip(counts, stage_devices):
-            self.stages.append(_PagedServingStage(
-                modules[cursor:cursor + n],
-                list(params_list)[cursor:cursor + n], dev, self.num_pages,
-                self.page_size, kv_dtype=kv_dtype,
-            ))
+            mods = modules[cursor:cursor + n]
+            sds = list(params_list)[cursor:cursor + n]
+            if self._paged:
+                self.stages.append(_PagedServingStage(
+                    mods, sds, dev, self.num_pages, self.page_size,
+                    kv_dtype=kv_dtype, plain=attn_impl == "plain",
+                ))
+            else:
+                self.stages.append(_SlotServingStage(
+                    mods, sds, dev, self.num_slots, self.max_len))
             cursor += n
         # token ids enter on stage 0's device, logits leave the last's
         self.device = self.stages[0].device
@@ -585,6 +740,9 @@ class ServingEngine:
 
     def _serving_context(self) -> Dict[str, Any]:
         """The operating point the pre-flight verifier charges."""
+        if not self._paged:
+            return dict(slots=self.num_slots, max_len=self.max_len,
+                        bucket=self.bucketer.max_bucket)
         ctx = dict(
             num_pages=self.num_pages, page_size=self.page_size,
             max_pages_per_request=self.max_pages_per_request,
@@ -651,7 +809,8 @@ class ServingEngine:
         if last.device != stage0.device:
             head = copy.deepcopy(head).to(stage0.device)
         return DraftModel(list(stage0.modules[:cut]) + [head],
-                          extra_param_mb=self._pending_draft_mb())
+                          extra_param_mb=self._pending_draft_mb(),
+                          plain=stage0.plain)
 
     def _pending_draft_mb(self) -> float:
         """The draft memory turning speculation on would ADD to stage 0
@@ -698,9 +857,14 @@ class ServingEngine:
         spec_k: Optional[int] = None,
     ) -> None:
         """Apply a new serving operating point IN PLACE, between steps
-        (the reference's paged ``reconfigure``).
+        (the reference's ``reconfigure``).
 
-        Knob classes: ``buckets`` and ``prefill_batch`` evict nothing
+        Slot engines: ``buckets`` and ``prefill_batch`` evict nothing
+        (the queue re-buckets; running requests keep decoding);
+        ``num_slots`` rebuilds every stage's slabs and re-seats the
+        running batch recomputation-style.  The page knobs raise.
+
+        Paged engines: ``buckets`` and ``prefill_batch`` evict nothing
         (the queue re-buckets); ``max_concurrency`` (``num_slots`` is its
         alias here: decode rows are the paged engine's slots) re-seats
         the running batch recomputation-style on the SAME pool, swap
@@ -732,6 +896,18 @@ class ServingEngine:
                 new_buckets = tuple(buckets)
         else:
             new_buckets = self.bucketer.buckets
+        if not self._paged:
+            if any(k is not None for k in
+                   (num_pages, page_size, max_pages_per_request,
+                    max_concurrency, prefill_chunk, max_chunk_rows,
+                    spec_k)):
+                raise ValueError(
+                    "page knobs (num_pages/page_size/max_pages_per_request"
+                    "/max_concurrency/prefill_chunk/max_chunk_rows/spec_k) "
+                    "require kv_layout='paged'"
+                )
+            self._reconfigure_slots(new_buckets, num_slots, prefill_batch)
+            return
         if max_concurrency is not None and num_slots is not None and (
                 int(max_concurrency) != int(num_slots)):
             raise ValueError(
@@ -920,6 +1096,74 @@ class ServingEngine:
                 require_bucket=r.request_id not in self._swapped)
         self.stats.queue_depth = self._queue.depth
 
+    def _reconfigure_slots(self, new_buckets, num_slots,
+                           prefill_batch) -> None:
+        """The slot layout's verify-then-apply: knobs verified, the
+        serving pre-flight again (an engine built from a worker manager,
+        on a slot-count change or a larger bucket; a slot change charged
+        at old + new slots, both pools being held for a moment), every
+        live request proven to fit the new buckets, and every stage's new
+        pool built, before any state changes."""
+        new_slots = (int(num_slots) if num_slots is not None
+                     else self.num_slots)
+        new_batch = (int(prefill_batch) if prefill_batch is not None
+                     else self.prefill_batch)
+        verify_tuning_knobs(
+            buckets=new_buckets, max_len=self.max_len,
+            num_slots=new_slots, prefill_batch=new_batch,
+        ).raise_if_failed()
+        if (self._preflight and self._worker_manager is not None
+                and (new_slots != self.num_slots
+                     or max(new_buckets) > self.bucketer.max_bucket)):
+            charged = new_slots + (
+                self.num_slots if new_slots != self.num_slots else 0)
+            verify_plan(
+                self._model_cfg, self._worker_manager,
+                (np.zeros((new_slots, 1), np.int32),),
+                memory="error", check_donation=False,
+                serving=dict(slots=charged, max_len=self.max_len,
+                             bucket=max(new_buckets)),
+            ).raise_if_failed()
+        new_bucketer = ShapeBucketer(new_buckets)
+        # only a slot-count change rebuilds the slabs and evicts; the
+        # running batch must still fit a bucket either way (a request
+        # that fits none could never be preempted again)
+        must_evict = new_slots != self.num_slots
+        for r in list(self._running.values()) + list(self._queue.requests):
+            try:
+                new_bucketer.bucket_for(int(r.effective_prompt.size))
+            except ValueError as exc:
+                raise ValueError(
+                    f"reconfigure rejected: request {r.request_id} "
+                    f"cannot resume under buckets {list(new_buckets)}: "
+                    f"{exc}"
+                ) from None
+        new_pools = ([st.build_pool(new_slots) for st in self.stages]
+                     if must_evict else None)
+        evicted: List[Request] = []
+        if must_evict:
+            for r in list(self._running.values()):
+                self._running.pop(r.request_id)
+                self._release_slot(r.slot)
+                r.slot = None
+                r.preemptions += 1
+                self.stats.preemptions += 1
+                evicted.append(r)
+        queued = self._queue.drain()
+        if new_pools is not None:
+            self.num_slots = new_slots
+            for st, pool in zip(self.stages, new_pools):
+                st.pool = pool
+        self.bucketer = new_bucketer
+        self.prefill_batch = new_batch
+        self._queue = AdmissionQueue(new_bucketer, prefill_batch=new_batch,
+                                     max_queue=self.max_queue)
+        # evicted requests were admitted before anything still queued:
+        # they re-enter at the head
+        for r in evicted + queued:
+            self._queue.submit(r, force=True)
+        self.stats.queue_depth = self._queue.depth
+
     # --- features of the JAX engine this port does not have yet ------------
     def export_handoff(self, request_id: int):
         _not_ported("KV handoff export")
@@ -936,7 +1180,27 @@ class ServingEngine:
     # --- request lifecycle --------------------------------------------------
     @property
     def free_slots(self) -> int:
-        return self._rows.free_slots
+        if self._paged:
+            return self._rows.free_slots
+        return self.stages[0].pool.free_slots
+
+    def _allocate_slot(self) -> Optional[int]:
+        """A slot id held on every stage (slot layout), or a decode row
+        (paged); None when none is free."""
+        if self._paged:
+            return self._rows.allocate()
+        slot = self.stages[0].pool.allocate()
+        if slot is not None:
+            for st in self.stages[1:]:
+                st.pool.acquire(slot)
+        return slot
+
+    def _release_slot(self, slot: int) -> None:
+        if self._paged:
+            self._rows.release(slot)
+            return
+        for st in self.stages:
+            st.pool.release(slot)
 
     @property
     def queued_requests(self) -> List[Request]:
@@ -991,6 +1255,7 @@ class ServingEngine:
         """Evict a running request; it re-queues and resumes with its
         token stream intact.
 
+        Slot engines preempt by recomputation only.  On a paged engine
         ``mode`` (or the engine's ``preempt_policy``) picks between
         **recompute** (the KV prefix is rebuilt by prefill on
         re-admission) and **swap** (page contents are copied to host
@@ -1018,7 +1283,17 @@ class ServingEngine:
                 "a mid-prefill request preempts by recomputation only"
             )
         resume_len = int(request.effective_prompt.size)
-        if prefilling:
+        if not self._paged:
+            if mode not in (None, "recompute"):
+                raise ValueError(
+                    f"slot engines only preempt by recomputation, "
+                    f"got mode={mode!r}"
+                )
+            # the resume prefix must fit a bucket BEFORE any state
+            # changes: a failed preempt leaves the request running
+            self.bucketer.bucket_for(resume_len)
+            mode = "recompute"
+        elif prefilling:
             # the re-queue needs a bucket; no tokens were generated yet
             self.bucketer.bucket_for(resume_len)
             mode = "recompute"
@@ -1058,8 +1333,9 @@ class ServingEngine:
             request.prefilled_len = 0  # recompute replays the tail
         else:
             self._running.pop(request_id)
-        self._rows.release(request.slot)
-        self._pool.release(request_id)
+        self._release_slot(request.slot)
+        if self._paged:
+            self._pool.release(request_id)
         request.slot = None
         request.preemptions += 1
         self.stats.preemptions += 1
@@ -1092,10 +1368,11 @@ class ServingEngine:
         return drained
 
     def _finish(self, request: Request, now: float) -> None:
-        self._rows.release(request.slot)
-        # pages the radix index still references survive the release —
-        # the prefix cache's retention, not a leak
-        self._pool.release(request.request_id)
+        self._release_slot(request.slot)
+        if self._paged:
+            # pages the radix index still references survive the
+            # release — the prefix cache's retention, not a leak
+            self._pool.release(request.request_id)
         request.slot = None
         request.status = FINISHED
         request.finished_s = now
@@ -1115,23 +1392,30 @@ class ServingEngine:
                 or self._queue.depth > 0)
 
     def step(self) -> None:
-        """One engine iteration: admit (prefill waves, swap-ins, or
+        """One engine iteration: admit (prefill waves; paged: swap-ins or
         chunked enrollment), advance chunked prefill within its budget,
         then one decode tick — speculative when ``spec_k > 0`` — over
         every decode row."""
         if self._queue.depth > 0 and self.free_slots == 0:
             self.stats.queue_stalls += 1
-        self._admit_paged()
-        if self._chunk_policy is not None:
-            self._chunk_tick()
-        if self.spec_k > 0 and self._draft is not None:
-            self._spec_tick()
+        if self._paged:
+            self._admit_paged()
+            if self._chunk_policy is not None:
+                self._chunk_tick()
+            if self.spec_k > 0 and self._draft is not None:
+                self._spec_tick()
+            else:
+                self._decode_tick_paged()
         else:
-            self._decode_tick_paged()
+            self._admit()
+            self._decode_tick()
         self.stats.iterations += 1
         self.stats.queue_depth = self._queue.depth
-        self.stats.batch_occupancy = self._rows.occupancy
-        self._sync_paged_stats()
+        if self._paged:
+            self.stats.batch_occupancy = self._rows.occupancy
+            self._sync_paged_stats()
+        else:
+            self.stats.batch_occupancy = self.stages[0].pool.occupancy
 
     def _sync_paged_stats(self) -> None:
         """Mirror the page pool's counters and gauges into
@@ -1169,12 +1453,103 @@ class ServingEngine:
             r.request_id: r.output() for r in self._finished[finished0:]
         }
 
+    # --- the slot scheduling loop -------------------------------------------
+    def _admit(self) -> None:
+        if self.static_batching and self._running:
+            return  # batch boundaries only: the naive baseline policy
+        while True:
+            wave = self._queue.next_wave(self.free_slots)
+            if not wave:
+                break
+            self._prefill_wave(wave)
+
+    def _prefill_wave(self, wave: List[Request]) -> None:
+        """Prefill a same-bucket wave into freshly allocated slots, seat
+        every member for decode and commit its first token."""
+        bucket = wave[0].bucket
+        rows = self.prefill_batch
+        ids, lengths = self.bucketer.pad_batch(
+            [r.effective_prompt for r in wave], bucket, rows, self.pad_id
+        )
+        slots = []
+        for r in wave:
+            slot = self._allocate_slot()
+            if slot is None:  # next_wave is capped by free slots
+                raise RuntimeError("prefill wave outgrew the free slots")
+            r.slot = slot
+            slots.append(slot)
+        # rows past the wave carry the sentinel slot id: left out here,
+        # their scatter drops
+        dst = torch.as_tensor(slots, dtype=torch.long)
+        src = torch.arange(len(wave))
+        t0 = time.perf_counter()
+        data = torch.from_numpy(ids)
+        for st in self.stages:
+            data = st.prefill(data.to(st.device), dst.to(st.device),
+                              src.to(st.device))
+        logits = self._last_logits(data, lengths)
+        tokens_np = logits.argmax(dim=-1).cpu().numpy()
+        now = time.perf_counter()
+        self.stats.prefill_s += now - t0
+        self.stats.prefill_waves += 1
+        self.stats.prefill_tokens += int(lengths[: len(wave)].sum())
+
+        sampled = self._sampled_rows(
+            logits, [(i, r) for i, r in enumerate(wave)]
+        )
+        for i, r in enumerate(wave):
+            r.tokens.append(self._pick_token(r, tokens_np[i], sampled.get(i)))
+            r.index = int(lengths[i])
+            r.status = RUNNING
+            self._running[r.request_id] = r
+            if r.first_token_s is None:
+                r.first_token_s = now
+            self.stats.generated_tokens += 1
+            if r.done:
+                self._finish(r, now)
+
+    def _decode_tick(self) -> None:
+        """One decode tick over every slot row: active rows at their own
+        positions, free rows at position 0 (their write lands in a free
+        row)."""
+        active = list(self._running.values())
+        if not active:
+            return
+        tokens = np.zeros((self.num_slots,), np.int64)
+        index = np.zeros((self.num_slots,), np.int32)
+        for r in active:
+            tokens[r.slot] = r.tokens[-1]
+            index[r.slot] = r.index
+        t0 = time.perf_counter()
+        data = torch.from_numpy(tokens[:, None])
+        idx = torch.from_numpy(index)
+        for st in self.stages:
+            data = st.decode(data.to(st.device), idx.to(st.device))
+        logits = data[:, 0]  # [slots, V]
+        nxt_np = logits.argmax(dim=-1).cpu().numpy()
+        now = time.perf_counter()
+        self.stats.decode_s += now - t0
+        self.stats.decode_ticks += 1
+        self.stats.decode_tokens += len(active)
+        self.stats.generated_tokens += len(active)
+
+        sampled = self._sampled_rows(logits, [(r.slot, r) for r in active])
+        for r in active:
+            r.tokens.append(
+                self._pick_token(r, nxt_np[r.slot], sampled.get(r.slot))
+            )
+            r.index += 1
+            if r.done:
+                self._finish(r, now)
+
     # --- the paged scheduling loop ------------------------------------------
     def _admit_paged(self) -> None:
         """Admit from the queue while rows AND pages allow — admission
         charges each request its full page footprint.  FIFO: the head
         either admits (prefill wave, swap-in or chunked enrollment) or
         stalls the queue."""
+        if self.static_batching and self._running:
+            return  # batch boundaries only: the naive baseline policy
         while self._queue.requests and self._rows.free_slots >= 1:
             head = self._queue.requests[0]
             if head.request_id in self._swapped:
@@ -1466,7 +1841,10 @@ class ServingEngine:
         """Page-table columns this step needs: the wave's max live length
         ceiled to a page, then to the next power-of-two page count with
         the largest bucket's span as floor — attention walks O(live
-        tokens), not O(max_pages)."""
+        tokens), not O(max_pages).  ``gather_pages="full"``: the whole
+        table, ``max_pages_per_request``, every step."""
+        if self.gather_pages == "full":
+            return self.max_pages_per_request
         need = max(1, pages_for(int(np.max(valid)), self.page_size))
         floor = pages_for(self.bucketer.max_bucket, self.page_size)
         width = max(need, floor)

@@ -1,9 +1,11 @@
-"""Paged KV-cache device math: the port of the paged half of
-``skycomputing_tpu/serving/kv_cache.py``, for pools in the model dtype
-and for int8 pools (:class:`QuantizedPages`), with the slot-slab write
-(:func:`update_kv_cache`) the decode profile counts and the KV memory
-formulas the allocator and the pre-flight verifier charge
-(:func:`kv_mb_per_layer`, :func:`paged_kv_mb_per_layer`).
+"""KV-cache device math: the port of
+``skycomputing_tpu/serving/kv_cache.py``.  Slot slabs ``[slots, max_len,
+heads, head_dim]`` (:func:`init_layer_caches`, :class:`SlotKVCachePool`,
+the write :func:`update_kv_cache`) back the serving engine's slot
+layout, the single-request decoder and the decode profile; paged pools
+serve in the model dtype and as int8 (:class:`QuantizedPages`); the KV
+memory formulas are what the allocator and the pre-flight verifier
+charge (:func:`kv_mb_per_layer`, :func:`paged_kv_mb_per_layer`).
 
 Pages are ``[num_pages, page_size, heads, head_dim]`` slabs, one (k, v)
 pair per attention layer, shared by every row through per-row page
@@ -51,9 +53,9 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, index):
     ``index`` is a scalar (every row writes at one offset) or a [B]
     vector (each row at its own).  A start past ``max_len - Lq`` clamps
     to it, as ``jax.lax.dynamic_update_slice`` clamps in the reference,
-    so an inactive row never writes outside itself.  The engine serves
-    from pages; this slot write is what the decode profile
-    (:class:`~.profile.DecodeModelBenchmarker`) runs, as JAX's does.
+    so an inactive row never writes outside itself.  The slot layout's
+    decode step (``GptBlock_Attn.decode``) and the decode profile
+    (:class:`~.profile.DecodeModelBenchmarker`) write through it.
     """
     B, Lq = k_new.shape[0], k_new.shape[1]
     max_len = k_cache.shape[1]
@@ -380,6 +382,83 @@ def kv_spec_from_config(config, max_len: int) -> KVCacheSpec:
     )
 
 
+def init_layer_caches(specs: Sequence[KVCacheSpec], slots: int,
+                      device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Zeroed slot (k, v) slab pairs ``[slots, max_len, heads,
+    head_dim]`` in the model dtype, one per attention layer, on
+    ``device``: the one allocation site of the single-request decoder
+    and the slot pool."""
+    caches = []
+    for spec in specs:
+        shape = spec.slab_shape(slots)
+        dtype = torch_dtype(spec.dtype)
+        caches.append((torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device)))
+    return caches
+
+
+class SlotKVCachePool:
+    """One stage's slot slabs plus a host-side free-slot allocator.
+
+    The slabs live on the stage's device (allocated once, written in
+    place); slot bookkeeping is host state.  A slot id addresses the
+    same row of every slab pair of the stage.  :meth:`allocate` returns
+    None when no slot is free: exhaustion queues, it never raises.
+    """
+
+    def __init__(self, specs: Sequence[KVCacheSpec], slots: int,
+                 device=None):
+        if slots < 1:
+            raise ValueError(f"need at least 1 slot, got {slots}")
+        self.specs = list(specs)
+        self.num_slots = int(slots)
+        self.device = device
+        self.slabs = init_layer_caches(self.specs, self.num_slots, device)
+        # LIFO free list, as the reference's: the hottest row is reused
+        self._free: List[int] = list(range(self.num_slots))[::-1]
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_slots(self) -> int:
+        return self.num_slots - len(self._free)
+
+    @property
+    def occupancy(self) -> float:
+        return self.used_slots / self.num_slots
+
+    def allocate(self) -> Optional[int]:
+        """One free slot id, or None when the pool is exhausted."""
+        if not self._free:
+            return None
+        return self._free.pop()
+
+    def acquire(self, slot: int) -> None:
+        """Claim a SPECIFIC free slot: a multi-stage engine allocates an
+        id on stage 0 and acquires the same row on every other stage."""
+        if slot not in self._free:
+            raise ValueError(f"slot {slot} is not free")
+        self._free.remove(slot)
+
+    def release(self, slot: int) -> None:
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(
+                f"slot {slot} out of range [0, {self.num_slots})"
+            )
+        if slot in self._free:
+            raise ValueError(f"slot {slot} double-released")
+        # no zeroing: stale rows are masked by decode_visibility and
+        # overwritten (prefix [:bucket]) by the next prefill
+        self._free.append(slot)
+
+    def total_mb(self) -> float:
+        """Preallocated slab memory of this pool in MB (all layers)."""
+        return float(sum(spec.slab_mb(self.num_slots)
+                         for spec in self.specs))
+
+
 def init_paged_caches(
     specs: Sequence[KVCacheSpec],
     num_pages: int,
@@ -477,9 +556,11 @@ __all__ = [
     "PagedWrite",
     "QuantizedPages",
     "QuantizedWrite",
+    "SlotKVCachePool",
     "decode_positions",
     "decode_visibility",
     "gather_kv_pages",
+    "init_layer_caches",
     "init_paged_caches",
     "kv_mb_per_layer",
     "kv_spec_from_config",

@@ -76,13 +76,16 @@ class DraftModel:
     the last stage's device differs.  ``extra_param_mb`` is the resident
     memory the engine charges for the draft on stage 0 (the head's
     parameters, :func:`tree_param_mb`, whenever the engine has more than
-    one stage; 0 on one stage).
+    one stage; 0 on one stage).  ``plain`` runs the paged-attention
+    kernel's plain version, as the target's stage does under
+    ``attn_impl="plain"``.
     """
 
     def __init__(self, modules: Sequence[Any], *,
-                 extra_param_mb: float = 0.0):
+                 extra_param_mb: float = 0.0, plain: bool = False):
         self.modules = list(modules)
         self.extra_param_mb = float(extra_param_mb)
+        self.plain = plain
         self.num_attn = len(attn_indices(self.modules))
         if self.num_attn < 1:
             raise ValueError(
@@ -114,7 +117,7 @@ class DraftModel:
             idx = index + j
             out, _ = apply_kv_paged(
                 self.modules, cur[:, None], slabs, tables, idx,
-                np.minimum(idx + 1, reserve),
+                np.minimum(idx + 1, reserve), self.plain,
             )
             cur = out[:, 0].argmax(dim=-1)
             proposals.append(cur)

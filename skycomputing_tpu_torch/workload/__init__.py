@@ -1,0 +1,7 @@
+"""The workload plane, the port's part of it so far: :mod:`.mixes`, the
+benches' named numpy request mixes (a copy of the JAX package's, draw
+for draw).  The scenario core, catalog and player are not ported yet."""
+
+from .mixes import MIXES, build_mix
+
+__all__ = ["MIXES", "build_mix"]

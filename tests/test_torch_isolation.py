@@ -1,9 +1,10 @@
-"""The port stands alone: no module of ``skycomputing_tpu_torch`` and
-nothing in ``chip_smoke.py`` or ``prefill_ab.py`` imports ``jax``,
-``flax`` or the JAX package; the package imports with those blocked; an
-engine or a pipeline asked for no device refuses to fall back to the
-CPU; and ``chip_smoke.py`` fails without a CUDA device, also when it
-stands alone in a directory."""
+"""The port stands alone: no module of ``skycomputing_tpu_torch`` (the
+serving bench and the workload mixes among them) and nothing in
+``chip_smoke.py`` or ``prefill_ab.py`` imports ``jax``, ``flax`` or the
+JAX package; the package imports with those blocked; an engine, a
+pipeline or the serving bench asked for no device refuses to fall back
+to the CPU; and ``chip_smoke.py`` fails without a CUDA device, also
+when it stands alone in a directory."""
 
 import ast
 import os
@@ -90,7 +91,36 @@ def test_engine_without_device_refuses_cpu_fallback():
     layer_cfgs = gpt_layer_configs(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(layer_cfgs, random_state_dicts(layer_cfgs, 0),
-                      max_len=32, buckets=(8,))
+                      max_len=32, buckets=(8,), kv_layout="paged")
+
+
+def test_bench_and_workload_are_covered():
+    """The serving bench and the workload plane's modules are among the
+    files the import check reads, and the bench's module imports nothing
+    of the JAX package's ``tools/`` or ``workload/``."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"skycomputing_tpu_torch/bench_serving.py",
+            "skycomputing_tpu_torch/workload/__init__.py",
+            "skycomputing_tpu_torch/workload/mixes.py"} <= files
+    roots = set(_imported_roots(ROOT / "skycomputing_tpu_torch"
+                                / "bench_serving.py"))
+    assert "tools" not in roots and "workload" not in roots
+
+
+def test_bench_serving_without_device_refuses_cpu_fallback():
+    """``python -m skycomputing_tpu_torch.bench_serving`` with no
+    ``--device`` serves on the card: without one it fails before any
+    section runs and writes no report."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "skycomputing_tpu_torch.bench_serving",
+         "--smoke", "--out", os.devnull], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert "running" not in proc.stdout
 
 
 def test_pipeline_without_devices_refuses_cpu_fallback():

@@ -70,7 +70,8 @@ def test_port_engine_token_identical_to_jax_engine(gpt, attn_impl):
     layer_cfgs, params, sds = gpt
     mixed, shared = _workload(0)
     batches = [mixed, shared[:1], shared[1:]]
-    port = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+    port = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         **BASE)
     ref = JaxEngine(layer_cfgs, params, kv_layout="paged",
                     attn_impl=attn_impl, **BASE)
     assert _serve(port, Request, batches) == _serve(ref, JaxRequest,
@@ -93,7 +94,8 @@ def test_page_exhaustion_queues_and_stays_identical(gpt):
     rng = np.random.default_rng(11)
     batch = [(rng.integers(1, 512, (n,)).astype(np.int32), m)
              for n, m in [(4, 6), (5, 3), (12, 8), (6, 2), (2, 5), (9, 4)]]
-    port = ServingEngine(layer_cfgs, sds, device="cpu", **kw)
+    port = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         **kw)
     reqs = [Request(prompt=p, max_new_tokens=m) for p, m in batch]
     for r in reqs:
         port.submit(r)
@@ -118,7 +120,9 @@ def test_sampling_is_request_local_and_seeded(gpt):
     prompt = np.arange(1, 9, dtype=np.int32)
 
     def sample(seed, crowd):
-        engine = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+        engine = ServingEngine(layer_cfgs, sds, device="cpu",
+                               kv_layout="paged",
+                               **BASE)
         req = Request(prompt=prompt, max_new_tokens=8, temperature=1.0,
                       seed=seed)
         others = [Request(prompt=prompt[:n] + 3, max_new_tokens=6)
@@ -134,14 +138,16 @@ def test_sampling_is_request_local_and_seeded(gpt):
 def test_queue_bound_reject_and_shed(gpt):
     layer_cfgs, _, sds = gpt
     prompt = np.arange(1, 6, dtype=np.int32)
-    engine = ServingEngine(layer_cfgs, sds, device="cpu", max_queue=2,
+    engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                           max_queue=2,
                            **BASE)
     first = [engine.submit(Request(prompt=prompt, max_new_tokens=2))
              for _ in range(2)]
     with pytest.raises(QueueFullError):
         engine.submit(Request(prompt=prompt, max_new_tokens=2))
     assert engine.stats.queue_rejections == 1
-    shed = ServingEngine(layer_cfgs, sds, device="cpu", max_queue=2,
+    shed = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         max_queue=2,
                          queue_policy="shed", **BASE)
     olds = [shed.submit(Request(prompt=prompt, max_new_tokens=2))
             for _ in range(2)]
@@ -155,22 +161,28 @@ def test_queue_bound_reject_and_shed(gpt):
 
 
 @pytest.mark.parametrize("kwargs, feature", [
-    (dict(kv_layout="slot"), "slot KV layout"),
+    pytest.param(dict(kv_layout="slot"), "KV handoff",
+                 id="kwargs0-slot KV layout"),
 ])
 def test_unported_features_raise(gpt, kwargs, feature):
-    """Engine features still to port raise ``NotImplementedError`` (int8
-    pages, speculation, chunked prefill and preemption are ported: see
-    ``test_torch_serving_int8_spec.py`` and
-    ``test_torch_serving_chunk_preempt.py``; multi-stage placement and
-    ``reconfigure``: ``test_torch_serving_stages.py``)."""
+    """Engine features still to port raise ``NotImplementedError``, on
+    the slot layout as on the paged one (the slot layout itself is
+    ported: ``test_torch_serving_slot.py``; int8 pages, speculation,
+    chunked prefill and preemption: ``test_torch_serving_int8_spec.py``
+    and ``test_torch_serving_chunk_preempt.py``; multi-stage placement
+    and ``reconfigure``: ``test_torch_serving_stages.py``)."""
     layer_cfgs, _, sds = gpt
+    engine = ServingEngine(layer_cfgs, sds, device="cpu",
+                           **dict(BASE, **kwargs))
+    assert engine.kv_layout == "slot"
     with pytest.raises(NotImplementedError, match=feature):
-        ServingEngine(layer_cfgs, sds, device="cpu", **dict(BASE, **kwargs))
+        engine.export_handoff(0)
 
 
 def test_unported_methods_raise(gpt):
     layer_cfgs, _, sds = gpt
-    engine = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+    engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                           **BASE)
     for call in (lambda: engine.export_handoff(0),
                  lambda: engine.import_handoff(None, {}),
                  engine.enable_timeseries, engine.start_exporter):

@@ -79,7 +79,8 @@ def test_chunked_prefill_token_identical_to_jax(gpt, attn_impl):
     layer_cfgs, params, sds = gpt
     prompts = _prompts(1)
     kw = dict(BASE, prefill_chunk=8)
-    port = ServingEngine(layer_cfgs, sds, device="cpu", **kw)
+    port = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         **kw)
     ref = JaxEngine(layer_cfgs, params, kv_layout="paged",
                     attn_impl=attn_impl, **kw)
     streams = _drive(port, Request, prompts)
@@ -91,7 +92,8 @@ def test_chunked_prefill_token_identical_to_jax(gpt, attn_impl):
     assert snap["prefill_chunks"] > len(prompts)  # long prompts chunked
     assert snap["chunk_stalls"] > 0
     port._pool.check_consistency()
-    plain = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+    plain = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                          **BASE)
     assert _drive(plain, Request, prompts) == streams
 
 
@@ -107,9 +109,11 @@ def test_preemption_token_identical_to_jax(gpt, attn_impl, mode, kv_dtype):
     prompts = _prompts(2)
     kw = dict(BASE, kv_dtype=kv_dtype)
     unpreempted = _drive(
-        ServingEngine(layer_cfgs, sds, device="cpu", **kw), Request, prompts)
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      **kw), Request, prompts)
     plan = (4, 0, mode)  # request 0 is decoding by tick 4
-    port = ServingEngine(layer_cfgs, sds, device="cpu", **kw)
+    port = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         **kw)
     records = []
     preempt = port.preempt
 
@@ -146,9 +150,11 @@ def test_corrupt_swap_record_falls_back_to_recompute(gpt):
     by recomputation with its stream intact."""
     layer_cfgs, _, sds = gpt
     prompts = _prompts(3)
-    clean = _drive(ServingEngine(layer_cfgs, sds, device="cpu", **BASE),
+    clean = _drive(ServingEngine(layer_cfgs, sds, device="cpu",
+                                 kv_layout="paged",
+                                 **BASE),
                    Request, prompts)
-    engine = ServingEngine(layer_cfgs, sds, device="cpu",
+    engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
                            preempt_policy="swap", **BASE)
     reqs = [Request(prompt=p, max_new_tokens=m) for p, m in prompts]
     for r in reqs:
@@ -172,9 +178,12 @@ def test_drain_and_resume_elsewhere(gpt):
     chunked engine's mid-prefill requests drain too."""
     layer_cfgs, _, sds = gpt
     prompts = _prompts(4)
-    clean = _drive(ServingEngine(layer_cfgs, sds, device="cpu", **BASE),
+    clean = _drive(ServingEngine(layer_cfgs, sds, device="cpu",
+                                 kv_layout="paged",
+                                 **BASE),
                    Request, prompts)
-    engine = ServingEngine(layer_cfgs, sds, device="cpu", prefill_chunk=8,
+    engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                           prefill_chunk=8,
                            **BASE)
     reqs = [Request(prompt=p, max_new_tokens=m) for p, m in prompts]
     for r in reqs:
@@ -188,7 +197,8 @@ def test_drain_and_resume_elsewhere(gpt):
         r.request_id for r in engine._finished
     } == {r.request_id for r in reqs}
     assert not engine.has_work() and engine.stats.preemptions > 0
-    other = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+    other = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                          **BASE)
     other.run(drained)
     assert [r.output().tolist() for r in reqs] == clean
 
@@ -196,15 +206,19 @@ def test_drain_and_resume_elsewhere(gpt):
 def test_preempt_and_chunk_validation(gpt):
     layer_cfgs, _, sds = gpt
     with pytest.raises(ValueError, match="preempt_policy"):
-        ServingEngine(layer_cfgs, sds, device="cpu", preempt_policy="x",
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      preempt_policy="x",
                       **BASE)
     with pytest.raises(ValueError, match="prefill buckets"):
-        ServingEngine(layer_cfgs, sds, device="cpu", prefill_chunk=12,
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      prefill_chunk=12,
                       **BASE)
     with pytest.raises(ValueError, match="max_chunk_rows"):
-        ServingEngine(layer_cfgs, sds, device="cpu", max_chunk_rows=2,
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      max_chunk_rows=2,
                       **BASE)
-    engine = ServingEngine(layer_cfgs, sds, device="cpu", prefill_chunk=8,
+    engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                           prefill_chunk=8,
                            **BASE)
     req = engine.submit(Request(prompt=np.arange(1, 25, dtype=np.int32),
                                 max_new_tokens=3))

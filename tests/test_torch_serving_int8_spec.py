@@ -79,7 +79,8 @@ def _serve(engine, make_request, batches):
 def _against_jax(gpt, attn_impl, counters, **kw):
     layer_cfgs, params, sds = gpt
     batches = _batches(0)
-    port = ServingEngine(layer_cfgs, sds, device="cpu", **dict(BASE, **kw))
+    port = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                         **dict(BASE, **kw))
     ref = JaxEngine(layer_cfgs, params, kv_layout="paged",
                     attn_impl=attn_impl, **dict(BASE, **kw))
     streams = _serve(port, Request, batches)
@@ -116,7 +117,8 @@ def test_spec_engine_token_identical_to_jax(gpt, attn_impl):
     assert snap["draft_tokens"] > 0 and snap["accepted_draft_tokens"] > 0
     assert snap["spec_ticks"] > 0 and snap["decode_ticks"] == 0
     layer_cfgs, _, sds = gpt
-    plain = ServingEngine(layer_cfgs, sds, device="cpu", **BASE)
+    plain = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                          **BASE)
     assert _serve(plain, Request, _batches(0)) == streams
 
 
@@ -139,6 +141,7 @@ def test_spec_sampling_rows_commit_one_token(gpt):
 
     def run(**kw):
         engine = ServingEngine(layer_cfgs, sds, device="cpu",
+                               kv_layout="paged",
                                **dict(BASE, **kw))
         hot = Request(prompt=prompt, max_new_tokens=6, temperature=1.0,
                       seed=3)
@@ -167,11 +170,15 @@ def test_speculative_helpers_match_jax(gpt):
 def test_spec_knob_validation(gpt):
     layer_cfgs, _, sds = gpt
     with pytest.raises(ValueError, match="draft_blocks"):
-        ServingEngine(layer_cfgs, sds, device="cpu", spec_k=2, **BASE)
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      spec_k=2, **BASE)
     with pytest.raises(ValueError, match="draft_blocks"):
-        ServingEngine(layer_cfgs, sds, device="cpu", spec_k=2,
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      spec_k=2,
                       draft_blocks=2, **BASE)
     with pytest.raises(ValueError, match="spec_k"):
-        ServingEngine(layer_cfgs, sds, device="cpu", spec_k=-1, **BASE)
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      spec_k=-1, **BASE)
     with pytest.raises(ValueError, match="kv_dtype"):
-        ServingEngine(layer_cfgs, sds, device="cpu", kv_dtype="fp8", **BASE)
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      kv_dtype="fp8", **BASE)

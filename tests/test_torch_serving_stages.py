@@ -105,7 +105,8 @@ def _jax_engine(gpt, attn_impl="xla", **kw):
 
 def _port_engine(gpt, **kw):
     layer_cfgs, _, sds = gpt
-    return ServingEngine(layer_cfgs, sds, devices=CPU, **dict(BASE, **kw))
+    return ServingEngine(layer_cfgs, sds, devices=CPU, kv_layout="paged",
+                         **dict(BASE, **kw))
 
 
 @pytest.mark.parametrize("attn_impl, kv_dtype", [
@@ -142,15 +143,16 @@ def test_stage_without_attention_and_device_resolution(gpt):
     ref = _jax_engine(gpt, partition=[1, 6, 1])
     assert _drive(port, Request, prompts) == _drive(ref, JaxRequest, prompts)
     layer_cfgs, _, sds = gpt
-    both = ServingEngine(layer_cfgs, sds, devices=CPU * 2,
+    both = ServingEngine(layer_cfgs, sds, devices=CPU * 2, kv_layout="paged",
                          partition=[4, 4], **BASE)
     assert [st.device for st in both.stages] == CPU * 2
-    assert ServingEngine(layer_cfgs, sds, device="cpu",
+    assert ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
                          **BASE).device == torch.device("cpu")
     with pytest.raises(ValueError, match="does not cover"):
         _port_engine(gpt, partition=[3, 3])
     with pytest.raises(ValueError, match="not both"):
-        ServingEngine(layer_cfgs, sds, device="cpu", devices=CPU, **BASE)
+        ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
+                      devices=CPU, **BASE)
     with pytest.raises(ValueError, match="worker_manager OR partition"):
         _port_engine(gpt, partition=[8], worker_manager=_pool(
             WorkerManager, gpt[0], [8], [10_000.0]))
@@ -182,7 +184,7 @@ def test_worker_manager_stages_equal_jax(gpt):
     prompts = _prompts(2)
     counts, roomy = [2, 4, 2], [10_000.0] * 3
     port = ServingEngine(
-        layer_cfgs, sds, devices=CPU,
+        layer_cfgs, sds, devices=CPU, kv_layout="paged",
         worker_manager=_pool(WorkerManager, layer_cfgs, counts, roomy),
         **BASE)
     assert [len(st.modules) for st in port.stages] == counts
@@ -196,7 +198,7 @@ def test_worker_manager_stages_equal_jax(gpt):
     tight = [0.05] * 3
     with pytest.raises(PlanError) as got:
         ServingEngine(
-            layer_cfgs, sds, devices=CPU,
+            layer_cfgs, sds, devices=CPU, kv_layout="paged",
             worker_manager=_pool(WorkerManager, layer_cfgs, counts, tight),
             **BASE)
     with pytest.raises(JaxPlanError) as want:
@@ -209,7 +211,7 @@ def test_worker_manager_stages_equal_jax(gpt):
         (i.code, i.severity, i.message) for i in want.value.issues]
     # the opt-out builds the same plan unchecked
     ServingEngine(
-        layer_cfgs, sds, devices=CPU, preflight=False,
+        layer_cfgs, sds, devices=CPU, kv_layout="paged", preflight=False,
         worker_manager=_pool(WorkerManager, layer_cfgs, counts, tight),
         **BASE)
 
@@ -458,7 +460,9 @@ def test_reconfigure_spec_enable_charges_draft_memory(gpt):
 
     def build(pkg, limit0):
         manager, engine, extra = (
-            (WorkerManager, ServingEngine, dict(devices=CPU, params=sds))
+            (WorkerManager, ServingEngine, dict(devices=CPU,
+                                                kv_layout="paged",
+                                                params=sds))
             if pkg == "port" else
             (JaxWorkerManager, JaxEngine, dict(kv_layout="paged",
                                                attn_impl="xla",
