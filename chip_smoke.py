@@ -8,7 +8,7 @@ one.  Phases, each fatal on failure:
 2. build every CUDA source under ``skycomputing_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, started together), one ``ptxas`` line per
    kernel instantiation (registers, spill bytes, static shared memory);
-   the tensor-core and decode bodies must not spill;
+   the tensor-core, decode and register-tile bodies must not spill;
 3. each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, with kernel / plain / library times and the
    bound: paged attention at GPT-2 small's shapes (decode waves,
@@ -20,10 +20,15 @@ one.  Phases, each fatal on failure:
    L=512 and at L=100; then, checked but not timed, each kernel body's
    edges (B1 at L=7, 64 and 65, head_dim 32, 40 and 128, B=1, every key
    masked; B2 and B3 with a row at index 0, a row filling its whole
-   table and an all-sentinel pad row, head_dim 64 and 128, Lq 1, 5, 16,
-   17, 63, 64, 65 and 256).  Every row names the body that served it
-   and what ``ptxas -v`` reported for that body (registers, spills,
-   shared memory) beside its dynamic shared memory;
+   table, a row at index 20 and an all-sentinel pad row, head_dim 64
+   and 128, pages of 16 at Lq 1, 5, 16, 17, 63, 64, 65 and 256, pages of
+   4 and 8 at Lq 17, 33 and 64).  Every row names the body that served
+   it and what ``ptxas -v`` reported for that body (registers, spills,
+   shared memory) beside its dynamic shared memory.  At each float32
+   prefill and chunk row (the register-tile body) the query-tile body it
+   replaced runs the same call too: its error, its ``ptxas`` figures and
+   its time, the two bodies timed in turns, the register-tile body
+   required to be the faster;
 4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
@@ -178,13 +183,27 @@ one.  Phases, each fatal on failure:
     identity with the one-shot ``generate``, equal pool MB, counters, no
     kernel library built in a measured window); the timing and int8
     fidelity gates (and the bf16 rerun's identity gates) are printed
-    with their values.  Then the kernel against its plain version on the
-    bench's tiny instance (``kernel_matches_plain``, asserted; its
-    launches not counted).
+    with their values.  Every float32 prefill and chunk wave runs on the
+    register-tile body and none on the query-tile body (asserted per
+    section).  Then the kernel against its plain version on the bench's
+    tiny instance (``kernel_matches_plain``, asserted; its launches not
+    counted);
+22. the launcher under ``SKYTPU_MODEL=gpt`` (``launch.run`` on the
+    port's config): GPT at BERT-large's width (hidden 1,024, 16 heads,
+    bf16), 10 blocks, vocabulary 50,257, ``RandomLmDataset`` rows of 128
+    in batches of 32, 4 stimulated workers, ``optimal`` over the static
+    profile (the ``DataloaderGenerator`` probe), 1F1B with 4
+    microbatches, 5 steps of the config's SGD, ``CausalLmLoss``: the
+    pre-flight ``ok``, the partition the solver's, no kernel launched
+    (dense attention, as in JAX), 5 finite losses, and the run's first
+    batch's loss (``Runner.evaluate``, before the first step and after
+    the last) falling.  Printed: the partition, each step's time, the
+    median of steps 2-5, tokens/s, MFU, peak memory and the losses.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
-(B2's and B3's launches from their serving phases, phase 20 and phase
-21);
+and body (B2's and B3's launches from their serving phases, phase 20
+and phase 21; their register-tile entries from phase 21's float32
+prefill and chunk waves);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -194,6 +213,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Details go to
 from __future__ import annotations
 
 import gc
+import importlib
 import json
 import re
 import shutil
@@ -204,6 +224,7 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -375,6 +396,11 @@ def paged_body(ptxas, q, page_dtype, table, page_size=16):
         label = f"paged_attention_kernel_decode<{t}, {kv}, {max_q}>"
     elif body == "tensor_core":
         label = f"paged_attention_kernel_mma<{kv}, {D}>"
+    elif body == "register_tile":
+        # the head-dim bound, and whether it is the head dim (1) or not
+        d_max = 32 if D <= 32 else (64 if D <= 64 else 128)
+        label = (f"paged_attention_kernel_tile<{t}, {kv}, {d_max}, "
+                 f"{int(D == d_max)}>")
     else:
         label = f"paged_attention_kernel<{t}, {kv}>"
     return body_fields(ptxas, body, label, kernel_smem_bytes(
@@ -408,7 +434,7 @@ def flash_body(torch, ptxas, q):
 
 # (case, R, Lq): decode and speculative-verify waves (the decode body),
 # prefill waves at buckets 128, 256 and 32 and a chunked-prefill wave of
-# 64 (bf16: the tensor-core body; float32: the query-tile body)
+# 64 (bf16: the tensor-core body; float32: the register-tile body)
 PAGED_CASES = (("decode", 16, 1), ("prefill", 4, 128), ("verify", 16, 5),
                ("prefill_256", 4, 256), ("chunk", 4, 64),
                ("prefill_32", 4, 32))
@@ -528,6 +554,38 @@ def library_call(torch, case):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)
 
 
+def query_tile_ab(torch, ptxas, case, args, kw, first_ms):
+    """The query-tile body, which served float32 prefill and chunk waves
+    before the register-tile body, on the same call: its error against
+    the plain version, its ``ptxas`` figures and its time, the two bodies
+    timed in turns (register-tile, query-tile, query-tile, register-tile;
+    ``first_ms`` is the first).  Returns (the register-tile body's mean
+    time and its two times, the query-tile body's row)."""
+    pa = importlib.import_module(
+        "skycomputing_tpu_torch.ops.paged_attention")
+
+    def call():
+        return pa.paged_attention(*args, **kw)
+
+    with mock.patch.object(pa, "kernel_plan", lambda *a: "query_tile"):
+        out = call()
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_reference(*args, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        old = [time_ms(torch, call), time_ms(torch, call)]
+    again = time_ms(torch, call)
+    R, Lq, H, D = case["q"].shape
+    t = _SHORT[str(case["q"].dtype).replace("torch.", "")]
+    kv = _SHORT[str(case["k"].dtype).replace("torch.", "")]
+    row = dict(ms=sum(old) / 2, ms_each=old, max_abs_err=err,
+               **body_fields(ptxas, "query_tile",
+                             f"paged_attention_kernel<{t}, {kv}>",
+                             pa.kernel_smem_bytes(
+                                 "query_tile", case["k"].dtype, Lq, D,
+                                 case["PS"], case["table"].shape[1])))
+    return (first_ms + again) / 2, [first_ms, again], row
+
+
 def kernel_checks(torch, np, ptxas):
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
@@ -550,7 +608,13 @@ def kernel_checks(torch, np, ptxas):
                 torch.cuda.synchronize()
                 err = (out.float() - ref.float()).abs().max().item()
                 finite = bool(torch.isfinite(out).all())
+                fields = paged_body(ptxas, case["q"], case["k"].dtype,
+                                    case["table"])
                 ms = time_ms(torch, lambda: paged_attention(*args, **kw))
+                ab = {}
+                if fields["body"] == "register_tile":
+                    ms, ab["ms_each"], ab["query_tile"] = query_tile_ab(
+                        torch, ptxas, case, args, kw, ms)
                 issue_ms = host_ms(torch, lambda: paged_attention(*args,
                                                                   **kw))
                 plain_ms = time_ms(
@@ -561,26 +625,31 @@ def kernel_checks(torch, np, ptxas):
                            dtype=dtype, max_abs_err=err, tol=tol[dtype],
                            ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
                            library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by,
-                           **paged_body(ptxas, case["q"], case["k"].dtype,
-                                        case["table"]))
+                           bound_by=bound_by, **fields, **ab)
                 log(f"   {json.dumps(row)}")
                 check(finite and err <= tol[dtype],
                       f"{kernel} {name} {dtype}: max |err| {err:.3g} "
                       f"<= {tol[dtype]}")
+                if ab:
+                    old = ab["query_tile"]
+                    check(old["max_abs_err"] <= tol[dtype] and ms < old["ms"],
+                          f"{kernel} {name} {dtype}: register-tile body "
+                          f"{ms:.4f} ms < query-tile body {old['ms']:.4f} ms "
+                          f"(its max |err| {old['max_abs_err']:.3g})")
                 results.append(row)
     return results
 
 
-def paged_edge_case(torch, np, D, Lq, dtype, int8, seed):
-    """page_size 16, H=12 at head_dim ``D``, four rows: one at index 0
-    (its first query sees one position), one whose last query fills its
-    whole table, one at index 20 (mid-page) and one inactive (all
-    sentinels).  Up to Lq=17 a 12-page pool and tables of 4 pages; past
-    that tables of W = (Lq + 63) // 16 + 1 pages from a pool of 3 W + 2.
-    ``int8`` pages as in :func:`attention_case`."""
-    H, PS = 12, 16
-    if Lq <= 17:
+def paged_edge_case(torch, np, D, Lq, dtype, int8, seed, PS=16):
+    """Pages of ``PS`` (16 by default), H=12 at head_dim ``D``, four rows:
+    one at index 0 (its first query sees one position), one whose last
+    query fills its whole table, one at index 20 (mid-page) and one
+    inactive (all sentinels).  Pages of 16 up to Lq=17: a 12-page pool
+    and tables of 4 pages; else tables of W = (Lq + 63) // PS + 1 pages
+    from a pool of 3 W + 2.  ``int8`` pages as in
+    :func:`attention_case`."""
+    H = 12
+    if Lq <= 17 and PS == 16:
         P, W = 12, 4
         rows = [([3, 4], 0), ([5, 1, 7, 9], W * PS - Lq), ([2, 0, 11], 20),
                 ([], 0)]
@@ -622,40 +691,45 @@ def paged_edge_case(torch, np, D, Lq, dtype, int8, seed):
 
 def paged_edge_checks(torch, np, ptxas):
     """B2 and B3 at each body's edges, in both dtypes, against the plain
-    version (checked, not timed): Lq 1, 5 and 16 (the decode body), 17,
-    63, 64, 65 and 256 (bf16: the tensor-core body, one query past one
-    warp, around a 64-query block, the largest bucket; float32: the
-    query-tile body), head_dim 64 and 128."""
+    version (checked, not timed): pages of 16 at Lq 1, 5 and 16 (the
+    decode body), 17, 63, 64, 65 and 256 (bf16: the tensor-core body, one
+    query past one warp, around a 64-query block, the largest bucket;
+    float32: the register-tile body, one past the decode bound, around
+    its 32- and 16-query tiles), head_dim 64 and 128; then pages of 4
+    and 8 (the register-tile body in both dtypes) at Lq 17, 33 and 64."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
     )
 
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    shapes = ([(16, D, Lq) for D in (64, 128)
+               for Lq in (1, 5, 16, 17, 63, 64, 65, 256)]
+              + [(PS, D, Lq) for PS in (4, 8) for D in (64, 128)
+                 for Lq in (17, 33, 64)])
     results = []
     for kernel, int8 in (("paged_attention", False),
                          ("paged_attention_int8", True)):
-        for D in (64, 128):
-            for Lq in (1, 5, 16, 17, 63, 64, 65, 256):
-                for dtype in ("bfloat16", "float32"):
-                    args, kw = paged_edge_case(torch, np, D, Lq, dtype, int8,
-                                               seed=500 + len(results))
-                    out = paged_attention(*args, **kw)
-                    ref = paged_attention_reference(*args, **kw)
-                    torch.cuda.synchronize()
-                    err = (out.float() - ref.float()).abs().max().item()
-                    finite = bool(torch.isfinite(out).all())
-                    row = dict(kernel=kernel, case=f"edge_d{D}_lq{Lq}", D=D,
-                               Lq=Lq, dtype=dtype, max_abs_err=err,
-                               tol=tol[dtype],
-                               **paged_body(ptxas, args[0], args[1].dtype,
-                                            args[3]))
-                    log(f"   {json.dumps(row)}")
-                    check(finite and err <= tol[dtype],
-                          f"{kernel} D={D} Lq={Lq} {dtype} "
-                          f"({row['body']}): max |err| {err:.3g} "
-                          f"<= {tol[dtype]}")
-                    results.append(row)
+        for PS, D, Lq in shapes:
+            for dtype in ("bfloat16", "float32"):
+                args, kw = paged_edge_case(torch, np, D, Lq, dtype, int8,
+                                           seed=500 + len(results), PS=PS)
+                out = paged_attention(*args, **kw)
+                ref = paged_attention_reference(*args, **kw)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                finite = bool(torch.isfinite(out).all())
+                row = dict(kernel=kernel, case=f"edge_ps{PS}_d{D}_lq{Lq}",
+                           page_size=PS, D=D, Lq=Lq, dtype=dtype,
+                           max_abs_err=err, tol=tol[dtype],
+                           **paged_body(ptxas, args[0], args[1].dtype,
+                                        args[3], PS))
+                log(f"   {json.dumps(row)}")
+                check(finite and err <= tol[dtype],
+                      f"{kernel} page {PS} D={D} Lq={Lq} {dtype} "
+                      f"({row['body']}): max |err| {err:.3g} "
+                      f"<= {tol[dtype]}")
+                results.append(row)
     return results
 
 
@@ -881,8 +955,9 @@ def check_launches(launches, expect, what):
 def check_bodies(e2e, kernel, prefill, decode):
     """``kernel``'s launches by body in a serving run: every prefill (and
     chunk) wave on the tensor-core body, every decode and verify tick on
-    the decode body, none on the query-tile body."""
-    expect = dict(query_tile=0, decode=decode, tensor_core=prefill)
+    the decode body, none on the query-tile or register-tile body."""
+    expect = dict(query_tile=0, decode=decode, tensor_core=prefill,
+                  register_tile=0)
     got = e2e["body_launches"][kernel]
     check(got == expect, f"{kernel} by body: {json.dumps(got)} == "
           f"{json.dumps(expect)}")
@@ -1571,6 +1646,146 @@ def launcher_path(torch, np, kernels, workdir, layers=24, preset="large",
     log(f"   e2e: {json.dumps(e2e)}")
     del run, restored, ps
     return launches, e2e
+
+
+GPT_BLOCKS = 10  # experiment/config.py's LAYER_NUM default
+
+
+def gpt_launcher_path(torch, np, kernels, workdir, preset="large",
+                      blocks=GPT_BLOCKS):
+    """Phase 22.  ``launch.run`` on the port's config under
+    ``SKYTPU_MODEL=gpt`` at the launcher's full width: GPT at BERT-large's
+    preset (hidden 1,024, 16 heads, bf16), 10 blocks, vocabulary 50,257,
+    ``RandomLmDataset`` rows of 128, batch 32, 4 stimulated workers,
+    ``optimal`` on the static profile (the ``DataloaderGenerator`` probe),
+    1F1B with 4 microbatches, 5 steps, ``CausalLmLoss``, the config's SGD
+    at 1e-3.  Every kernel's launches are set to 0 just before and read
+    just after: dense attention, as in JAX, so none.  Each step trains on
+    fresh random n-gram rows, whose loss moves by more from batch to
+    batch than five steps lower it; so the loss that must fall is the
+    run's first batch's, scored by ``Runner.evaluate`` (eval mode, the
+    same batch) before the first step and after the last.  Returns a
+    report."""
+    import os
+
+    from skycomputing_tpu_torch import launch
+    from skycomputing_tpu_torch.builder import build_dataloader_from_cfg
+    from skycomputing_tpu_torch.config import load_config
+    from skycomputing_tpu_torch.models import bert_config
+    from skycomputing_tpu_torch.runner import Hook
+    from skycomputing_tpu_torch.utils import Logger
+
+    env = dict(
+        SKYTPU_MODEL="gpt", SKYTPU_PRESET=preset,
+        SKYTPU_LAYER_NUM=str(blocks), SKYTPU_SEQ_LEN=str(BERT_SEQ),
+        SKYTPU_BATCH_SIZE=str(BERT_BATCH), SKYTPU_CORE_NUM=str(BERT_WORKERS),
+        STIMULATE="1", SKYTPU_ALLOCATE_TYPE="optimal",
+        SKYTPU_SCHEDULE="1f1b", SKYTPU_MICROBATCHES=str(BERT_MICROBATCHES),
+        SKYTPU_MAX_ITERS=str(BERT_STEPS), SKYTPU_PROFILE="static",
+        SKYTPU_LOG_ROOT=str(workdir / "logs"))
+    saved = {k: os.environ.get(k) for k in [*env, "SKYTPU_FLASH",
+                                            "SKYTPU_CKPT_DIR"]}
+    for k in ("SKYTPU_FLASH", "SKYTPU_CKPT_DIR"):
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        cfg = load_config(str(
+            ROOT / "skycomputing_tpu_torch" / "configs" / "bert_pipeline.py"))
+        units = cfg.model_config
+        gcfg = units[0]["config"]
+        width = bert_config(preset)
+        check([u["layer_type"] for u in units] == (
+            ["GptEmbeddings"] + ["GptBlock_Attn", "GptBlock_Mlp"] * blocks
+            + ["GptLmHead"]) and gcfg["hidden_size"] == width.hidden_size
+            and gcfg["num_attention_heads"] == width.num_attention_heads
+            and gcfg["vocab_size"] == 50257 and gcfg["dtype"] == width.dtype
+            and cfg.train_config["loss_cfg"] == dict(type="CausalLmLoss"),
+            f"the config under SKYTPU_MODEL=gpt: {len(units)} GPT units at "
+            f"hidden {gcfg['hidden_size']}, {gcfg['num_attention_heads']} "
+            f"heads, vocabulary {gcfg['vocab_size']}, {gcfg['dtype']}, "
+            f"{cfg.train_config['loss_cfg']['type']}")
+        first = [next(iter(launch.BatchAdapter(
+            build_dataloader_from_cfg(cfg.data_config))))]
+
+        class Record(Hook):
+            def __init__(self):
+                self.steps = []
+                self.first_loss_before = None
+
+            def before_train_iter(self, runner):
+                if self.first_loss_before is None:
+                    self.first_loss_before = runner.evaluate(first)["loss"]
+
+            def after_train_iter(self, runner):
+                self.steps.append(runner.model.stats.snapshot())
+
+        record = Record()
+        logger = Logger(**cfg.logging_config)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k["fn"].launches = 0
+        t0 = time.perf_counter()
+        run = launch.run(cfg, logger, hooks=[record])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k["fn"].launches for name, k in kernels.items()}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(run is not None, "the launcher allocated and trained GPT")
+    preflight = check_preflight(run.runner)
+    solved = run.allocator.last_result
+    ranges = solved.as_ranges(len(solved.device_order))
+    slices = [ranges[d] for d in solved.device_order]
+    partition = run.model.partition_signature()
+    check(partition == [b - a for a, b in slices]
+          and [a for a, _ in slices] == [0] + [b for _, b in slices[:-1]]
+          and slices[-1][1] == len(units),
+          f"partition {partition} is the solver's ({solved.path}, gap "
+          f"{solved.optimality_gap:.3g}): slices {slices} cover the "
+          f"{len(units)} units contiguously")
+    check_launches(launches, {}, "GPT's dense attention: no kernel")
+    steps = record.steps
+    losses = [s["loss"] for s in steps]
+    check(len(losses) == BERT_STEPS and all(np.isfinite(x) for x in losses)
+          and all(s["interleaved"] for s in steps),
+          f"{len(losses)} finite losses under 1F1B: {losses}")
+    first_after = run.runner.evaluate(first)["loss"]
+    check(np.isfinite(first_after)
+          and first_after < record.first_loss_before,
+          f"the first batch's causal-LM loss falls over the run: "
+          f"{record.first_loss_before:.5f} -> {first_after:.5f}")
+    step_s = [s["forward_s"] + s["backward_s"] + s["step_s"] for s in steps]
+    median = float(np.median(step_s[1:]))
+    params = sum(p.numel() for stage in run.model.stages
+                 for p in stage.parameters)
+    tokens = BERT_BATCH * BERT_SEQ
+    e2e = dict(
+        wall_s=wall, losses=losses, step_s=step_s,
+        first_batch_loss=[record.first_loss_before, first_after],
+        step_s_median_2_5=median, tokens_per_s=tokens / median,
+        mfu=6.0 * params * tokens / median / PEAK_FLOPS["bfloat16"],
+        parameters=params, dispatch_s=[s["dispatch_s"] for s in steps],
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        partition=partition, device_order=solved.device_order,
+        solver_path=solved.path, solver_gap=solved.optimality_gap,
+        device_time=[r["time"] for r in
+                     run.device_benchmarker.benchmark().values()],
+        launches=launches, preflight=preflight)
+    log(f"   partition {partition} (device order {solved.device_order}), "
+        f"{params / 1e6:.1f} M parameters; steps "
+        f"{[round(x * 1e3, 1) for x in step_s]} ms, median of 2-5 "
+        f"{median * 1e3:.1f} ms, {tokens / median:.0f} tokens/s, MFU "
+        f"{e2e['mfu']:.2%}, peak {e2e['peak_mem_gb']:.2f} GB; losses "
+        f"{[round(x, 5) for x in losses]}, first batch "
+        f"{record.first_loss_before:.5f} -> {first_after:.5f}")
+    log(f"   e2e: {json.dumps(e2e)}")
+    del run
+    return e2e
 
 
 def check_preflight(runner):
@@ -2524,7 +2739,7 @@ def serving_bench_path(torch, np, kernels, gpt_mod):
     the kernel section once more in bf16; then the kernel against its
     plain version on the bench's own tiny instance, uncounted.  Returns
     (a report, the phase's launches by kernel, its tensor-core prefill
-    launches by kernel)."""
+    launches by kernel, its register-tile launches by kernel)."""
     from skycomputing_tpu_torch import bench_serving as bench
 
     dev = torch.device("cuda")
@@ -2556,14 +2771,19 @@ def serving_bench_path(torch, np, kernels, gpt_mod):
         ("kernel_quant_bf16", lambda: bench.kernel_quant(
             bf16_cfgs, params, kernel_cfg, SEED, False), BF16_REPORTED),
     )
-    report, launches, prefill = {}, {B2: 0, B3: 0}, {B2: 0, B3: 0}
+    report, launches = {}, {B2: 0, B3: 0}
+    prefill, tile = {B2: 0, B3: 0}, {B2: 0, B3: 0}
     for name, run, reported in runs:
         section = bench_section(torch, kernels, name, run, reported)
         report[name] = section
         for kernel in (B2, B3):
+            bodies = section["body_launches"][kernel]
             launches[kernel] += section["launches"][kernel]
-            prefill[kernel] += section["body_launches"][kernel][
-                "tensor_core"]
+            prefill[kernel] += bodies["tensor_core"]
+            tile[kernel] += bodies["register_tile"]
+            check(bodies["query_tile"] == 0,
+                  f"{name}: {kernel} never on the query-tile body "
+                  f"({json.dumps(bodies)})")
         gc.collect()
         torch.cuda.empty_cache()
     for name in ("paged_vs_slot", "chunked_backlog", "speculative",
@@ -2573,12 +2793,15 @@ def serving_bench_path(torch, np, kernels, gpt_mod):
     bf16 = report["kernel_quant_bf16"]["body_launches"]
     f32 = report["kernel_quant"]["body_launches"]
     check(bf16[B2]["tensor_core"] > 0 and bf16[B3]["tensor_core"] > 0
-          and f32[B2]["query_tile"] > 0 and f32[B3]["query_tile"] > 0
+          and bf16[B2]["register_tile"] == bf16[B3]["register_tile"] == 0
+          and f32[B2]["register_tile"] > 0 and f32[B3]["register_tile"] > 0
+          and f32[B2]["tensor_core"] == f32[B3]["tensor_core"] == 0
           and f32[B2]["decode"] > 0 and f32[B3]["decode"] > 0,
           f"kernel section prefill on the tensor-core body in bf16 "
           f"(B2 {bf16[B2]['tensor_core']}, B3 {bf16[B3]['tensor_core']}) "
-          f"and the query-tile body in float32 (B2 {f32[B2]['query_tile']},"
-          f" B3 {f32[B3]['query_tile']}); decode on the decode body")
+          f"and the register-tile body in float32 (B2 "
+          f"{f32[B2]['register_tile']}, B3 {f32[B3]['register_tile']}); "
+          f"decode on the decode body")
     # the kernel against its plain version: a comparison, so run after
     # the counts were read and not added to them
     leg = bench.kernel_leg(SEED, dev)
@@ -2587,7 +2810,7 @@ def serving_bench_path(torch, np, kernels, gpt_mod):
     for gate, value in leg["gates"].items():
         check(value, f"kernel leg: mechanics gate {gate}")
     report["kernel_leg"] = leg
-    return report, launches, prefill
+    return report, launches, prefill, tile
 
 
 
@@ -2656,13 +2879,14 @@ def main() -> int:
         for label, info in ptxas.items():
             log(f"   ptxas {label}: {json.dumps(info)}")
         new_bodies = {label: info for label, info in ptxas.items()
-                      if "_kernel_mma<" in label or "_kernel_decode<" in label}
+                      if "_kernel_mma<" in label or "_kernel_decode<" in label
+                      or "_kernel_tile<" in label}
         check(len(new_bodies) > 0 and all(
             info.get("spill_store_bytes", 1) == 0
             and info.get("spill_load_bytes", 1) == 0
             for info in new_bodies.values()),
-              f"{len(new_bodies)} instantiations of the tensor-core and "
-              f"decode bodies, none spilling")
+              f"{len(new_bodies)} instantiations of the tensor-core, decode "
+              f"and register-tile bodies, none spilling")
 
     with phase("kernels against plain versions"):
         report["spin_ms"] = spin_ms(torch)
@@ -3046,15 +3270,28 @@ def main() -> int:
 
     with phase("serving bench: its six sections at GPT-2 small, float32, "
                "the kernel section again in bf16"):
-        bench_report, bench_launches, bench_prefill = serving_bench_path(
-            torch, np, kernels, gpt_mod)
+        bench_report, bench_launches, bench_prefill, bench_tile = (
+            serving_bench_path(torch, np, kernels, gpt_mod))
         report["serving_bench"] = bench_report
         gc.collect()
         torch.cuda.empty_cache()
 
-    def entry(name, kernel_launches, rows=attn, case="decode", label=None):
+    with phase("GPT launcher: SKYTPU_MODEL=gpt at BERT-large's width, 10 "
+               "blocks, optimal, 1F1B M=4"):
+        workdir = ROOT / "build" / "chip_smoke_gpt"
+        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            report["e2e_gpt_launcher"] = gpt_launcher_path(
+                torch, np, kernels, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def entry(name, kernel_launches, rows=attn, case="decode", label=None,
+              dtype="bfloat16"):
         row = next(r for r in rows if r["kernel"] == name
-                   and r["case"] == case and r["dtype"] == "bfloat16")
+                   and r["case"] == case and r["dtype"] == dtype)
         k = kernels[name]
         return dict(name=label or name, route=k["route"], source=k["source"],
                     replaces=k["replaces"], launches=kernel_launches,
@@ -3067,7 +3304,9 @@ def main() -> int:
     # from the int8 path, the multi-stage phase and the serving bench, B1
     # from the launcher's run, the GLUE path's evaluation and the
     # self-heal run; the prefill entries are the tensor-core body's
-    # launches in those runs, beside its time at the prefill wave's shape
+    # launches in those runs, beside its time at the prefill wave's shape,
+    # and the register-tile entries the float32 prefill and chunk waves'
+    # (the serving bench's), beside its float32 time at that shape
     fp_bodies = report["e2e"]["body_launches"][B2]
     int8_bodies = report["e2e_int8"]["body_launches"][B3]
     line = {"kernels": [
@@ -3079,6 +3318,10 @@ def main() -> int:
               + bench_launches[B3]),
         entry(B3, int8_bodies["tensor_core"] + stage_prefill[B3]
               + bench_prefill[B3], case="prefill", label=f"{B3}:prefill"),
+        entry(B2, bench_tile[B2], case="prefill", dtype="float32",
+              label=f"{B2}:register_tile"),
+        entry(B3, bench_tile[B3], case="prefill", dtype="float32",
+              label=f"{B3}:register_tile"),
         entry(B1, launcher_launches[B1] + eval_launches[B1]
               + heal_launches[B1], flash, "bert_large_L128")]}
     # B1's error: the worst over its main case and the eval path's calls

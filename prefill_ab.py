@@ -20,6 +20,25 @@ the card's clock), the variants in turns, forward then backward; each
 row's ``ms`` is the mean of the two.  Every variant but ``p_once``
 keeps the shipped arithmetic and must agree within 2e-2.
 
+``tile``: the float32 prefill and chunk waves of the same phase (fp
+and int8 pages), each on the register-tile body the plan names and
+forced onto the query-tile body it replaced, checked against the plain
+version and timed in turns (register-tile, query-tile, query-tile,
+register-tile), beside SDPA's time and the call's bound; with each
+body's ``ptxas`` registers and spills.
+
+``tile_variants``: where the register-tile body's time goes.  It is
+built as it is (at the cases' head_dim 64, a compile-time constant), with
+head_dim read at run time under its bound (``bound_d``, as the body runs
+for a head_dim other than 32, 64 or 128) and with stages taken out (``no_scores``: the S = Q.K^T
+products; ``no_pv``: the P.V products; ``no_walk``: the whole chunk walk,
+leaving the query and table loads, the merge and the launch;
+``no_merge``: the walk and the merge; ``empty``: everything, returning
+at once; ``empty_no_smem``: that with no dynamic shared memory asked
+for), from patched copies as in ``kernel``, and timed at the float32
+prefill waves in turns; the variants' outputs, but ``bound_d``'s, are
+wrong by construction and are not checked.
+
 ``serve``: ``chip_smoke.py``'s fp serving run (16 requests, GPT-2 small
 at full width, 12 layers, random weights), plain and speculative
 (``spec_k=4``, ``draft_blocks=2``), with the prefill waves on the body
@@ -29,7 +48,8 @@ times.
 Prints one JSON object per row and writes them all to
 ``chiprun_out/prefill_ab.json``.  Usage::
 
-    python3 prefill_ab.py [--part kernel|serve|all] [--reps 3]
+    python3 prefill_ab.py [--part kernel|tile|tile_variants|serve|all]
+        [--reps 3]
 """
 
 from __future__ import annotations
@@ -77,6 +97,37 @@ VARIANTS = {
     "constant_block": [_CONSTANT],
     "rolled": [_CONSTANT] + [(loop, "\n#pragma unroll 1" + loop)
                              for loop in _LOOPS],
+}
+# the register-tile body with one stage taken out (timing only)
+_TILE_TOP = "  const int QS = D + 4;  // a float row of q_s, K or V"
+_TILE_MERGE = "  // merge the warps' (m, l, acc); a warp that walked nothing"
+TILE_VARIANTS = {
+    "shipped": [],
+    # head_dim read at run time, under its bound, as for a head_dim other
+    # than 32, 64 or 128
+    "bound_d": [("  const int D = kExactD ? kDMax : head_dim;",
+                 "  const int D = head_dim;")],
+    "no_merge": [("    if (ci >= n_chunks) break;\n    const int s = t % "
+                  "kStages;\n    cp_async_wait<kStages - 1>();\n    "
+                  "__syncwarp();\n    const unsigned char* kraw",
+                  "    if (ci >= 0) break;\n    const int s = t % "
+                  "kStages;\n    cp_async_wait<kStages - 1>();\n    "
+                  "__syncwarp();\n    const unsigned char* kraw"),
+                 (_TILE_MERGE, "  if (D > 0) return;\n" + _TILE_MERGE)],
+    "empty": [(_TILE_TOP, "  if (D > 0) return;\n" + _TILE_TOP)],
+    "empty_no_smem": [(_TILE_TOP, "  if (D > 0) return;\n" + _TILE_TOP),
+                      ("  return tile_staging_offset(D, q_tile, width) + "
+                       "(walk > merge ? walk : merge);",
+                       "  return 0;")],
+    "no_scores": [("      if (4 * c < D) {\n        float4 qv[kTileQPL]",
+                   "      if (4 * c < D && D < 0) {\n"
+                   "        float4 qv[kTileQPL]")],
+    "no_pv": [("#pragma unroll 4\n    for (int j = 0; j < kChunk; ++j) {",
+               "#pragma unroll 4\n    for (int j = 0; j < 0; ++j) {")],
+    "no_walk": [("    const int ci = warp + t * kTileWarps;\n"
+                 "    if (ci >= n_chunks) break;",
+                 "    const int ci = warp + t * kTileWarps;\n"
+                 "    if (ci >= 0) break;")],
 }
 # (case, R, Lq) of chip_smoke.py's kernel phase that the prefill body serves
 PREFILL_CASES = (("prefill_32", 4, 32), ("chunk", 4, 64),
@@ -169,6 +220,89 @@ def kernel_part(torch, np):
     return rows
 
 
+def tile_part(torch, np):
+    """The register-tile body against the query-tile body at the float32
+    prefill and chunk waves, as ``chip_smoke.py``'s kernel phase times
+    them (see the module docstring)."""
+    from skycomputing_tpu_torch.ops import _build
+
+    pa = paged_module()
+    _build.build("paged_attention")
+    ptxas = cs.ptxas_by_label(_build)
+    rows = []
+    for label, info in sorted(ptxas.items()):
+        if label.startswith(("paged_attention_kernel_tile<",
+                             "paged_attention_kernel<")):
+            row = dict(part="ptxas", kernel_function=label, **info)
+            cs.log(json.dumps(row))
+            rows.append(row)
+    for int8 in (False, True):
+        for ci, (case_name, R, Lq) in enumerate(PREFILL_CASES):
+            case = cs.attention_case(torch, np, case_name, R, Lq, "float32",
+                                     seed=950 + 10 * int8 + ci, int8=int8)
+            args, kw = cs.kernel_args(case)
+            cs.check(pa.kernel_plan(torch.float32, case["k"].dtype, Lq, 64,
+                                    16) == "register_tile",
+                     f"{case_name} int8={int8} takes the register-tile body")
+            out = pa.paged_attention(*args, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - pa.paged_attention_reference(
+                *args, **kw).float()).abs().max().item()
+            first = cs.time_ms(torch, lambda: pa.paged_attention(*args, **kw))
+            ms, ms_each, old = cs.query_tile_ab(torch, ptxas, case, args, kw,
+                                                first)
+            row = dict(part="tile", int8=int8, case=case_name, R=R, Lq=Lq,
+                       ms=ms, ms_each=ms_each, max_abs_err=err,
+                       query_tile=old,
+                       library_ms=cs.time_ms(torch,
+                                             cs.library_call(torch, case)),
+                       bound_ms=cs.attention_bound(np, case, "float32")[0])
+            cs.log(json.dumps(row))
+            rows.append(row)
+            for side, e in (("register-tile", err),
+                            ("query-tile", old["max_abs_err"])):
+                cs.check(e <= 1e-5, f"{side} {case_name} int8={int8}: max "
+                         f"|err| {e:.3g} <= 1e-5")
+    return rows
+
+
+def tile_variants_part(torch, np):
+    """The register-tile body with a stage taken out at a time, timed at
+    the float32 prefill waves (see the module docstring)."""
+    pa = paged_module()
+    with ThreadPoolExecutor(len(TILE_VARIANTS)) as pool:
+        built = dict(zip(TILE_VARIANTS, pool.map(
+            lambda item: build_variant(*item), TILE_VARIANTS.items())))
+    rows = []
+    for name, (_, ptxas) in built.items():
+        for label, info in sorted(ptxas.items()):
+            if label.startswith("paged_attention_kernel_tile<f32"):
+                row = dict(part="ptxas", variant=name, kernel_function=label,
+                           **info)
+                cs.log(json.dumps(row))
+                rows.append(row)
+    order = list(TILE_VARIANTS) + list(reversed(TILE_VARIANTS))
+    for int8 in (False, True):
+        for ci, (case_name, R, Lq) in enumerate(PREFILL_CASES):
+            case = cs.attention_case(torch, np, case_name, R, Lq, "float32",
+                                     seed=970 + 10 * int8 + ci, int8=int8)
+            args, kw = cs.kernel_args(case)
+            times = {name: [] for name in TILE_VARIANTS}
+            for name in order:
+                with mock.patch.object(pa, "_lib", built[name][0]):
+                    pa.paged_attention(*args, **kw)
+                    torch.cuda.synchronize()
+                    times[name].append(cs.time_ms(
+                        torch, lambda: pa.paged_attention(*args, **kw)))
+            for name in TILE_VARIANTS:
+                row = dict(part="tile_variants", variant=name, int8=int8,
+                           case=case_name, R=R, Lq=Lq,
+                           ms=sum(times[name]) / 2, ms_each=times[name])
+                cs.log(json.dumps(row))
+                rows.append(row)
+    return rows
+
+
 def serve_part(torch, np, reps):
     from skycomputing_tpu_torch.models import gpt as gpt_mod
     from skycomputing_tpu_torch.serving import Request, ServingEngine
@@ -212,7 +346,8 @@ def serve_part(torch, np, reps):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--part", choices=("kernel", "serve", "all"),
+    parser.add_argument("--part", choices=("kernel", "tile", "tile_variants",
+                                           "serve", "all"),
                         default="all")
     parser.add_argument("--reps", type=int, default=3)
     opts = parser.parse_args()
@@ -230,6 +365,10 @@ def main() -> int:
     rows = []
     if opts.part in ("kernel", "all"):
         rows += kernel_part(torch, np)
+    if opts.part in ("tile", "all"):
+        rows += tile_part(torch, np)
+    if opts.part in ("tile_variants", "all"):
+        rows += tile_variants_part(torch, np)
     if opts.part in ("serve", "all"):
         rows += serve_part(torch, np, opts.reps)
     out = ROOT / "chiprun_out"

@@ -13,7 +13,12 @@ from .data_generator import (
     RandomTokenGenerator,
 )
 from .dataloader import DataLoader
-from .datasets import RandomBertDataset, RandomImageDataset, RandomMlpDataset
+from .datasets import (
+    RandomBertDataset,
+    RandomImageDataset,
+    RandomLmDataset,
+    RandomMlpDataset,
+)
 
 __all__ = [
     "BaseGenerator",
@@ -23,6 +28,7 @@ __all__ = [
     "GlueDataset",
     "RandomBertDataset",
     "RandomImageDataset",
+    "RandomLmDataset",
     "RandomMlpDataset",
     "RandomTensorGenerator",
     "RandomTokenGenerator",

@@ -1,7 +1,7 @@
 """Synthetic datasets (the port's numpy copy of
 ``skycomputing_tpu/dataset/datasets.py``): MLP features, CIFAR-shaped
-images and MNLI-shaped BERT rows.  The LM and CIFAR-10 datasets are not
-ported: no model of the port consumes them yet."""
+images, MNLI-shaped BERT rows and causal-LM rows.  The CIFAR-10 dataset
+is not ported: no model of the port consumes it yet."""
 
 from __future__ import annotations
 
@@ -79,4 +79,32 @@ class RandomBertDataset:
         )
 
 
-__all__ = ["RandomBertDataset", "RandomImageDataset", "RandomMlpDataset"]
+@DATASET.register_module
+class RandomLmDataset:
+    """Synthetic causal-LM rows: ((input_ids,), input_ids).
+
+    The labels are the input ids (the loss shifts them), each row an
+    n-gram drawn from the seed and tiled to ``seq_length``, so a working
+    LM visibly drives the loss toward zero."""
+
+    def __init__(self, num_samples: int = 512, seq_length: int = 128,
+                 vocab_size: int = 50257, ngram: int = 8, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        reps = (seq_length + ngram - 1) // ngram
+        rows = []
+        for _ in range(num_samples):
+            pattern = rng.integers(0, vocab_size, size=(ngram,),
+                                   dtype=np.int32)
+            rows.append(np.tile(pattern, reps)[:seq_length])
+        self.input_ids = np.stack(rows)
+
+    def __len__(self):
+        return len(self.input_ids)
+
+    def __getitem__(self, idx):
+        row = self.input_ids[idx]
+        return (row,), row
+
+
+__all__ = ["RandomBertDataset", "RandomImageDataset", "RandomLmDataset",
+           "RandomMlpDataset"]

@@ -19,7 +19,9 @@
   FLOP an element each; a write into a bf16 slab (the KV cache) converts
   the slab back; and an embedding lookup whose rows are cast to bf16
   costs two FLOPs per table element, the cast of the whole table that
-  flax's ``Embed(dtype=...)`` makes.  So the two agree per unit to
+  flax's ``Embed(dtype=...)`` makes.  Every embedding lookup is XLA's
+  gather: one FLOP per element it returns (the out-of-bounds fill's
+  select) and 6 per index (the bounds test).  So the two agree per unit to
   within the ratios ``tests/test_torch_dynamics.py`` (training) and
   ``tests/test_torch_serving_alloc.py`` (decode) state.  On ``meta`` the
   flash attention wrapper takes its plain version, so the attention
@@ -122,6 +124,9 @@ class _ElementwiseFlops(TorchDispatchMode):
         packet = func.overloadpacket
         if packet in _LOOKUPS:
             self._lookups[id(out)] = (out, args[0].numel())
+            # XLA's gather: a select per row element (the out-of-bounds
+            # fill) and a bounds test of 6 per index
+            self.flops += out.numel() + 6 * args[1].numel()
         elif packet is aten._to_copy and id(args[0]) in self._lookups \
                 and out.dtype == torch.bfloat16:
             # XLA charges the table's cast both ways on its CPU backend

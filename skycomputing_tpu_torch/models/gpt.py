@@ -1,7 +1,8 @@
-"""GPT-style causal LM units for paged KV-cache serving.
+"""GPT-style causal LM units, for training and for KV-cache serving.
 
-The port of ``skycomputing_tpu/models/gpt.py``'s decode half: the same
-registered units, the same layer-config lists, the same numerics —
+The port of ``skycomputing_tpu/models/gpt.py`` (less ring attention and
+the MoE block): the same registered units, the same layer-config lists,
+the same numerics —
 
 ====================  ===================================  =======================
 registered name       paged decode step                    full-sequence forward
@@ -16,10 +17,14 @@ registered name       paged decode step                    full-sequence forward
 heads, head_dim]`` slab pair per unit): :func:`apply_kv_cached` threads
 it through a module slice for the serving engine's slot layout, the
 single-request :class:`CachedGptDecoder` and the decode profile
-(``serving/profile.py``).  The full-sequence forwards are what
-:func:`generate` decodes against (the one-shot reference the serving
-bench holds every engine to) and what the pre-flight verifier
-(``analysis/plan_check.py``) threads shapes through on ``meta``.
+(``serving/profile.py``).  The full-sequence forwards are what the
+trainer runs (``PipelineModel`` over ``(input_ids,)`` batches with the
+ids as labels and ``CausalLmLoss``; the launcher's ``SKYTPU_MODEL=gpt``),
+with dropout after the embeddings, the attention projection and the MLP
+in train mode as in JAX, what :func:`generate` decodes against (the
+one-shot reference the serving bench holds every engine to) and what
+the pre-flight verifier (``analysis/plan_check.py``) threads shapes
+through on ``meta``.
 
 Numerics follow flax's ``dtype``/``param_dtype`` pair: parameters are
 float32, dense layers and embeddings compute in ``cfg.dtype``,
@@ -35,8 +40,7 @@ Sampling (``temperature > 0``) in :func:`generate` and
 agree with each other; greedy decoding is the reference's token for
 token.
 
-Not ported yet: training (the units' dropout runs, but no trainer
-drives GPT), ring attention and ``GptBlock_MoeMlp``.
+Not ported yet: ring attention and ``GptBlock_MoeMlp``.
 """
 
 from __future__ import annotations
@@ -270,12 +274,13 @@ class GptBlock_Mlp(nn.Module):
                            cfg.initializer_range)
         self.c_proj = _Dense(cfg.intermediate_size, cfg.hidden_size, dt,
                              cfg.initializer_range)
+        self.drop = _dropout(cfg.dropout_prob, deterministic)
 
     def forward(self, hidden):
         cfg = self.config
         act = ACT2FN[cfg.hidden_act]
         x = _layer_norm(hidden, self.ln_2).to(torch_dtype(cfg.dtype))
-        return hidden + self.c_proj(act(self.c_fc(x)))
+        return hidden + self.drop(self.c_proj(act(self.c_fc(x))))
 
 
 @LAYER.register_module

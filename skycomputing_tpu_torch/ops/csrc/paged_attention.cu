@@ -27,7 +27,7 @@
 // that bound is latency: how many page round trips run one after another,
 // and, in prefill, how fast each gathered tile is consumed.
 //
-// Three bodies, chosen by the wrapper's plan
+// Four bodies, chosen by the wrapper's plan
 // (skycomputing_tpu_torch/ops/paged_attention.py) from the q and page
 // types, Lq, D and the page size alone:
 //
@@ -68,12 +68,26 @@
 //   tiles that reach past a warp's first query.  Int8 pages (B3) are
 //   converted to bf16 in shared memory (exact), their scales folded into
 //   the f32 scores and into P (see the body).
-// * every other call (float32 q with Lq > 16, another head_dim or page
-//   size): paged_attention_kernel, the query-tile body.  One block per
-//   (row, head, tile of 16 queries) stages each page's K/V tile in
-//   float32 through shared memory, where every query of the tile reuses
-//   it, every product a float32 FMA (the exact float32 body); pages
-//   wholly past the tile's last query position are never read.
+// * every other call with Lq > 16 whose K/V row is a whole number of
+//   16-byte chunks (float32 prefill and chunk waves over float32 or int8
+//   pages; bf16 q over pages of 4 or 8, or at a head_dim that is not a
+//   multiple of 16): paged_attention_kernel_tile, the register-tile body.
+//   One block of four warps per (row, head, tile of 32 queries; 16 past
+//   head_dim 64) walks the tile's positions as the decode body does, in
+//   chunks of 16 split over the warps, each chunk gathered with 16-byte
+//   cp.async into the warp's own double buffer, nothing but __syncwarp
+//   inside the walk, the warps' states merged at the end.  Each lane
+//   holds a 4-query x 4-key tile of scores (4 x 2 past head_dim 64) and
+//   the accumulator of its 4 queries over 16 head dims in registers
+//   (8 at head_dim 32 and below); every product is a float32
+//   FMA, so the float32 results are the exact body's to float32 roundoff
+//   (the serving bench's float32 identity gates rest on that).
+// * the rest (a K/V row that is not whole 16-byte chunks, such as an
+//   int8 row of 40 bytes): paged_attention_kernel, the query-tile body.
+//   One block per (row, head, tile of 16 queries) stages each page's K/V
+//   tile in float32 through shared memory, where every query of the tile
+//   reuses it, every product a float32 FMA; pages wholly past the tile's
+//   last query position are never read.
 //
 // Pad rows (index 0, every entry a sentinel) are computed like any other
 // row, over clamped page P-1, so the output equals the plain version on
@@ -337,6 +351,15 @@ __device__ __forceinline__ void unpack16(const uint4& raw, float* out,
   unpack_int8x4(raw.y, out + 4);
   unpack_int8x4(raw.z, out + 8);
   unpack_int8x4(raw.w, out + 12);
+}
+
+// four floats to four elements of T (16 bytes of float32, 8 of bf16)
+__device__ __forceinline__ void store4(float* p, const float4& v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y),
+                                           pack_bf16(v.z, v.w));
 }
 
 // Shared memory of the decode body, in bytes: the scaled queries, each
@@ -1048,6 +1071,485 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The register-tile body (Lq > 16 outside the tensor-core body, a K/V row
+// a whole number of 16-byte chunks): float32 prefill and chunk waves
+// ---------------------------------------------------------------------------
+
+constexpr int kTileWarps = 4;  // warps per (row, head, query tile) block
+constexpr int kTileThreads = kTileWarps * 32;
+constexpr int kTileQPL = 4;  // queries of one lane's register tile
+// blocks an SM holds: float32 pages' shared memory (about 90 KB a block
+// at head_dim 64) allows two, so a thread may keep up to 255 registers
+// (at 168, the compiler's own cap, the float32 body at head_dim 64
+// spilled)
+constexpr int kTileBlocksPerSM = 2;
+
+// the head-dim bound a block is compiled for: 32, 64 or 128
+__host__ __device__ constexpr int tile_dmax(int D) {
+  return D <= 32 ? 32 : (D <= 64 ? 64 : 128);
+}
+// queries of one block: 32, or 16 past head_dim 64, so that a lane's
+// accumulator (4 queries x 16 head dims) stays at 64 registers
+__host__ __device__ constexpr int tile_queries(int d_max) {
+  return d_max > 64 ? 16 : 32;
+}
+
+// Shared memory of the register-tile body, in bytes: the block's scaled
+// queries (rows of D + 4 floats), each warp's probabilities (key-major,
+// rows of q_tile + 8 floats) and (int8) scales, the row's clamped table,
+// then each warp's double buffer of raw K and V chunks (rows padded by 16
+// bytes) and, over bf16 or int8 pages, each warp's float32 K and V chunk;
+// the merge of the warps' states reuses those last two at the end.
+__host__ __device__ inline size_t tile_staging_offset(int D, int q_tile,
+                                                      int width) {
+  return (size_t)q_tile * (D + 4) * sizeof(float)                   // q_s
+         + (size_t)kTileWarps * kChunk * (q_tile + 8) * sizeof(float)  // p_s
+         + (size_t)kTileWarps * kStages * 2 * kChunk * sizeof(float)  // scales
+         + (size_t)((width + 3) / 4 * 4) * sizeof(int32_t);          // table
+}
+__host__ __device__ inline size_t tile_smem_bytes(int D, int kv_size,
+                                                  int width) {
+  const int q_tile = tile_queries(tile_dmax(D));
+  size_t walk = (size_t)kTileWarps * kStages * 2 * kChunk *
+                decode_row_bytes(D, kv_size);
+  if (kv_size != (int)sizeof(float))
+    walk += (size_t)kTileWarps * 2 * kChunk * (D + 4) * sizeof(float);
+  const size_t merge = (size_t)kTileWarps * q_tile * (D + 6) * sizeof(float);
+  return tile_staging_offset(D, q_tile, width) + (walk > merge ? walk : merge);
+}
+
+// One block of four warps per (query tile, head, row).  The tile's
+// visible positions are cut into chunks of 16; warp w walks chunks w,
+// w + 4, ... through its own cp.async double buffer (each position's page
+// from the row's table, copied once into shared memory), with a private
+// float32 online-softmax state for all the tile's queries, and only
+// __syncwarp orders the walk; the four states merge through shared memory
+// at the end.  Lane (qg, kg) owns queries 4 qg .. 4 qg + 3 and, of each
+// chunk, keys kg, kg + kKG, ...: S = Q.K^T is a 4 x kKPL register tile of
+// float4 reads (16 FMAs per 8 floats read at kKPL = 4), the softmax
+// statistics are shuffles over the kKG lanes that share a query, and in
+// O += P.V the lane owns its 4 queries x the head dims of float4 columns
+// kg, kg + kKG, ....  Every product is an IEEE float32 fmaf, as in the
+// query-tile body; over bf16 or int8 pages a chunk is widened to float32
+// in the warp's own rows first (int8: float(k) * k_scale, the Pallas
+// order), and its raw buffer is refilled at once.  Chunks wholly past the
+// tile's last query are never read; the causal mask applies only on
+// chunks that reach past the tile's first query or past n_pos.
+//
+// kDMax bounds the head dim; with kExactD it is the head dim, a constant
+// the compiler sees (every loop over it unrolled, no bound tests: 18-27%
+// faster at D = 64 on an H100 than under the bound, prefill_ab.py's
+// bound_d variant).
+template <typename T, typename KV, int kDMax, bool kExactD>
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
+paged_attention_kernel_tile(const T* __restrict__ q,
+                            const KV* __restrict__ k_pages,
+                            const KV* __restrict__ v_pages,
+                            const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale,
+                            const int32_t* __restrict__ page_table,
+                            const int32_t* __restrict__ index,
+                            T* __restrict__ out, int Lq, int H, int head_dim,
+                            int num_pages, int page_size, int width,
+                            float scale) {
+  constexpr bool kFloatKV = std::is_same<KV, float>::value;
+  constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
+  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte chunk
+  constexpr int kQ = tile_queries(kDMax);       // queries of the block
+  constexpr int kQG = kQ / kTileQPL;            // query groups: 8 or 4
+  constexpr int kKG = 32 / kQG;                 // lanes sharing a query: 4, 8
+  constexpr int kKPL = kChunk / kKG;            // keys of a lane: 4 or 2
+  constexpr int kC4 = kDMax / 4 / kKG;          // float4 columns of a lane
+  constexpr int kPStride = kQ + 8;              // p_s row, in floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int D = kExactD ? kDMax : head_dim;
+  const int QS = D + 4;  // a float row of q_s, K or V (16 bytes of padding)
+  const int row_bytes = (int)decode_row_bytes(D, sizeof(KV));
+  float* q_s = reinterpret_cast<float*>(smem_raw);         // [kQ][QS]
+  float* p_all = q_s + kQ * QS;                            // [warp][16][kPStride]
+  float* sc_all = p_all + kTileWarps * kChunk * kPStride;  // [warp][stage][2][16]
+  int32_t* table_s =
+      reinterpret_cast<int32_t*>(sc_all + kTileWarps * kStages * 2 * kChunk);
+  unsigned char* staging =  // [warp][stage][2][16][row]
+      smem_raw + tile_staging_offset(D, kQ, width);
+  float* conv_all = reinterpret_cast<float*>(  // [warp][2][16][QS]
+      staging + (size_t)kTileWarps * kStages * 2 * kChunk * row_bytes);
+  float* merge = reinterpret_cast<float*>(staging);  // [warp][kQ][QS]
+  float* merge_ml = merge + kTileWarps * kQ * QS;     // [warp][kQ][m, l]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int h = blockIdx.y;
+  const int r = blockIdx.z;
+  const int q0 = blockIdx.x * kQ;
+  const int nq = min(kQ, Lq - q0);
+  const int64_t pos_stride = (int64_t)H * D;  // one position of q or a page
+  const int idx = index[r];
+  // positions 0 .. n_pos - 1 are the only ones a query of this tile sees
+  const int n_pos = min(width * page_size, idx + q0 + nq);
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
+
+  // this tile's queries, scaled in float32 (the Pallas kernel's q * scale;
+  // rows past Lq zero-filled): every load is issued before the first
+  // store, so the tile costs one round trip, not one per element
+  constexpr int kQLoads = kQ * kDMax / kTileThreads;
+  const T* q_row = q + ((int64_t)r * Lq + q0) * pos_stride + (int64_t)h * D;
+  float q_in[kQLoads];
+#pragma unroll
+  for (int a = 0; a < kQLoads; ++a) {
+    const int e = tid + a * kTileThreads;
+    const int qq = e / kDMax, d = e % kDMax;
+    q_in[a] = qq < nq && d < D ? to_float(q_row[qq * pos_stride + d]) : 0.f;
+  }
+  // the row's whole table, not waiting on index[r]
+  const int32_t* table_row = page_table + (int64_t)r * width;
+  for (int i = tid; i < width; i += kTileThreads)
+    table_s[i] = min(max(table_row[i], 0), num_pages - 1);
+#pragma unroll
+  for (int a = 0; a < kQLoads; ++a) {
+    const int e = tid + a * kTileThreads;
+    const int d = e % kDMax;
+    if (d < D) q_s[(e / kDMax) * QS + d] = q_in[a] * scale;
+  }
+  __syncthreads();
+
+  // a position's table entry and place in its page: a shift and a mask
+  // where the page size is a power of two (the engine's 16)
+  const int shift =
+      (page_size & (page_size - 1)) ? -1 : __ffs(page_size) - 1;
+  auto page_of = [&](int pos) {
+    return shift >= 0 ? pos >> shift : pos / page_size;
+  };
+  auto row_in_page = [&](int pos) {
+    return shift >= 0 ? pos & (page_size - 1) : pos % page_size;
+  };
+  // 16-byte chunks of one position: chunks_per_row of them, laid out over
+  // kRowSlots (a compile-time power of two) so that the copy loops split
+  // an index with a shift and a mask
+  const int chunks_per_row = D / kElems;
+  constexpr int kRowSlots = kDMax / kElems;
+  float* p_s = p_all + warp * kChunk * kPStride;
+  float* sc_w = sc_all + warp * kStages * 2 * kChunk;
+  unsigned char* st_w =
+      staging + (size_t)warp * kStages * 2 * kChunk * row_bytes;
+  float* conv_w = conv_all + (size_t)warp * 2 * kChunk * QS;
+
+  // queue chunk ci's K, V (and scales) into stage s, then commit a group
+  // (an empty one past the tile's last chunk, so every step waits the
+  // same way); positions past n_pos are zero-filled
+  auto issue = [&](int ci, int s) {
+    if (ci < n_chunks) {
+      unsigned char* kb = st_w + (size_t)(2 * s) * kChunk * row_bytes;
+      unsigned char* vb = kb + (size_t)kChunk * row_bytes;
+#pragma unroll
+      for (int e = lane; e < kChunk * kRowSlots; e += 32) {
+        const int j = e / kRowSlots, c = e % kRowSlots;
+        if (c >= chunks_per_row) continue;
+        const int pos = ci * kChunk + j;
+        const bool ok = pos < n_pos;
+        int64_t off = 0;
+        if (ok)
+          off = ((int64_t)table_s[page_of(pos)] * page_size +
+                 row_in_page(pos)) * pos_stride +
+                (int64_t)h * D + c * kElems;
+        cp_async16(kb + j * row_bytes + c * 16, k_pages + off, ok);
+        cp_async16(vb + j * row_bytes + c * 16, v_pages + off, ok);
+      }
+      if (kInt8 && lane < kChunk) {
+        const int pos = ci * kChunk + lane;
+        const bool ok = pos < n_pos;
+        const int64_t off =
+            ok ? (int64_t)table_s[page_of(pos)] * H + h : 0;
+        cp_async4(sc_w + (2 * s) * kChunk + lane, k_scale + off, ok);
+        cp_async4(sc_w + (2 * s + 1) * kChunk + lane, v_scale + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int qg = lane / kKG;
+  const int kg = lane % kKG;
+  float m[kTileQPL], l[kTileQPL], acc[kTileQPL][kC4][4];
+#pragma unroll
+  for (int i = 0; i < kTileQPL; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  }
+  const int tile_first = idx + q0;              // the tile's first query
+  const int lane_first = tile_first + qg * kTileQPL;  // ... and this lane's
+  const float* q_lane = q_s + qg * kTileQPL * QS;
+
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) issue(warp + s * kTileWarps, s);
+  for (int t = 0;; ++t) {
+    const int ci = warp + t * kTileWarps;
+    if (ci >= n_chunks) break;
+    const int s = t % kStages;
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const unsigned char* kraw = st_w + (size_t)(2 * s) * kChunk * row_bytes;
+    const unsigned char* vraw = kraw + (size_t)kChunk * row_bytes;
+    const float* kb;
+    const float* vb;
+    if constexpr (kFloatKV) {
+      kb = reinterpret_cast<const float*>(kraw);
+      vb = reinterpret_cast<const float*>(vraw);
+    } else {
+      // the chunk in float32 (int8: float(k) * k_scale, before q meets it)
+      const float* ksc = sc_w + (2 * s) * kChunk;
+#pragma unroll
+      for (int e = lane; e < 2 * kChunk * kRowSlots; e += 32) {
+        const int which = e / (kChunk * kRowSlots);
+        const int j = (e / kRowSlots) % kChunk, c = e % kRowSlots;
+        if (c >= chunks_per_row) continue;
+        float f[kElems];
+        unpack16(*reinterpret_cast<const uint4*>(
+                     (which ? vraw : kraw) + j * row_bytes + c * 16),
+                 f, KV());
+        if (kInt8) {
+          const float sc = ksc[which * kChunk + j];
+#pragma unroll
+          for (int x = 0; x < kElems; ++x) f[x] *= sc;
+        }
+        float4* dst = reinterpret_cast<float4*>(
+            conv_w + (which * kChunk + j) * QS + c * kElems);
+#pragma unroll
+        for (int x = 0; x < kElems / 4; ++x)
+          dst[x] = make_float4(f[4 * x], f[4 * x + 1], f[4 * x + 2],
+                               f[4 * x + 3]);
+      }
+      __syncwarp();
+      issue(ci + kStages * kTileWarps, s);  // the raw stage is read: refill
+      kb = conv_w;
+      vb = conv_w + kChunk * QS;
+    }
+
+    // S = Q.K^T: queries 4 qg + i against keys kg + kKG j
+    float sc[kTileQPL][kKPL];
+#pragma unroll
+    for (int i = 0; i < kTileQPL; ++i)
+#pragma unroll
+      for (int j = 0; j < kKPL; ++j) sc[i][j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDMax / 4; ++c) {
+      if (4 * c < D) {
+        float4 qv[kTileQPL], kv[kKPL];
+#pragma unroll
+        for (int i = 0; i < kTileQPL; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_lane + i * QS + 4 * c);
+#pragma unroll
+        for (int j = 0; j < kKPL; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kb + (kg + kKG * j) * QS +
+                                                   4 * c);
+#pragma unroll
+        for (int i = 0; i < kTileQPL; ++i)
+#pragma unroll
+          for (int j = 0; j < kKPL; ++j) {
+            sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
+            sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
+            sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
+            sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
+          }
+      }
+    }
+
+    // online softmax, per query, over the kKG lanes that share it
+    const int base = ci * kChunk;
+    const bool masked = base + kChunk - 1 > tile_first || base + kChunk > n_pos;
+    float corr[kTileQPL];
+#pragma unroll
+    for (int i = 0; i < kTileQPL; ++i) {
+      float cm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKPL; ++j) {
+        const int pos = base + kg + kKG * j;
+        if (masked && (pos > lane_first + i || pos >= n_pos))
+          sc[i][j] = -INFINITY;
+        cm = fmaxf(cm, sc[i][j]);
+      }
+#pragma unroll
+      for (int o = kKG / 2; o > 0; o >>= 1)
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+      const float m_new = fmaxf(m[i], cm);
+      float cs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kKPL; ++j) {
+        const float p = sc[i][j] == -INFINITY ? 0.f : expf(sc[i][j] - m_new);
+        sc[i][j] = p;
+        cs += p;
+      }
+#pragma unroll
+      for (int o = kKG / 2; o > 0; o >>= 1)
+        cs += __shfl_xor_sync(0xffffffffu, cs, o);
+      corr[i] = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
+      l[i] = l[i] * corr[i] + cs;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kKPL; ++j)
+      *reinterpret_cast<float4*>(p_s + (kg + kKG * j) * kPStride +
+                                 qg * kTileQPL) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+#pragma unroll
+    for (int i = 0; i < kTileQPL; ++i)
+#pragma unroll
+      for (int c = 0; c < kC4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr[i];
+    __syncwarp();
+
+    // O += P.V over the chunk's 16 positions (zero-filled past n_pos)
+#pragma unroll 4
+    for (int j = 0; j < kChunk; ++j) {
+      const float4 p =
+          *reinterpret_cast<const float4*>(p_s + j * kPStride + qg * kTileQPL);
+      const float* vrow = vb + j * QS;
+#pragma unroll
+      for (int c = 0; c < kC4; ++c) {
+        const int col = kg + kKG * c;
+        if (4 * col < D) {
+          const float4 v = *reinterpret_cast<const float4*>(vrow + 4 * col);
+          const float pv[kTileQPL] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int i = 0; i < kTileQPL; ++i) {
+            acc[i][c][0] = fmaf(pv[i], v.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(pv[i], v.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(pv[i], v.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(pv[i], v.w, acc[i][c][3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // p_s and the stage are read
+    if constexpr (kFloatKV) issue(ci + kStages * kTileWarps, s);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's buffers are read; the merge reuses them
+
+  // merge the warps' (m, l, acc); a warp that walked nothing has m = -inf
+#pragma unroll
+  for (int i = 0; i < kTileQPL; ++i) {
+    const int row = warp * kQ + qg * kTileQPL + i;
+    if (kg == 0) {
+      merge_ml[2 * row] = m[i];
+      merge_ml[2 * row + 1] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < kC4; ++c) {
+      const int col = kg + kKG * c;
+      if (4 * col < D)
+        *reinterpret_cast<float4*>(merge + row * QS + 4 * col) = make_float4(
+            acc[i][c][0], acc[i][c][1], acc[i][c][2], acc[i][c][3]);
+    }
+  }
+  __syncthreads();
+  // each query's weights exp(m_w - max) and the sum they weight, once
+  // (p_s is free now): [kQ][kTileWarps + 1]
+  float* wts = p_all;
+  if (tid < kQ) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w)
+      mx = fmaxf(mx, merge_ml[2 * (w * kQ + tid)]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kTileWarps; ++w) {
+      const float* st = merge_ml + 2 * (w * kQ + tid);
+      const float wt = st[0] == -INFINITY ? 0.f : expf(st[0] - mx);
+      wts[tid * (kTileWarps + 1) + w] = wt;
+      sum = fmaf(st[1], wt, sum);
+    }
+    wts[tid * (kTileWarps + 1) + kTileWarps] = fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  // acc / max(l, 1e-30), four head dims a thread at a time
+  T* o_row = out + ((int64_t)r * Lq + q0) * pos_stride + (int64_t)h * D;
+  constexpr int kD4 = kDMax / 4;
+#pragma unroll
+  for (int a = 0; a < kQ * kD4 / kTileThreads; ++a) {
+    const int e = tid + a * kTileThreads;
+    const int qq = e / kD4, c4 = e % kD4;
+    if (qq < nq && 4 * c4 < D) {
+      const float* wq = wts + qq * (kTileWarps + 1);
+      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < kTileWarps; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            merge + (w * kQ + qq) * QS + 4 * c4);
+        o.x = fmaf(x.x, wq[w], o.x);
+        o.y = fmaf(x.y, wq[w], o.y);
+        o.z = fmaf(x.z, wq[w], o.z);
+        o.w = fmaf(x.w, wq[w], o.w);
+      }
+      const float sum = wq[kTileWarps];
+      store4(o_row + qq * pos_stride + 4 * c4,
+             make_float4(o.x / sum, o.y / sum, o.z / sum, o.w / sum));
+    }
+  }
+}
+
+template <typename T, typename KV, int kDMax, bool kExactD>
+cudaError_t launch_tile_dim(const void* q, const void* k, const void* v,
+                            const float* k_scale, const float* v_scale,
+                            const int32_t* table, const int32_t* index,
+                            void* out, int R, int Lq, int H, int D,
+                            int num_pages, int page_size, int width,
+                            float scale, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes(D, sizeof(KV), width);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        paged_attention_kernel_tile<T, KV, kDMax, kExactD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kQ = tile_queries(kDMax);
+  const dim3 grid((Lq + kQ - 1) / kQ, H, R);
+  paged_attention_kernel_tile<T, KV, kDMax, kExactD>
+      <<<grid, kTileThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(k),
+          static_cast<const KV*>(v), k_scale, v_scale, table, index,
+          static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename KV>
+cudaError_t launch_register_tile(const void* q, const void* k, const void* v,
+                                 const float* k_scale, const float* v_scale,
+                                 const int32_t* table, const int32_t* index,
+                                 void* out, int R, int Lq, int H, int D,
+                                 int num_pages, int page_size, int width,
+                                 float scale, cudaStream_t stream) {
+#define SKY_TILE_CASE(d_max, exact)                                          \
+  return launch_tile_dim<T, KV, d_max, exact>(                              \
+      q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D, num_pages, \
+      page_size, width, scale, stream)
+  switch (D) {
+    case 32:
+      SKY_TILE_CASE(32, true);
+    case 64:
+      SKY_TILE_CASE(64, true);
+    case 128:
+      SKY_TILE_CASE(128, true);
+  }
+  switch (tile_dmax(D)) {
+    case 32:
+      SKY_TILE_CASE(32, false);
+    case 64:
+      SKY_TILE_CASE(64, false);
+    default:
+      SKY_TILE_CASE(128, false);
+  }
+#undef SKY_TILE_CASE
+}
+
 // the decode body's query bound: 1 (decode), 8 (speculative verify) or 16
 int decode_max_q(int Lq) { return Lq == 1 ? 1 : (Lq <= 8 ? 8 : kMaxDecodeQ); }
 
@@ -1055,16 +1557,15 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-bool decode_fits(int Lq, int D, int kv_size) {
-  return Lq <= kMaxDecodeQ && (D * kv_size) % 16 == 0;
-}
 
 bool mma_fits(int D, int page_size) {
   return D % 16 == 0 && page_size % 16 == 0;
 }
 
+bool whole_rows(int D, int kv_size) { return (D * kv_size) % 16 == 0; }
+
 // body: 0 = the query-tile body, 1 = the decode body, 2 = the tensor-core
-// prefill body (T bf16 only)
+// prefill body (T bf16 only), 3 = the register-tile body
 template <typename T, typename KV>
 cudaError_t launch(int body, const void* q, const void* k,
                    const void* v, const float* k_scale, const float* v_scale,
@@ -1075,6 +1576,13 @@ cudaError_t launch(int body, const void* q, const void* k,
     return launch_tile<T, KV>(q, k, v, k_scale, v_scale, table, index, out,
                               R, Lq, H, D, num_pages, page_size, width, scale,
                               stream);
+  if (body == 3) {
+    if (!whole_rows(D, sizeof(KV)) || !aligned16(k) || !aligned16(v))
+      return cudaErrorInvalidValue;
+    return launch_register_tile<T, KV>(q, k, v, k_scale, v_scale, table,
+                                       index, out, R, Lq, H, D, num_pages,
+                                       page_size, width, scale, stream);
+  }
   if (body == 2) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       if (!mma_fits(D, page_size) || !aligned16(q) || !aligned16(k) ||
@@ -1086,8 +1594,8 @@ cudaError_t launch(int body, const void* q, const void* k,
     }
     return cudaErrorInvalidValue;  // the body takes bfloat16 q only
   }
-  if (body != 1 || !decode_fits(Lq, D, sizeof(KV)) || !aligned16(k) ||
-      !aligned16(v))
+  if (body != 1 || Lq > kMaxDecodeQ || !whole_rows(D, sizeof(KV)) ||
+      !aligned16(k) || !aligned16(v))
     return cudaErrorInvalidValue;
   switch (decode_max_q(Lq)) {
     case 1:
@@ -1118,7 +1626,9 @@ extern "C" {
 // body: 0 = the query-tile body, 1 = the decode body (Lq <= 16, D times
 // the page element size a multiple of 16 bytes, pages 16-byte aligned),
 // 2 = the tensor-core prefill body (bfloat16, D and page_size multiples
-// of 16, q, pages and out 16-byte aligned); the Python wrapper picks it.
+// of 16, q, pages and out 16-byte aligned), 3 = the register-tile body
+// (D times the page element size a multiple of 16 bytes, pages 16-byte
+// aligned); the Python wrapper picks it.
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 =
 // launched).  Shapes are checked by the Python wrapper; this rejects only
 // what the chosen body cannot hold.
@@ -1181,6 +1691,7 @@ int sky_paged_attention_int8(int body, int dtype, const void* q,
 int sky_paged_attention_smem(int body, int kv_size, int Lq, int D,
                              int page_size, int width) {
   if (body == 2) return (int)mma_smem_bytes(D, kv_size, width);
+  if (body == 3) return (int)tile_smem_bytes(D, kv_size, width);
   if (body == 1) {
     const int max_q = decode_max_q(Lq);
     const int warps = decode_warps(D, kv_size, max_q, width);

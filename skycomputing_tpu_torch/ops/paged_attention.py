@@ -10,7 +10,7 @@ launches the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 the plain PyTorch version of the same function.  Nothing else picks the
 path: a CUDA call either launches the kernel or raises.
 
-The kernel never materializes a row's gathered K/V view.  It has three
+The kernel never materializes a row's gathered K/V view.  It has four
 bodies, and :func:`kernel_plan` picks one from the q and page types,
 Lq, head_dim and the page size alone.  Decode and speculative-verify
 waves (``Lq <= 16``) run the decode body: one block of eight warps per
@@ -24,11 +24,18 @@ as ``mma.sync`` fragments while 64-position K/V tiles
 (four pages of 16) are gathered through the table with ``cp.async``, two
 tiles in flight while one is consumed; an int8 tile is converted to
 bfloat16 in shared memory (exact) and its scales are folded into the
-float32 scores and into P.  Every other call (float32 q with
-``Lq > 16``, and a head_dim or page size the other bodies do not take)
-runs the query-tile body: one block per (row, head, tile of 16 queries)
-stages each page's K/V tile through shared memory in float32, where an
-int8 tile is multiplied by its page's scale as it is read.
+float32 scores and into P.  Every other call with ``Lq > 16`` whose K/V
+row is a whole number of 16-byte chunks (float32 prefill and chunk
+waves; bfloat16 q over pages of 4 or 8, or at another head_dim) runs the
+register-tile body: one block of four warps per (row, head, tile of 32
+queries, 16 past head_dim 64) splits the tile's 16-position chunks over
+its warps as the decode body does, each lane holding a 4-query x 4-key
+tile of float32 scores and its 4 queries' accumulator over 16 head dims
+in registers, every product a float32 FMA.  The rest (a K/V row that is
+not whole 16-byte chunks) runs the query-tile body: one block per (row,
+head, tile of 16 queries) stages each page's K/V tile through shared
+memory in float32, where an int8 tile is multiplied by its page's scale
+as it is read.
 ``csrc/paged_attention.cu`` says what bounds the kernel on the card and
 what each body does about that.
 
@@ -48,8 +55,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _MAX_DECODE_Q = 16
 _MMA_TILE = 16  # head_dim and page-size granule of the tensor-core body
-# the kernel's body codes 0, 1 and 2
-_BODIES = ("query_tile", "decode", "tensor_core")
+# the kernel's body codes 0, 1, 2 and 3
+_BODIES = ("query_tile", "decode", "tensor_core", "register_tile")
 _lib = None
 
 
@@ -93,13 +100,18 @@ def kernel_plan(q_dtype, page_dtype, Lq: int, D: int, page_size: int) -> str:
     - ``"tensor_core"`` for the other calls (``Lq > 16``) with bfloat16
       q and ``D`` and ``page_size`` multiples of 16 (4 warps of 16
       queries per block);
+    - ``"register_tile"`` for the other calls whose K/V row is a whole
+      number of 16-byte chunks (4 warps per block of 32 queries, 16
+      past head_dim 64);
     - ``"query_tile"`` for the rest (16 queries on 4 warps)."""
-    row_bytes = D * page_dtype.itemsize
-    if Lq <= _MAX_DECODE_Q and row_bytes % 16 == 0 and D <= _MAX_HEAD_DIM:
+    whole_rows = (D * page_dtype.itemsize) % 16 == 0 and D <= _MAX_HEAD_DIM
+    if Lq <= _MAX_DECODE_Q and whole_rows:
         return "decode"
     if (q_dtype == torch.bfloat16 and D % _MMA_TILE == 0
             and D <= _MAX_HEAD_DIM and page_size % _MMA_TILE == 0):
         return "tensor_core"
+    if whole_rows:
+        return "register_tile"
     return "query_tile"
 
 

@@ -41,7 +41,7 @@ SHAPES = {
     "decode": (10, 4, 2, 16, 1,
                [([7, 2, 5], 8), ([0, 9], 4), ([], 0), ([1, 3, 4, 6, 8], 16)]),
     # prefill longer than one 16-query tile, with a pad row (page size
-    # 8: the query-tile body in both dtypes)
+    # 8: the register-tile body in both dtypes)
     "prefill_two_tiles": (12, 8, 2, 32, 24,
                           [([3, 1, 7, 9], 0), ([5, 2, 0, 11, 6], 8),
                            ([], 0)]),
@@ -62,38 +62,48 @@ def _edge_rows(Lq):
 
 
 # page_size 16 (the engine's) at the bodies' edges: Lq 1, 5 and 16 take
-# the decode body, 17 the tensor-core body in bfloat16 and the query-tile
-# body in float32
+# the decode body, 17 the tensor-core body in bfloat16 and the
+# register-tile body in float32
 EDGE_SHAPES = {
     f"ps16_d{D}_lq{Lq}": (12, 16, 2, D, Lq, _edge_rows(Lq))
     for D in (64, 128) for Lq in (1, 5, 16, 17)
 }
 
 
-def _prefill_rows(Lq):
-    """Over a table of W pages of 16: a row at index 0, a row whose last
+def _prefill_rows(Lq, PS=16):
+    """Over a table of W pages of PS: a row at index 0, a row whose last
     query fills the whole table, a row at index 20 (mid-page) and an
     all-sentinel pad row; pages drawn from a pool of 3 W + 2."""
-    W = (Lq + 63) // 16 + 1
-    need = lambda idx: (idx + Lq + 15) // 16  # noqa: E731
+    W = (Lq + 63) // PS + 1
+    need = lambda idx: (idx + Lq + PS - 1) // PS  # noqa: E731
     pages = iter(np.random.default_rng(Lq).permutation(3 * W + 1).tolist())
     return 3 * W + 2, [
         ([next(pages) for _ in range(need(0))], 0),
-        ([next(pages) for _ in range(W)], 16 * W - Lq),
+        ([next(pages) for _ in range(W)], PS * W - Lq),
         ([next(pages) for _ in range(need(20))], 20),
         ([], 0),
     ]
 
 
 # the tensor-core prefill body's edges (bfloat16; float32 takes the
-# query-tile body): Lq around one and four 16-row warps, the largest
+# register-tile body): Lq around one and four 16-row warps, the largest
 # prefill bucket, head_dim 64 and 128
 PREFILL_SHAPES = {
     f"prefill_d{D}_lq{Lq}": (_prefill_rows(Lq)[0], 16, 2, D, Lq,
                              _prefill_rows(Lq)[1])
     for D in (64, 128) for Lq in (17, 63, 64, 65, 256)
 }
-ALL_SHAPES = {**SHAPES, **EDGE_SHAPES, **PREFILL_SHAPES}
+# the register-tile body's edges beyond PREFILL_SHAPES (which float32
+# takes to it too): pages of 4 and 8 (bf16 q as well: the tensor-core body
+# takes pages of 16 only), Lq one past the 16-query decode bound, one past
+# a 32-query tile and two whole tiles, head_dim 40 (an int8 row of 40
+# bytes keeps the query-tile body), 64 and 128 (16-query tiles)
+TILE_SHAPES = {
+    f"tile_ps{PS}_d{D}_lq{Lq}": (_prefill_rows(Lq, PS)[0], PS, 2, D, Lq,
+                                 _prefill_rows(Lq, PS)[1])
+    for PS in (4, 8) for D in (40, 64, 128) for Lq in (17, 33, 64)
+}
+ALL_SHAPES = {**SHAPES, **EDGE_SHAPES, **PREFILL_SHAPES, **TILE_SHAPES}
 
 
 def _seed(name):
@@ -101,7 +111,9 @@ def _seed(name):
         return sorted(SHAPES).index(name)
     if name in EDGE_SHAPES:
         return 50 + sorted(EDGE_SHAPES).index(name)
-    return 150 + sorted(PREFILL_SHAPES).index(name)
+    if name in PREFILL_SHAPES:
+        return 150 + sorted(PREFILL_SHAPES).index(name)
+    return 350 + sorted(TILE_SHAPES).index(name)
 
 
 def _case(name, dtype):
@@ -154,11 +166,14 @@ def _paged_body(q, pages):
     checked against the rule it states."""
     Lq, D = q.shape[1], q.shape[3]
     body = paged_kernel_plan(q.dtype, pages.dtype, Lq, D, pages.shape[1])
-    if Lq <= 16 and D * pages.element_size() % 16 == 0:
+    whole_rows = D * pages.element_size() % 16 == 0
+    if Lq <= 16 and whole_rows:
         assert body == "decode"
     elif (q.dtype == torch.bfloat16 and D % 16 == 0
           and pages.shape[1] % 16 == 0):
         assert body == "tensor_core"
+    elif whole_rows:
+        assert body == "register_tile"
     else:
         assert body == "query_tile"
     return body

@@ -65,18 +65,44 @@ def test_flash_tensor_core_blocks_fill_the_card(B, L, H, warps):
     (torch.bfloat16, torch.int8, 128, 64, 16, "tensor_core"),
     (torch.bfloat16, torch.int8, 256, 128, 16, "tensor_core"),
     (torch.bfloat16, torch.bfloat16, 128, 64, 32, "tensor_core"),
-    # the exact float32 body keeps float32 prefill
-    (torch.float32, torch.float32, 128, 64, 16, "query_tile"),
-    (torch.float32, torch.int8, 128, 64, 16, "query_tile"),
-    (torch.float32, torch.float32, 17, 64, 16, "query_tile"),
-    # pages of 4 (the JAX tests') and head_dim 40 keep the query-tile body
-    (torch.bfloat16, torch.bfloat16, 128, 64, 4, "query_tile"),
-    (torch.bfloat16, torch.int8, 24, 64, 8, "query_tile"),
-    (torch.bfloat16, torch.bfloat16, 128, 40, 16, "query_tile"),
+    # float32 prefill and chunk waves take the register-tile body (every
+    # product a float32 FMA), over fp and int8 pages alike
+    (torch.float32, torch.float32, 128, 64, 16, "register_tile"),
+    (torch.float32, torch.int8, 128, 64, 16, "register_tile"),
+    (torch.float32, torch.float32, 17, 64, 16, "register_tile"),
+    # pages of 4 and 8 (the JAX tests') and head_dim 40 in bf16 too: the
+    # tensor-core body does not take them, their rows are whole chunks
+    (torch.bfloat16, torch.bfloat16, 128, 64, 4, "register_tile"),
+    (torch.bfloat16, torch.int8, 24, 64, 8, "register_tile"),
+    (torch.bfloat16, torch.bfloat16, 128, 40, 16, "register_tile"),
+    (torch.float32, torch.float32, 256, 128, 16, "register_tile"),
+    (torch.float32, torch.float32, 64, 12, 4, "register_tile"),  # 48 bytes
+    # a K/V row that is not whole 16-byte chunks keeps the query-tile
+    # body: int8 at head_dim 40 (40 bytes), float32 at 30 (120 bytes)
+    (torch.float32, torch.int8, 128, 40, 16, "query_tile"),
+    (torch.bfloat16, torch.int8, 17, 40, 8, "query_tile"),
+    (torch.float32, torch.float32, 32, 30, 16, "query_tile"),
+    (torch.bfloat16, torch.bfloat16, 64, 20, 4, "query_tile"),  # 40 bytes
 ])
 def test_paged_body_depends_on_lq_head_dim_and_page_type(
         q_dtype, page_dtype, Lq, D, page_size, body):
     assert paged_kernel_plan(q_dtype, page_dtype, Lq, D, page_size) == body
+
+
+@pytest.mark.parametrize("Lq", [17, 32, 33, 64, 128, 256])
+@pytest.mark.parametrize("page_dtype", ["float32", "int8"])
+def test_paged_float32_prefill_takes_the_register_tile_body(page_dtype, Lq):
+    """Every float32 prefill and chunk bucket of the serving bench (GPT-2's
+    head_dim 64, pages of 16) over fp and int8 pages takes the
+    register-tile body, whose block is 4 warps over 32 queries (16 past
+    head_dim 64); the query-tile body keeps only rows that are not whole
+    16-byte chunks."""
+    dtype = getattr(torch, page_dtype)
+    assert paged_kernel_plan(torch.float32, dtype, Lq, 64,
+                             16) == "register_tile"
+    source = (CSRC / "paged_attention.cu").read_text()
+    assert "constexpr int kTileWarps = 4;" in source
+    assert "return d_max > 64 ? 16 : 32;" in source
 
 
 @pytest.mark.parametrize("Lq", [17, 32, 64, 128, 256])
