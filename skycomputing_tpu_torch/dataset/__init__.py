@@ -1,7 +1,7 @@
 """Host-side data for the trainer (the port of
 ``skycomputing_tpu/dataset``: generators, the GLUE dataset and its
-preprocessing, synthetic datasets and the loader; numpy and stdlib
-only)."""
+preprocessing, CIFAR-10, synthetic datasets and the loader; numpy and
+stdlib only)."""
 
 from ..registry import DATASET
 from . import glue
@@ -14,6 +14,7 @@ from .data_generator import (
 )
 from .dataloader import DataLoader
 from .datasets import (
+    CIFAR10Dataset,
     RandomBertDataset,
     RandomImageDataset,
     RandomLmDataset,
@@ -22,6 +23,7 @@ from .datasets import (
 
 __all__ = [
     "BaseGenerator",
+    "CIFAR10Dataset",
     "DATASET",
     "DataLoader",
     "DataloaderGenerator",

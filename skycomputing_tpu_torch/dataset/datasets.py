@@ -1,7 +1,8 @@
-"""Synthetic datasets (the port's numpy copy of
-``skycomputing_tpu/dataset/datasets.py``): MLP features, CIFAR-shaped
-images, MNLI-shaped BERT rows and causal-LM rows.  The CIFAR-10 dataset
-is not ported: no model of the port consumes it yet."""
+"""Datasets (the port's numpy copy of
+``skycomputing_tpu/dataset/datasets.py``): synthetic MLP features,
+CIFAR-shaped images, MNLI-shaped BERT rows and causal-LM rows, and
+CIFAR-10 from its binary distribution (or a seeded synthetic stand-in
+where the files are missing)."""
 
 from __future__ import annotations
 
@@ -80,6 +81,54 @@ class RandomBertDataset:
 
 
 @DATASET.register_module
+class CIFAR10Dataset:
+    """CIFAR-10 from the local binary distribution: ``data_batch_*.bin``
+    (``test_batch.bin`` with ``train=False``), 3,073-byte records of a
+    label byte and 3,072 CHW pixel bytes, read with numpy, pixels scaled
+    to [0, 1].  Without the files (or ``data_dir``) it is a seeded
+    synthetic set of the same row shapes, the JAX dataset's arrays for
+    the same arguments."""
+
+    def __init__(self, data_dir: str = "", train: bool = True,
+                 num_synthetic: int = 256, seed: int = 0):
+        import glob
+        import os
+
+        pattern = "data_batch_*.bin" if train else "test_batch.bin"
+        files = (sorted(glob.glob(os.path.join(data_dir, pattern)))
+                 if data_dir else [])
+        if files:
+            records = np.concatenate([
+                np.fromfile(f, dtype=np.uint8).reshape(-1, 3073)
+                for f in files
+            ])
+            self.labels = records[:, 0].astype(np.int64)
+            images = records[:, 1:].reshape(-1, 3, 32, 32)
+            self.images = images.astype(np.float32) / 255.0
+            self.synthetic = False
+        else:
+            if data_dir:
+                from ..utils import Logger
+
+                Logger().info(
+                    f"CIFAR10Dataset: no {pattern} under {data_dir!r} - "
+                    "using deterministic synthetic images (the binary "
+                    "distribution unpacks into cifar-10-batches-bin/)"
+                )
+            rng = np.random.default_rng(seed)
+            self.images = rng.random(
+                (num_synthetic, 3, 32, 32)).astype(np.float32)
+            self.labels = rng.integers(0, 10, size=(num_synthetic,))
+            self.synthetic = True
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        return (self.images[idx],), int(self.labels[idx])
+
+
+@DATASET.register_module
 class RandomLmDataset:
     """Synthetic causal-LM rows: ((input_ids,), input_ids).
 
@@ -106,5 +155,5 @@ class RandomLmDataset:
         return (row,), row
 
 
-__all__ = ["RandomBertDataset", "RandomImageDataset", "RandomLmDataset",
-           "RandomMlpDataset"]
+__all__ = ["CIFAR10Dataset", "RandomBertDataset", "RandomImageDataset",
+           "RandomLmDataset", "RandomMlpDataset"]

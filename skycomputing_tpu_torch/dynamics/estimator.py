@@ -21,11 +21,16 @@
   costs two FLOPs per table element, the cast of the whole table that
   flax's ``Embed(dtype=...)`` makes.  Every embedding lookup is XLA's
   gather: one FLOP per element it returns (the out-of-bounds fill's
-  select) and 6 per index (the bounds test).  So the two agree per unit to
+  select) and 6 per index (the bounds test).  A convolution costs 2
+  FLOPs per multiply-add of each kernel tap that lands inside the input
+  (XLA leaves out the taps over the padding, which the products counter
+  counts), a GroupNorm 6 per element and 7 per (sample, group), a mean
+  or a sum 1 per element it reads.  So the two agree per unit to
   within the ratios ``tests/test_torch_dynamics.py`` (training) and
   ``tests/test_torch_serving_alloc.py`` (decode) state.  On ``meta`` the
-  flash attention wrapper takes its plain version, so the attention
-  products are counted.
+  flash attention wrapper runs its plain version over one grid cell of
+  the JAX kernel, the work XLA's cost analysis charges the kernel's
+  interpret-mode loop on the CPU.
 - Memory: the reference's formula over tensor shapes exactly — inputs +
   2 x outputs + ``param_scale`` x parameters, at 4 bytes a number, in
   MB.
@@ -60,6 +65,36 @@ _ELEMENT_FLOPS = {
     aten.clone: 0,  # a layout copy (einsum's contiguous operand): a move
     aten.gelu: 64,  # the erf form, as XLA counts it
 }
+# XLA's GroupNorm (flax's): the square, the two reductions, the centring,
+# the scaling by the inverse deviation, the scale and the offset cost 6
+# FLOPs per element, and the statistics 7 per (sample, group)
+_GROUP_NORM_FLOPS = (6, 7)
+
+
+def _valid_taps(size: int, out: int, kernel: int, stride: int, pad: int,
+                dilation: int) -> int:
+    """Kernel taps over all ``out`` output positions of one spatial
+    dimension that land inside the input (not in the padding)."""
+    return sum(1 for o in range(out) for t in range(kernel)
+               if 0 <= o * stride - pad + t * dilation < size)
+
+
+def _conv_correction(args, out) -> int:
+    """XLA's count of a convolution less ``FlopCounterMode``'s: XLA
+    charges 2 FLOPs per multiply-add of a kernel tap that lands inside
+    the input, PyTorch's counter every tap, padding included."""
+    x, w = args[0], args[1]
+    stride, pad, dilation, transposed = args[3], args[4], args[5], args[6]
+    if transposed:
+        return 0
+    # w.shape[1] is the input channels of one group: the counters agree
+    n, c_out, c_in = x.shape[0], w.shape[0], w.shape[1]
+    taps = every = 1
+    for d, k in enumerate(w.shape[2:]):
+        taps *= _valid_taps(x.shape[2 + d], out.shape[2 + d], k, stride[d],
+                            pad[d], dilation[d])
+        every *= out.shape[2 + d] * k
+    return 2 * n * c_out * c_in * (taps - every)
 
 
 # XLA's CPU backend, on which the reference's cost model ran, computes
@@ -69,6 +104,9 @@ _ELEMENT_FLOPS = {
 # slab back
 _PRODUCTS = {aten.mm, aten.bmm, aten.addmm, aten.baddbmm}
 _HALF_WRITES = {aten.scatter_, aten.index_copy_}
+# a view that picks part of a bf16 tensor: XLA converts the whole source
+# up before it slices (BERT's pooler reads token 0 of its bf16 input)
+_HALF_VIEWS = {aten.select}
 # a table lookup whose rows are then cast to bf16: the reference casts
 # the whole table first (flax's Embed(dtype=...))
 _LOOKUPS = {aten.embedding}
@@ -131,6 +169,15 @@ class _ElementwiseFlops(TorchDispatchMode):
                 and out.dtype == torch.bfloat16:
             # XLA charges the table's cast both ways on its CPU backend
             self.flops += 2 * self._lookups[id(args[0])][1]
+        elif packet is aten.convolution:
+            self.flops += _conv_correction(args, out)
+        elif packet is aten.native_group_norm:
+            per_element, per_group = _GROUP_NORM_FLOPS
+            self.flops += (per_element * out[0].numel()
+                           + per_group * out[1].numel())
+        elif packet in (aten.mean, aten.sum):
+            # XLA's reduce: one add per element it reads
+            self.flops += args[0].numel()
         per = _ELEMENT_FLOPS.get(packet)
         pointwise = torch.Tag.pointwise in func.tags
         if per is None and pointwise:
@@ -140,7 +187,9 @@ class _ElementwiseFlops(TorchDispatchMode):
                       and t.is_floating_point()), None)
         if per and first is not None:
             self.flops += per * first.numel()
-        if packet in _HALF_WRITES:
+        if packet in _HALF_VIEWS:
+            self.flops += _half_numel([args[0]])
+        elif packet in _HALF_WRITES:
             # the slab converts back after the write (its reader, a
             # product, pays the convert up)
             self.flops += _half_numel([args[0]])

@@ -8,9 +8,11 @@ checkpoint survives re-allocation.  Weights come from one of:
 - an explicit ``torch.Generator`` (default: seeded with 0), drawing each
   layer's tensors in module order with the flax initializers'
   distributions — N(0, ``init_std``) for embeddings and for dense
-  kernels that carry one, flax ``Dense``'s default ``lecun_normal``
-  (truncated normal, variance 1/fan_in) for the others, zero biases,
-  LayerNorm scales 1 and offsets 0.  The draws are not JAX's bits;
+  kernels that carry one, flax ``Dense``'s and ``Conv``'s default
+  ``lecun_normal`` (truncated normal, variance 1/fan_in) for the others,
+  zero biases, LayerNorm and GroupNorm scales 1 and offsets 0; a module
+  with parameters of its own (``GptBlock_MoeMlp``) draws them in its
+  ``initial_state(normal)``.  The draws are not JAX's bits;
   weights that must equal the JAX package's come through
 - ``state_dicts`` (e.g. :func:`~..convert.params_from_jax`).
 
@@ -61,9 +63,21 @@ def init_state_dict(module: nn.Module, generator: torch.Generator
 
     for name, sub in module.named_modules():
         prefix = f"{name}." if name else ""
+        if hasattr(sub, "initial_state"):  # parameters of its own
+            for key, value in sub.initial_state(normal).items():
+                sd[prefix + key] = value
         if isinstance(sub, nn.LayerNorm):
             sd[prefix + "weight"] = torch.ones(sub.normalized_shape)
             sd[prefix + "bias"] = torch.zeros(sub.normalized_shape)
+        elif isinstance(sub, nn.GroupNorm):
+            sd[prefix + "weight"] = torch.ones(sub.num_channels)
+            sd[prefix + "bias"] = torch.zeros(sub.num_channels)
+        elif isinstance(sub, nn.Conv2d):  # flax Conv: lecun_normal
+            shape = sub.weight.shape  # [out, in, kh, kw]
+            sd[prefix + "weight"] = _lecun_normal(
+                shape, shape[1] * shape[2] * shape[3], generator)
+            if sub.bias is not None:
+                sd[prefix + "bias"] = torch.zeros(sub.out_channels)
         elif isinstance(sub, nn.Embedding):
             sd[prefix + "weight"] = normal(sub.weight.shape, sub.init_std)
         elif isinstance(sub, nn.Linear):

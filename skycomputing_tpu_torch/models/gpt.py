@@ -1,8 +1,8 @@
 """GPT-style causal LM units, for training and for KV-cache serving.
 
-The port of ``skycomputing_tpu/models/gpt.py`` (less ring attention and
-the MoE block): the same registered units, the same layer-config lists,
-the same numerics —
+The port of ``skycomputing_tpu/models/gpt.py`` (less ring attention):
+the same registered units, the same layer-config lists, the same
+numerics —
 
 ====================  ===================================  =======================
 registered name       paged decode step                    full-sequence forward
@@ -10,6 +10,7 @@ registered name       paged decode step                    full-sequence forward
 ``GptEmbeddings``     ``decode(ids, index)`` -> hidden     ``forward(ids)``
 ``GptBlock_Attn``     ``decode_paged(hidden, k, v, ...)``  ``forward(hidden)``
 ``GptBlock_Mlp``      ``forward(hidden)`` -> hidden        the same
+``GptBlock_MoeMlp``   ``forward(hidden)`` -> hidden        the same
 ``GptLmHead``         ``forward(hidden)`` -> logits        the same
 ====================  ===================================  =======================
 
@@ -40,7 +41,13 @@ Sampling (``temperature > 0``) in :func:`generate` and
 agree with each other; greedy decoding is the reference's token for
 token.
 
-Not ported yet: ring attention and ``GptBlock_MoeMlp``.
+``GptBlock_MoeMlp`` replaces the MLP of every ``moe_every``-th block
+(:func:`gpt_layer_configs`): a top-k router over experts stacked on a
+leading axis, fixed-capacity dispatch (``ops/moe.py``), the Switch
+load-balance loss kept on the module as ``aux_loss`` (JAX sows it into
+``intermediates``) or returned with ``return_aux=True``.
+
+Not ported yet: ring attention (queue A item 2c).
 """
 
 from __future__ import annotations
@@ -200,7 +207,8 @@ class GptBlock_Attn(nn.Module):
         """Causal self-attention over the whole sequence [B, L, H]."""
         if self.mesh is not None:
             raise NotImplementedError(
-                "ring attention is not ported to PyTorch yet")
+                "ring attention is not ported to PyTorch yet (queue A "
+                "item 2c)")
         q, k, v = self._qkv(hidden)
         L = q.shape[1]
         causal = torch.ones(L, L, dtype=torch.bool,
@@ -284,6 +292,85 @@ class GptBlock_Mlp(nn.Module):
 
 
 @LAYER.register_module
+class GptBlock_MoeMlp(nn.Module):
+    """Pre-LN mixture-of-experts MLP half of a transformer block.
+
+    Parameters ``router [H, E]``, ``w1 [E, H, I]``, ``b1 [E, I]``, ``w2
+    [E, I, H]``, ``b2 [E, H]`` (float32, the JAX block's layout), the
+    experts computed in ``cfg.dtype``; dropout after the combine.  The
+    load-balance loss of the last forward is ``self.aux_loss``, detached
+    from the graph; with ``return_aux`` the forward returns ``(hidden,
+    aux)``, which carries the gradient."""
+
+    def __init__(self, config: Any, num_experts: int = 8, top_k: int = 1,
+                 capacity_factor: float = 1.25, deterministic: bool = False,
+                 return_aux: bool = False):
+        super().__init__()
+        self.config = cfg = _gcfg(config)
+        self.num_experts = E = num_experts
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.return_aux = return_aux
+        H, I = cfg.hidden_size, cfg.intermediate_size
+        self.ln_2 = nn.LayerNorm(H, eps=1e-5)
+        self.router = nn.Parameter(torch.empty(H, E))
+        self.w1 = nn.Parameter(torch.empty(E, H, I))
+        self.b1 = nn.Parameter(torch.empty(E, I))
+        self.w2 = nn.Parameter(torch.empty(E, I, H))
+        self.b2 = nn.Parameter(torch.empty(E, H))
+        self.drop = _dropout(cfg.dropout_prob, deterministic)
+        self.aux_loss = None
+
+    @staticmethod
+    def initial_params(config: Any, num_experts: int, normal) -> dict:
+        """The block's own parameters as the flax initializers draw them:
+        router and expert kernels ~ N(0, initializer_range) from
+        ``normal(shape, std)``, in that order, biases 0."""
+        cfg = _gcfg(config)
+        E, H, I = num_experts, cfg.hidden_size, cfg.intermediate_size
+        std = cfg.initializer_range
+        return {"router": normal((H, E), std), "w1": normal((E, H, I), std),
+                "b1": torch.zeros(E, I), "w2": normal((E, I, H), std),
+                "b2": torch.zeros(E, H)}
+
+    def initial_state(self, normal) -> dict:
+        """:meth:`initial_params` of this block (the parameter server's
+        hook for a module's own parameters)."""
+        return self.initial_params(self.config, self.num_experts, normal)
+
+    def forward(self, hidden):
+        from ..ops.moe import (
+            moe_dispatch_combine,
+            router_probs,
+            top_k_dispatch,
+        )
+
+        cfg = self.config
+        dt = torch_dtype(cfg.dtype)
+        act = ACT2FN[cfg.hidden_act]
+        E, H = self.num_experts, cfg.hidden_size
+        x = _layer_norm(hidden, self.ln_2).to(dt)
+        B, L, _ = x.shape
+        tokens = x.reshape(B * L, H)
+        capacity = max(1, math.ceil(B * L / E * self.capacity_factor))
+        probs = router_probs(tokens, self.router)
+        dispatch, combine, aux = top_k_dispatch(probs, capacity, self.top_k)
+        self.aux_loss = aux.detach()
+
+        def experts(buf):  # [E, C, H] -> [E, C, H]
+            h = act(torch.einsum("ech,ehi->eci", buf, self.w1.to(dt))
+                    + self.b1[:, None, :].to(dt))
+            return (torch.einsum("eci,eih->ech", h, self.w2.to(dt))
+                    + self.b2[:, None, :].to(dt))
+
+        out = moe_dispatch_combine(tokens, dispatch, combine, experts)
+        out = self.drop(out.reshape(B, L, H).to(dt))
+        if self.return_aux:
+            return hidden + out, aux
+        return hidden + out
+
+
+@LAYER.register_module
 class GptLmHead(nn.Module):
     """Final LayerNorm + vocabulary projection; float32 logits."""
 
@@ -301,19 +388,31 @@ class GptLmHead(nn.Module):
 
 
 def gpt_layer_configs(config: Any, num_blocks: Optional[int] = None,
-                      deterministic: bool = False, mesh: Any = None) -> list:
+                      deterministic: bool = False, mesh: Any = None,
+                      moe_every: int = 0, num_experts: int = 8,
+                      moe_top_k: int = 1,
+                      moe_capacity_factor: float = 1.25) -> list:
     """Full layer-config list: embeddings + blocks x (attn, mlp) + LM
     head — the same dicts the JAX package's ``gpt_layer_configs``
-    builds (without MoE)."""
+    builds.  ``moe_every=n`` makes every n-th block's MLP a
+    :class:`GptBlock_MoeMlp` (0: dense only)."""
     cfg = _gcfg(config)
     if num_blocks is None:
         num_blocks = cfg.num_hidden_layers
     blocks = []
-    for _ in range(num_blocks):
+    for b in range(num_blocks):
         blocks.append(dict(layer_type="GptBlock_Attn", config=cfg.to_dict(),
                            deterministic=deterministic, mesh=mesh))
-        blocks.append(dict(layer_type="GptBlock_Mlp", config=cfg.to_dict(),
-                           deterministic=deterministic))
+        if moe_every and (b + 1) % moe_every == 0:
+            blocks.append(dict(layer_type="GptBlock_MoeMlp",
+                               config=cfg.to_dict(), num_experts=num_experts,
+                               top_k=moe_top_k,
+                               capacity_factor=moe_capacity_factor,
+                               deterministic=deterministic))
+        else:
+            blocks.append(dict(layer_type="GptBlock_Mlp",
+                               config=cfg.to_dict(),
+                               deterministic=deterministic))
     return (
         [dict(layer_type="GptEmbeddings", config=cfg.to_dict(),
               deterministic=deterministic)]
@@ -358,6 +457,11 @@ def random_state_dicts(layer_cfgs: Sequence[dict], seed: int) -> List[dict]:
         elif kind == "GptBlock_Mlp":
             sd = {**ln("ln_2"), **dense("c_fc", H, I),
                   **dense("c_proj", I, H)}
+        elif kind == "GptBlock_MoeMlp":
+            sd = {**ln("ln_2"), **GptBlock_MoeMlp.initial_params(
+                cfg, layer_cfg.get("num_experts", 8),
+                lambda shape, s: torch.from_numpy(rng.standard_normal(
+                    shape, dtype=np.float32) * np.float32(s)))}
         elif kind == "GptLmHead":
             sd = {**ln("ln_f"), **dense("lm_head", H, V)}
         else:
@@ -682,6 +786,7 @@ __all__ = [
     "GptEmbeddings",
     "GptBlock_Attn",
     "GptBlock_Mlp",
+    "GptBlock_MoeMlp",
     "GptLmHead",
     "CachedGptDecoder",
     "apply_kv_cached",

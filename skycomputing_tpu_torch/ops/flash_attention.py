@@ -19,7 +19,9 @@ The gradient is the JAX module's: the forward is the kernel, the
 backward recomputes the plain version in float32 under autograd
 (``_bwd`` there), so a training step launches the kernel once per
 forward and once per rematerialized forward, never in the backward.
-``flash_attention.launches`` counts the kernel's launches.
+``flash_attention.launches`` counts the kernel's launches.  A call on
+``meta`` computes nothing and counts, for the static profiler, the work
+XLA's cost analysis charges the JAX kernel on the CPU: one grid cell.
 """
 
 from __future__ import annotations
@@ -89,22 +91,27 @@ def kernel_smem_bytes(plan: dict, D: int) -> int:
         _BODIES.index(plan["body"]), D, plan["warps"])
 
 
-def check_blocks(seq_len: int, block_q: int, block_k: int) -> None:
-    """The JAX module's block picker, kept for its refusal: a length
-    over 1024 with no multiple-of-8 divisor at most the requested block
-    raises ``ValueError`` there (a full-length TPU tile would not fit),
-    so it raises here too.  The CUDA kernel tiles any length itself."""
-    for requested in (block_q, block_k):
-        if seq_len <= requested or seq_len % requested == 0:
-            continue
-        if any(seq_len % b == 0
-               for b in range(requested - requested % 8, 7, -8)):
-            continue
-        if seq_len > 1024:
-            raise ValueError(
-                f"seq len {seq_len} has no 8-aligned divisor <= "
-                f"{requested}; pad the sequence to a multiple of 128"
-            )
+def pick_block(seq_len: int, requested: int) -> int:
+    """The JAX module's TPU tile along the sequence for a ``requested``
+    block: the request where it tiles ``seq_len`` (or covers it), else
+    the largest multiple-of-8 divisor at most the request, else one
+    full-length block; a length over 1024 with no such divisor raises
+    ``ValueError`` there (a full-length TPU tile would not fit), so it
+    raises here too.  The CUDA kernel tiles any length itself; the
+    block decides the refusal and the static profile's charge."""
+    if seq_len <= requested:
+        return seq_len
+    if seq_len % requested == 0:
+        return requested
+    for b in range(requested - requested % 8, 7, -8):
+        if seq_len % b == 0:
+            return b
+    if seq_len > 1024:
+        raise ValueError(
+            f"seq len {seq_len} has no 8-aligned divisor <= "
+            f"{requested}; pad the sequence to a multiple of 128"
+        )
+    return seq_len
 
 
 def flash_attention_reference(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -115,6 +122,54 @@ def flash_attention_reference(q, k, v, bias, scale: float) -> torch.Tensor:
     s = s + bias[:, None, None, :].float()
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+# bf16 outputs against the plain version at long L: the largest error over
+# the largest |ref| (about four bf16 ulps of the largest output) and the
+# error's RMS over ref's RMS (the kernel's rounding alone gives about
+# 2.5e-3; a fault in one key tile of 64 at L=4,096 gives 1.1e-2 or more)
+BF16_LONG_TOL = {"max_rel_err": 1.5e-2, "rms_rel_err": 5e-3}
+
+
+def agreement(out, ref) -> dict:
+    """How far ``out`` lies from ``ref``, scaled to what is compared: the
+    largest absolute error, that error over the largest ``|ref|``, and
+    the error's RMS over ``ref``'s RMS.  At long L each output averages
+    about L/e keys and shrinks (RMS 0.027 at L=4,096 with q/k/v ~ N(0,
+    1)), so an absolute bf16 tolerance set at L=128 would pass a fault in
+    a key tile; :data:`BF16_LONG_TOL` bounds the two ratios."""
+    err, ref = out.float() - ref.float(), ref.float()
+    worst = err.abs().max().item()
+    return {"max_abs_err": worst,
+            "max_rel_err": worst / ref.abs().max().item(),
+            "rms_rel_err": (err.square().mean().sqrt()
+                            / ref.square().mean().sqrt()).item()}
+
+
+class _MetaFlashAttention(torch.autograd.Function):
+    """A call on ``meta`` (the static profiler, the pre-flight): the
+    output's shape, gradients of the inputs' shapes, and the plain
+    version run over one grid cell of the JAX kernel (one row and head,
+    ``block_q`` queries, one key block of ``block_k``) so that a FLOP
+    counter charges what XLA's cost analysis charges the JAX package's
+    kernel on the CPU, where it runs in interpret mode: a loop over the
+    grid whose body, with the key-block loop inside it, is counted
+    once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, block_q, block_k):
+        ctx.shapes = [t.shape for t in (q, k, v, bias)]
+        cell = (slice(0, 1), slice(0, block_q), slice(0, 1))
+        keys = (slice(0, 1), slice(0, block_k), slice(0, 1))
+        flash_attention_reference(q[cell], k[keys], v[keys],
+                                  bias[:1, :block_k], scale)
+        return q.new_empty(q.shape)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*(grad_out.new_empty(shape) if need else None
+                  for shape, need in zip(ctx.shapes, ctx.needs_input_grad)),
+                None, None, None)
 
 
 def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
@@ -208,8 +263,10 @@ def flash_attention(
     dtype; differentiable in q, k, v and bias.
 
     ``block_q``/``block_k`` are the JAX signature's TPU tile requests:
-    they only decide the ``ValueError`` of :func:`check_blocks`.  CPU
-    tensors take :func:`flash_attention_reference`; CUDA tensors launch
+    they decide the ``ValueError`` of :func:`pick_block` and, on
+    ``meta``, the one grid cell whose work is counted
+    (:class:`_MetaFlashAttention`).  CPU tensors take
+    :func:`flash_attention_reference`; CUDA tensors launch
     the kernel (float32 or bfloat16, ``D <= 128``, the bias float32 or
     bfloat16; the body from :func:`kernel_plan`) and count it in
     ``flash_attention.launches``; anything the kernel does not take
@@ -217,10 +274,11 @@ def flash_attention(
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    check_blocks(q.shape[1], block_q, block_k)
-    # a meta tensor computes nothing: the plain version gives the static
-    # profiler the output's shape and the FLOP counter the products
-    if q.device.type in ("cpu", "meta"):
+    L = q.shape[1]
+    bq, bk = pick_block(L, block_q), pick_block(L, block_k)
+    if q.device.type == "meta":
+        return _MetaFlashAttention.apply(q, k, v, bias, float(scale), bq, bk)
+    if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -229,5 +287,6 @@ def flash_attention(
 
 flash_attention.launches = 0
 
-__all__ = ["check_blocks", "flash_attention", "flash_attention_reference",
-           "kernel_plan", "kernel_smem_bytes"]
+__all__ = ["BF16_LONG_TOL", "agreement", "flash_attention",
+           "flash_attention_reference", "kernel_plan", "kernel_smem_bytes",
+           "pick_block"]

@@ -39,9 +39,15 @@ TINY_ENV = dict(SKYTPU_BENCH_PRESET="tiny", SKYTPU_BENCH_WORKERS="4",
 
 
 def _bench_env(**extra):
+    """The tiny bench's environment.  One intra-op thread: the run's
+    tensors are tiny, and on a host whose cores other processes keep
+    busy a thread per core oversubscribes them: beside eight busy
+    processes on eight cores the run took 128 s with a thread per core
+    and 8.5 s with one."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("SKYTPU_BENCH_")}
-    env.update(TINY_ENV, PYTHONPATH=str(ROOT), **extra)
+    env.update(TINY_ENV, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1",
+               **extra)
     return env
 
 

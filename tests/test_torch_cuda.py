@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from skycomputing_tpu_torch.ops.flash_attention import (
+    BF16_LONG_TOL,
+    agreement,
     flash_attention,
     flash_attention_reference,
 )
@@ -293,6 +295,37 @@ def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
     assert bool(torch.isfinite(out).all())
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOL[dtype], f"max |err| {err}"
+
+
+# long-context BERT's sequences at BERT-large's heads, the last tenth of
+# the keys padded: 16-64 key tiles of the tensor-core body's online
+# softmax.  Outputs shrink as L grows, so bf16 is held, besides TOL, to
+# BF16_LONG_TOL's ratios to the plain version's scale
+LONG_FLASH_SHAPES = {"long_L1024": (1, 1024, 102), "long_L2048": (1, 2048, 204),
+                     "long_L4096": (1, 4096, 409)}
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("name", sorted(LONG_FLASH_SHAPES))
+def test_flash_attention_long_sequences_match_plain_version(card, name,
+                                                            dtype):
+    B, L, tail = LONG_FLASH_SHAPES[name]
+    rng = np.random.default_rng(700 + sorted(LONG_FLASH_SHAPES).index(name))
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, 16, 64))
+                                .astype(np.float32)).to("cuda", dt)
+               for _ in range(3))
+    bias = torch.zeros(B, L)
+    bias[:, -tail:] = -10000.0
+    bias = bias.to("cuda", dt)
+    out = flash_attention(q, k, v, bias)
+    ref = flash_attention_reference(q, k, v, bias, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    got = agreement(out, ref)
+    assert got["max_abs_err"] <= TOL[dtype], got
+    if dtype == "bfloat16":
+        assert all(got[k] <= tol for k, tol in BF16_LONG_TOL.items()), got
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))

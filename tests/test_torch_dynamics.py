@@ -1,7 +1,8 @@
 """Profiling and allocation port contracts on the CPU, against the JAX
 package on the same numpy inputs: static unit profiles (memory equal,
-FLOPs within the stated per-unit ratio, none at 0) for BERT ``tiny``
-and the proxy layers, the timed profile, the device benchmarker and its
+FLOPs within the stated per-unit ratio, none at 0) for BERT ``tiny``,
+the proxy layers and the zoo's later units (long BERT, MoE GPT, ResNet,
+each with its stack's partition), the timed profile, the device benchmarker and its
 caches, every ``Allocator`` strategy and calibration over identical
 injected profiles (the contracts of ``tests/test_dynamics.py``), the
 config loader, the data generators and the builder factories."""
@@ -617,6 +618,80 @@ def test_launcher_static_partition_equals_jax_under_gpt(monkeypatch,
     assert mem == ref_mem
     for kind, ratio in _ratio_by_type(units, flops, ref_flops).items():
         assert DEFAULT_RATIO[0] <= ratio <= DEFAULT_RATIO[1], (kind, ratio)
+    unbounded = [float("inf")] * 4
+    got = solve_contiguous_minmax(flops, mem, DRAWS, unbounded)
+    ref = jax_solve_contiguous_minmax(ref_flops, ref_mem, DRAWS, unbounded)
+    assert _partition(got) == _partition(ref)
+
+
+def _zoo_stacks(case):
+    """(port units, JAX units, port generator, JAX generator) of the
+    stack that holds ``case``'s unit type."""
+    from skycomputing_tpu.models import gpt as jgpt
+    from skycomputing_tpu.models import resnet as jres
+    from skycomputing_tpu.models.long_bert import (
+        long_bert_layer_configs as jax_long,
+    )
+    from skycomputing_tpu_torch.models import gpt as tgpt
+    from skycomputing_tpu_torch.models import long_bert_layer_configs
+    from skycomputing_tpu_torch.models import resnet as tres
+
+    if case.startswith("LongBertLayer_Head"):
+        dtype = case.split("-")[1]
+
+        def cfg(pkg_config):
+            return pkg_config("tiny", dtype=dtype, hidden_dropout_prob=0.1,
+                              attention_probs_dropout_prob=0.0,
+                              max_position_embeddings=256)
+
+        return (long_bert_layer_configs(cfg(bert_config), 2),
+                jax_long(cfg(jax_bert_config), 2, None),
+                RandomTokenGenerator(2, 256, 1024), JaxTokens(2, 256, 1024))
+    if case == "GptBlock_MoeMlp":
+        def units(pkg):
+            cfg = pkg.GptConfig(vocab_size=512, hidden_size=64,
+                                num_hidden_layers=4, num_attention_heads=2,
+                                max_position_embeddings=64, dropout_prob=0.1,
+                                dtype="float32")
+            return pkg.gpt_layer_configs(cfg, moe_every=2, num_experts=4,
+                                         moe_top_k=2)
+
+        data_cfg = dict(dataset_cfg=dict(type="RandomLmDataset",
+                                         num_samples=8, seq_length=64,
+                                         vocab_size=512),
+                        dataloader_cfg=dict(batch_size=4, shuffle=True))
+        return (units(tgpt), units(jgpt), DataloaderGenerator(data_cfg),
+                JaxLoaderGen(data_cfg))
+    block = "BottleNeck" if case.endswith("BottleNeck") else "BasicBlock"
+    return (tres.resnet_layer_configs(block, [1, 1, 1, 1]),
+            jres.resnet_layer_configs(block, [1, 1, 1, 1]),
+            RandomTensorGenerator(size=(4, 3, 32, 32)),
+            JaxTensors(size=(4, 3, 32, 32)))
+
+
+@pytest.mark.parametrize("case", [
+    "LongBertLayer_Head-float32", "LongBertLayer_Head-bfloat16",
+    "GptBlock_MoeMlp", "ResHead", "ResLayer-BasicBlock",
+    "ResLayer-BottleNeck", "ResTail"])
+def test_zoo_static_profile_and_partition_equal_jax(case):
+    """Each unit type new to the zoo (long BERT's head, the MoE block and
+    ResNet's units), in a stack that holds it (long BERT at L=256 with
+    hidden dropout; MoE GPT with dropout; ResNet on CIFAR's 32 x 32
+    images), profiled statically by each
+    package: memory equal, every unit's FLOPs within DEFAULT_RATIO
+    (convolutions without their padded taps, GroupNorm, the mean, the
+    flash call's one grid cell and a bf16 pooler's convert, as XLA
+    counts them), and over the stimulator's draws one partition and
+    one device order."""
+    units, ref_units, gen, ref_gen = _zoo_stacks(case)
+    kind = case.split("-")[0]
+    assert kind in [u["layer_type"] for u in units]
+    flops, mem = ModelBenchmarker(units, gen).benchmark()
+    ref_flops, ref_mem = JaxModelBench(ref_units, ref_gen).benchmark()
+    assert mem == ref_mem
+    for unit, got, ref in zip(units, flops, ref_flops):
+        assert DEFAULT_RATIO[0] <= got / ref <= DEFAULT_RATIO[1], (
+            unit["layer_type"], got / ref)
     unbounded = [float("inf")] * 4
     got = solve_contiguous_minmax(flops, mem, DRAWS, unbounded)
     ref = jax_solve_contiguous_minmax(ref_flops, ref_mem, DRAWS, unbounded)
