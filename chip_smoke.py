@@ -17,7 +17,7 @@ one.  Phases, each fatal on failure:
    fp pages (kernel B2) and over int8 pages with per-page-per-head
    scales (kernel B3); flash attention (kernel B1) at BERT-large's
    microbatch (B=8, L=128, H=16, D=64, a padded tail of 32 keys), at
-   L=512 and at L=100; then, checked but not timed, each kernel body's
+   L=512, at L=100 and at phases 27-28's dp shard (B=4, L=128); then, checked but not timed, each kernel body's
    edges (B1 at L=7, 64 and 65, head_dim 32, 40 and 128, B=1, every key
    masked; B2 and B3 with a row at index 0, a row filling its whole
    table, a row at index 20 and an all-sentinel pad row, head_dim 64
@@ -202,7 +202,8 @@ one.  Phases, each fatal on failure:
 23. long-context BERT through B1: first B1 against its plain version at
     B=1, H=16, D=64 with the last tenth of the keys padded, bf16 at L =
     1,024, 2,048 and 4,096 (the tensor-core body, within 2e-2) and
-    float32 at 2,048 (the CUDA-core body, within 1e-4), each timed as in
+    float32 at 2,048 and 4,096 (the CUDA-core body, within 1e-4; 4,096
+    is phase 26's single-device baseline), each timed as in
     phase 3 beside its bound and SDPA's time; then ``launch.run`` on a
     config of ``long_bert_layer_configs`` at BERT-large's width (hidden
     1,024, 16 heads, intermediate 4,096, bf16), rows and positions of
@@ -227,13 +228,44 @@ one.  Phases, each fatal on failure:
     ``CIFAR10Dataset``'s synthetic fallback in batches of 128, 4
     stimulated workers, ``optimal`` on the static profile, GPipe M=4, 5
     steps of SGD at 1e-3: no kernel, the first batch's loss falling.
-    Printed: step times, images/s, peak memory, the losses.
+    Printed: step times, images/s, peak memory, the losses;
+26. sequence parallelism, with a mesh of 4 positions all on the card
+    (so its moves are copies on one device, and no link is measured):
+    ring attention and Ulysses at B=1, L=4,096, 16 heads of 64, the
+    last tenth of the keys padded, in float32 against
+    ``full_attention_reference`` (max abs error <= 1e-4) and in bf16
+    against B1 (``BF16_LONG_TOL``), each timed with its peak memory;
+    then long BERT at BERT-large's width, L=4,096, 4 encoder units,
+    float32, batch 2, GPipe M=2, 3 SGD steps with every head on the
+    ring, against the same steps through B1 (``mesh=None``) from the
+    same weights (losses within 1e-4 relative; B1 16 a step in the
+    baseline, never on the ring); GPT-2 small's width (float32, 2
+    blocks) at L=1,024 with causal ring attention against the dense
+    stack (logits within 1e-4).  Printed: step times, peak memory, B1's
+    launches;
+27. data-parallel replicas: ``DataParallelPipeline`` with 2 replicas
+    of the launcher's BERT-large pipeline (24 layers as 75 units, flash
+    on, float32, 4 workers each, every position on the card), batch 32
+    x 128, 1F1B M=4, 3 SGD steps, against one ``PipelineModel`` on the
+    whole batch from the same weights: losses within 1e-4 relative,
+    parameters within 1e-5, the replicas bitwise identical, B1 384
+    times a step.  Printed: step times, B1 launches, peak memory;
+28. mesh-native stages: ``Allocator.mesh_allocate`` over 4 stimulated
+    workers and 8 positions on the card (at most 4 stages of 2), the
+    plan held by ``verify_mesh_payload`` and a broken payload refused;
+    ``MeshPipelineModel`` on that plan (each stage's microbatch rows
+    split over its 2 positions), 1F1B M=4, 3 SGD steps; then at one
+    position per stage against ``PipelineModel`` on the same allocation,
+    2 steps each in turns: whether the parameters are bitwise equal,
+    and their largest difference (within 1e-5).
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
 and phase 21; their register-tile entries from phase 21's float32
-prefill and chunk waves; B1's from its BERT paths, and at L=4,096 from
-phase 23);
+prefill and chunk waves; B1's from its BERT paths, at L=4,096 from
+phase 23, and its float32 body's from phases 27-28, beside its time
+at their 4 rows of 128, and from phase 26's baseline, beside its time
+at 1 row of 4,096);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -1117,9 +1149,11 @@ def write_cost_per_tick(torch, np, engine, timer=time_ms):
 # phase 3: flash attention (B1) against its plain version
 # --------------------------------------------------------------------------
 
-# (case, B, L, padded tail keys) at BERT-large's heads (H=16, D=64)
+# (case, B, L, padded tail keys) at BERT-large's heads (H=16, D=64); B=4
+# is the microbatch that phases 27 and 28 hand each dp shard
 FLASH_CASES = (("bert_large_L128", 8, 128, 32), ("long_L512", 2, 512, 0),
-               ("indivisible_L100", 2, 100, 0))
+               ("indivisible_L100", 2, 100, 0),
+               ("bert_large_L128_B4", 4, 128, 32))
 
 
 def flash_case(torch, np, B, L, tail, dtype, seed):
@@ -2795,7 +2829,8 @@ LONG_FLASH_CASES = (("long_L1024", 1, 1024, 102), ("long_L2048", 1, 2048, 204),
 def flash_long_checks(torch, np, ptxas):
     """Phase 23's kernel rows: B1 against its plain version at long
     BERT's lengths, bf16 (the tensor-core body) at L = 1,024, 2,048 and
-    4,096 and float32 (the CUDA-core body) at 2,048, with the kernel's,
+    4,096 and float32 (the CUDA-core body) at 2,048 and at 4,096 (phase
+    26's single-device baseline), with the kernel's,
     the plain version's and SDPA's times and the bound, timed as
     :func:`flash_checks` times them.  Outputs shrink as L grows, so bf16
     is also held to ``BF16_LONG_TOL``'s ratios to the plain version's
@@ -2811,7 +2846,7 @@ def flash_long_checks(torch, np, ptxas):
 
     tol = {"float32": 1e-4, "bfloat16": 2e-2}
     cases = [(c, "bfloat16") for c in LONG_FLASH_CASES] + [
-        (LONG_FLASH_CASES[1], "float32")]
+        (LONG_FLASH_CASES[1], "float32"), (LONG_FLASH_CASES[2], "float32")]
     results = []
     for (name, B, L, tail), dtype in cases:
         q, k, v, bias = flash_case(torch, np, B, L, tail, dtype,
@@ -3266,6 +3301,413 @@ def resnet_path(torch, np, kernels, workdir):
     log(f"   e2e: {json.dumps(e2e)}")
     del run
     return e2e
+
+
+# --------------------------------------------------------------------------
+# phases 26-28: sequence parallelism, data-parallel replicas and
+# mesh-native stages, every position on the one card
+# --------------------------------------------------------------------------
+
+SP_POSITIONS = 4  # sequence-parallel positions, all on one device
+SP_L, SP_UNITS, SP_BATCH, SP_MICRO = 4096, 4, 2, 2
+SP_GPT_L, SP_GPT_BLOCKS = 1024, 2
+PAR_STEPS, PAR_MICRO, PAR_LR = 3, 4, 1e-3
+
+
+def _peak_reset(torch, dev):
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(torch, dev):
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sp_attention_checks(torch, np, dev, L=SP_L, H=16, D=64):
+    """Ring attention and Ulysses over ``SP_POSITIONS`` positions of one
+    device at B=1, L tokens, H heads of D (BERT-large's), the last tenth
+    of the keys padded: float32 against ``full_attention_reference``
+    (max abs error <= 1e-4), bf16 against B1 (held to
+    ``BF16_LONG_TOL``), each timed on the card with its peak memory."""
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        BF16_LONG_TOL,
+        agreement,
+        flash_attention,
+    )
+    from skycomputing_tpu_torch.parallel import (
+        full_attention_reference,
+        make_1d_mesh,
+        ring_attention,
+        ulysses_attention,
+    )
+
+    mesh = make_1d_mesh(SP_POSITIONS, "sp", [dev] * SP_POSITIONS)
+    rng = np.random.default_rng(SEED + 26)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, L, H, D)).astype(
+        np.float32)).to(dev) for _ in range(3))
+    bias = torch.zeros(1, L, device=dev)
+    bias[:, L - L // 10:] = -10000.0
+    ref = full_attention_reference(q, k, v, bias=bias)
+    qb, kb, vb, bb = (t.bfloat16() for t in (q, k, v, bias))
+    b1 = flash_attention(qb, kb, vb, bb)
+    rows = []
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        _peak_reset(torch, dev)
+        out = fn(q, k, v, mesh, bias=bias)
+        peak = _peak_gb(torch, dev)
+        err = (out - ref).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        bf16 = agreement(fn(qb, kb, vb, mesh, bias=bb), b1)
+        row = dict(strategy=name, positions=SP_POSITIONS, B=1, L=L, H=H,
+                   D=D, f32_max_abs_err=err, f32_peak_mem_gb=peak,
+                   bf16_vs_b1=bf16,
+                   f32_ms=time_ms(torch, lambda: fn(q, k, v, mesh,
+                                                    bias=bias),
+                                  iters=5, warmup=1, host_ahead=False),
+                   bf16_ms=time_ms(torch, lambda: fn(qb, kb, vb, mesh,
+                                                     bias=bb),
+                                   iters=5, warmup=1, host_ahead=False))
+        log(f"   {json.dumps(row)}")
+        check(finite and err <= 1e-4,
+              f"{name} float32 against the full reference: max |err| "
+              f"{err:.3g} <= 1e-4")
+        check(all(bf16[key] <= bound for key, bound in BF16_LONG_TOL.items()),
+              f"{name} bf16 against B1: over max |ref| "
+              f"{bf16['max_rel_err']:.3g}, RMS over RMS "
+              f"{bf16['rms_rel_err']:.3g} (bounds {BF16_LONG_TOL})")
+        rows.append(row)
+        del out
+    ref_ms = time_ms(torch, lambda: full_attention_reference(
+        q, k, v, bias=bias), iters=5, warmup=1, host_ahead=False)
+    log(f"   full_attention_reference float32: {ref_ms:.3f} ms")
+    rows.append(dict(strategy="full_attention_reference", f32_ms=ref_ms))
+    return rows
+
+
+def _long_bert_data(np, vocab_size, L):
+    rng = np.random.default_rng(SEED + 27)
+    ids = rng.integers(5, vocab_size, size=(SP_BATCH, L)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[1:, L - L // 10:] = 0
+    labels = rng.integers(0, 3, size=(SP_BATCH,)).astype(np.int32)
+    return (ids, np.zeros_like(ids), mask), labels
+
+
+def _clone_params(params):
+    return [{k: v.clone() for k, v in sd.items()} for sd in params]
+
+
+def _train_steps(torch, model, data, labels, dev, steps):
+    """``steps`` train steps, each from its own seeded generator: the
+    losses, each step's wall time (a step ends in a device barrier) and
+    the peak memory."""
+    _peak_reset(torch, dev)
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(model.train_step(
+            data, labels, generator=torch.Generator().manual_seed(i)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, _peak_gb(torch, dev)
+
+
+def sp_long_bert_steps(torch, np, kernels, dev, preset="large",
+                       units=SP_UNITS, L=SP_L, steps=PAR_STEPS):
+    """Long BERT at ``preset``'s width, ``units`` encoder units, rows of
+    L, float32, dropouts 0, 4 workers on one device, GPipe M=2, SGD: the
+    heads' attention by ring attention over ``SP_POSITIONS`` positions,
+    then by B1 (``mesh=None``) from the same weights.  Losses within
+    1e-4 relative; B1 launched only in the second run."""
+    from skycomputing_tpu_torch.dynamics import Allocator, ParameterServer
+    from skycomputing_tpu_torch.models import (
+        bert_config,
+        long_bert_layer_configs,
+    )
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import (
+        PipelineModel,
+        make_1d_mesh,
+        sgd,
+    )
+
+    cfg = bert_config(preset, dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      max_position_embeddings=L)
+    mesh = make_1d_mesh(SP_POSITIONS, "sp", [dev] * SP_POSITIONS)
+    data, labels = _long_bert_data(np, cfg.vocab_size, L)
+    runs, init = {}, None
+    for name, run_mesh in (("ring", mesh), ("b1", None)):
+        model_cfg = long_bert_layer_configs(cfg, units, run_mesh,
+                                            deterministic=True)
+        wm = worker_pool(4)
+        Allocator(model_cfg, wm).even_allocate()
+        ps = ParameterServer(
+            model_cfg, state_dicts=None if init is None else
+            _clone_params(init),
+            generator=torch.Generator().manual_seed(SEED))
+        init = init or _clone_params(ps.params)
+        model = PipelineModel(wm, ps, sgd(PAR_LR), cross_entropy_loss,
+                              devices=[dev], num_microbatches=SP_MICRO)
+        for k in kernels.values():
+            k["fn"].launches = 0
+        losses, step_ms, peak = _train_steps(torch, model, data, labels,
+                                             dev, steps)
+        runs[name] = dict(
+            losses=losses, step_ms=step_ms, peak_mem_gb=peak,
+            partition=model.partition_signature(),
+            launches={n: k["fn"].launches for n, k in kernels.items()})
+        log(f"   long BERT, {name}: {json.dumps(runs[name])}")
+        del model, ps
+        _free(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["ring"]["losses"],
+                                                  runs["b1"]["losses"]))
+    check(all(np.isfinite(runs["ring"]["losses"])) and rel <= 1e-4,
+          f"{steps} GPipe steps with ring attention against B1: losses "
+          f"within {rel:.3g} <= 1e-4 relative")
+    per_step = units * SP_MICRO * 2
+    check(runs["ring"]["launches"][B1] == 0
+          and runs["b1"]["launches"][B1] == per_step * steps,
+          f"B1 launched {runs['b1']['launches'][B1]} times in the "
+          f"baseline ({units} heads x {SP_MICRO} microbatches x forward "
+          f"and remat x {steps} steps), never with the ring")
+    return dict(runs=runs, loss_rel_diff=rel)
+
+
+def sp_gpt_logits(torch, np, dev, L=SP_GPT_L, blocks=SP_GPT_BLOCKS):
+    """GPT-2 small's width (float32, ``blocks`` blocks) at L tokens:
+    causal ring attention over ``SP_POSITIONS`` positions against the
+    dense stack on the same weights; logits within 1e-4."""
+    from skycomputing_tpu_torch import build_layer_stack
+    from skycomputing_tpu_torch.models import gpt as gpt_mod
+    from skycomputing_tpu_torch.parallel import make_1d_mesh
+
+    cfg = gpt_mod.GptConfig(dtype="float32", dropout_prob=0.0,
+                            max_position_embeddings=max(L, 1024))
+    mesh = make_1d_mesh(SP_POSITIONS, "sp", [dev] * SP_POSITIONS)
+    torch.manual_seed(SEED)
+    dense = build_layer_stack(gpt_mod.gpt_layer_configs(
+        cfg, num_blocks=blocks, deterministic=True)).to(dev)
+    ring = build_layer_stack(gpt_mod.gpt_layer_configs(
+        cfg, num_blocks=blocks, deterministic=True, mesh=mesh)).to(dev)
+    ring.load_state_dict(dense.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(SEED + 28).integers(
+        0, cfg.vocab_size, (1, L))).to(dev)
+    with torch.no_grad():
+        err = (ring(ids) - dense(ids)).abs().max().item()
+        row = dict(hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+                   blocks=blocks, L=L, max_abs_err=err,
+                   ring_ms=time_ms(torch, lambda: ring(ids), iters=5,
+                                   warmup=1, host_ahead=False),
+                   dense_ms=time_ms(torch, lambda: dense(ids), iters=5,
+                                    warmup=1, host_ahead=False))
+    log(f"   {json.dumps(row)}")
+    check(err <= 1e-4, f"GPT ring logits against dense: max |err| "
+          f"{err:.3g} <= 1e-4")
+    return row
+
+
+def parallel_units(preset="large", layers=24):
+    """The launcher's BERT (flash on, dropouts 0) in float32."""
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+
+    cfg = bert_config(preset, dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0,
+                      use_flash_attention=True)
+    return cfg, bert_layer_configs(cfg, num_encoder_units=layers,
+                                   num_classes=3, deterministic=True)
+
+
+def _max_param_diff(a, b):
+    return max((x - y).abs().max().item() for sa, sb in zip(a, b)
+               for x, y in ((sa[key], sb[key]) for key in sa))
+
+
+def data_parallel_path(torch, np, kernels, dev, units, vocab_size,
+                       batch=BERT_BATCH, seq=BERT_SEQ, steps=PAR_STEPS):
+    """``DataParallelPipeline``: 2 replicas of the 4-worker pipeline
+    over ``units`` on one device, 1F1B M=4, SGD, against one
+    ``PipelineModel`` on the whole batch from the same weights: losses
+    within 1e-4 relative, parameters within 1e-5.  The replicas' steps
+    are the phase's main path: every kernel's count is set to 0 just
+    before them and read just after."""
+    from skycomputing_tpu_torch.dynamics import Allocator, ParameterServer
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import (
+        DataParallelPipeline,
+        PipelineModel,
+        sgd,
+    )
+
+    rng = np.random.default_rng(SEED + 29)
+    ids = rng.integers(5, vocab_size, size=(batch, seq)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[::4, seq - seq // 4:] = 0
+    data = (ids, np.zeros_like(ids), mask)
+    labels = rng.integers(0, 3, size=(batch,)).astype(np.int32)
+    wm = worker_pool(4)
+    Allocator(units, wm).even_allocate()
+    ps = ParameterServer(units, generator=torch.Generator().manual_seed(SEED))
+    ps_one = ParameterServer(units, state_dicts=_clone_params(ps.params))
+    dp = DataParallelPipeline(wm, ps, sgd(PAR_LR), cross_entropy_loss,
+                              num_replicas=2, devices=[dev] * 8,
+                              num_microbatches=PAR_MICRO, schedule="1f1b")
+    for k in kernels.values():
+        k["fn"].launches = 0
+    losses, step_ms, peak = _train_steps(torch, dp, data, labels, dev, steps)
+    launches = {n: k["fn"].launches for n, k in kernels.items()}
+    identical = all(
+        torch.equal(a, b) for s0, s1 in zip(dp.replicas[0].stages,
+                                            dp.replicas[1].stages)
+        for a, b in zip(s0.parameters, s1.parameters))
+    dp.sync_to_parameter_server()
+    del dp
+    _free(torch)
+    one = PipelineModel(wm, ps_one, sgd(PAR_LR), cross_entropy_loss,
+                        devices=[dev] * 4, num_microbatches=PAR_MICRO,
+                        schedule="1f1b")
+    one_losses, one_ms, one_peak = _train_steps(torch, one, data, labels,
+                                                dev, steps)
+    one.sync_to_parameter_server()
+    del one
+    _free(torch)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    diff = _max_param_diff(ps.params, ps_one.params)
+    out = dict(replicas=2, batch=batch, seq=seq, microbatches=PAR_MICRO,
+               losses=losses, step_ms=step_ms, peak_mem_gb=peak,
+               launches=launches, single_losses=one_losses,
+               single_step_ms=one_ms, single_peak_mem_gb=one_peak,
+               loss_rel_diff=rel, max_param_abs_diff=diff,
+               replicas_bitwise_identical=identical)
+    log(f"   {json.dumps(out)}")
+    heads = sum(u["layer_type"] == "BertLayer_Head" for u in units)
+    check(launches[B1] == heads * 2 * PAR_MICRO * 2 * steps,
+          f"B1 launched {launches[B1]} times: {heads} layers x 2 replicas "
+          f"x {PAR_MICRO} microbatches x forward and remat x {steps} steps")
+    check(rel <= 1e-4, f"losses of 2 replicas against one pipeline within "
+          f"{rel:.3g} <= 1e-4 relative")
+    check(diff <= 1e-5, f"parameters after {steps} steps within {diff:.3g} "
+          f"<= 1e-5")
+    check(identical, "the two replicas' parameters bitwise identical")
+    return out
+
+
+def mesh_pipeline_path(torch, np, kernels, dev, units, vocab_size,
+                       batch=BERT_BATCH, seq=BERT_SEQ, steps=PAR_STEPS):
+    """``Allocator.mesh_allocate`` over 4 stimulated workers and 8
+    positions of one device (at most 4 stages of 2); its payload
+    verified and a broken one refused; ``MeshPipelineModel`` on that
+    plan, 1F1B M=4, ``steps`` SGD steps (the phase's main path); then at
+    one position per stage against ``PipelineModel`` on the same
+    allocation and weights, 2 steps each, in turns: whether the
+    parameters are bitwise equal, and their largest difference."""
+    from skycomputing_tpu_torch.analysis import verify_mesh_payload
+    from skycomputing_tpu_torch.dataset import RandomTokenGenerator
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ModelBenchmarker,
+        ParameterServer,
+        proxy_device_benchmarker,
+    )
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import (
+        MeshPipelineModel,
+        PipelineModel,
+        sgd,
+    )
+    from skycomputing_tpu_torch.stimulator import Stimulator
+
+    rng = np.random.default_rng(SEED + 30)
+    ids = rng.integers(5, vocab_size, size=(batch, seq)).astype(np.int32)
+    data = (ids, np.zeros_like(ids), np.ones_like(ids))
+    labels = rng.integers(0, 3, size=(batch,)).astype(np.int32)
+    wm = worker_pool(4)
+    alloc = Allocator(
+        units, wm,
+        ModelBenchmarker(units, RandomTokenGenerator(batch, seq, vocab_size)),
+        proxy_device_benchmarker(wm, devices=[dev], stimulator=Stimulator(4)))
+    t0 = time.perf_counter()
+    alloc.mesh_allocate(num_devices=8, max_stages=4, max_chips_per_stage=2)
+    allocate_s = time.perf_counter() - t0
+    plan = alloc.last_mesh
+    payload = dict(chips_per_stage=list(plan.chips), num_devices=8, tp=1,
+                   microbatch_rows=batch // PAR_MICRO)
+    problems = verify_mesh_payload(payload)
+    broken = verify_mesh_payload(dict(payload, chips_per_stage=[4, 4, 4],
+                                      microbatch_rows=batch // PAR_MICRO))
+    check(problems == [] and broken,
+          f"mesh plan {payload} verified; a broken one refused: {broken}")
+    ps = ParameterServer(units, generator=torch.Generator().manual_seed(SEED))
+    model = MeshPipelineModel(wm, ps, sgd(PAR_LR), cross_entropy_loss,
+                              devices=[dev] * 8, num_microbatches=PAR_MICRO,
+                              schedule="1f1b")
+    check(model.chips_per_stage == list(plan.chips),
+          f"stages of {model.partition_signature()} units on "
+          f"{model.chips_per_stage} positions, as allocated")
+    for k in kernels.values():
+        k["fn"].launches = 0
+    losses, step_ms, peak = _train_steps(torch, model, data, labels, dev,
+                                         steps)
+    launches = {n: k["fn"].launches for n, k in kernels.items()}
+    lanes = [s.lane_name for s in model.stages]
+    del model
+    _free(torch)
+    heads = sum(u["layer_type"] == "BertLayer_Head" for u in units)
+    stage_heads = [sum(u["layer_type"] == "BertLayer_Head" for u in
+                       units[s:e]) for s, e in plan.slices]
+    expect = sum(h * k for h, k in zip(stage_heads, plan.chips)) * (
+        PAR_MICRO * 2 * steps)
+    check(all(np.isfinite(losses)) and launches[B1] == expect,
+          f"{steps} steps on the mesh plan, losses {losses}; B1 launched "
+          f"{launches[B1]} times: each of {heads} layers once per dp row "
+          f"of its stage x {PAR_MICRO} microbatches x forward and remat")
+
+    # one position per stage against the MPMD engine, in turns
+    models = []
+    init = None
+    for cls in (PipelineModel, MeshPipelineModel):
+        wm1 = worker_pool(4)
+        Allocator(units, wm1).even_allocate()
+        ps1 = ParameterServer(units, state_dicts=None if init is None else
+                              _clone_params(init),
+                              generator=torch.Generator().manual_seed(SEED))
+        init = init or _clone_params(ps1.params)
+        models.append((cls(wm1, ps1, sgd(PAR_LR), cross_entropy_loss,
+                           devices=[dev] * 4, num_microbatches=PAR_MICRO,
+                           schedule="1f1b"), ps1))
+    pair_losses = [[], []]
+    for i in range(2):
+        for j, (m, _) in enumerate(models):
+            pair_losses[j].append(m.train_step(
+                data, labels, generator=torch.Generator().manual_seed(i)))
+    for m, ps1 in models:
+        m.sync_to_parameter_server()
+    diff = _max_param_diff(models[0][1].params, models[1][1].params)
+    bitwise = diff == 0.0 and pair_losses[0] == pair_losses[1]
+    del models
+    _free(torch)
+    out = dict(plan=dict(partition=[e - s for s, e in plan.slices],
+                         chips=list(plan.chips),
+                         bottleneck=plan.bottleneck),
+               allocate_s=allocate_s, payload=payload,
+               broken_payload_problems=broken, losses=losses,
+               step_ms=step_ms, peak_mem_gb=peak, launches=launches,
+               lanes=lanes, one_position_losses=pair_losses,
+               one_position_bitwise_equal=bitwise,
+               one_position_max_param_abs_diff=diff)
+    log(f"   {json.dumps(out)}")
+    log(f"   finding: at one position per stage the mesh engine's "
+        f"parameters {'are' if bitwise else 'are NOT'} bitwise equal to "
+        f"PipelineModel's (largest difference {diff:.3g})")
+    check(diff <= 1e-5, f"one position per stage against PipelineModel: "
+          f"parameters within {diff:.3g} <= 1e-5")
+    return out
+
 
 
 def main() -> int:
@@ -3772,6 +4214,30 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    with phase("sequence parallelism: ring and Ulysses over 4 positions "
+               "of the card, long BERT and GPT-2 small on a ring"):
+        dev = torch.device("cuda", 0)
+        report["sequence_parallel"] = dict(
+            attention=sp_attention_checks(torch, np, dev))
+        _free(torch)
+        report["sequence_parallel"]["long_bert"] = sp_long_bert_steps(
+            torch, np, kernels, dev)
+        report["sequence_parallel"]["gpt"] = sp_gpt_logits(torch, np, dev)
+        _free(torch)
+
+    par_cfg, par_units = parallel_units()
+    with phase("data-parallel replicas: 2 x BERT-large's pipeline, "
+               "float32, 1F1B M=4"):
+        report["data_parallel"] = data_parallel_path(
+            torch, np, kernels, dev, par_units, par_cfg.vocab_size)
+        _free(torch)
+
+    with phase("mesh-native stages: mesh_allocate over 4 workers and 8 "
+               "positions, MeshPipelineModel"):
+        report["mesh_pipeline"] = mesh_pipeline_path(
+            torch, np, kernels, dev, par_units, par_cfg.vocab_size)
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16"):
         row = next(r for r in rows if r["kernel"] == name
@@ -3811,10 +4277,22 @@ def main() -> int:
         # long BERT's path (phase 23), beside B1's time at L=4,096
         entry(B1, report["e2e_long_bert"]["launches"][B1],
               report["flash_long"], "long_L4096",
-              label=f"{B1}:long_L4096")]}
+              label=f"{B1}:long_L4096"),
+        # the float32 CUDA-core body on the data-parallel and mesh phases'
+        # paths, beside its time at their dp shard's 4 rows of 128
+        entry(B1, report["data_parallel"]["launches"][B1]
+              + report["mesh_pipeline"]["launches"][B1], flash,
+              "bert_large_L128_B4", dtype="float32",
+              label=f"{B1}:f32_B4_L128"),
+        # the float32 body in phase 26's single-device baseline, beside
+        # its time at that baseline's microbatch, 1 row of 4,096
+        entry(B1, report["sequence_parallel"]["long_bert"]["runs"]["b1"][
+            "launches"][B1], report["flash_long"], "long_L4096",
+              dtype="float32", label=f"{B1}:f32_L4096")]}
     # B1's error: the worst over its main case and the eval path's calls
-    line["kernels"][-2]["max_abs_err"] = max(
-        [line["kernels"][-2]["max_abs_err"]]
+    b1_main = next(k for k in line["kernels"] if k["name"] == B1)
+    b1_main["max_abs_err"] = max(
+        [b1_main["max_abs_err"]]
         + [r["max_abs_err"] for r in report["glue"]["flash_eval_shapes"]])
     check(all(k["launches"] > 0 for k in line["kernels"]),
           "every kernel of the line launched on its path")

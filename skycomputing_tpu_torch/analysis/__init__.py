@@ -8,6 +8,7 @@ from .plan_check import (
     PlanIssue,
     PlanReport,
     has_plan,
+    verify_mesh_payload,
     verify_pipeline,
     verify_plan,
     verify_tuning_knobs,
@@ -18,6 +19,7 @@ __all__ = [
     "PlanIssue",
     "PlanReport",
     "has_plan",
+    "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",
     "verify_tuning_knobs",

@@ -40,10 +40,13 @@ its budget, and a failed fit names the serving context.
 :func:`verify_tuning_knobs` checks a knob-level change (buckets, rows,
 page geometry, chunk size, ``spec_k``) with nothing to trace.
 
-Not ported yet: ``verify_allocation_payload`` (queue A item 3, elastic),
-``verify_mesh_payload`` (item 3, mesh); ``verify_scale_payload``,
-``verify_handoff_payload`` and ``verify_fault_plan`` (item 4, the planes
-that call them).
+:func:`verify_mesh_payload` checks a mesh operating point (chips per
+stage, devices, ``tp``, microbatch rows) before the mesh-native engine
+takes it.
+
+Not ported yet: ``verify_allocation_payload`` (queue A item 3, elastic);
+``verify_scale_payload``, ``verify_handoff_payload`` and
+``verify_fault_plan`` (item 4, the planes that call them).
 
 Wiring: ``Runner`` runs :func:`verify_pipeline` on its first batch before
 the first train step and again after a self-heal rebuild; the bench
@@ -663,12 +666,22 @@ def verify_plan(
     return report
 
 
+def _unwrap_model(model):
+    """The verifiable ``PipelineModel`` behind ``model``, or None: a
+    ``DataParallelPipeline`` is unwrapped to its first replica (every
+    replica is built from the same worker manager and parameter server,
+    so one replica's plan is the plan)."""
+    if hasattr(model, "_worker_manager"):
+        return model
+    replicas = getattr(model, "replicas", None)
+    if replicas and hasattr(replicas[0], "_worker_manager"):
+        return replicas[0]
+    return None
+
+
 def has_plan(model) -> bool:
-    """True when :func:`verify_pipeline` can verify this model type (a
-    ``PipelineModel``: it carries a worker manager).  The reference also
-    unwraps ``DataParallelPipeline``'s replicas, which wait for queue A
-    item 3."""
-    return hasattr(model, "_worker_manager")
+    """True when :func:`verify_pipeline` can verify this model type."""
+    return _unwrap_model(model) is not None
 
 
 def verify_pipeline(
@@ -683,13 +696,38 @@ def verify_pipeline(
     (the Runner's entry point).  The INTENDED model config is the
     parameter server's — it was constructed with the ground-truth layer
     list — so this is the full :func:`verify_plan` contract, including
-    shuffled/non-contiguous cover detection.  Use :func:`has_plan` to
-    test verifiability first."""
-    if not has_plan(model):
+    shuffled/non-contiguous cover detection.  Replica wrappers are
+    unwrapped (see :func:`_unwrap_model`) and verified against the
+    per-replica batch shard: each replica sees 1/R of the leading axis.
+    Use :func:`has_plan` to test verifiability first."""
+    inner = _unwrap_model(model)
+    if inner is None:
         raise TypeError(
-            "verify_pipeline needs a PipelineModel; got a model with no "
-            "worker manager"
+            "verify_pipeline needs a PipelineModel (or a replica wrapper "
+            "around one); got a model with no worker manager"
         )
+    if inner is not model:
+        num_replicas = len(model.replicas)
+        sharded = []
+        for a in _avals(example_inputs):
+            if not a.shape or a.shape[0] % num_replicas:
+                axis = a.shape[0] if a.shape else "(scalar)"
+                return PlanReport(
+                    issues=[PlanIssue(
+                        "shape", "error",
+                        f"batch axis {axis} is not divisible by the "
+                        f"wrapper's {num_replicas} replicas — "
+                        f"_split_replicas will reject this batch at the "
+                        f"first step"
+                    )],
+                    checks=["shapes"],
+                    stages=0, layers=0,
+                )
+            sharded.append(torch.empty(
+                (a.shape[0] // num_replicas,) + tuple(a.shape[1:]),
+                dtype=a.dtype, device="meta"))
+        example_inputs = tuple(sharded)
+    model = inner
     return verify_plan(
         list(model._parameter_server._model_config),
         model._worker_manager, example_inputs,
@@ -707,6 +745,89 @@ def _pos_int(v) -> bool:
     return (
         not isinstance(v, bool) and isinstance(v, int) and v > 0
     )
+
+
+def verify_mesh_payload(mesh: Any) -> List[str]:
+    """Problems with a mesh operating point (empty = valid).
+
+    Schema — what ``Allocator.mesh_allocate`` emits and the mesh-native
+    engine consumes: ``chips_per_stage`` (required, non-empty list of
+    positive ints — one sub-mesh width per pipeline stage),
+    ``num_devices`` (required, positive int; the chips must fit:
+    ``sum(chips_per_stage) <= num_devices``), optional ``tp`` (positive
+    int dividing every stage's chips — each sub-mesh reshapes to
+    ``(chips/tp, tp)``), optional ``microbatch_rows`` (positive int;
+    every stage's dp = chips/tp must divide it, or the engine rejects
+    the very first ``compute_gradients`` AFTER the plan was committed —
+    callers that know the live batch shape must pass it so the reshape
+    dies at verify time, not mid-training).  This is the
+    verify-then-apply contract a mesh reshape passes through before
+    ``rebuild()``.
+    """
+    problems: List[str] = []
+    if not isinstance(mesh, dict):
+        return [
+            f"mesh operating point must be an object, got "
+            f"{type(mesh).__name__}"
+        ]
+    chips = mesh.get("chips_per_stage")
+    if not isinstance(chips, list) or not chips:
+        problems.append(
+            "mesh.chips_per_stage must be a non-empty list of positive "
+            f"ints, got {chips!r}"
+        )
+        chips = []
+    for i, k in enumerate(chips):
+        if not _pos_int(k):
+            problems.append(
+                f"mesh.chips_per_stage[{i}] = {k!r} is not a positive int"
+            )
+    devices = mesh.get("num_devices")
+    if not _pos_int(devices):
+        problems.append(
+            f"mesh.num_devices must be a positive int, got {devices!r}"
+        )
+    elif chips and all(_pos_int(k) for k in chips) and \
+            sum(chips) > devices:
+        problems.append(
+            f"mesh shape {chips} needs {sum(chips)} chips but "
+            f"num_devices is {devices} — the sub-mesh slices must fit "
+            f"the global device order"
+        )
+    tp = mesh.get("tp")
+    if tp is not None:
+        if not _pos_int(tp):
+            problems.append(
+                f"mesh.tp must be a positive int, got {tp!r}"
+            )
+        else:
+            for i, k in enumerate(chips):
+                if _pos_int(k) and k % tp:
+                    problems.append(
+                        f"mesh.chips_per_stage[{i}] = {k} is not "
+                        f"divisible by tp={tp}"
+                    )
+    rows = mesh.get("microbatch_rows")
+    if rows is not None:
+        if not _pos_int(rows):
+            problems.append(
+                f"mesh.microbatch_rows must be a positive int, got "
+                f"{rows!r}"
+            )
+        else:
+            tp_div = tp if _pos_int(tp) else 1
+            for i, k in enumerate(chips):
+                if not (_pos_int(k) and k % tp_div == 0):
+                    continue
+                dp = k // tp_div
+                if rows % dp:
+                    problems.append(
+                        f"mesh.chips_per_stage[{i}] gives dp={dp}, "
+                        f"which does not divide the {rows} microbatch "
+                        f"rows — the engine would reject the first "
+                        f"step after this plan committed"
+                    )
+    return problems
 
 
 def _verify_serving_payload(serving: Any) -> List[str]:
@@ -931,6 +1052,7 @@ __all__ = [
     "PlanIssue",
     "PlanReport",
     "has_plan",
+    "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",
     "verify_tuning_knobs",

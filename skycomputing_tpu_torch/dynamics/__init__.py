@@ -10,7 +10,12 @@ from .benchmarker import (
 )
 from .estimator import Estimator
 from .parameter_server import ParameterServer
-from .solver import PartitionResult, solve_contiguous_minmax
+from .solver import (
+    MeshShapeResult,
+    PartitionResult,
+    solve_contiguous_minmax,
+    solve_mesh_shapes,
+)
 from .worker import Worker
 from .worker_manager import WorkerManager, worker_pool_config
 
@@ -24,6 +29,7 @@ __all__ = [
     "Estimator",
     "FaultInjectionHook",
     "FaultPlan",
+    "MeshShapeResult",
     "ModelBenchmarker",
     "ParameterServer",
     "PartitionResult",
@@ -32,5 +38,6 @@ __all__ = [
     "device_available_memory_mb",
     "proxy_device_benchmarker",
     "solve_contiguous_minmax",
+    "solve_mesh_shapes",
     "worker_pool_config",
 ]

@@ -19,7 +19,10 @@ The closed loop folds measured stage times back into the model:
 own, well posed at a few stages), ``calibrate_device_speeds`` (the gap
 attributed to devices) and ``refine_allocation`` (a calibration, then
 a re-solve).  ``serving_allocate`` solves over a decode-step profile.
-Mesh allocation is a later slice and raises ``NotImplementedError``.
+``mesh_allocate`` chooses the partition and the chips of each stage's
+sub-mesh for the mesh-native engine (:func:`.solver.solve_mesh_shapes`),
+and ``refine_mesh_allocation`` closes that loop over measured stage
+times.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import numpy as np
 
 from ..telemetry import trace_span
 from ..utils import Logger
-from .solver import solve_contiguous_minmax
+from .solver import solve_contiguous_minmax, solve_mesh_shapes
 from .worker_manager import WorkerManager
 
 
@@ -82,13 +85,6 @@ def _nonnegative_fit(A: np.ndarray, measured) -> np.ndarray:
         floor = 0.05 * float(np.median(positive))
         c = np.maximum(c, floor)
     return c
-
-
-def _not_ported(method: str, slice_name: str):
-    raise NotImplementedError(
-        f"Allocator.{method} is not ported to PyTorch yet (a later slice: "
-        f"{slice_name})"
-    )
 
 
 class Allocator:
@@ -623,15 +619,137 @@ class Allocator:
             )
         return self.optimal_allocate(max_time=max_time)
 
-    # ------------------------------------------------ later slices
-    def mesh_allocate(self, num_devices=None, max_stages=None,
-                      max_chips_per_stage=None, stage_overhead: float = 0.0):
-        _not_ported("mesh_allocate", "mesh-native stages")
+    # ------------------------------------------------------------------ mesh
+    def mesh_allocate(
+        self,
+        num_devices: Optional[int] = None,
+        max_stages: Optional[int] = None,
+        max_chips_per_stage: Optional[int] = None,
+        stage_overhead: float = 0.0,
+    ) -> WorkerManager:
+        """Mesh-native allocation: stages over contiguous sub-mesh slices.
 
-    def refine_mesh_allocation(self, measured_stage_times,
-                               damping: float = 0.5, chips=None,
-                               **mesh_kwargs):
-        _not_ported("refine_mesh_allocation", "mesh-native stages")
+        The mesh-shape search (:func:`~.solver.solve_mesh_shapes`)
+        chooses BOTH the contiguous layer partition and chips-per-stage
+        so per-stage time/chip balances, charging ``stage_overhead``
+        (seconds of host dispatch per stage per tick) against longer
+        issue loops.  The result lands on the worker pool the same way
+        every allocator does — the first S workers carry the slices
+        (pipeline order), plus ``extra_config['mesh_chips']`` naming
+        each stage's sub-mesh width; the rest go empty.  A sub-mesh
+        program runs its chips in lockstep, so the search treats chips
+        as same-speed — per-device heterogeneity stays the MPMD
+        engine's domain, while slice-level effects feed back through
+        :meth:`refine_mesh_allocation`'s calibrated LAYER costs.
+        """
+        with trace_span("allocator.profiles", "dynamics", "allocator"):
+            (worker_ranks, _device_time, device_mem, layer_flops,
+             layer_mem) = self._profiles()
+        D = int(num_devices) if num_devices else len(worker_ranks)
+        with trace_span(
+            "allocator.mesh_solve", "dynamics", "allocator",
+            {"layers": len(layer_flops), "devices": D},
+        ):
+            result = solve_mesh_shapes(
+                layer_flops, D,
+                layer_mem=layer_mem,
+                mem_per_chip=min(device_mem) if device_mem else None,
+                max_stages=max_stages,
+                max_chips_per_stage=max_chips_per_stage,
+                stage_overhead=stage_overhead,
+            )
+        self.last_mesh = result
+        # remember the operating point so a closed-loop refine re-solves
+        # under the same constraints the operator chose
+        self._mesh_opts = dict(
+            num_devices=D, max_stages=max_stages,
+            max_chips_per_stage=max_chips_per_stage,
+            stage_overhead=stage_overhead,
+        )
+        self._logger.info(
+            f"mesh_allocate: {len(layer_flops)} layers -> "
+            f"{result.num_stages} stages x chips {result.chips} over "
+            f"{D} devices (bottleneck {result.bottleneck:.4g})"
+        )
+        ranks_sorted = sorted(worker_ranks)
+        slice_of = {
+            ranks_sorted[i]: result.slices[i]
+            for i in range(result.num_stages)
+        }
+        ranges = [slice_of.get(r) for r in worker_ranks]
+        orders = [0] * len(worker_ranks)
+        pos = 1
+        for r in ranks_sorted[: result.num_stages]:
+            orders[worker_ranks.index(r)] = pos
+            pos += 1
+        for i, r in enumerate(worker_ranks):
+            if ranges[i] is None:
+                orders[i] = pos
+                pos += 1
+        wm = self._apply_partition(worker_ranks, ranges, orders)
+        staged = sorted(
+            (w for w in wm.worker_pool if w.model_config),
+            key=lambda w: w.order,
+        )
+        for w, k in zip(staged, result.chips):
+            w.extra_config["mesh_chips"] = int(k)
+        for w in wm.worker_pool:
+            if not w.model_config:
+                w.extra_config.pop("mesh_chips", None)
+        return wm
+
+    def refine_mesh_allocation(
+        self, measured_stage_times, damping: float = 0.5,
+        chips: Optional[List[int]] = None,
+        **mesh_kwargs,
+    ) -> WorkerManager:
+        """PipeDream's profiler->partitioner loop for the mesh engine.
+
+        Measured per-stage seconds reflect ``slice cost / chips`` —
+        multiply back by each stage's sub-mesh width to recover the
+        slice's effective cost, fold that into the LAYER cost model
+        (:meth:`calibrate_costs`; device attribution is meaningless on
+        homogeneous sub-meshes), and re-run the mesh-shape search under
+        the operating point :meth:`mesh_allocate` recorded (overridable
+        via ``mesh_kwargs``).
+
+        ``chips``: the live engine's chips-per-stage, pipeline order.
+        Pass it when the model was built with an explicit
+        ``chips_per_stage`` argument instead of through
+        :meth:`mesh_allocate` — the worker pool then carries no
+        ``mesh_chips`` and the default-1 fallback would de-scale wide
+        stages wrong (a 2-chip stage would read at half its real cost).
+        When no operating point was recorded, the re-solve caps
+        ``max_chips_per_stage`` at the widest LIVE stage — never wider
+        than what the operator already runs.
+        """
+        workers = self._ordered_stage_workers(measured_stage_times)
+        if chips is None:
+            chips = [
+                int(w.extra_config.get("mesh_chips", 1)) for w in workers
+            ]
+        elif len(chips) != len(workers):
+            raise ValueError(
+                f"{len(chips)} chips for {len(workers)} staged workers"
+            )
+        else:
+            chips = [int(k) for k in chips]
+        effective = [
+            float(t) * k for t, k in zip(measured_stage_times, chips)
+        ]
+        with trace_span("allocator.calibrate", "dynamics", "allocator",
+                        {"attribute": "mesh"}):
+            self.calibrate_costs(
+                [len(w.model_config) for w in workers],
+                effective,
+                damping=damping,
+            )
+        opts = dict(getattr(
+            self, "_mesh_opts",
+            {"max_chips_per_stage": max(chips)},
+        ))
+        opts.update(mesh_kwargs)
+        return self.mesh_allocate(**opts)
 
     # --------------------------------------------------------------- dynamic
     def dynamic_allocate(self, break_iter: int = 1000) -> WorkerManager:

@@ -1,7 +1,7 @@
 """Contiguous layer->device partition solver (the port's own copy of
 ``skycomputing_tpu/dynamics/solver.py``: host code, stdlib only, with
-the same native core in ``native/``; the mesh-shape search waits with
-``mesh_allocate``).
+the same native core in ``native/``, and the mesh-native engine's
+mesh-shape search, :func:`solve_mesh_shapes`).
 
 Every result names the path that produced it (``PartitionResult.path``):
 ``native_exact`` (the C++ subset DP), ``native_classes`` (the C++
@@ -36,6 +36,7 @@ primary path.
 from __future__ import annotations
 
 import bisect
+import heapq
 import math
 import random
 import time
@@ -819,8 +820,184 @@ def _local_search(table: _CoverTable, order, slices, max_rounds: int = 200):
     return order, [tuple(s) for s in slices]
 
 
+# --------------------------------------------------------------------------
+# mesh-shape search (the mesh-native engine's allocator)
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class MeshShapeResult:
+    """A mesh operating point: contiguous layer slices + chips per stage
+    over ONE homogeneous device order.
+
+    ``slices[i] = (start, end)`` half-open layer range of pipeline stage
+    i; ``chips[i]`` how many contiguous devices its sub-mesh owns
+    (``sum(chips) <= num_devices`` — the search may leave chips unused
+    when ``max_chips_per_stage`` caps useful parallelism).
+    ``bottleneck`` is the scored objective ``max_i stage_costs[i] /
+    chips[i] + stage_overhead * num_stages``.
+    """
+
+    slices: List[Tuple[int, int]]
+    chips: List[int]
+    stage_costs: List[float]
+    bottleneck: float
+    num_devices: int
+    stage_overhead: float = 0.0
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.slices)
+
+
+def _balanced_contiguous(
+    layer_cost: Sequence[float], max_slices: int
+) -> List[Tuple[int, int]]:
+    """Min-max contiguous partition of ``layer_cost`` into at most
+    ``max_slices`` slices over UNIT-speed slots: binary search on the
+    bottleneck T with a greedy maximal cover (optimal for a fixed order
+    of identical devices, same argument as ``_fixed_order_walk``)."""
+    prefix = _prefix(layer_cost)
+    L = len(layer_cost)
+
+    def cover(T: float) -> Optional[List[Tuple[int, int]]]:
+        slices: List[Tuple[int, int]] = []
+        pos = 0
+        while pos < L and len(slices) < max_slices:
+            end = bisect.bisect_right(prefix, prefix[pos] + T + 1e-12) - 1
+            if end <= pos:
+                return None  # one layer alone exceeds T
+            slices.append((pos, end))
+            pos = end
+        return slices if pos >= L else None
+
+    lo = max(layer_cost) if layer_cost else 0.0
+    hi = prefix[L]
+    best = cover(hi)
+    if best is None:  # pragma: no cover - hi always covers
+        raise RuntimeError("balanced partition failed at the total cost")
+    for _ in range(60):
+        if hi - lo <= 1e-12 * max(hi, 1.0):
+            break
+        mid = (lo + hi) / 2.0
+        cand = cover(mid)
+        if cand is not None:
+            best, hi = cand, mid
+        else:
+            lo = mid
+    return best
+
+
+def _greedy_chips(
+    stage_costs: Sequence[float], num_devices: int,
+    max_chips_per_stage: Optional[int] = None,
+) -> List[int]:
+    """Integer chips minimizing ``max_i cost_i / chips_i`` with
+    ``sum(chips) <= num_devices`` and 1 <= chips_i <= cap.
+
+    Start at one chip per stage and repeatedly give the next chip to the
+    current bottleneck stage — optimal because cost/k is convex
+    decreasing in k (the classic discrete resource-allocation exchange
+    argument).  Chips beyond every stage's cap stay unspent.
+    """
+    S = len(stage_costs)
+    if num_devices < S:
+        raise ValueError(
+            f"{S} stages need at least {S} devices, have {num_devices}"
+        )
+    cap = max_chips_per_stage if max_chips_per_stage else num_devices
+    chips = [1] * S
+    heap = [(-float(c), i) for i, c in enumerate(stage_costs)]
+    heapq.heapify(heap)
+    spare = num_devices - S
+    while spare > 0 and heap:
+        _, i = heapq.heappop(heap)
+        if chips[i] >= cap:
+            continue  # capped stage leaves the pool
+        chips[i] += 1
+        spare -= 1
+        heapq.heappush(heap, (-float(stage_costs[i]) / chips[i], i))
+    return chips
+
+
+def solve_mesh_shapes(
+    layer_cost: Sequence[float],
+    num_devices: int,
+    layer_mem: Optional[Sequence[float]] = None,
+    mem_per_chip: Optional[float] = None,
+    max_stages: Optional[int] = None,
+    max_chips_per_stage: Optional[int] = None,
+    stage_overhead: float = 0.0,
+) -> MeshShapeResult:
+    """Mesh-shape search: extend the contiguous min-max solve to choose
+    BOTH the stage partition and chips-per-stage.
+
+    For each candidate stage count S the layers get the balanced
+    contiguous partition (sub-mesh chips are same-speed by construction,
+    so unit devices), then ``num_devices`` chips spread greedily so
+    per-stage time/chip balances (PipeDream's partitioner loop with the
+    profiler's costs).  The score charges ``stage_overhead`` — the
+    per-stage host dispatch cost per microbatch tick — so the search trades
+    intra-stage data parallelism against issue-loop length; at overhead
+    0 ties break toward FEWER stages (ascending S, strict improvement).
+
+    Constraints: ``mem_per_chip`` bounds each stage's slice memory
+    (parameters replicate over the stage's sub-mesh, so every chip holds
+    its stage's full slice); ``max_chips_per_stage`` bounds useful
+    intra-stage parallelism (dp cannot exceed the microbatch rows).
+    """
+    L = len(layer_cost)
+    if L == 0:
+        return MeshShapeResult([], [], [], 0.0, int(num_devices),
+                               float(stage_overhead))
+    if num_devices < 1:
+        raise ValueError("no devices")
+    if layer_mem is not None and len(layer_mem) != L:
+        raise ValueError(
+            f"{len(layer_mem)} layer_mem entries for {L} layers"
+        )
+    prefix = _prefix(layer_cost)
+    mem_prefix = _prefix(layer_mem) if layer_mem is not None else None
+    S_hi = min(int(num_devices), L, max_stages or int(num_devices))
+    best: Optional[MeshShapeResult] = None
+    for S in range(1, S_hi + 1):
+        slices = _balanced_contiguous(layer_cost, S)
+        if mem_prefix is not None and mem_per_chip is not None:
+            if any(
+                mem_prefix[e] - mem_prefix[s] > mem_per_chip + 1e-9
+                for s, e in slices
+            ):
+                continue  # a slice no single chip can hold
+        costs = [prefix[e] - prefix[s] for s, e in slices]
+        chips = _greedy_chips(
+            costs, int(num_devices), max_chips_per_stage
+        )
+        score = max(
+            c / k for c, k in zip(costs, chips)
+        ) + float(stage_overhead) * len(slices)
+        if best is None or score < best.bottleneck - 1e-15:
+            best = MeshShapeResult(
+                slices=[tuple(s) for s in slices],
+                chips=chips,
+                stage_costs=costs,
+                bottleneck=score,
+                num_devices=int(num_devices),
+                stage_overhead=float(stage_overhead),
+            )
+    if best is None:
+        raise RuntimeError(
+            "mesh-shape search infeasible: no stage count fits every "
+            f"slice under mem_per_chip={mem_per_chip} (layers={L}, "
+            f"devices={num_devices}) — parameters replicate over a "
+            "stage's sub-mesh, so a slice must fit one chip"
+        )
+    return best
+
+
 __all__ = [
     "solve_contiguous_minmax",
     "PartitionResult",
+    "MeshShapeResult",
+    "solve_mesh_shapes",
     "integral_lower_bound",
 ]

@@ -1,6 +1,6 @@
 """GPT-style causal LM units, for training and for KV-cache serving.
 
-The port of ``skycomputing_tpu/models/gpt.py`` (less ring attention):
+The port of ``skycomputing_tpu/models/gpt.py``:
 the same registered units, the same layer-config lists, the same
 numerics —
 
@@ -47,7 +47,9 @@ leading axis, fixed-capacity dispatch (``ops/moe.py``), the Switch
 load-balance loss kept on the module as ``aux_loss`` (JAX sows it into
 ``intermediates``) or returned with ``return_aux=True``.
 
-Not ported yet: ring attention (queue A item 2c).
+``GptBlock_Attn(mesh=...)`` shards its full-sequence forward over a 1-d
+mesh with causal ring attention (``parallel/ring_attention.py``), as in
+JAX; cached decoding rejects such a block (:func:`decode_modules`).
 """
 
 from __future__ import annotations
@@ -161,10 +163,11 @@ class GptBlock_Attn(nn.Module):
     """Pre-LN causal self-attention half of a transformer block."""
 
     def __init__(self, config: Any, deterministic: bool = False,
-                 mesh: Any = None):
+                 mesh: Any = None, axis_name: str = "sp"):
         super().__init__()
         self.config = _gcfg(config)
         self.mesh = mesh
+        self.axis_name = axis_name
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         H = cfg.hidden_size
@@ -204,12 +207,18 @@ class GptBlock_Attn(nn.Module):
                                        cfg.hidden_size))
 
     def forward(self, hidden):
-        """Causal self-attention over the whole sequence [B, L, H]."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ring attention is not ported to PyTorch yet (queue A "
-                "item 2c)")
+        """Causal self-attention over the whole sequence [B, L, H]; with a
+        ``mesh``, causal ring attention over its ``axis_name`` positions
+        (float32 scores and softmax, the context in the model dtype)."""
         q, k, v = self._qkv(hidden)
+        if self.mesh is not None:
+            from ..parallel.ring_attention import ring_attention
+
+            ctx = ring_attention(q, k, v, self.mesh,
+                                 axis_name=self.axis_name, causal=True)
+            return hidden + self.drop(self.c_proj(
+                ctx.reshape(ctx.shape[0], ctx.shape[1],
+                            self.config.hidden_size)))
         L = q.shape[1]
         causal = torch.ones(L, L, dtype=torch.bool,
                             device=q.device).tril()[None]
@@ -301,6 +310,10 @@ class GptBlock_MoeMlp(nn.Module):
     load-balance loss of the last forward is ``self.aux_loss``, detached
     from the graph; with ``return_aux`` the forward returns ``(hidden,
     aux)``, which carries the gradient."""
+
+    #: capacity, routing priority and the aux loss are over all B*L
+    #: tokens of a call, so a split of the rows changes the result
+    couples_rows = True
 
     def __init__(self, config: Any, num_experts: int = 8, top_k: int = 1,
                  capacity_factor: float = 1.25, deterministic: bool = False,

@@ -1,5 +1,5 @@
 """Long-context BERT units (the port of
-``skycomputing_tpu/models/long_bert.py``), on one device.
+``skycomputing_tpu/models/long_bert.py``).
 
 ``LongBertLayer_Head`` is a drop-in for ``BertLayer_Head``: the same
 parameters (``self.query/key/value``, ``output.dense`` /
@@ -13,10 +13,11 @@ the card, its plain version on the CPU and on ``meta``; with
 materializes attention probabilities it could drop, so training with
 ``attention_probs_dropout_prob > 0`` raises, as in JAX.
 
-The JAX module shards the sequence over a mesh axis (ring attention or
-Ulysses).  That needs ``torch.distributed`` and is queue A item 2c: a
-``mesh``, or a ``strategy`` other than ``"ring"``, raises
-``NotImplementedError``.
+With a ``mesh`` (:mod:`..parallel.mesh`, a 1-d mesh over
+``axis_name``) the sequence is sharded over the mesh's positions, as in
+JAX: ``strategy="ring"`` takes ``parallel/ring_attention.ring_attention``
+and ``"ulysses"`` ``parallel/ulysses.ulysses_attention``; any other
+strategy raises ``ValueError`` at the first forward.
 """
 
 from __future__ import annotations
@@ -31,25 +32,19 @@ from ..utils import torch_dtype
 from .bert import BertSelfOutput, _cfg, _dense
 
 
-def _single_device_only(mesh, strategy: str) -> None:
-    if mesh is not None or strategy != "ring":
-        raise NotImplementedError(
-            "sequence-parallel long BERT (mesh=, strategy=) is not ported "
-            "to PyTorch yet (queue A item 2c: ring attention and Ulysses "
-            "over torch.distributed)")
-
-
 class LongBertSelfAttention(nn.Module):
-    """Multi-head self-attention through the flash kernel or the
-    float32 einsum reference."""
+    """Multi-head self-attention: sequence-parallel over ``mesh``, else
+    through the flash kernel or the float32 einsum reference."""
 
     def __init__(self, config: Any, deterministic: bool = False,
                  mesh: Any = None, axis_name: str = "sp",
                  strategy: str = "ring", use_flash: bool = True):
         super().__init__()
-        _single_device_only(mesh, strategy)
         self.config = cfg = _cfg(config)
         self.deterministic = deterministic
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.strategy = strategy
         self.use_flash = use_flash
         H = cfg.hidden_size
         self.query = _dense(cfg, H, H)
@@ -76,11 +71,26 @@ class LongBertSelfAttention(nn.Module):
         k = split_heads(self.key(hidden_states))
         v = split_heads(self.value(hidden_states))
         bias = attention_mask[:, 0, 0, :]
-        if self.use_flash:
+        # the parallel modules are imported here: the parallel package
+        # imports the pipeline, which imports the model zoo
+        if self.mesh is not None:
+            if self.strategy == "ulysses":
+                from ..parallel.ulysses import ulysses_attention
+
+                context = ulysses_attention(
+                    q, k, v, self.mesh, axis_name=self.axis_name, bias=bias)
+            elif self.strategy == "ring":
+                from ..parallel.ring_attention import ring_attention
+
+                context = ring_attention(
+                    q, k, v, self.mesh, axis_name=self.axis_name, bias=bias)
+            else:
+                raise ValueError(
+                    f"unknown sequence-parallel strategy {self.strategy!r}"
+                )
+        elif self.use_flash:
             context = flash_attention(q, k, v, bias)
         else:
-            # imported here: the parallel package imports the pipeline,
-            # which imports the model zoo
             from ..parallel.ring_attention import full_attention_reference
 
             context = full_attention_reference(q, k, v, bias=bias)

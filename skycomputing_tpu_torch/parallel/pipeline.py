@@ -150,17 +150,19 @@ def device_put_elided(tree, device: torch.device):
     return placed[0] if single else placed
 
 
-def _split_microbatches(tree, num_microbatches: int):
+def _split_microbatches(tree, num_microbatches: int,
+                        what: str = "microbatches"):
     """Leading-axis split of every leaf (numpy or tensor) into equal
-    contiguous chunks; a tuple comes back as a list of tuples.  Host
-    arrays stay host arrays (views) until they are placed."""
+    contiguous chunks (``what`` names them in the error); a tuple comes
+    back as a list of tuples.  Host arrays stay host arrays (views)
+    until they are placed."""
     def split(x):
         if not isinstance(x, np.ndarray):
             x = torch.as_tensor(x)
         if x.shape[0] % num_microbatches != 0:
             raise ValueError(
                 f"batch size {x.shape[0]} not divisible by "
-                f"{num_microbatches} microbatches"
+                f"{num_microbatches} {what}"
             )
         return x.reshape(num_microbatches, x.shape[0] // num_microbatches,
                          *x.shape[1:])
@@ -231,16 +233,19 @@ class StageRuntime:
 
     # --- execution ----------------------------------------------------------
     @contextlib.contextmanager
-    def _dropout_seed(self, seed: Optional[int]):
-        """Run under ``seed`` on this stage's device, restoring the
-        global generator afterwards (nothing where no mask is drawn)."""
+    def _dropout_seed(self, seed: Optional[int],
+                      device: Optional[torch.device] = None):
+        """Run under ``seed`` on ``device`` (this stage's by default),
+        restoring the global generator afterwards (nothing where no mask
+        is drawn)."""
         if seed is None or not self.stochastic or not self.stack.training:
             yield
             return
-        cuda = self.device.type == "cuda"
-        with torch.random.fork_rng(devices=[self.device] if cuda else []):
+        device = self.device if device is None else device
+        cuda = device.type == "cuda"
+        with torch.random.fork_rng(devices=[device] if cuda else []):
             if cuda:
-                with torch.cuda.device(self.device):
+                with torch.cuda.device(device):
                     torch.cuda.manual_seed(seed)
             else:
                 torch.manual_seed(seed)

@@ -29,7 +29,7 @@ runner's compile cache has no counterpart: PyTorch runs eagerly.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,10 +37,12 @@ import torch
 from ..analysis.plan_check import has_plan, verify_pipeline
 from ..dynamics import ParameterServer, WorkerManager
 from ..ops import build_loss
-from ..parallel import PipelineModel
 from ..telemetry import LiveMetricsMixin, MetricsRegistry, trace_span
 from ..utils import DistributedTimer, Logger, PhaseTimer
 from .hooks import Hook
+
+if TYPE_CHECKING:  # the parallel package imports this one
+    from ..parallel import PipelineModel
 
 
 class Runner(LiveMetricsMixin):

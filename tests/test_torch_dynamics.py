@@ -699,12 +699,19 @@ def test_zoo_static_profile_and_partition_equal_jax(case):
 
 
 def test_later_slices_raise_naming_them():
-    alloc, _ = _world(WorkerManager, Allocator, [1.0], [10.0], [1.0],
-                      [0.1], None)
-    for call in (lambda: alloc.mesh_allocate(),
-                 lambda: alloc.refine_mesh_allocation([1.0])):
-        with pytest.raises(NotImplementedError, match="mesh-native"):
-            call()
+    """The mesh allocation that waited for a later slice is ported: on
+    the same one-worker world both packages' ``mesh_allocate`` and
+    ``refine_mesh_allocation`` leave the same allocation and chips."""
+    states = []
+    for manager_cls, alloc_cls in ((JaxWorkerManager, JaxAllocator),
+                                   (WorkerManager, Allocator)):
+        alloc, wm = _world(manager_cls, alloc_cls, [1.0], [10.0], [1.0],
+                           [0.1], None)
+        alloc.mesh_allocate()
+        alloc.refine_mesh_allocation([1.0])
+        states.append((_state(alloc, wm)[0], [
+            w.extra_config.get("mesh_chips") for w in wm.worker_pool]))
+    assert states[0] == states[1] and states[1][1] == [1]
 
 
 # ------------------------------------------------- config, data, builders

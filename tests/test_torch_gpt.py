@@ -314,3 +314,55 @@ def test_draft_slice_indices_match_jax(tiny):
             tgpt.draft_slice_indices(tmods, blocks)
     with pytest.raises(ValueError, match="GPT stack"):
         tgpt.draft_slice_indices(tmods[1:], 1)
+
+
+# --- ring attention (a mesh) --------------------------------------------------
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_gpt_ring_attention_matches_dense(tiny, devices, S):
+    """``GptBlock_Attn(mesh=...)``: the stack with causal ring attention
+    over S CPU positions gives the dense stack's logits on the same
+    weights (rtol 3e-4 / atol 3e-5, ``tests/test_gpt.py``'s bound) and
+    JAX's ring stack's over its first S devices (1e-5)."""
+    from jax.sharding import Mesh as JaxMesh
+
+    from skycomputing_tpu_torch.parallel.mesh import make_1d_mesh
+
+    layer_cfgs, _, params, tmods = tiny
+    gcfg = tgpt.GptConfig.from_dict(layer_cfgs[0]["config"])
+    ring_cfgs = tgpt.gpt_layer_configs(
+        gcfg, deterministic=True,
+        mesh=make_1d_mesh(S, "sp", [torch.device("cpu")] * S))
+    ring = build_layer_stack(ring_cfgs)
+    for module, sd in zip(ring.layers, params_from_jax(params, layer_cfgs)):
+        module.load_state_dict(sd, strict=True)
+    ids = np.random.default_rng(S).integers(0, 512, (2, 64)).astype(
+        np.int32)
+    with torch.no_grad():
+        out = ring(torch.from_numpy(ids)).numpy()
+        dense = LayerStack(tmods)(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(out, dense, rtol=3e-4, atol=3e-5)
+    jring = jax_build(jgpt.gpt_layer_configs(
+        jgpt.GptConfig.from_dict(layer_cfgs[0]["config"]),
+        deterministic=True, mesh=JaxMesh(np.array(devices[:S]), ("sp",))))
+    ref = np.asarray(jax.jit(jring.apply)(params, ids))
+    _close(out, ref)
+
+
+def test_decode_rejects_a_mesh_as_jax(tiny, devices):
+    """Cached decoding has no ring form: a block built with a mesh is
+    refused with JAX's message."""
+    from jax.sharding import Mesh as JaxMesh
+
+    from skycomputing_tpu_torch.parallel.mesh import make_1d_mesh
+
+    layer_cfgs, _, _, _ = tiny
+    cfg = layer_cfgs[1]["config"]
+    with pytest.raises(ValueError, match="ring attention") as jax_err:
+        jgpt.decode_modules([jgpt.GptBlock_Attn(
+            jgpt.GptConfig.from_dict(cfg),
+            mesh=JaxMesh(np.array(devices[:2]), ("sp",)))])
+    with pytest.raises(ValueError, match="ring attention") as err:
+        tgpt.decode_modules([tgpt.GptBlock_Attn(
+            cfg, mesh=make_1d_mesh(2, "sp", ["cpu"] * 2))])
+    assert str(err.value) == str(jax_err.value)

@@ -75,6 +75,18 @@ def test_package_imports_with_jax_blocked():
     assert "imported" in proc.stdout
 
 
+@pytest.mark.parametrize("first", ["parallel", "runner", "analysis"])
+def test_each_subpackage_imports_first(first):
+    """A user may import any subpackage before the others (the parallel
+    engines' entry points are ``skycomputing_tpu_torch.parallel``): no
+    import cycle breaks a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import skycomputing_tpu_torch.{first}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_engine_without_device_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

@@ -18,8 +18,11 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import Mesh as JaxMesh
 
 from skycomputing_tpu.builder import build_layer as jax_build_layer
+from skycomputing_tpu.dataset import RandomTokenGenerator as JaxTokens
+from skycomputing_tpu.dynamics import ModelBenchmarker as JaxModelBench
 from skycomputing_tpu.dynamics import Allocator as JaxAllocator
 from skycomputing_tpu.dynamics import ParameterServer as JaxParameterServer
 from skycomputing_tpu.dynamics import WorkerManager as JaxWorkerManager
@@ -37,8 +40,10 @@ from skycomputing_tpu.parallel.ring_attention import (
 )
 from skycomputing_tpu.utils.profiling import normalize_cost_analysis
 from skycomputing_tpu_torch import build_layer, params_from_jax
+from skycomputing_tpu_torch.dataset import RandomTokenGenerator
 from skycomputing_tpu_torch.dynamics import (
     Allocator,
+    ModelBenchmarker,
     ParameterServer,
     WorkerManager,
 )
@@ -56,9 +61,9 @@ from skycomputing_tpu_torch.ops.flash_attention import (
     flash_attention_reference,
 )
 from skycomputing_tpu_torch.parallel import PipelineModel, sgd
+from skycomputing_tpu_torch.parallel.mesh import make_1d_mesh
 from skycomputing_tpu_torch.parallel.ring_attention import (
     full_attention_reference,
-    ring_attention,
 )
 
 pytestmark = pytest.mark.torch_port
@@ -102,8 +107,8 @@ def heads():
     return dict(params=params, hidden=hidden, mask4=mask4, out=out)
 
 
-def _port_head(params, **kw):
-    cfg = _cfg(bert_config).to_dict()
+def _port_head(params, config=None, **kw):
+    cfg = (config or _cfg(bert_config)).to_dict()
     units = [dict(layer_type="LongBertLayer_Head", config=cfg,
                   deterministic=True, **kw)]
     head = build_layer("LongBertLayer_Head", config=cfg, deterministic=True,
@@ -154,15 +159,139 @@ def test_attention_dropout_in_train_mode_raises():
     assert fixed(x, m)[0].shape == (1, 8, 128)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(strategy="ulysses")],
+@pytest.mark.parametrize("kw", [dict(), dict(strategy="ulysses")],
                          ids=["mesh", "ulysses"])
-def test_sequence_parallel_raises_naming_its_item(kw):
-    cfg = _cfg(bert_config).to_dict()
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        LongBertLayer_Head(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        ring_attention(None, None, None, object())
+def test_sequence_parallel_raises_naming_its_item(devices, kw):
+    """Sequence parallelism is ported: a head with a mesh runs ring
+    attention (Ulysses with ``strategy="ulysses"``) and gives the
+    single-device head's output; only an unknown strategy raises, with
+    JAX's ``ValueError``, at its first forward."""
+    cfg = _cfg(bert_config, num_attention_heads=8).to_dict()
+    hidden, mask4 = (torch.from_numpy(a) for a in _hidden_and_mask(7))
+    head = build_layer("LongBertLayer_Head", config=cfg, deterministic=True,
+                       mesh=_mesh(4), **kw)
+    single = build_layer("LongBertLayer_Head", config=cfg,
+                         deterministic=True, use_flash=False)
+    single.load_state_dict(head.state_dict())
+    with torch.no_grad():
+        np.testing.assert_allclose(head(hidden, mask4)[0].numpy(),
+                                   single(hidden, mask4)[0].numpy(),
+                                   **HEAD_TOL)
+    bogus = build_layer("LongBertLayer_Head", config=cfg, mesh=_mesh(4),
+                        strategy="bogus", deterministic=True)
+    jax_bogus = jax_build_layer(
+        "LongBertLayer_Head", config=_cfg(jax_bert_config).to_dict(),
+        deterministic=True, mesh=JaxMesh(np.array(devices[:4]), ("sp",)),
+        strategy="bogus")
+    with pytest.raises(ValueError, match="strategy 'bogus'") as jax_err:
+        jax_bogus.init({"params": jax.random.key(0)}, hidden.numpy(),
+                       mask4.numpy())
+    with pytest.raises(ValueError, match="strategy 'bogus'") as err:
+        bogus(hidden, mask4)
+    assert str(err.value) == str(jax_err.value)
+
+
+def _mesh(S):
+    return make_1d_mesh(S, "sp", [torch.device("cpu")] * S)
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_mesh_head_matches_jax(devices, strategy, S):
+    """``LongBertLayer_Head(mesh=..., strategy=...)`` on the JAX head's
+    weights: JAX over its first S devices, the port over S CPU
+    positions, L=256 with a padded tail (8 heads, so Ulysses divides)."""
+    cfg = _cfg(jax_bert_config, num_attention_heads=8).to_dict()
+    hidden, mask4 = _hidden_and_mask(11 + S)
+    jmesh = JaxMesh(np.array(devices[:S]), ("sp",))
+    ref_head = jax_build_layer("LongBertLayer_Head", config=cfg,
+                               deterministic=True, mesh=jmesh,
+                               strategy=strategy)
+    variables = ref_head.init({"params": jax.random.key(S)}, hidden, mask4)
+    ref = np.asarray(jax.jit(ref_head.apply)(variables, hidden, mask4)[0])
+    head = _port_head(jax.device_get(variables["params"]),
+                      config=_cfg(bert_config, num_attention_heads=8),
+                      mesh=_mesh(S), strategy=strategy)
+    with torch.no_grad():
+        out, _ = head(torch.from_numpy(hidden), torch.from_numpy(mask4))
+    np.testing.assert_allclose(out.numpy(), ref, **HEAD_TOL)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_mesh_head_grads_match_single_device(strategy):
+    """Autograd through the positions' moves: the mesh head's parameter
+    and input gradients equal the single-device einsum head's."""
+    cfg = _cfg(bert_config, num_attention_heads=8).to_dict()
+    hidden, mask4 = (torch.from_numpy(a) for a in _hidden_and_mask(9))
+    head = build_layer("LongBertLayer_Head", config=cfg, deterministic=True,
+                       mesh=_mesh(4), strategy=strategy)
+    single = build_layer("LongBertLayer_Head", config=cfg,
+                         deterministic=True, use_flash=False)
+    single.load_state_dict(head.state_dict())
+    # a seeded projection of the output (a sum of squares would be
+    # constant under the LayerNorm)
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tuple(hidden.shape)).astype(np.float32))
+    grads = []
+    for module in (head, single):
+        x = hidden.clone().requires_grad_(True)
+        names, params = zip(*module.named_parameters())
+        loss = (module(x, mask4)[0] * w).sum()
+        grads.append(dict(zip(("x",) + names, torch.autograd.grad(
+            loss, (x,) + params))))
+    for name, a in grads[0].items():
+        b = grads[1][name]
+        if name == "self.key.bias":
+            # zero in exact arithmetic (a softmax ignores a constant per
+            # query): both are rounding
+            assert a.abs().max() < 1e-4 and b.abs().max() < 1e-4
+            continue
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=5e-4,
+                                   atol=5e-6, err_msg=name)
+
+
+def test_mesh_head_rejects_attention_dropout():
+    """The online softmax cannot drop probabilities: with a mesh too,
+    attention dropout in train mode raises."""
+    cfg = _cfg(bert_config, attention_probs_dropout_prob=0.1).to_dict()
+    head = build_layer("LongBertLayer_Head", config=cfg, mesh=_mesh(2))
+    with pytest.raises(ValueError, match="attention-probs dropout"):
+        head(torch.zeros(1, 16, 128), torch.zeros(1, 1, 1, 16))
+    head.eval()
+    assert head(torch.zeros(1, 16, 128),
+                torch.zeros(1, 1, 1, 16))[0].shape == (1, 16, 128)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_mesh_head_static_profile_counts_its_whole_work(devices, strategy):
+    """A mesh-built stack profiles on ``meta`` without touching the
+    mesh's devices, and JAX's profile accepts it too.  The port counts
+    the head's whole work (within DEFAULT_RATIO of the single-device
+    einsum head's count); JAX counts one device's share of the sharded
+    program (and one ring step), which is fault C8 of ``ROADMAP.md``."""
+    S = 4
+
+    def cfg(pkg_config):
+        return _cfg(pkg_config, hidden_dropout_prob=0.1,
+                    num_attention_heads=8)
+
+    port = ModelBenchmarker(long_bert_layer_configs(
+        cfg(bert_config), 1, _mesh(S), strategy=strategy),
+        RandomTokenGenerator(2, L, 1024))
+    flops, _ = port.benchmark()
+    single_units = long_bert_layer_configs(cfg(bert_config), 1)
+    single_units[1]["use_flash"] = False
+    single = ModelBenchmarker(single_units, RandomTokenGenerator(2, L, 1024))
+    ref, _ = single.benchmark()
+    head = 1  # embeddings, then the head
+    assert 0.90 <= flops[head] / ref[head] <= 1.10, flops[head] / ref[head]
+    assert flops[:head] + flops[head + 1:] == ref[:head] + ref[head + 1:]
+    jax_flops, _ = JaxModelBench(
+        jax_long_configs(cfg(jax_bert_config), 1,
+                         JaxMesh(np.array(devices[:S]), ("sp",)),
+                         strategy=strategy),
+        JaxTokens(2, L, 1024)).benchmark()
+    assert len(jax_flops) == len(flops)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -259,6 +388,25 @@ def test_two_encoder_stack_trains_as_jax(jax_steps):
     losses = [model.train_step(data, labels) for _ in range(2)]
     np.testing.assert_allclose(losses, jax_steps["losses"], **TRAIN_TOL)
     assert losses[1] < losses[0]
+
+
+@pytest.mark.parametrize("strategy, S", [("ring", 4), ("ulysses", 2)])
+def test_mesh_stack_trains_as_jax(jax_steps, strategy, S):
+    """The same stack with every head sequence-parallel over S CPU
+    positions gives JAX's single-device logits and two SGD losses."""
+    cfg = _cfg(bert_config, max_position_embeddings=SEQ)
+    units = long_bert_layer_configs(cfg, 2, _mesh(S), deterministic=True,
+                                    strategy=strategy)
+    wm = _pool(WorkerManager, 3)
+    Allocator(units, wm).even_allocate()
+    ps = ParameterServer(units, state_dicts=jax_steps["init"])
+    model = PipelineModel(wm, ps, sgd(LR), tlosses.cross_entropy_loss,
+                          devices=CPU, num_microbatches=2)
+    data, labels = jax_steps["data"], jax_steps["labels"]
+    np.testing.assert_allclose(model.forward(data).numpy(),
+                               jax_steps["logits"], rtol=1e-4, atol=1e-5)
+    losses = [model.train_step(data, labels) for _ in range(2)]
+    np.testing.assert_allclose(losses, jax_steps["losses"], **TRAIN_TOL)
 
 
 def test_seeded_init_draws_the_long_head():
