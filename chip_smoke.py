@@ -8,7 +8,8 @@ one.  Phases, each fatal on failure:
 2. build every CUDA source under ``skycomputing_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, started together), one ``ptxas`` line per
    kernel instantiation (registers, spill bytes, static shared memory);
-   the tensor-core, decode and register-tile bodies must not spill;
+   the tensor-core (bf16 and 3xTF32), decode and register-tile bodies
+   must not spill;
 3. each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, with kernel / plain / library times and the
    bound: paged attention at GPT-2 small's shapes (decode waves,
@@ -17,9 +18,12 @@ one.  Phases, each fatal on failure:
    fp pages (kernel B2) and over int8 pages with per-page-per-head
    scales (kernel B3); flash attention (kernel B1) at BERT-large's
    microbatch (B=8, L=128, H=16, D=64, a padded tail of 32 keys), at
-   L=512, at L=100 and at phases 27-28's dp shard (B=4, L=128); then, checked but not timed, each kernel body's
-   edges (B1 at L=7, 64 and 65, head_dim 32, 40 and 128, B=1, every key
-   masked; B2 and B3 with a row at index 0, a row filling its whole
+   L=512, at L=100 and at phases 27-28's dp shard (B=4, L=128), float32
+   on the 3xTF32 tensor-core body, whose rows add its bound at the TF32
+   peak beside the FFMA bound; then, checked but not timed, each kernel
+   body's edges (B1 at L=7, 64 and 65, head_dim 32, 36, 40 and 128,
+   B=1, every key masked, float32 against the plain version evaluated
+   in float64; B2 and B3 with a row at index 0, a row filling its whole
    table, a row at index 20 and an all-sentinel pad row, head_dim 64
    and 128, pages of 16 at Lq 1, 5, 16, 17, 63, 64, 65 and 256, pages of
    4 and 8 at Lq 17, 33 and 64).  Every row names the body that served
@@ -64,7 +68,8 @@ one.  Phases, each fatal on failure:
     rematerialized forward), read from that run alone;
 12. trainer card against CPU: the same pipeline at depth 2 in float32,
     two steps on ``cuda`` and on ``cpu`` from the same weights and
-    batch: losses within 1e-4 relative, parameters within 1e-5;
+    batch: losses within 1e-4 relative, parameters within 1e-5, every
+    B1 launch on the card on the float32 tensor-core body;
 13. a profiler breakdown of one train step (device time by kernel, the
     card's idle share, B1's share, the weight casts' launches);
 14. the profilers: the static (FLOPs on the ``meta`` device) and the
@@ -114,7 +119,8 @@ one.  Phases, each fatal on failure:
     window alone; a profile of one eval batch (the card's idle share,
     B1's share); and, at BERT-large's width, depth 2, float32, the same
     evaluation on the card and on the CPU from the same weights: losses
-    within 1e-4 relative, equal predictions;
+    within 1e-4 relative, equal predictions, every B1 launch on the card
+    on the float32 tensor-core body;
 18. the bench: ``python -m skycomputing_tpu_torch.bench`` as a
     subprocess at its defaults (64 workers with the paper's slowdowns,
     BERT-large at 53 encoder layers as 215 units at ffn/2, M=256) under
@@ -202,7 +208,7 @@ one.  Phases, each fatal on failure:
 23. long-context BERT through B1: first B1 against its plain version at
     B=1, H=16, D=64 with the last tenth of the keys padded, bf16 at L =
     1,024, 2,048 and 4,096 (the tensor-core body, within 2e-2) and
-    float32 at 2,048 and 4,096 (the CUDA-core body, within 1e-4; 4,096
+    float32 at 2,048 and 4,096 (the 3xTF32 body, within 1e-4; 4,096
     is phase 26's single-device baseline), each timed as in
     phase 3 beside its bound and SDPA's time; then ``launch.run`` on a
     config of ``long_bert_layer_configs`` at BERT-large's width (hidden
@@ -242,7 +248,8 @@ one.  Phases, each fatal on failure:
     baseline, never on the ring); GPT-2 small's width (float32, 2
     blocks) at L=1,024 with causal ring attention against the dense
     stack (logits within 1e-4).  Printed: step times, peak memory, B1's
-    launches;
+    launches, by body (all float32 ones on the 3xTF32 body, here and
+    in phases 27-28);
 27. data-parallel replicas: ``DataParallelPipeline`` with 2 replicas
     of the launcher's BERT-large pipeline (24 layers as 75 units, flash
     on, float32, 4 workers each, every position on the card), batch 32
@@ -263,9 +270,9 @@ The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
 and phase 21; their register-tile entries from phase 21's float32
 prefill and chunk waves; B1's from its BERT paths, at L=4,096 from
-phase 23, and its float32 body's from phases 27-28, beside its time
-at their 4 rows of 128, and from phase 26's baseline, beside its time
-at 1 row of 4,096);
+phase 23, and its float32 tensor-core body's, by body, from phases
+27-28, beside its time at their 4 rows of 128, and from phase 26's
+baseline, beside its time at 1 row of 4,096);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -291,9 +298,11 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, no sparsity
+PEAK_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 SEED = 0
 LAYERS = 12
 B1, B2, B3 = "flash_attention", "paged_attention", "paged_attention_int8"
+F32_BODY = "tensor_core_f32"  # B1's float32 body on every main path
 
 
 def log(msg: str) -> None:
@@ -481,6 +490,8 @@ def flash_body(torch, ptxas, q):
         q.device).multi_processor_count)
     if plan["body"] == "tensor_core":
         label = f"flash_attention_kernel_mma<{D}>"
+    elif plan["body"] == "tensor_core_f32":
+        label = f"flash_attention_kernel_tf32x3<{D}>"
     else:
         t = _SHORT[str(q.dtype).replace("torch.", "")]
         label = f"flash_attention_kernel<{t}, {4 if D <= 64 else 8}>"
@@ -1007,6 +1018,22 @@ def lockstep_int8(torch, np, gpt_mod, ServingEngine, Request):
                 max_int8_steps_apart=steps, max_scale_rel_diff=scale_rel)
 
 
+def zero_counts(kernels):
+    """Every kernel's launch count, and each body's, set to 0."""
+    for k in kernels.values():
+        k["fn"].launches = 0
+        for body in getattr(k["fn"], "body_launches", {}):
+            k["fn"].body_launches[body] = 0
+
+
+def check_f32_b1_body(bodies, launches, what):
+    """Every float32 B1 launch of a run on the 3xTF32 tensor-core body
+    (head_dim 64 everywhere on the main path)."""
+    check(launches > 0 and bodies[F32_BODY] == launches,
+          f"{what}: all {launches} B1 launches on the float32 tensor-core "
+          f"body ({json.dumps(bodies)})")
+
+
 def check_launches(launches, expect, what):
     """Every kernel's launches equal ``expect`` (0 where it names none)."""
     expect = {name: expect.get(name, 0) for name in launches}
@@ -1170,18 +1197,27 @@ def flash_case(torch, np, B, L, tail, dtype, seed):
     return q, k, v, bias.to("cuda", dt)
 
 
-def flash_bound(q, bias, dtype):
+def flash_bound(q, bias, dtype, body=None):
     """The least time for one call: q, k, v read and out written once
     (plus the bias row), against 4 * B * H * L * L * D flops (the two
-    products; the softmax's exps are not counted)."""
+    products; the softmax's exps are not counted) at the dtype's peak.
+    For the float32 tensor-core body (``body="tensor_core_f32"``) the
+    operations are its three TF32 products, 3 * 4 * B * H * L * L * D at
+    the TF32 peak; the row also keeps the FFMA bound beside it.  Returns
+    (bound_ms, bound_by, fields for the row)."""
     B, L, H, D = q.shape
     itemsize = q.element_size()
-    nbytes = 4 * B * L * H * D * itemsize + bias.numel() * itemsize
+    nbytes = 4 * B * L * H * D * itemsize + bias.numel() * bias.element_size()
     flops = 4.0 * B * H * L * L * D
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    extra = {}
+    if body == "tensor_core_f32":
+        extra = dict(ffma_bound_ms=max(t_bytes, t_ops),
+                     bound_basis="3xTF32: 3 x 4BHL^2D at 495 TFLOP/s")
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
+                                 else "operations"), extra
 
 
 def flash_checks(torch, np, ptxas):
@@ -1215,14 +1251,16 @@ def flash_checks(torch, np, ptxas):
                 q, k, v, bias, scale))
             library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask))
-            bound_ms, bound_by = flash_bound(q, bias, dtype)
+            body = flash_body(torch, ptxas, q)
+            bound_ms, bound_by, extra = flash_bound(q, bias, dtype,
+                                                    body["body"])
             row = dict(kernel="flash_attention", case=name, B=B, L=L,
                        H=16, D=64, padded_keys=tail, dtype=dtype,
                        max_abs_err=err, tol=tol[dtype], ms=ms,
                        host_ms=issue_ms, plain_ms=plain_ms,
                        library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       **flash_body(torch, ptxas, q))
+                       bound_ms=bound_ms, bound_by=bound_by, **extra,
+                       **body)
             log(f"   {json.dumps(row)}")
             check(finite and err <= tol[dtype],
                   f"flash_attention {name} {dtype}: max |err| {err:.3g} "
@@ -1231,8 +1269,10 @@ def flash_checks(torch, np, ptxas):
     return results
 
 
-# (case, B, L, H, D, masked tail keys) at the tensor-core body's edges;
-# head_dim 40 is not a multiple of 16, so bf16 too takes the CUDA-core body
+# (case, B, L, H, D, masked tail keys) at the tensor-core bodies' edges;
+# head_dim 40 is not a multiple of 16, so bf16 takes the CUDA-core body
+# (float32 the float32 tensor-core body, 40 being a multiple of 8), and
+# head_dim 36 not a multiple of 8, so both dtypes take the CUDA-core body
 FLASH_EDGE_CASES = (("short_L7", 2, 7, 4, 64, 0), ("one_tile_L64", 2, 64, 4,
                                                     64, 0),
                     ("one_past_L65", 2, 65, 4, 64, 0),
@@ -1240,14 +1280,19 @@ FLASH_EDGE_CASES = (("short_L7", 2, 7, 4, 64, 0), ("one_tile_L64", 2, 64, 4,
                     ("head_dim_128", 2, 130, 4, 128, 8),
                     ("batch_1", 1, 128, 16, 64, 32),
                     ("all_keys_masked", 2, 64, 4, 64, 64),
-                    ("head_dim_40", 2, 100, 4, 40, 8))
+                    ("head_dim_40", 2, 100, 4, 40, 8),
+                    ("head_dim_36", 2, 100, 4, 36, 8))
 
 
 def flash_edge_checks(torch, np, ptxas):
     """B1 at its bodies' edges in both dtypes against the plain version
-    (checked, not timed).  In ``all_keys_masked`` batch 0's queries are
-    zero, so its softmax must come out uniform: its output the mean of v
-    over the keys."""
+    (checked, not timed); in float32 against the plain version evaluated
+    in float64, the function itself, because in ``all_keys_masked`` the
+    float32 plain version's scores round to a step of 2^-10 at -1e4,
+    which moves its output by up to about 4e-4 (each row reports the
+    float32 plain version's distance too).  In ``all_keys_masked`` batch
+    0's queries are zero, so its softmax must come out uniform: its
+    output the mean of v over the keys."""
     from skycomputing_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
@@ -1270,6 +1315,11 @@ def flash_edge_checks(torch, np, ptxas):
                 q[0] = 0
             out = flash_attention(q, k, v, bias)
             ref = flash_attention_reference(q, k, v, bias, D ** -0.5)
+            plain_f32 = None
+            if dtype == "float32":
+                plain_f32 = (out - ref).abs().max().item()
+                ref = flash_attention_reference(
+                    q, k, v, bias, D ** -0.5, compute_dtype=torch.float64)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             if name == "all_keys_masked":
@@ -1278,6 +1328,7 @@ def flash_edge_checks(torch, np, ptxas):
             finite = bool(torch.isfinite(out).all())
             row = dict(kernel="flash_attention", case=name, B=B, L=L, H=H,
                        D=D, padded_keys=tail, dtype=dtype, max_abs_err=err,
+                       max_abs_err_vs_f32_plain=plain_f32,
                        tol=tol[dtype], **flash_body(torch, ptxas, q))
             log(f"   {json.dumps(row)}")
             check(finite and err <= tol[dtype],
@@ -1405,8 +1456,10 @@ def train_bert(torch, np, kernels):
 
 def trainer_card_vs_cpu(torch, np):
     """The pipeline at BERT-large's width, depth 2, float32: two steps
-    on the card and on the CPU from the same weights and batch."""
+    on the card and on the CPU from the same weights and batch, with B1's
+    launches by body on the card."""
     from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.ops.flash_attention import flash_attention
 
     cfg = bert_config("large", dtype="float32", hidden_dropout_prob=0.0,
                       attention_probs_dropout_prob=0.0,
@@ -1419,9 +1472,14 @@ def trainer_card_vs_cpu(torch, np):
                                      devices=[torch.device("cpu")],
                                      state_dicts=card_ps.params)
     losses = {}
+    flash = {B1: dict(fn=flash_attention)}
     for name, model in (("cuda", card), ("cpu", host)):
         t0 = time.perf_counter()
+        zero_counts(flash)
         losses[name] = [model.train_step(data, labels) for _ in range(2)]
+        if name == "cuda":
+            b1 = dict(launches=flash_attention.launches,
+                      bodies=dict(flash_attention.body_launches))
         log(f"   {name}: losses {losses[name]} in "
             f"{time.perf_counter() - t0:.1f} s")
         model.sync_to_parameter_server()
@@ -1432,7 +1490,7 @@ def trainer_card_vs_cpu(torch, np):
         for a, b in zip(card_ps.params, host_ps.params) for key in a
     )
     return dict(losses=losses, max_loss_rel_diff=loss_rel,
-                max_param_abs_diff=param_abs)
+                max_param_abs_diff=param_abs, b1=b1)
 
 
 def flash_on_off_bf16(torch, np, kernels):
@@ -2060,8 +2118,9 @@ def flash_eval_checks(torch, np, ptxas, run, dev):
                     library_ms=time_ms(
                         torch, lambda: F.scaled_dot_product_attention(
                             qh, kh, vh, attn_mask=mask)))
-                row["bound_ms"], row["bound_by"] = flash_bound(
-                    q, bias, row["dtype"])
+                row["bound_ms"], row["bound_by"], extra = flash_bound(
+                    q, bias, row["dtype"], row["body"])
+                row.update(extra)
             log(f"   {json.dumps(row)}")
             check(finite and err <= tol[q.dtype],
                   f"flash_attention eval B={B} {what} {row['dtype']} "
@@ -2078,6 +2137,7 @@ def eval_card_vs_cpu(torch, np, dev):
     on, on the card and on the CPU from the same weights, over the dev
     loader's first two batches: the losses and every prediction."""
     from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.ops.flash_attention import flash_attention
     from skycomputing_tpu_torch.runner import Runner
 
     cfg = bert_config("large", dtype="float32", hidden_dropout_prob=0.0,
@@ -2094,13 +2154,16 @@ def eval_card_vs_cpu(torch, np, dev):
     for name, model, ps, pool in (("cuda", card, card_ps, wm),
                                   ("cpu", host, host_ps, host_wm)):
         runner = Runner(model, ps, pool, max_epochs=0, max_iters=0)
+        zero_counts({B1: dict(fn=flash_attention)})
         metrics = runner.evaluate(batches, task="mnli")
         model.train(False)
         preds = [model.forward(data).float().argmax(-1).cpu().numpy()
                  for data, _ in batches]
         model.train(True)
         out[name] = dict(metrics=metrics,
-                         predictions=np.concatenate(preds).tolist())
+                         predictions=np.concatenate(preds).tolist(),
+                         b1=dict(launches=flash_attention.launches,
+                                 bodies=dict(flash_attention.body_launches)))
     out["loss_rel_diff"] = (abs(out["cuda"]["metrics"]["loss"]
                                 - out["cpu"]["metrics"]["loss"])
                             / abs(out["cpu"]["metrics"]["loss"]))
@@ -2829,7 +2892,7 @@ LONG_FLASH_CASES = (("long_L1024", 1, 1024, 102), ("long_L2048", 1, 2048, 204),
 def flash_long_checks(torch, np, ptxas):
     """Phase 23's kernel rows: B1 against its plain version at long
     BERT's lengths, bf16 (the tensor-core body) at L = 1,024, 2,048 and
-    4,096 and float32 (the CUDA-core body) at 2,048 and at 4,096 (phase
+    4,096 and float32 (the 3xTF32 body) at 2,048 and at 4,096 (phase
     26's single-device baseline), with the kernel's,
     the plain version's and SDPA's times and the bound, timed as
     :func:`flash_checks` times them.  Outputs shrink as L grows, so bf16
@@ -2866,12 +2929,13 @@ def flash_long_checks(torch, np, ptxas):
             q, k, v, bias, scale))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask))
-        bound_ms, bound_by = flash_bound(q, bias, dtype)
+        body = flash_body(torch, ptxas, q)
+        bound_ms, bound_by, extra = flash_bound(q, bias, dtype, body["body"])
         row = dict(kernel="flash_attention", case=name, B=B, L=L, H=16,
                    D=64, padded_keys=tail, dtype=dtype, **got,
                    tol=tol[dtype], ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, **flash_body(torch, ptxas, q))
+                   bound_by=bound_by, **extra, **body)
         log(f"   {json.dumps(row)}")
         scaled = dtype == "float32" or all(
             got[key] <= bound for key, bound in BF16_LONG_TOL.items())
@@ -3454,14 +3518,14 @@ def sp_long_bert_steps(torch, np, kernels, dev, preset="large",
         init = init or _clone_params(ps.params)
         model = PipelineModel(wm, ps, sgd(PAR_LR), cross_entropy_loss,
                               devices=[dev], num_microbatches=SP_MICRO)
-        for k in kernels.values():
-            k["fn"].launches = 0
+        zero_counts(kernels)
         losses, step_ms, peak = _train_steps(torch, model, data, labels,
                                              dev, steps)
         runs[name] = dict(
             losses=losses, step_ms=step_ms, peak_mem_gb=peak,
             partition=model.partition_signature(),
-            launches={n: k["fn"].launches for n, k in kernels.items()})
+            launches={n: k["fn"].launches for n, k in kernels.items()},
+            b1_bodies=dict(kernels[B1]["fn"].body_launches))
         log(f"   long BERT, {name}: {json.dumps(runs[name])}")
         del model, ps
         _free(torch)
@@ -3476,6 +3540,8 @@ def sp_long_bert_steps(torch, np, kernels, dev, preset="large",
           f"B1 launched {runs['b1']['launches'][B1]} times in the "
           f"baseline ({units} heads x {SP_MICRO} microbatches x forward "
           f"and remat x {steps} steps), never with the ring")
+    check_f32_b1_body(runs["b1"]["b1_bodies"], runs["b1"]["launches"][B1],
+                      "long BERT's B1 baseline")
     return dict(runs=runs, loss_rel_diff=rel)
 
 
@@ -3557,10 +3623,10 @@ def data_parallel_path(torch, np, kernels, dev, units, vocab_size,
     dp = DataParallelPipeline(wm, ps, sgd(PAR_LR), cross_entropy_loss,
                               num_replicas=2, devices=[dev] * 8,
                               num_microbatches=PAR_MICRO, schedule="1f1b")
-    for k in kernels.values():
-        k["fn"].launches = 0
+    zero_counts(kernels)
     losses, step_ms, peak = _train_steps(torch, dp, data, labels, dev, steps)
     launches = {n: k["fn"].launches for n, k in kernels.items()}
+    b1_bodies = dict(kernels[B1]["fn"].body_launches)
     identical = all(
         torch.equal(a, b) for s0, s1 in zip(dp.replicas[0].stages,
                                             dp.replicas[1].stages)
@@ -3580,7 +3646,8 @@ def data_parallel_path(torch, np, kernels, dev, units, vocab_size,
     diff = _max_param_diff(ps.params, ps_one.params)
     out = dict(replicas=2, batch=batch, seq=seq, microbatches=PAR_MICRO,
                losses=losses, step_ms=step_ms, peak_mem_gb=peak,
-               launches=launches, single_losses=one_losses,
+               launches=launches, b1_bodies=b1_bodies,
+               single_losses=one_losses,
                single_step_ms=one_ms, single_peak_mem_gb=one_peak,
                loss_rel_diff=rel, max_param_abs_diff=diff,
                replicas_bitwise_identical=identical)
@@ -3589,6 +3656,7 @@ def data_parallel_path(torch, np, kernels, dev, units, vocab_size,
     check(launches[B1] == heads * 2 * PAR_MICRO * 2 * steps,
           f"B1 launched {launches[B1]} times: {heads} layers x 2 replicas "
           f"x {PAR_MICRO} microbatches x forward and remat x {steps} steps")
+    check_f32_b1_body(b1_bodies, launches[B1], "data-parallel replicas")
     check(rel <= 1e-4, f"losses of 2 replicas against one pipeline within "
           f"{rel:.3g} <= 1e-4 relative")
     check(diff <= 1e-5, f"parameters after {steps} steps within {diff:.3g} "
@@ -3649,11 +3717,11 @@ def mesh_pipeline_path(torch, np, kernels, dev, units, vocab_size,
     check(model.chips_per_stage == list(plan.chips),
           f"stages of {model.partition_signature()} units on "
           f"{model.chips_per_stage} positions, as allocated")
-    for k in kernels.values():
-        k["fn"].launches = 0
+    zero_counts(kernels)
     losses, step_ms, peak = _train_steps(torch, model, data, labels, dev,
                                          steps)
     launches = {n: k["fn"].launches for n, k in kernels.items()}
+    b1_bodies = dict(kernels[B1]["fn"].body_launches)
     lanes = [s.lane_name for s in model.stages]
     del model
     _free(torch)
@@ -3666,6 +3734,7 @@ def mesh_pipeline_path(torch, np, kernels, dev, units, vocab_size,
           f"{steps} steps on the mesh plan, losses {losses}; B1 launched "
           f"{launches[B1]} times: each of {heads} layers once per dp row "
           f"of its stage x {PAR_MICRO} microbatches x forward and remat")
+    check_f32_b1_body(b1_bodies, launches[B1], "mesh-native stages")
 
     # one position per stage against the MPMD engine, in turns
     models = []
@@ -3697,7 +3766,8 @@ def mesh_pipeline_path(torch, np, kernels, dev, units, vocab_size,
                allocate_s=allocate_s, payload=payload,
                broken_payload_problems=broken, losses=losses,
                step_ms=step_ms, peak_mem_gb=peak, launches=launches,
-               lanes=lanes, one_position_losses=pair_losses,
+               b1_bodies=b1_bodies, lanes=lanes,
+               one_position_losses=pair_losses,
                one_position_bitwise_equal=bitwise,
                one_position_max_param_abs_diff=diff)
     log(f"   {json.dumps(out)}")
@@ -3776,13 +3846,15 @@ def main() -> int:
             log(f"   ptxas {label}: {json.dumps(info)}")
         new_bodies = {label: info for label, info in ptxas.items()
                       if "_kernel_mma<" in label or "_kernel_decode<" in label
-                      or "_kernel_tile<" in label}
+                      or "_kernel_tile<" in label
+                      or "_kernel_tf32x3<" in label}
         check(len(new_bodies) > 0 and all(
             info.get("spill_store_bytes", 1) == 0
             and info.get("spill_load_bytes", 1) == 0
             for info in new_bodies.values()),
-              f"{len(new_bodies)} instantiations of the tensor-core, decode "
-              f"and register-tile bodies, none spilling")
+              f"{len(new_bodies)} instantiations of the tensor-core (bf16 "
+              f"and 3xTF32), decode and register-tile bodies, none "
+              f"spilling")
 
     with phase("kernels against plain versions"):
         report["spin_ms"] = spin_ms(torch)
@@ -4060,6 +4132,8 @@ def main() -> int:
         check(cmp["max_param_abs_diff"] <= 1e-5,
               f"card and CPU parameters within "
               f"{cmp['max_param_abs_diff']:.3g} <= 1e-5 after two steps")
+        check_f32_b1_body(cmp["b1"]["bodies"], cmp["b1"]["launches"],
+                          "trainer card against CPU")
         report["trainer_card_vs_cpu"] = cmp
         gc.collect()
         torch.cuda.empty_cache()
@@ -4121,6 +4195,9 @@ def main() -> int:
         check(cmp["cuda"]["predictions"] == cmp["cpu"]["predictions"],
               f"equal predictions on the card and the CPU "
               f"({len(cmp['cpu']['predictions'])} examples)")
+        check_f32_b1_body(cmp["cuda"]["b1"]["bodies"],
+                          cmp["cuda"]["b1"]["launches"],
+                          "eval card against CPU")
         report["glue"] = glue
         report["eval_card_vs_cpu"] = cmp
         gc.collect()
@@ -4239,15 +4316,19 @@ def main() -> int:
         _free(torch)
 
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
-              dtype="bfloat16"):
+              dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
                    and r["case"] == case and r["dtype"] == dtype)
         k = kernels[name]
-        return dict(name=label or name, route=k["route"], source=k["source"],
-                    replaces=k["replaces"], launches=kernel_launches,
-                    max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                    bound_by=row["bound_by"], library_ms=row["library_ms"])
+        out = dict(name=label or name, route=k["route"], source=k["source"],
+                   replaces=k["replaces"], launches=kernel_launches,
+                   max_abs_err=row["max_abs_err"], ms=row["ms"],
+                   plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                   bound_by=row["bound_by"], library_ms=row["library_ms"])
+        if body is not None:
+            check(row["body"] == body, f"{out['name']}: timed on {body}")
+            out.update(body=body, ffma_bound_ms=row["ffma_bound_ms"])
+        return out
 
     # each kernel's launches from the paths that are its own: B2 from the
     # fp serving path, the multi-stage phase and the serving bench, B3
@@ -4278,17 +4359,18 @@ def main() -> int:
         entry(B1, report["e2e_long_bert"]["launches"][B1],
               report["flash_long"], "long_L4096",
               label=f"{B1}:long_L4096"),
-        # the float32 CUDA-core body on the data-parallel and mesh phases'
-        # paths, beside its time at their dp shard's 4 rows of 128
-        entry(B1, report["data_parallel"]["launches"][B1]
-              + report["mesh_pipeline"]["launches"][B1], flash,
+        # the float32 tensor-core (3xTF32) body on the data-parallel and
+        # mesh phases' paths, beside its time at their dp shard's 4 rows
+        # of 128
+        entry(B1, report["data_parallel"]["b1_bodies"][F32_BODY]
+              + report["mesh_pipeline"]["b1_bodies"][F32_BODY], flash,
               "bert_large_L128_B4", dtype="float32",
-              label=f"{B1}:f32_B4_L128"),
-        # the float32 body in phase 26's single-device baseline, beside
-        # its time at that baseline's microbatch, 1 row of 4,096
+              label=f"{B1}:f32_B4_L128", body=F32_BODY),
+        # the same body in phase 26's single-device baseline, beside its
+        # time at that baseline's microbatch, 1 row of 4,096
         entry(B1, report["sequence_parallel"]["long_bert"]["runs"]["b1"][
-            "launches"][B1], report["flash_long"], "long_L4096",
-              dtype="float32", label=f"{B1}:f32_L4096")]}
+            "b1_bodies"][F32_BODY], report["flash_long"], "long_L4096",
+              dtype="float32", label=f"{B1}:f32_L4096", body=F32_BODY)]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(

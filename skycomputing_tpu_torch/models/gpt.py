@@ -49,7 +49,10 @@ load-balance loss kept on the module as ``aux_loss`` (JAX sows it into
 
 ``GptBlock_Attn(mesh=...)`` shards its full-sequence forward over a 1-d
 mesh with causal ring attention (``parallel/ring_attention.py``), as in
-JAX; cached decoding rejects such a block (:func:`decode_modules`).
+JAX; cached decoding rejects such a block (:func:`decode_modules`).  On
+``meta`` such a block runs one position's program over its L/S rows
+(:func:`..parallel.mesh.one_position`), as XLA's cost analysis charges
+the JAX block's sharded program.
 """
 
 from __future__ import annotations
@@ -210,19 +213,35 @@ class GptBlock_Attn(nn.Module):
         """Causal self-attention over the whole sequence [B, L, H]; with a
         ``mesh``, causal ring attention over its ``axis_name`` positions
         (float32 scores and softmax, the context in the model dtype)."""
-        q, k, v = self._qkv(hidden)
         if self.mesh is not None:
-            from ..parallel.ring_attention import ring_attention
+            from ..parallel.mesh import one_position
+            from ..parallel.ring_attention import (
+                check_ring,
+                ring_attention,
+                ring_position,
+            )
 
-            ctx = ring_attention(q, k, v, self.mesh,
+            if hidden.device.type == "meta":
+                # the static profile and the pre-flight: one position's
+                # program over its L/S rows, as XLA charges JAX's
+                S = len(self.mesh.ring(self.axis_name, hidden))
+                check_ring(hidden.shape[1], S, self.axis_name)
+                return one_position(
+                    lambda rows: self._ring_out(
+                        rows, ring_position(*self._qkv(rows), causal=True)),
+                    S, hidden)
+            ctx = ring_attention(*self._qkv(hidden), self.mesh,
                                  axis_name=self.axis_name, causal=True)
-            return hidden + self.drop(self.c_proj(
-                ctx.reshape(ctx.shape[0], ctx.shape[1],
-                            self.config.hidden_size)))
+            return self._ring_out(hidden, ctx)
+        q, k, v = self._qkv(hidden)
         L = q.shape[1]
         causal = torch.ones(L, L, dtype=torch.bool,
                             device=q.device).tril()[None]
         return hidden + self.drop(self._attend(q, k, v, causal))
+
+    def _ring_out(self, hidden, ctx):
+        return hidden + self.drop(self.c_proj(
+            ctx.reshape(ctx.shape[0], ctx.shape[1], self.config.hidden_size)))
 
     def decode(self, hidden, k_cache, v_cache, index):
         """One incremental step against SLOT slabs.

@@ -17,7 +17,11 @@ With a ``mesh`` (:mod:`..parallel.mesh`, a 1-d mesh over
 ``axis_name``) the sequence is sharded over the mesh's positions, as in
 JAX: ``strategy="ring"`` takes ``parallel/ring_attention.ring_attention``
 and ``"ulysses"`` ``parallel/ulysses.ulysses_attention``; any other
-strategy raises ``ValueError`` at the first forward.
+strategy raises ``ValueError`` at the first forward.  On ``meta`` (the
+static profile, the pre-flight) a mesh-built head runs one position's
+program over its L/S rows (:func:`..parallel.mesh.one_position`), the
+share of the work XLA's cost analysis charges the JAX head's sharded
+program.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ class LongBertSelfAttention(nn.Module):
         self.key = _dense(cfg, H, H)
         self.value = _dense(cfg, H, H)
 
-    def forward(self, hidden_states, attention_mask):
+    def _qkv(self, hidden_states):
         cfg = self.config
         if (cfg.attention_probs_dropout_prob > 0 and self.training
                 and not self.deterministic):
@@ -63,13 +67,48 @@ class LongBertSelfAttention(nn.Module):
         B, L = hidden_states.shape[:2]
         n_heads = cfg.num_attention_heads
         head_dim = cfg.hidden_size // n_heads
+        return tuple(dense(hidden_states).reshape(B, L, n_heads, head_dim)
+                     for dense in (self.query, self.key, self.value))
 
-        def split_heads(x):
-            return x.reshape(B, L, n_heads, head_dim)
+    def _merge(self, context):
+        cfg = self.config
+        return context.reshape(*context.shape[:2], cfg.hidden_size).to(
+            torch_dtype(cfg.dtype))
 
-        q = split_heads(self.query(hidden_states))
-        k = split_heads(self.key(hidden_states))
-        v = split_heads(self.value(hidden_states))
+    def check_mesh(self, L: int, S: int) -> None:
+        """Raise where ``strategy`` cannot split a sequence of ``L`` over
+        S positions, or is unknown."""
+        from ..parallel.ring_attention import check_ring
+        from ..parallel.ulysses import check_ulysses
+
+        if self.strategy == "ulysses":
+            check_ulysses(L, self.config.num_attention_heads, S,
+                          self.axis_name)
+        elif self.strategy == "ring":
+            check_ring(L, S, self.axis_name)
+        else:
+            raise ValueError(
+                f"unknown sequence-parallel strategy {self.strategy!r}"
+            )
+
+    def position_forward(self, rows, attention_mask, S: int):
+        """Position 0's program of the sequence-parallel attention on
+        ``meta``: ``rows`` its L/S rows, ``attention_mask`` the whole
+        mask."""
+        from ..parallel.ring_attention import ring_position
+        from ..parallel.ulysses import ulysses_position
+
+        q, k, v = self._qkv(rows)
+        bias = attention_mask[:, 0, 0, :]
+        if self.strategy == "ulysses":
+            context = ulysses_position(q, k, v, S, bias=bias)
+        else:
+            context = ring_position(q, k, v,
+                                    bias_blk=bias[:, :rows.shape[1]])
+        return self._merge(context)
+
+    def forward(self, hidden_states, attention_mask):
+        q, k, v = self._qkv(hidden_states)
         bias = attention_mask[:, 0, 0, :]
         # the parallel modules are imported here: the parallel package
         # imports the pipeline, which imports the model zoo
@@ -94,8 +133,7 @@ class LongBertSelfAttention(nn.Module):
             from ..parallel.ring_attention import full_attention_reference
 
             context = full_attention_reference(q, k, v, bias=bias)
-        return context.reshape(B, L, cfg.hidden_size).to(
-            torch_dtype(cfg.dtype))
+        return self._merge(context)
 
 
 @LAYER.register_module
@@ -111,7 +149,18 @@ class LongBertLayer_Head(nn.Module):
         self.output = BertSelfOutput(config, deterministic)
 
     def forward(self, hidden_states, attention_mask):
-        self_out = self.self(hidden_states, attention_mask)
+        attn = self.self
+        if attn.mesh is not None and hidden_states.device.type == "meta":
+            from ..parallel.mesh import one_position
+
+            S = len(attn.mesh.ring(attn.axis_name, hidden_states))
+            attn.check_mesh(hidden_states.shape[1], S)
+            out = one_position(
+                lambda rows, mask: self.output(
+                    attn.position_forward(rows, mask, S), rows),
+                S, hidden_states, attention_mask)
+            return out, attention_mask
+        self_out = attn(hidden_states, attention_mask)
         return self.output(self_out, hidden_states), attention_mask
 
 

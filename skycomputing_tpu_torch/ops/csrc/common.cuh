@@ -1,6 +1,6 @@
 // Device helpers shared by the port's CUDA sources: float conversions of
 // the element types, and the PTX the Hopper bodies are built from
-// (cp.async, ldmatrix, mma.sync on bf16).  Included by each csrc/*.cu;
+// (cp.async, ldmatrix, mma.sync on bf16 and on tf32, the tf32 split).  Included by each csrc/*.cu;
 // skycomputing_tpu_torch/ops/_build.py hashes it with each source.
 
 #pragma once
@@ -74,6 +74,32 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[16 x 8] += a[16 x 8] . b[8 x 8], tf32 in (the low 13 bits of each
+// operand are not read), f32 accumulate
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to tf32 (10 mantissa bits; to nearest, ties away from zero),
+// as the bits of a float whose low 13 bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = big + small + (about 2^-22 |x|): big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 // two floats as a bf16 pair, `lo` in the low half (the lower column)

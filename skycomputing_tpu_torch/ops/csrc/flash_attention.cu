@@ -19,7 +19,7 @@
 // q, k, v, out and bias: 128 flops per element, 64 per bf16 byte, below
 // the card's ~295 flops per byte, so the bound is the bytes.
 //
-// Two bodies; which one runs depends only on the dtype and D (the
+// Three bodies; which one runs depends only on the dtype and D (the
 // wrapper's plan, skycomputing_tpu_torch/ops/flash_attention.py):
 //
 // * bfloat16 with D a multiple of 16 (<= 128): flash_attention_kernel_mma,
@@ -38,11 +38,26 @@
 //   in registers and reused as the A operand of P.V, V read with
 //   ldmatrix.trans; the f32 output goes through shared memory and out
 //   to device memory in 16-byte vectors.
-// * float32, or bfloat16 with another D: flash_attention_kernel, the
-//   CUDA-core body.  One block per (batch, head, 32 queries) stages K/V
-//   tiles of 64 keys in float32 through shared memory, every product a
-//   float32 FMA with a 4 x 4 register tile per thread.  Its exact float32
-//   arithmetic is what the float32 card-against-CPU checks rely on.
+// * float32 with D a multiple of 8 (<= 128):
+//   flash_attention_kernel_tf32x3, the same skeleton on
+//   mma.sync.m16n8k8 with tf32 operands, each product taken as three
+//   (3xTF32: every operand split once into a big and a small tf32 part,
+//   small.big + big.small + big.big into one f32 accumulator), so the
+//   products keep float32's accuracy (about 2^-22 relative) at the
+//   tensor cores' rate.  K/V tiles of 64 keys (32 past D = 64) in f32
+//   rows padded by 4 floats; P.V takes P straight from the score
+//   registers by reading each 8-key group of V in a permuted order.  The
+//   tensor cores' f32 sums truncate, so each tile's P.V is summed apart
+//   and added to the output with an f32 FMA; each bias row is shifted
+//   by its largest value first, so that a row whose every key carries
+//   -1e4 does not round its scores to a step of 2^-10.  The FFMA peak
+//   (67 TFLOP/s) bounded the CUDA-core body; this one is bounded by
+//   three TF32 products (3 x 4BHL^2D at 495 TFLOP/s).
+// * float32 with another D, or bfloat16 with D not a multiple of 16:
+//   flash_attention_kernel, the CUDA-core body.  One block per (batch,
+//   head, 32 queries) stages K/V tiles of 64 keys in float32 through
+//   shared memory, every product a float32 FMA with a 4 x 4 register
+//   tile per thread.
 //
 // On the TPU the K/V walk was a fori_loop over VMEM blocks of one grid
 // cell; here it is a loop inside one block, and blocks share nothing.
@@ -84,7 +99,8 @@ struct Bias {
 };
 
 // ---------------------------------------------------------------------------
-// The CUDA-core body (float32, and bfloat16 with D not a multiple of 16)
+// The CUDA-core body (float32 with D not a multiple of 8, and bfloat16
+// with D not a multiple of 16)
 // ---------------------------------------------------------------------------
 
 // Shared memory, in floats.  q and k rows are padded by one so that
@@ -573,6 +589,359 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, Bias bias,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 tensor-core body (3xTF32; float32, D a multiple of 8)
+// ---------------------------------------------------------------------------
+
+// keys of one K/V tile of the float32 tensor-core body: 64, or 32 past
+// head_dim 64, where 64 would double the score registers and the tiles
+__host__ __device__ constexpr int tf32_keys(int D) { return D > 64 ? 32 : 64; }
+
+// Shared memory of the float32 tensor-core body, in bytes: the block's
+// query rows (then its output rows) and kStages K and V tiles, float32
+// rows of D + 4 (so that a fragment's loads, rows g and columns t of a
+// quad, fall in 32 distinct banks), and kStages bias tiles in f32.
+__host__ __device__ inline size_t tf32_smem_bytes(int D, int warps) {
+  const size_t row = (size_t)(D + 4) * sizeof(float);
+  const size_t keys = tf32_keys(D);
+  return (size_t)warps * kMmaRows * row + 2 * kStages * keys * row +
+         kStages * keys * sizeof(float);
+}
+
+// Warp w owns query rows q0 + 16 w .. q0 + 16 w + 15; lane l is row
+// (or, in a B fragment, column) g = l / 4 of a fragment and column (row)
+// t = l % 4.  m16n8k8 tf32 fragments: A a0 (g, t), a1 (g+8, t), a2 (g,
+// t+4), a3 (g+8, t+4); B b0 (k=t, n=g), b1 (k=t+4, n=g); C c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).  Every product is three
+// mmas into one f32 accumulator, a_small.b_big + a_big.b_small +
+// a_big.b_big (split_tf32; the dropped small.small term is about 2^-22
+// of the product, float32's own rounding).  The bound of one block per
+// SM frees ptxas's register budget (without it, head_dim 112 spilled);
+// shared memory allows two blocks per SM all the same.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_tf32x3(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v, Bias bias,
+                              float* __restrict__ out, int L, int H,
+                              float scale) {
+  constexpr int kStride = kD + 4;         // padded shared row, in floats
+  constexpr int kChunks = kD / 4;         // 16-byte chunks of one row
+  constexpr int kKSteps = kD / 8;         // k-steps of Q.K^T, n-tiles of P.V
+  constexpr int kKeys = tf32_keys(kD);    // keys of one K/V tile
+  constexpr int kNTiles = kKeys / 8;      // n-tiles of Q.K^T, k-steps of P.V
+  constexpr int kTileElems = kKeys * kStride;
+  constexpr int kBiasPer = (kKeys + 31) / 32;  // bias keys per thread
+  // up to head_dim 64 the warp holds Q's two parts; past it Q's float32
+  // values, split at each use (the registers of two parts would spill)
+  constexpr bool kHoldParts = kD <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int threads = blockDim.x;
+  const int warps = threads / 32;
+  const int q_tile = warps * kMmaRows;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + q_tile * kStride;      // [kStages][kKeys][kStride]
+  float* vs = ks + kStages * kTileElems;  // [kStages][kKeys][kStride]
+  float* bs = vs + kStages * kTileElems;  // [kStages][kKeys]
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int tq = lane % 4;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * q_tile;
+  const int64_t pos_stride = (int64_t)H * kD;
+  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * kD;
+  const int n_tiles = (L + kKeys - 1) / kKeys;
+
+  // the query tile, rows past L zero-filled
+  for (int e = tid; e < q_tile * kChunks; e += threads) {
+    const int r = e / kChunks, c = e % kChunks;
+    const bool ok = q0 + r < L;
+    cp_async16(qs + r * kStride + c * 4,
+               q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride + c * 4, ok);
+  }
+  // queue a K/V tile (keys past L zero-filled), then commit a group (an
+  // empty one past the last tile, so every step waits the same way)
+  auto load_kv = [&](int tile) {
+    if (tile < n_tiles) {
+      const int k0 = tile * kKeys;
+      float* kb = ks + (tile % kStages) * kTileElems;
+      float* vb = vs + (tile % kStages) * kTileElems;
+      for (int e = tid; e < kKeys * kChunks; e += threads) {
+        const int j = e / kChunks, c = e % kChunks;
+        const bool ok = k0 + j < L;
+        const int64_t off =
+            base + (int64_t)(ok ? k0 + j : 0) * pos_stride + c * 4;
+        cp_async16(kb + j * kStride + c * 4, k + off, ok);
+        cp_async16(vb + j * kStride + c * 4, v + off, ok);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_kv(i);
+
+  // the bias row's largest value: softmax is unchanged by a shift of a
+  // row, and bias - max loses nothing where the two are close
+  // (Sterbenz), so a row whose every key carries -1e4 keeps float32's
+  // accuracy, where s * scale - 1e4 would round to a step of 2^-10 (up
+  // to 5e-4 of each p); a row with a live key has max 0 and is unchanged
+  __shared__ float warp_max[kThreads / 32];
+  float bmax = -INFINITY;
+  for (int key = tid; key < L; key += threads)
+    bmax = fmaxf(bmax, bias.at(b, key));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, off));
+  if (lane == 0) warp_max[warp] = bmax;
+  __syncthreads();
+  for (int w = 0; w < warps; ++w) bmax = fmaxf(bmax, warp_max[w]);
+
+  // a tile's bias, shifted, in log2 units: read into registers one tile
+  // before it is stored to shared memory, two before it is used
+  float bias_next[kBiasPer];
+  auto load_bias = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < kBiasPer; ++i) {
+      const int j = tid + i * threads;
+      const int key = tile * kKeys + j;
+      bias_next[i] =
+          j < kKeys && key < L ? (bias.at(b, key) - bmax) * kLog2e : 0.f;
+    }
+  };
+  auto store_bias = [&](int tile) {
+#pragma unroll
+    for (int i = 0; i < kBiasPer; ++i) {
+      const int j = tid + i * threads;
+      if (j < kKeys) bs[(tile % kStages) * kKeys + j] = bias_next[i];
+    }
+  };
+  load_bias(0);
+  store_bias(0);
+  load_bias(1);
+
+  // this warp's Q as A fragments: big parts (or, past head_dim 64, the
+  // float32 bits) and small parts
+  uint32_t qa[kKSteps][4];
+  uint32_t qb[kHoldParts ? kKSteps : 1][4];
+  float o[kKSteps][4];                   // output accumulator
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+#pragma unroll
+  for (int n = 0; n < kKSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();  // tile t (and the query tile) has landed
+    __syncthreads();  // ... for every thread, and tile t - 1 is read
+    load_kv(t + kStages - 1);  // into the buffers tile t - 1 used
+    store_bias(t + 1);
+    load_bias(t + 2);
+
+    if (t == 0) {
+      const float* qw = qs + warp * kMmaRows * kStride;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x =
+              qw[(g + (e % 2) * 8) * kStride + kk * 8 + tq + (e / 2) * 4];
+          if constexpr (kHoldParts)
+            split_tf32(x, qa[kk][e], qb[kk][e]);
+          else
+            qa[kk][e] = __float_as_uint(x);
+        }
+    }
+
+    // S = Q . K^T over this tile's keys, 3xTF32
+    const float* kb = ks + (t % kStages) * kTileElems;
+    float s[kNTiles][4];
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (kHoldParts) {
+          a_big[e] = qa[kk][e];
+          a_small[e] = qb[kk][e];
+        } else {
+          split_tf32(__uint_as_float(qa[kk][e]), a_big[e], a_small[e]);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kNTiles; ++n) {
+        const float* kr = kb + (n * 8 + g) * kStride + kk * 8 + tq;
+        uint32_t b0, b0_small, b1, b1_small;
+        split_tf32(kr[0], b0, b0_small);
+        split_tf32(kr[4], b1, b1_small);
+        mma_tf32(s[n], a_small, b0, b1);
+        mma_tf32(s[n], a_big, b0_small, b1_small);
+        mma_tf32(s[n], a_big, b0, b1);
+      }
+    }
+
+    // f32 scores * scale + bias, in log2 units; keys past L are -inf
+    const int k0 = t * kKeys;
+    const float* bb = bs + (t % kStages) * kKeys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n * 8 + 2 * tq + (e % 2);
+        const float x =
+            k0 + key < L ? fmaf(s[n][e], scale2, bb[key]) : -INFINITY;
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // key k0 < L is in every tile, so the new max is finite
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = exp2f(m[r] - m_new);  // exp2(-inf) = 0 on the first tile
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < kNTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e / 2]);  // exp2(-inf) = 0
+        s[n][e] = p;
+        l[e / 2] += p;
+      }
+    // this tile's P.V, added to the rescaled output in f32 after the
+    // tile: the tensor cores' f32 sums truncate, which over thousands of
+    // keys in one accumulator would cost 1e-5 at L = 4,096
+    float pv[kKSteps][4];
+#pragma unroll
+    for (int n = 0; n < kKSteps; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+
+    // O += P . V, 3xTF32, P from the score registers.  P.V sums over the
+    // keys in any order, so k-step kk reads its 8 keys permuted: k = t is
+    // key 2t and k = t + 4 key 2t + 1, where c0..c3 already stand as
+    // a0 = c0 (g, 2t), a1 = c2 (g+8, 2t), a2 = c1 (g, 2t+1), a3 = c3
+    // (g+8, 2t+1); V's rows are read in the same order
+    const float* vb = vs + (t % kStages) * kTileElems;
+#pragma unroll
+    for (int kk = 0; kk < kNTiles; ++kk) {
+      uint32_t p_big[4], p_small[4];
+      split_tf32(s[kk][0], p_big[0], p_small[0]);
+      split_tf32(s[kk][2], p_big[1], p_small[1]);
+      split_tf32(s[kk][1], p_big[2], p_small[2]);
+      split_tf32(s[kk][3], p_big[3], p_small[3]);
+      const float* vr = vb + (kk * 8 + 2 * tq) * kStride + g;
+#pragma unroll
+      for (int n = 0; n < kKSteps; ++n) {
+        uint32_t b0, b0_small, b1, b1_small;
+        split_tf32(vr[n * 8], b0, b0_small);
+        split_tf32(vr[kStride + n * 8], b1, b1_small);
+        mma_tf32(pv[n], p_small, b0, b1);
+        mma_tf32(pv[n], p_big, b0_small, b1_small);
+        mma_tf32(pv[n], p_big, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kKSteps; ++n) {
+      o[n][0] = fmaf(o[n][0], corr[0], pv[n][0]);
+      o[n][1] = fmaf(o[n][1], corr[0], pv[n][1]);
+      o[n][2] = fmaf(o[n][2], corr[1], pv[n][2]);
+      o[n][3] = fmaf(o[n][3], corr[1], pv[n][3]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // acc / max(l, 1e-30) in f32, through this warp's own query rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  float* ow = qs + warp * kMmaRows * kStride;
+#pragma unroll
+  for (int n = 0; n < kKSteps; ++n) {
+    *reinterpret_cast<float2*>(ow + g * kStride + n * 8 + 2 * tq) =
+        make_float2(o[n][0] / l[0], o[n][1] / l[0]);
+    *reinterpret_cast<float2*>(ow + (g + 8) * kStride + n * 8 + 2 * tq) =
+        make_float2(o[n][2] / l[1], o[n][3] / l[1]);
+  }
+  __syncwarp();
+  for (int e = lane; e < kMmaRows * kChunks; e += 32) {
+    const int r = e / kChunks, c = e % kChunks;
+    const int qi = q0 + warp * kMmaRows + r;
+    if (qi < L)
+      *reinterpret_cast<float4*>(out + base + (int64_t)qi * pos_stride +
+                                 c * 4) =
+          *reinterpret_cast<const float4*>(ow + r * kStride + c * 4);
+  }
+}
+
+template <int kD>
+cudaError_t launch_tf32_dim(const void* q, const void* k, const void* v,
+                            Bias bias, void* out, int B, int L, int H,
+                            int warps, float scale, cudaStream_t stream) {
+  const size_t smem = tf32_smem_bytes(kD, warps);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_tf32x3<kD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int q_tile = warps * kMmaRows;
+  const dim3 grid((L + q_tile - 1) / q_tile, H, B);
+  flash_attention_kernel_tf32x3<kD><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(out), L, H,
+      scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        Bias bias, void* out, int B, int L, int H, int D,
+                        int warps, float scale, cudaStream_t stream) {
+  switch (D) {
+#define SKY_TF32_CASE(d)                                                   \
+  case d:                                                                  \
+    return launch_tf32_dim<d>(q, k, v, bias, out, B, L, H, warps, scale, \
+                              stream);
+    SKY_TF32_CASE(8)
+    SKY_TF32_CASE(16)
+    SKY_TF32_CASE(24)
+    SKY_TF32_CASE(32)
+    SKY_TF32_CASE(40)
+    SKY_TF32_CASE(48)
+    SKY_TF32_CASE(56)
+    SKY_TF32_CASE(64)
+    SKY_TF32_CASE(72)
+    SKY_TF32_CASE(80)
+    SKY_TF32_CASE(88)
+    SKY_TF32_CASE(96)
+    SKY_TF32_CASE(104)
+    SKY_TF32_CASE(112)
+    SKY_TF32_CASE(120)
+    SKY_TF32_CASE(128)
+#undef SKY_TF32_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -582,9 +951,10 @@ bool aligned16(const void* p) {
 extern "C" {
 
 // body: 0 = the CUDA-core body, 1 = the tensor-core body (bfloat16, D a
-// multiple of 16, q/k/v/out 16-byte aligned); warps: the tensor-core
-// body's warps per block (1, 2 or 4; 16 queries each), ignored by the
-// CUDA-core body.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out);
+// multiple of 16, q/k/v/out 16-byte aligned), 2 = the float32
+// tensor-core body (float32, D a multiple of 8, q/k/v/out 16-byte
+// aligned); warps: a tensor-core body's warps per block (1, 2 or 4; 16
+// queries each), ignored by the CUDA-core body.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out);
 // bias_dtype likewise, the bias read at bias[b * bias_sb + key * bias_sk].
 // Returns a cudaError_t (0 = launched).  Shapes are checked by the Python
 // wrapper, which also picks the body; this rejects only what the chosen
@@ -605,6 +975,12 @@ int sky_flash_attention(int body, int warps, int dtype, const void* q,
       return (int)cudaErrorInvalidValue;
     return (int)launch_mma(q, k, v, b, out, B, L, H, D, warps, scale, s);
   }
+  if (body == 2) {
+    if (dtype != 0 || D % 8 != 0 || (warps != 1 && warps != 2 && warps != 4)
+        || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_tf32(q, k, v, b, out, B, L, H, D, warps, scale, s);
+  }
   if (body != 0) return (int)cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
@@ -621,6 +997,7 @@ int sky_flash_attention(int body, int warps, int dtype, const void* q,
 // Dynamic shared memory, in bytes, of one block of the given body.
 int sky_flash_attention_smem(int body, int D, int warps) {
   if (body == 1) return (int)mma_smem_bytes(D, warps);
+  if (body == 2) return (int)tf32_smem_bytes(D, warps);
   return (int)(smem_floats(D) * sizeof(float));
 }
 

@@ -4,12 +4,15 @@ The port of ``skycomputing_tpu/ops/flash_attention.py``.  On CUDA tensors
 :func:`flash_attention` launches the hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
 use, bound with ``ctypes``), so the [L, L] score matrix never reaches
-device memory.  It has two bodies, and :func:`kernel_plan` picks one
+device memory.  It has three bodies, and :func:`kernel_plan` picks one
 from the dtype and head_dim alone: bfloat16 with a head_dim that is a
 multiple of 16 runs the tensor-core body (``mma.sync`` products,
 ``cp.async`` double-buffered K/V tiles, online softmax in registers);
-float32, and bfloat16 with any other head_dim, run the CUDA-core body
-(float32 FMAs throughout).  The bias is read in its stored dtype, so a
+float32 with a head_dim that is a multiple of 8 runs the float32
+tensor-core body, the same design on tf32 ``mma.sync`` with each
+product taken as three (3xTF32, float32's accuracy); float32 and
+bfloat16 with any other head_dim run the CUDA-core body (float32 FMAs
+throughout).  The bias is read in its stored dtype, so a
 call launches the kernel and nothing else.  On CPU tensors it runs
 :func:`flash_attention_reference`, the plain PyTorch version of the same
 function.  Nothing else picks the path: a CUDA call either launches the
@@ -19,7 +22,8 @@ The gradient is the JAX module's: the forward is the kernel, the
 backward recomputes the plain version in float32 under autograd
 (``_bwd`` there), so a training step launches the kernel once per
 forward and once per rematerialized forward, never in the backward.
-``flash_attention.launches`` counts the kernel's launches.  A call on
+``flash_attention.launches`` counts the kernel's launches, and
+``flash_attention.body_launches[body]`` each body's.  A call on
 ``meta`` computes nothing and counts, for the static profiler, the work
 XLA's cost analysis charges the JAX kernel on the CPU: one grid cell.
 """
@@ -33,7 +37,8 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
-_BODIES = ("cuda_core", "tensor_core")  # the kernel's body codes 0 and 1
+# the kernel's body codes 0, 1 and 2
+_BODIES = ("cuda_core", "tensor_core", "tensor_core_f32")
 _lib = None
 _sm_counts = {}
 
@@ -72,15 +77,19 @@ def kernel_plan(dtype, B: int, L: int, H: int, D: int,
                 sm_count: int) -> dict:
     """Which body of the kernel serves a call, by dtype and head_dim
     alone: ``"tensor_core"`` for bfloat16 with ``D`` a multiple of 16,
-    else ``"cuda_core"``.  The tensor-core body gives each warp 16
+    ``"tensor_core_f32"`` (3xTF32) for float32 with ``D`` a multiple of
+    8, else ``"cuda_core"``.  The tensor-core bodies give each warp 16
     queries; ``warps`` is 4 unless fewer blocks than ``sm_count`` would
     result, then 2 or 1 (more, smaller blocks fill the card).  The
     CUDA-core body always takes 32 queries on 4 warps."""
-    if dtype == torch.bfloat16 and D % 16 == 0 and D <= _MAX_HEAD_DIM:
+    if D <= _MAX_HEAD_DIM and (
+            (dtype == torch.bfloat16 and D % 16 == 0)
+            or (dtype == torch.float32 and D % 8 == 0)):
         warps = 4
         while warps > 1 and -(-L // (16 * warps)) * H * B < sm_count:
             warps //= 2
-        return dict(body="tensor_core", warps=warps, q_tile=16 * warps)
+        body = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_f32"
+        return dict(body=body, warps=warps, q_tile=16 * warps)
     return dict(body="cuda_core", warps=4, q_tile=32)
 
 
@@ -114,14 +123,20 @@ def pick_block(seq_len: int, requested: int) -> int:
     return seq_len
 
 
-def flash_attention_reference(q, k, v, bias, scale: float) -> torch.Tensor:
+def flash_attention_reference(q, k, v, bias, scale: float,
+                              compute_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version (the JAX module's ``_reference_attention``):
     materialized float32 scores, bias added per key, float32 softmax,
-    output in q's dtype.  q/k/v: [B, L, H, D]; bias: [B, L]."""
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    s = s + bias[:, None, None, :].float()
+    output in q's dtype.  q/k/v: [B, L, H, D]; bias: [B, L].
+    ``compute_dtype=torch.float64`` evaluates the same function in float64
+    (the card's checks, where float32's own rounding is the question: in
+    a row whose every key carries -1e4 the float32 scores round to a step
+    of 2^-10, which moves the output by up to about 4e-4)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(compute_dtype) * scale,
+                     k.to(compute_dtype))
+    s = s + bias[:, None, None, :].to(compute_dtype)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(compute_dtype)).to(q.dtype)
 
 
 # bf16 outputs against the plain version at long L: the largest error over
@@ -206,7 +221,7 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
         )
     plan = kernel_plan(q.dtype, B, L, H, D, _sm_count(q.device))
     out = torch.empty_like(q)
-    if plan["body"] == "tensor_core" and any(
+    if plan["body"] != "cuda_core" and any(
             t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("q, k and v must be 16-byte aligned")
     with torch.cuda.device(q.device):
@@ -223,6 +238,7 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
             f"flash_attention kernel launch failed: cudaError_t {rc}"
         )
     flash_attention.launches += 1
+    flash_attention.body_launches[plan["body"]] += 1
     return out
 
 
@@ -269,8 +285,8 @@ def flash_attention(
     :func:`flash_attention_reference`; CUDA tensors launch
     the kernel (float32 or bfloat16, ``D <= 128``, the bias float32 or
     bfloat16; the body from :func:`kernel_plan`) and count it in
-    ``flash_attention.launches``; anything the kernel does not take
-    raises.
+    ``flash_attention.launches`` and ``flash_attention.body_launches``;
+    anything the kernel does not take raises.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -286,6 +302,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.body_launches = dict.fromkeys(_BODIES, 0)
 
 __all__ = ["BF16_LONG_TOL", "agreement", "flash_attention",
            "flash_attention_reference", "kernel_plan", "kernel_smem_bytes",

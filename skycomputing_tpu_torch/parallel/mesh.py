@@ -62,6 +62,35 @@ class Mesh:
                 f"devices={[str(d) for d in self.devices.flatten()]})")
 
 
+class _OnePosition(torch.autograd.Function):
+    """See :func:`one_position`."""
+
+    @staticmethod
+    def forward(ctx, program, S, x, *rest):
+        ctx.avals = [(t.shape, t.dtype) for t in (x, *rest)]
+        out = program(x[:, :x.shape[1] // S], *rest)
+        return out.new_empty((out.shape[0], x.shape[1], *out.shape[2:]))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (None, None, *(
+            grad_out.new_empty(shape, dtype=dtype) if need else None
+            for (shape, dtype), need in zip(ctx.avals,
+                                            ctx.needs_input_grad[2:])))
+
+
+def one_position(program, S: int, x: torch.Tensor,
+                 *rest: torch.Tensor) -> torch.Tensor:
+    """A sequence-parallel unit on ``meta`` (the static profile, the
+    pre-flight): ``program(x[:, :L/S], *rest)`` runs position 0's
+    program over its L/S rows of ``x`` [B, L, ...], which is what XLA's
+    cost analysis charges the JAX unit's sharded program (one device's
+    share), and the result has ``x``'s length, with gradients of the
+    inputs' shapes.  On a real device the engines run every position
+    instead."""
+    return _OnePosition.apply(program, S, x, *rest)
+
+
 def make_1d_mesh(size: int, axis_name: str,
                  devices: Optional[Sequence] = None) -> Mesh:
     """A 1-D mesh of ``size`` devices under ``axis_name``."""
@@ -143,5 +172,6 @@ __all__ = [
     "make_pipeline_mesh",
     "make_dp_pp_mesh",
     "make_dp_pp_tp_mesh",
+    "one_position",
     "stage_submeshes",
 ]

@@ -54,6 +54,52 @@ def _seq_blocks(x, S: int, devices):
     return [x[:, s * Lb:(s + 1) * Lb].to(devices[s]) for s in range(S)]
 
 
+def check_ring(L: int, S: int, axis_name: str) -> None:
+    """Raise where the ring cannot split a sequence of ``L`` over S
+    positions."""
+    if L % S:
+        raise ValueError(
+            f"ring attention needs sequence length ({L}) divisible by the "
+            f"{axis_name} axis size ({S})")
+
+
+def _ring_start(q_blk, scale: float, idx: int) -> list:
+    """One position's running state: its scaled float32 queries, the
+    output, running max and running sum, its queries' global
+    positions."""
+    B, Lb, H, D = q_blk.shape
+    dev = q_blk.device
+    return [
+        q_blk.float() * scale,
+        torch.zeros(B, Lb, H, D, dtype=torch.float32, device=dev),
+        torch.full((B, H, Lb), -torch.inf, dtype=torch.float32, device=dev),
+        torch.zeros(B, H, Lb, dtype=torch.float32, device=dev),
+        idx * Lb + torch.arange(Lb, device=dev),
+    ]
+
+
+def _ring_step(st: list, k_blk, v_blk, b_blk, causal: bool, src: int):
+    """Fold the key/value block that began on position ``src`` into
+    ``st`` (the body of JAX's ``scan``)."""
+    q_f32, o, m, l, q_pos = st
+    scores = torch.einsum("bqhd,bkhd->bhqk", q_f32, k_blk.float())
+    if b_blk is not None:
+        scores = scores + b_blk.float()[:, None, None, :]
+    if causal:
+        Lb = k_blk.shape[1]
+        k_pos = src * Lb + torch.arange(Lb, device=q_pos.device)
+        allowed = q_pos[:, None] >= k_pos[None, :]
+        scores = torch.where(allowed[None, None], scores, -torch.inf)
+    st[1], st[2], st[3] = _online_block_update(o, m, l, scores, v_blk)
+
+
+def _ring_finish(st: list, dtype) -> torch.Tensor:
+    # fully masked rows have l == 0: 0 / 1e-30 gives 0, not NaN
+    _, o, _, l, _ = st
+    return (o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(
+        dtype)
+
+
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mesh, axis_name: str = "sp", causal: bool = False,
                    scale: Optional[float] = None,
@@ -69,44 +115,18 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     devices = mesh.ring(axis_name, q)
     S = len(devices)
-    B, L, H, D = q.shape
-    if L % S:
-        raise ValueError(
-            f"ring attention needs sequence length ({L}) divisible by the "
-            f"{axis_name} axis size ({S})")
-    Lb = L // S
+    check_ring(q.shape[1], S, axis_name)
     has_bias = bias is not None
     k_cur = _seq_blocks(k, S, devices)
     v_cur = _seq_blocks(v, S, devices)
-    b_cur = _seq_blocks(bias, S, devices) if has_bias else None
-
-    state = []
-    for idx, (q_blk, dev) in enumerate(zip(_seq_blocks(q, S, devices),
-                                           devices)):
-        state.append([
-            q_blk.float() * scale,
-            torch.zeros(B, Lb, H, D, dtype=torch.float32, device=dev),
-            torch.full((B, H, Lb), -torch.inf, dtype=torch.float32,
-                       device=dev),
-            torch.zeros(B, H, Lb, dtype=torch.float32, device=dev),
-            idx * Lb + torch.arange(Lb, device=dev),
-        ])
+    b_cur = _seq_blocks(bias, S, devices) if has_bias else [None] * S
+    state = [_ring_start(q_blk, scale, idx)
+             for idx, q_blk in enumerate(_seq_blocks(q, S, devices))]
 
     for i in range(S):
         for idx, st in enumerate(state):
-            q_f32, o, m, l, q_pos = st
-            scores = torch.einsum("bqhd,bkhd->bhqk", q_f32,
-                                  k_cur[idx].float())
-            if has_bias:
-                scores = scores + b_cur[idx].float()[:, None, None, :]
-            if causal:
-                src = (idx - i) % S
-                k_pos = src * Lb + torch.arange(Lb, device=q_pos.device)
-                allowed = q_pos[:, None] >= k_pos[None, :]
-                scores = torch.where(allowed[None, None], scores,
-                                     -torch.inf)
-            st[1], st[2], st[3] = _online_block_update(o, m, l, scores,
-                                                       v_cur[idx])
+            _ring_step(st, k_cur[idx], v_cur[idx], b_cur[idx], causal,
+                       (idx - i) % S)
         if i + 1 < S:
             # position idx receives its left neighbour's block
             k_cur = [k_cur[idx - 1].to(dev) for idx, dev in enumerate(devices)]
@@ -115,10 +135,26 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 b_cur = [b_cur[idx - 1].to(dev)
                          for idx, dev in enumerate(devices)]
 
-    # fully masked rows have l == 0: 0 / 1e-30 gives 0, not NaN
-    outs = [(o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None])
-            .to(q.dtype).to(q.device) for _, o, _, l, _ in state]
-    return torch.cat(outs, dim=1)
+    return torch.cat([_ring_finish(st, q.dtype).to(q.device)
+                      for st in state], dim=1)
+
+
+def ring_position(q_blk: torch.Tensor, k_blk: torch.Tensor,
+                  v_blk: torch.Tensor, causal: bool = False,
+                  scale: Optional[float] = None,
+                  bias_blk: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Position 0's program of :func:`ring_attention` as XLA's cost
+    analysis counts the JAX ring under ``shard_map``: one device's set-up,
+    the ``scan`` body once (its query block against one key/value block)
+    and the division.  Blocks ``[B, L/S, H, D]``, ``bias_blk`` ``[B,
+    L/S]``; returns the position's output block.  For the static profile
+    on ``meta`` (:func:`~.mesh.one_position`), which charges this and not
+    the S positions' S steps that the engine runs."""
+    if scale is None:
+        scale = q_blk.shape[-1] ** -0.5
+    st = _ring_start(q_blk, scale, 0)
+    _ring_step(st, k_blk, v_blk, bias_blk, causal, 0)
+    return _ring_finish(st, q_blk.dtype)
 
 
 def full_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -143,4 +179,5 @@ def full_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
-__all__ = ["full_attention_reference", "ring_attention"]
+__all__ = ["check_ring", "full_attention_reference", "ring_attention",
+           "ring_position"]

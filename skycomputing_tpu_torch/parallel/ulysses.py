@@ -43,6 +43,21 @@ def _heads_to_seq(blocks: List[torch.Tensor], devices) -> List[torch.Tensor]:
             for s, dev in enumerate(devices)]
 
 
+def check_ulysses(L: int, H: int, S: int, axis_name: str) -> None:
+    """Raise where Ulysses cannot split ``H`` heads and a sequence of
+    ``L`` over S positions."""
+    if H % S != 0:
+        raise ValueError(
+            f"ulysses needs num_heads ({H}) divisible by the "
+            f"{axis_name} axis size ({S})"
+        )
+    if L % S != 0:
+        raise ValueError(
+            f"ulysses needs sequence length ({L}) divisible by the "
+            f"{axis_name} axis size ({S})"
+        )
+
+
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       mesh, axis_name: str = "sp", causal: bool = False,
                       scale: Optional[float] = None,
@@ -57,18 +72,7 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = q.shape[-1] ** -0.5
     devices = mesh.ring(axis_name, q)
     S = len(devices)
-    H = q.shape[2]
-    if H % S != 0:
-        raise ValueError(
-            f"ulysses needs num_heads ({H}) divisible by the "
-            f"{axis_name} axis size ({S})"
-        )
-    L = q.shape[1]
-    if L % S != 0:
-        raise ValueError(
-            f"ulysses needs sequence length ({L}) divisible by the "
-            f"{axis_name} axis size ({S})"
-        )
+    check_ulysses(q.shape[1], q.shape[2], S, axis_name)
     qh, kh, vh = (_seq_to_heads(_seq_blocks(x, S, devices), devices)
                   for x in (q, k, v))
     full_bias = [None] * S
@@ -83,4 +87,21 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat([o.to(q.device) for o in out], dim=1)
 
 
-__all__ = ["ulysses_attention"]
+def ulysses_position(q_blk: torch.Tensor, k_blk: torch.Tensor,
+                     v_blk: torch.Tensor, S: int, causal: bool = False,
+                     scale: Optional[float] = None,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Position 0's program of :func:`ulysses_attention` as XLA's cost
+    analysis counts the JAX version under ``shard_map``: float32
+    attention of its H/S heads over the whole sequence, against the
+    whole bias ``[B, L]``.  Blocks ``[B, L/S, H, D]``; returns the
+    position's output block.  The all-to-alls are moves, so their
+    results are shaped here, not gathered.  For the static profile on
+    ``meta`` (:func:`~.mesh.one_position`)."""
+    B, Lb, H, D = q_blk.shape
+    heads = [x.new_empty(B, Lb * S, H // S, D) for x in (q_blk, k_blk, v_blk)]
+    full_attention_reference(*heads, causal, scale, bias=bias)
+    return q_blk.new_empty(q_blk.shape)
+
+
+__all__ = ["check_ulysses", "ulysses_attention", "ulysses_position"]

@@ -36,6 +36,7 @@ pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 # 1e-4 in float32 (another summation order than the plain version), 2e-2
 # in bfloat16 (the output is rounded to bfloat16)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+F32_EXACT = torch.float64  # flash attention's float32 plain version, exactly
 
 # (num_pages, page_size, heads, head_dim, Lq, [(table row, index)])
 SHAPES = {
@@ -245,10 +246,11 @@ def test_paged_attention_rejects_what_the_kernel_does_not_take(card):
         paged_attention(q, k.double(), v, table, index)
 
 
-# flash attention at the trainer's shapes and at the tensor-core body's
+# flash attention at the trainer's shapes and at the tensor-core bodies'
 # edges: (B, L, H, D, padded tail keys)
 FLASH_SHAPES = {
     "bert_large_L128": (8, 128, 16, 64, 32),  # one microbatch, BERT-large
+    "bert_large_L128_B4": (4, 128, 16, 64, 32),  # a dp shard (2 warps)
     "long_L512": (2, 512, 16, 64, 0),  # several key tiles
     "indivisible_L100": (2, 100, 16, 64, 0),  # a ragged last tile
     "short_L7": (2, 7, 4, 64, 0),  # less than one mma tile
@@ -258,15 +260,19 @@ FLASH_SHAPES = {
     "head_dim_128": (2, 130, 4, 128, 8),
     "batch_1": (1, 128, 16, 64, 32),
     "all_keys_masked": (2, 64, 4, 64, 64),  # every key of every row masked
-    "head_dim_40": (2, 100, 4, 40, 8),  # bf16 too takes the CUDA-core body
+    "head_dim_40": (2, 100, 4, 40, 8),  # bf16 takes the CUDA-core body
+    "head_dim_36": (2, 100, 4, 36, 8),  # both dtypes take the CUDA-core body
 }
 _FLASH_ORIGINAL = ("bert_large_L128", "indivisible_L100", "long_L512")
+_FLASH_LATER = ("bert_large_L128_B4", "head_dim_36")
 
 
 def _flash_case(name, dtype):
     B, L, H, D, tail = FLASH_SHAPES[name]
+    earlier = sorted(n for n in FLASH_SHAPES if n not in _FLASH_LATER)
     seed = (200 + _FLASH_ORIGINAL.index(name) if name in _FLASH_ORIGINAL
-            else 250 + sorted(FLASH_SHAPES).index(name))
+            else 300 + _FLASH_LATER.index(name) if name in _FLASH_LATER
+            else 250 + earlier.index(name))
     rng = np.random.default_rng(seed)
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, D))
@@ -281,16 +287,29 @@ def _flash_case(name, dtype):
 @pytest.mark.parametrize("dtype", sorted(TOL))
 @pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
 def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
+    """Each case on the body its plan names, counted under that body, and
+    within TOL of the plain version; in float32 of the plain version
+    evaluated in float64, the function exactly (in ``all_keys_masked``
+    the float32 plain version's own scores round to a step of 2^-10 at
+    -1e4, which moves its output by up to about 4e-4)."""
     q, k, v, bias = _flash_case(name, dtype)
     B, L, H, D = q.shape
     plan = flash_kernel_plan(q.dtype, B, L, H, D, 132)
-    assert plan["body"] == ("tensor_core" if dtype == "bfloat16"
-                            and D % 16 == 0 else "cuda_core")
+    if dtype == "bfloat16":
+        assert plan["body"] == ("tensor_core" if D % 16 == 0
+                                else "cuda_core")
+    else:
+        assert plan["body"] == ("tensor_core_f32" if D % 8 == 0
+                                else "cuda_core")
     before = flash_attention.launches
+    body_before = flash_attention.body_launches[plan["body"]]
     out = flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref = flash_attention_reference(q, k, v, bias, q.shape[-1] ** -0.5)
+    assert flash_attention.body_launches[plan["body"]] == body_before + 1
+    ref = flash_attention_reference(
+        q, k, v, bias, q.shape[-1] ** -0.5,
+        compute_dtype=F32_EXACT if dtype == "float32" else torch.float32)
     assert out.dtype == q.dtype and out.shape == q.shape
     assert bool(torch.isfinite(out).all())
     err = (out.float() - ref.float()).abs().max().item()

@@ -4,7 +4,8 @@ JAX package's Pallas ``flash_attention`` (interpret mode) on the same
 numpy inputs, at the shapes and tolerances of
 ``tests/test_flash_attention.py`` — outputs rtol 2e-5 / atol 2e-6,
 gradients rtol 5e-4 / atol 5e-6 — plus the padding invariance, an
-indivisible length and the refusal of L = 1030."""
+indivisible length and the refusal of L = 1030; and the float32
+tensor-core body's 3xTF32 arithmetic, emulated with torch."""
 
 import jax
 import jax.numpy as jnp
@@ -125,3 +126,61 @@ def test_length_without_an_aligned_block_is_refused_like_jax():
         jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v, bias)))
     with pytest.raises(ValueError, match="no 8-aligned divisor"):
         flash_attention(*_torch(q, k, v, bias))
+
+
+# --- the float32 tensor-core body's arithmetic (3xTF32), emulated ---------
+
+
+def _tf32(x):
+    """``x`` rounded to tf32's 10 mantissa bits, to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``), kept as float32."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the body takes each product: three tf32 products into
+    one float32 sum, small terms first, small.small dropped."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _emulated(q, k, v, bias, scale, mm):
+    """The body's function with its products taken by ``mm``: scores
+    times scale plus the bias in float32, a float32 softmax, P.V."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    s = mm(qh, kh.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return (mm(p, vh) / p.sum(dim=-1, keepdim=True)).permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 + 2.0 ** -20,
+                      -(1.0 + 3 * 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0])
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2 * 2.0 ** -10), 1.0, 3.0])
+    assert torch.equal(_tf32(x), want)
+    big, small = _split(x)
+    assert torch.equal(big + small, x)  # these split exactly
+
+
+@pytest.mark.parametrize("L", [128, 1024])
+def test_3xtf32_products_keep_float32_accuracy(L):
+    """3xTF32, as the float32 tensor-core body computes (4 heads of 64,
+    a masked tail), lies within 1e-5 of the plain version, a tenth of
+    the card's float32 tolerance (1e-4); single TF32 products lie more
+    than 1e-4 off, which is why the body takes three."""
+    q, k, v, bias = _torch(*_inputs(L, 2, L, 4, 64, masked_tail=L // 8))
+    ref = flash_attention_reference(q, k, v, bias, 0.125)
+    three = (_emulated(q, k, v, bias, 0.125, _mm_3xtf32) - ref).abs().max()
+    one = (_emulated(q, k, v, bias, 0.125, _mm_tf32) - ref).abs().max()
+    assert three <= 1e-5, three
+    assert one > 1e-4 and one > 50 * three, (one, three)

@@ -366,3 +366,37 @@ def test_decode_rejects_a_mesh_as_jax(tiny, devices):
         tgpt.decode_modules([tgpt.GptBlock_Attn(
             cfg, mesh=make_1d_mesh(2, "sp", ["cpu"] * 2))])
     assert str(err.value) == str(jax_err.value)
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_gpt_mesh_block_static_profile_equals_jax(devices, S):
+    """The static profile of a stack whose attention blocks are built
+    with a mesh (fault C8): on ``meta`` each block runs one position's
+    program, as XLA counts one device's share of JAX's ``shard_map``'d
+    ring (its ``scan`` body once), so every unit's FLOPs lie within
+    ``tests/test_torch_dynamics.py``'s DEFAULT_RATIO of JAX's (the whole
+    work is 2.6-14.5 times that) and memory equals JAX's."""
+    from jax.sharding import Mesh as JaxMesh
+
+    from skycomputing_tpu.dataset import DataloaderGenerator as JaxLoaderGen
+    from skycomputing_tpu.dynamics import ModelBenchmarker as JaxModelBench
+    from skycomputing_tpu_torch.dataset import DataloaderGenerator
+    from skycomputing_tpu_torch.dynamics import ModelBenchmarker
+    from skycomputing_tpu_torch.parallel.mesh import make_1d_mesh
+
+    kw = dict(vocab_size=512, hidden_size=128, num_hidden_layers=1,
+              num_attention_heads=8, max_position_embeddings=256,
+              dropout_prob=0.1, dtype="float32")
+    data_cfg = dict(dataset_cfg=dict(type="RandomLmDataset", num_samples=8,
+                                     seq_length=256, vocab_size=512),
+                    dataloader_cfg=dict(batch_size=2, shuffle=True))
+    flops, mem = ModelBenchmarker(tgpt.gpt_layer_configs(
+        tgpt.GptConfig(**kw),
+        mesh=make_1d_mesh(S, "sp", [torch.device("cpu")] * S)),
+        DataloaderGenerator(data_cfg)).benchmark()
+    ref_flops, ref_mem = JaxModelBench(jgpt.gpt_layer_configs(
+        jgpt.GptConfig(**kw), mesh=JaxMesh(np.array(devices[:S]), ("sp",))),
+        JaxLoaderGen(data_cfg)).benchmark()
+    assert mem == ref_mem
+    ratios = [got / ref for got, ref in zip(flops, ref_flops)]
+    assert len(ratios) == 4 and all(0.90 <= r <= 1.10 for r in ratios), ratios

@@ -24,8 +24,11 @@ H100_SMS = 132
     (torch.bfloat16, 16, "tensor_core"),
     (torch.bfloat16, 128, "tensor_core"),
     (torch.bfloat16, 40, "cuda_core"),  # not a multiple of 16
-    (torch.float32, 64, "cuda_core"),  # exact float32 arithmetic
-    (torch.float32, 128, "cuda_core"),
+    # float32: 3xTF32 tensor-core products where D is a multiple of 8
+    (torch.float32, 64, "tensor_core_f32"),
+    (torch.float32, 128, "tensor_core_f32"),
+    (torch.float32, 40, "tensor_core_f32"),
+    (torch.float32, 36, "cuda_core"),  # not a multiple of 8
 ])
 def test_flash_body_depends_on_dtype_and_head_dim(dtype, D, body):
     for B, L in ((8, 128), (1, 7), (2, 1000)):
@@ -41,6 +44,24 @@ def test_flash_body_depends_on_dtype_and_head_dim(dtype, D, body):
 def test_flash_tensor_core_blocks_fill_the_card(B, L, H, warps):
     plan = flash_kernel_plan(torch.bfloat16, B, L, H, 64, H100_SMS)
     assert plan["warps"] == warps and plan["q_tile"] == 16 * warps
+    blocks = -(-L // plan["q_tile"]) * H * B
+    assert blocks >= H100_SMS or warps == 1
+
+
+@pytest.mark.parametrize("B, L, H, warps", [
+    (4, 128, 16, 2),  # the dp shard of phases 27-28: 256 blocks of 32
+    (8, 128, 16, 4),
+    (1, 4096, 16, 4),  # long BERT's single-device baseline
+    (2, 100, 16, 1),
+])
+def test_flash_float32_tensor_core_blocks_fill_the_card(B, L, H, warps):
+    """The float32 tensor-core body takes the bfloat16 body's rule for
+    warps."""
+    plan = flash_kernel_plan(torch.float32, B, L, H, 64, H100_SMS)
+    assert plan == dict(body="tensor_core_f32", warps=warps,
+                        q_tile=16 * warps)
+    assert plan == dict(flash_kernel_plan(torch.bfloat16, B, L, H, 64,
+                                          H100_SMS), body="tensor_core_f32")
     blocks = -(-L // plan["q_tile"]) * H * B
     assert blocks >= H100_SMS or warps == 1
 

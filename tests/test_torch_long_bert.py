@@ -9,8 +9,10 @@ refusals (attention dropout in train mode, a mesh, another strategy);
 2-encoder-unit stack's logits and two SGD steps through
 ``PipelineModel`` at rtol 1e-4 / atol 1e-6 (the float32 trainer
 tolerance of ``tests/test_torch_pipeline.py``); the flash call's
-static charge on ``meta`` against XLA's count of the JAX kernel; and
-what the card's long-L bf16 check of B1 can see."""
+static charge on ``meta`` against XLA's count of the JAX kernel; a
+mesh-built head's static profile and ``mesh_allocate`` plan against
+JAX's (one device's share of the sharded program, fault C8); and what
+the card's long-L bf16 check of B1 can see."""
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +71,7 @@ from skycomputing_tpu_torch.parallel.ring_attention import (
 pytestmark = pytest.mark.torch_port
 
 HEAD_TOL = dict(rtol=3e-5, atol=3e-6)
+DEFAULT_RATIO = (0.90, 1.10)  # tests/test_torch_dynamics.py's FLOP ratio
 TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
 CPU = [torch.device("cpu")]
 L = 256
@@ -262,36 +265,107 @@ def test_mesh_head_rejects_attention_dropout():
                 torch.zeros(1, 1, 1, 16))[0].shape == (1, 16, 128)
 
 
+def _mesh_cfg(pkg_config):
+    return _cfg(pkg_config, hidden_dropout_prob=0.1, num_attention_heads=8)
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
 @pytest.mark.parametrize("strategy", ["ring", "ulysses"])
-def test_mesh_head_static_profile_counts_its_whole_work(devices, strategy):
+def test_mesh_head_static_profile_equals_jax(devices, strategy, S):
     """A mesh-built stack profiles on ``meta`` without touching the
-    mesh's devices, and JAX's profile accepts it too.  The port counts
-    the head's whole work (within DEFAULT_RATIO of the single-device
-    einsum head's count); JAX counts one device's share of the sharded
-    program (and one ring step), which is fault C8 of ``ROADMAP.md``."""
-    S = 4
-
-    def cfg(pkg_config):
-        return _cfg(pkg_config, hidden_dropout_prob=0.1,
-                    num_attention_heads=8)
-
+    mesh's devices, and charges what JAX's profile charges (fault C8):
+    the head runs one position's program, as XLA counts one device's
+    share of the ``shard_map``'d program (and the ring's ``scan`` body
+    once), so its FLOPs lie within DEFAULT_RATIO of JAX's (the whole
+    work is 2-14 times that); memory equals JAX's; every other unit is
+    charged as in the single-device stack."""
     port = ModelBenchmarker(long_bert_layer_configs(
-        cfg(bert_config), 1, _mesh(S), strategy=strategy),
+        _mesh_cfg(bert_config), 1, _mesh(S), strategy=strategy),
         RandomTokenGenerator(2, L, 1024))
-    flops, _ = port.benchmark()
-    single_units = long_bert_layer_configs(cfg(bert_config), 1)
+    flops, mem = port.benchmark()
+    single_units = long_bert_layer_configs(_mesh_cfg(bert_config), 1)
     single_units[1]["use_flash"] = False
-    single = ModelBenchmarker(single_units, RandomTokenGenerator(2, L, 1024))
-    ref, _ = single.benchmark()
+    single, _ = ModelBenchmarker(single_units,
+                                 RandomTokenGenerator(2, L, 1024)).benchmark()
     head = 1  # embeddings, then the head
-    assert 0.90 <= flops[head] / ref[head] <= 1.10, flops[head] / ref[head]
-    assert flops[:head] + flops[head + 1:] == ref[:head] + ref[head + 1:]
-    jax_flops, _ = JaxModelBench(
-        jax_long_configs(cfg(jax_bert_config), 1,
+    assert flops[:head] + flops[head + 1:] == single[:head] + single[head + 1:]
+    jax_flops, jax_mem = JaxModelBench(
+        jax_long_configs(_mesh_cfg(jax_bert_config), 1,
                          JaxMesh(np.array(devices[:S]), ("sp",)),
                          strategy=strategy),
         JaxTokens(2, L, 1024)).benchmark()
+    assert mem == jax_mem
     assert len(jax_flops) == len(flops)
+    ratio = flops[head] / jax_flops[head]
+    assert DEFAULT_RATIO[0] <= ratio <= DEFAULT_RATIO[1], ratio
+    assert flops[head] * S < 1.5 * single[head]  # not the whole work
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_mesh_head_meta_path_keeps_shapes_and_refusals(strategy):
+    """On ``meta`` the mesh-built head returns the whole output's shape
+    and gradients of its inputs' shapes (what the pre-flight reads), and
+    refuses what the engines refuse."""
+    head = build_layer("LongBertLayer_Head",
+                       config=_mesh_cfg(bert_config).to_dict(),
+                       mesh=_mesh(4), strategy=strategy).to("meta")
+    hidden = torch.empty(2, L, 128, device="meta", requires_grad=True)
+    mask4 = torch.empty(2, 1, 1, L, device="meta", requires_grad=True)
+    out, mask_out = head(hidden, mask4)
+    assert out.shape == hidden.shape and mask_out is mask4
+    grads = torch.autograd.grad((out.sum(), mask_out.sum()),
+                                (hidden, mask4))
+    assert [g.shape for g in grads] == [hidden.shape, mask4.shape]
+    with pytest.raises(ValueError, match="divisible"):
+        head(torch.empty(2, L - 2, 128, device="meta"),
+             torch.empty(2, 1, 1, L - 2, device="meta"))
+    head.self.strategy = "bogus"
+    with pytest.raises(ValueError, match="strategy 'bogus'"):
+        head(hidden, mask4)
+
+
+class _EqualDevices:
+    """Device profiles of equal workers, keyed by current rank."""
+
+    def __init__(self, wm):
+        self._wm = wm
+
+    def benchmark(self):
+        return {f"worker{w.rank}": dict(time=1.0, avai_mem=1e6)
+                for w in self._wm.worker_pool}
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_mesh_stack_mesh_allocate_equals_jax(devices, strategy):
+    """``Allocator.mesh_allocate`` over a 2-encoder-unit long-BERT stack
+    whose heads are mesh-built over 8 positions, 8 equal devices, at
+    most 4 stages of 2 chips, on each package's static profile: the same
+    stages, slices and chips (with the heads' whole work charged, the
+    port split the stack one unit earlier)."""
+    S = 8
+    plans = []
+    for manager_cls, alloc_cls, bench_cls, units, gen in (
+            (JaxWorkerManager, JaxAllocator, JaxModelBench,
+             jax_long_configs(_mesh_cfg(jax_bert_config), 2,
+                              JaxMesh(np.array(devices[:S]), ("sp",)),
+                              strategy=strategy),
+             JaxTokens(2, L, 1024)),
+            (WorkerManager, Allocator, ModelBenchmarker,
+             long_bert_layer_configs(_mesh_cfg(bert_config), 2, _mesh(S),
+                                     strategy=strategy),
+             RandomTokenGenerator(2, L, 1024))):
+        wm = _pool(manager_cls, 8)
+        alloc = alloc_cls(units, wm, bench_cls(units, gen),
+                          _EqualDevices(wm))
+        alloc.mesh_allocate(num_devices=8, max_stages=4,
+                            max_chips_per_stage=2)
+        plan = alloc.last_mesh
+        plans.append((plan.num_stages, [tuple(s) for s in plan.slices],
+                      list(plan.chips), sorted(
+                          (w.order, len(w.model_config or []),
+                           w.extra_config.get("mesh_chips"))
+                          for w in wm.worker_pool)))
+    assert plans[1] == plans[0]
 
 
 @pytest.mark.parametrize("causal", [False, True])
