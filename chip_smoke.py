@@ -32,7 +32,10 @@ one.  Phases, each fatal on failure:
    prefill and chunk row (the register-tile body) the query-tile body it
    replaced runs the same call too: its error, its ``ptxas`` figures and
    its time, the two bodies timed in turns, the register-tile body
-   required to be the faster;
+   required to be the faster; and B1's CUDA-core body timed at its own
+   head_dims (float32 at 36, bf16 at 40; B=4, L=128, H=16) beside its
+   bound (``flash_bound``: bf16 at the tensor cores' peak, float32 at
+   the 3xTF32 bound with the FFMA bound beside it) and SDPA's time;
 4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
@@ -264,7 +267,33 @@ one.  Phases, each fatal on failure:
     split over its 2 positions), 1F1B M=4, 3 SGD steps; then at one
     position per stage against ``PipelineModel`` on the same allocation,
     2 steps each in turns: whether the parameters are bitwise equal,
-    and their largest difference (within 1e-5).
+    and their largest difference (within 1e-5);
+29. the compiled SPMD pipelines (``parallel/spmd.py``,
+    ``parallel/spmd_gpt.py``), every mesh position on the card, SGD at
+    1e-3 on a fixed seeded batch of 32 x 128: (a) BERT-large's width
+    (24 encoder units, bf16, flash on) under GPipe on dp=2 x pp=4, 6
+    units a stage, M=4, 5 steps at 1e-4 (at 1e-3 the fixed batch's loss
+    rises, as in phases 27-28) — B1 exactly 24 x 4 x 2 x 2 = 384 times
+    a step (units x microbatches x dp x forward and remat), all on the
+    tensor-core body, the loss falling; (b) interleaved, V=2 on pp=4 (3
+    units a chunk) at M=4 (the wavefront) and M=8 (the grouped
+    schedule), 3 steps each, B1 24 x M x 2 a step; (c) ZeRO-3 with Adam
+    on (a)'s mesh, 3 steps, each position's parameter and state bytes
+    against the replicated layout's; (d) tensor parallelism on dp=2 x
+    pp=2 x tp=2, 3 steps, no B1 launch (einsum attention, as JAX's TP
+    stage); (e) GPT-2 small's width, 12 blocks: dense on pp=4, MoE
+    (every second block of 8 experts, top-2) on pp=2 and on pp=2 x tp=2
+    (a stage's blocks must be a multiple of the MoE period), 3 steps
+    each; (f) depth 2, float32, dp=2 x pp=2: one step on the card and on
+    the CPU from the same weights, loss and every parameter within 1e-5,
+    and each leaf's reduced gradient within 1e-3 of the CPU's in norm,
+    B1 on the 3xTF32 body; (g) (a)'s weights in float32 at pp=4 against
+    ``PipelineModel`` (GPipe, M=4) on the same per-layer weights: each
+    layer's gradient within 1e-3 of the stages' in norm, loss and
+    parameters after one step within 1e-5, three steps of each timed in
+    turns.  Printed: each run's step times (median of steps 2 on),
+    tokens/s, peak memory, losses and B1's launches by body, beside
+    phases 27-28's steps.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
@@ -272,7 +301,8 @@ and phase 21; their register-tile entries from phase 21's float32
 prefill and chunk waves; B1's from its BERT paths, at L=4,096 from
 phase 23, and its float32 tensor-core body's, by body, from phases
 27-28, beside its time at their 4 rows of 128, and from phase 26's
-baseline, beside its time at 1 row of 4,096);
+baseline, beside its time at 1 row of 4,096; its tensor-core body's in
+phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -3258,11 +3288,9 @@ def moe_gpt_path(torch, np, kernels, workdir):
     stimulated workers, 1F1B M=4, 5 steps of SGD at 1e-3; no kernel.
     The share of routed choices dropped over capacity is read in step 1
     (a forward hook on each MoE block replays its routing)."""
-    import math
-
     import torch.nn.functional as F
     from skycomputing_tpu_torch.models import gpt as gpt_mod
-    from skycomputing_tpu_torch.ops.moe import router_probs, top_k_dispatch
+    from skycomputing_tpu_torch.ops.moe import moe_route
 
     cfg = gpt_mod.GptConfig(vocab_size=50257, hidden_size=768,
                             num_attention_heads=12, intermediate_size=3072,
@@ -3287,13 +3315,11 @@ def moe_gpt_path(torch, np, kernels, workdir):
             H = h.shape[-1]
             x = F.layer_norm(h.float(), (H,), module.ln_2.weight,
                              module.ln_2.bias, module.ln_2.eps).to(h.dtype)
-            tokens = x.reshape(-1, H)
-            T = tokens.shape[0]
-            capacity = max(1, math.ceil(T / module.num_experts
-                                        * module.capacity_factor))
-            dispatch, _, _ = top_k_dispatch(
-                router_probs(tokens, module.router), capacity, module.top_k)
-            dropped.append(1.0 - float(dispatch.sum()) / (T * module.top_k))
+            tokens, dispatch, _, _ = moe_route(
+                x, module.router, module.num_experts, module.top_k,
+                module.capacity_factor)
+            dropped.append(1.0 - float(dispatch.sum())
+                           / (tokens.shape[0] * module.top_k))
 
     def hook_moe_blocks(runner):
         handles = [m.register_forward_hook(share)
@@ -3780,6 +3806,428 @@ def mesh_pipeline_path(torch, np, kernels, dev, units, vocab_size,
 
 
 
+# --------------------------------------------------------------------------
+# phase 29: the compiled SPMD pipelines, every mesh position on the card
+# --------------------------------------------------------------------------
+
+SPMD_MICRO, SPMD_LR = 4, 1e-3
+# (a)'s SGD step: at 1e-3 the fixed batch's loss of BERT-large rises
+# under every engine (phases 27-28 too: 1.08, 1.13, 1.47), so the run
+# that checks it falls trains at 1e-4
+SPMD_LR_A = 1e-4
+SPMD_CHECK_BATCH = 8  # (f): batch of the card-against-CPU step
+GRAD_RTOL = 1e-3  # (f), (g): a leaf's gradient error over its norm
+GRAD_FLOOR = 1e-4  # ... or over this share of the whole gradient's norm
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def spmd_bert_cfg(dtype, preset="large"):
+    """BERT-large's width (``experiment/config.py``): hidden 1,024, 16
+    heads of 64, FFN 4,096; flash on, dropouts 0."""
+    from skycomputing_tpu_torch.models import bert_config
+
+    return bert_config(preset, dtype=dtype, hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0,
+                       use_flash_attention=True)
+
+
+def spmd_bert_data(np, vocab_size, batch=BERT_BATCH, seq=BERT_SEQ,
+                   seed=SEED + 31):
+    """Seeded rows, every fourth with its last quarter padded."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(5, vocab_size, size=(batch, seq)).astype(np.int32)
+    mask = np.ones_like(ids)
+    mask[::4, seq - seq // 4:] = 0
+    labels = rng.integers(0, 3, size=(batch,)).astype(np.int32)
+    return (ids, np.zeros_like(ids), mask), labels
+
+
+def spmd_steps(torch, engine, params, opt, data, labels, dev, steps,
+               b1=None):
+    """``steps`` train steps on a fixed batch: the losses, each step's
+    wall time (ending in a device barrier), B1's launches in each step
+    and the peak memory."""
+    if dev.type == "cuda":
+        _peak_reset(torch, dev)
+    losses, step_ms, per_step = [], [], []
+    for _ in range(steps):
+        before = b1.launches if b1 is not None else 0
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, loss = engine.train_step(params, opt, data, labels)
+        _sync(torch, dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        per_step.append((b1.launches - before) if b1 is not None else 0)
+    peak = _peak_gb(torch, dev) if dev.type == "cuda" else None
+    return params, opt, dict(losses=losses, step_ms=step_ms,
+                             b1_per_step=per_step, peak_mem_gb=peak)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else 0.5 * (
+        xs[len(xs) // 2 - 1] + xs[len(xs) // 2])
+
+
+def _bytes_by_position(tree):
+    from skycomputing_tpu_torch.parallel.sharded import leaves_of
+
+    out = {}
+    for leaf in leaves_of(tree):
+        for pos in leaf.shards:
+            out[pos] = out.get(pos, 0) + leaf.nbytes(pos)
+    return {str(list(pos)): n for pos, n in sorted(out.items())}
+
+
+def _tree_max_diff(a, b):
+    return max((a[g][n] - b[g][n]).abs().max().item()
+               for g in a for n in a[g])
+
+
+def _grad_rel_diff(ours, ref):
+    """The largest per-leaf ``||ours - ref|| / max(||ref||, floor)`` over
+    two trees of gradients (dicts of dicts, or lists of dicts, of
+    tensors), on the CPU in float64.  ``floor`` is ``GRAD_FLOOR`` of the
+    whole reference gradient's norm: a leaf whose gradient is zero but
+    for rounding (a key bias: softmax ignores a shift shared by every
+    key) is held to that, not to its own rounding."""
+    keys = [(i, name) for i in (ref if isinstance(ref, dict)
+                                else range(len(ref)))
+            for name in ref[i]]
+    pairs = [(ours[i][n].detach().cpu().double(),
+              ref[i][n].detach().cpu().double()) for i, n in keys]
+    floor = GRAD_FLOOR * sum(r.norm().item() ** 2 for _, r in pairs) ** 0.5
+    return max((o - r).norm().item() / max(r.norm().item(), floor)
+               for o, r in pairs)
+
+
+def spmd_path(torch, np, kernels, dev, preset="large", units=24,
+              gpt_layers=LAYERS, batch=BERT_BATCH, seq=BERT_SEQ,
+              steps=BERT_STEPS, check_batch=SPMD_CHECK_BATCH, gpt_kw=None):
+    """Phase 29: ``CompiledBertPipeline`` and ``CompiledGptPipeline`` with
+    every mesh position on ``dev`` (runs (a)-(g) of the docstring).
+    Each run's B1 counts are set to 0 just before its steps and read
+    just after."""
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ParameterServer,
+    )
+    from skycomputing_tpu_torch.models import bert_layer_configs
+    from skycomputing_tpu_torch.models.gpt import GptConfig
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import (
+        Adam,
+        CompiledBertPipeline,
+        CompiledGptPipeline,
+        PipelineModel,
+        make_dp_pp_mesh,
+        make_dp_pp_tp_mesh,
+        make_pipeline_mesh,
+        sgd,
+    )
+
+    b1 = kernels[B1]["fn"]
+    report = {}
+    cfg = spmd_bert_cfg("bfloat16", preset)
+    data, labels = spmd_bert_data(np, cfg.vocab_size, batch, seq)
+    tokens = batch * seq
+    per_stage = units // 4
+
+    def bert(mesh, units_per_stage, c=cfg, **kw):
+        kw.setdefault("num_microbatches", SPMD_MICRO)
+        kw.setdefault("learning_rate", SPMD_LR)
+        return CompiledBertPipeline(c, mesh, units_per_stage=units_per_stage,
+                                    num_classes=3, **kw)
+
+    def summary(name, run, expect_b1=None, body=None):
+        run = dict(run)
+        run["step_ms_median_2_on"] = _median(run["step_ms"][1:])
+        run["tokens_per_s"] = tokens / (run["step_ms_median_2_on"] / 1e3)
+        run["b1_bodies"] = dict(b1.body_launches)
+        log(f"   {name}: {json.dumps(run)}")
+        check(all(np.isfinite(run["losses"])),
+              f"{name}: losses finite {run['losses']}")
+        if expect_b1 is not None:
+            check(all(n == expect_b1 for n in run["b1_per_step"]),
+                  f"{name}: B1 launched {run['b1_per_step']} times a step, "
+                  f"{expect_b1} expected")
+        if body is not None:
+            total = sum(run["b1_per_step"])
+            check(run["b1_bodies"][body] == total,
+                  f"{name}: all {total} B1 launches on the {body} body "
+                  f"({json.dumps(run['b1_bodies'])})")
+        report[name] = run
+        return run
+
+    # (a) GPipe on dp=2 x pp=4
+    eng = bert(make_dp_pp_mesh(2, 4, [dev] * 8), per_stage,
+               learning_rate=SPMD_LR_A)
+    tree_a = eng.init_tree(SEED)
+    params = eng.place(tree_a)
+    opt = eng.init_opt_state(params)
+    zero_counts(kernels)
+    params, opt, run = spmd_steps(torch, eng, params, opt, data, labels,
+                                  dev, steps, b1)
+    summary("a_gpipe_dp2_pp4", run, units * SPMD_MICRO * 2 * 2,
+            "tensor_core")
+    check(run["losses"][-1] < run["losses"][0],
+          f"(a) the fixed batch's loss falls over {steps} steps of SGD at "
+          f"{SPMD_LR_A}: {run['losses']}")
+    del eng, params, opt
+    _free(torch)
+
+    # (b) interleaved, V=2 on pp=4: the wavefront (M=4), then grouped (M=8)
+    tree_b = None
+    for M in (4, 8):
+        eng = bert(make_pipeline_mesh(4, [dev] * 4), units // 8,
+                   virtual_stages=2, num_microbatches=M)
+        tree_b = tree_b or eng.init_tree(SEED + 1)
+        params = eng.place(tree_b)
+        opt = eng.init_opt_state(params)
+        zero_counts(kernels)
+        params, opt, run = spmd_steps(torch, eng, params, opt, data, labels,
+                                      dev, 3, b1)
+        summary(f"b_interleaved_V2_M{M}", run, units * M * 2, "tensor_core")
+        del eng, params, opt
+        _free(torch)
+    del tree_b
+
+    # (c) ZeRO-3 with Adam on (a)'s mesh, against the replicated layout
+    mesh_a = make_dp_pp_mesh(2, 4, [dev] * 8)
+    rep = bert(mesh_a, per_stage, optimizer=Adam(SPMD_LR))
+    rep_params = rep.place(tree_a)
+    rep_opt = rep.init_opt_state(rep_params)
+    rep_bytes = dict(params=_bytes_by_position(rep_params),
+                     state=_bytes_by_position({k: v for k, v in
+                                               rep_opt.items()
+                                               if k != "count"}))
+    del rep, rep_params, rep_opt
+    _free(torch)
+    eng = bert(mesh_a, per_stage, optimizer=Adam(SPMD_LR), zero3=True)
+    params = eng.place(tree_a)
+    opt = eng.init_opt_state(params)
+    z_bytes = dict(params=_bytes_by_position(params),
+                   state=_bytes_by_position({k: v for k, v in opt.items()
+                                             if k != "count"}))
+    zero_counts(kernels)
+    params, opt, run = spmd_steps(torch, eng, params, opt, data, labels,
+                                  dev, 3, b1)
+    run = summary("c_zero3_adam_dp2_pp4", run, units * SPMD_MICRO * 2 * 2,
+                  "tensor_core")
+    report["c_zero3_adam_dp2_pp4"]["bytes_by_position"] = dict(
+        zero3=z_bytes, replicated=rep_bytes)
+    log(f"   (c) bytes by position: zero3 {json.dumps(z_bytes)}; "
+        f"replicated {json.dumps(rep_bytes)}")
+    check(all(z_bytes[k][p] < rep_bytes[k][p] for k in z_bytes
+              for p in z_bytes[k]),
+          "(c) ZeRO-3 holds fewer parameter and state bytes than the "
+          "replicated layout at every position")
+    del eng, params, opt
+    _free(torch)
+
+    # (d) tensor parallelism on dp=2 x pp=2 x tp=2: einsum attention, no B1
+    eng = bert(make_dp_pp_tp_mesh(2, 2, 2, [dev] * 8), units // 2,
+               num_microbatches=SPMD_MICRO)
+    params = eng.init(SEED + 2)
+    opt = eng.init_opt_state(params)
+    zero_counts(kernels)
+    params, opt, run = spmd_steps(torch, eng, params, opt, data, labels,
+                                  dev, 3, b1)
+    summary("d_tp_dp2_pp2_tp2", run, 0)
+    del eng, params, opt
+    _free(torch)
+
+    # (e) GPT-2 small's width: dense on pp=4; MoE (every second block of
+    # 8 experts, top-2) on pp=2 and on pp=2 x tp=2 (moe_every must divide
+    # a stage's blocks: 12 blocks over 4 stages leave 3)
+    gcfg = GptConfig(num_hidden_layers=gpt_layers, **(gpt_kw or {}))
+    rng = np.random.default_rng(SEED + 32)
+    ids = rng.integers(0, gcfg.vocab_size, size=(batch, seq)).astype(
+        np.int32)
+    moe = dict(moe_every=2, num_experts=8, moe_top_k=2)
+    for name, mesh, per, kw in (
+            ("e_gpt_dense_pp4", make_pipeline_mesh(4, [dev] * 4),
+             gpt_layers // 4, {}),
+            ("e_gpt_moe_pp2", make_pipeline_mesh(2, [dev] * 2),
+             gpt_layers // 2, moe),
+            ("e_gpt_moe_pp2_tp2", make_dp_pp_tp_mesh(1, 2, 2, [dev] * 4),
+             gpt_layers // 2, moe)):
+        eng = CompiledGptPipeline(gcfg, mesh, units_per_stage=per,
+                                  num_microbatches=SPMD_MICRO,
+                                  learning_rate=SPMD_LR, **kw)
+        params = eng.init(SEED + 3)
+        opt = eng.init_opt_state(params)
+        zero_counts(kernels)
+        params, opt, run = spmd_steps(torch, eng, params, opt, (ids,), ids,
+                                      dev, 3, b1)
+        summary(name, run, 0)
+        del eng, params, opt
+        _free(torch)
+
+    # (f) card against CPU: depth 2, float32, TF32 off, dp=2 x pp=2
+    f32 = spmd_bert_cfg("float32", preset)
+    small, small_labels = spmd_bert_data(np, f32.vocab_size, check_batch,
+                                         seq, seed=SEED + 33)
+    trees, losses, grads = {}, {}, {}
+    tree_f = None
+    for where, devs in (("cuda", [dev] * 4),
+                        ("cpu", [torch.device("cpu")] * 4)):
+        eng = bert(make_dp_pp_mesh(2, 2, devs), 1, c=f32,
+                   num_microbatches=2)
+        tree_f = tree_f or eng.init_tree(SEED + 4)
+        params = eng.place(tree_f)
+        opt = eng.init_opt_state(params)
+        _, grads[where] = eng.value_and_grad(params, small, small_labels)
+        zero_counts(kernels)
+        params, opt, loss = eng.train_step(params, opt, small, small_labels)
+        losses[where] = float(loss)
+        trees[where] = eng.gather(params)
+        if where == "cuda":
+            f_launches, f_bodies = b1.launches, dict(b1.body_launches)
+        del eng, params, opt
+    _free(torch)
+    f_loss = abs(losses["cuda"] - losses["cpu"])
+    f_diff = _tree_max_diff(trees["cuda"], trees["cpu"])
+    f_grad = _grad_rel_diff(grads["cuda"], grads["cpu"])
+    report["f_card_vs_cpu"] = dict(losses=losses, loss_abs_diff=f_loss,
+                                   max_param_abs_diff=f_diff,
+                                   max_grad_rel_diff=f_grad,
+                                   b1_launches=f_launches,
+                                   b1_bodies=f_bodies)
+    log(f"   (f) card against CPU: {json.dumps(report['f_card_vs_cpu'])}")
+    check(f_loss <= 1e-5 and f_diff <= 1e-5,
+          f"(f) loss {f_loss:.3g} and parameters {f_diff:.3g} after one "
+          f"step within 1e-5 of the CPU's")
+    # one step at 1e-3 moves most leaves by less than 1e-5: the reduced
+    # gradient itself is held, leaf by leaf, against the CPU's
+    check(f_grad <= GRAD_RTOL,
+          f"(f) every leaf's gradient within {GRAD_RTOL} of the CPU's in "
+          f"norm (worst {f_grad:.3g})")
+    del grads
+    if dev.type == "cuda":
+        check(f_launches == 2 * 2 * 2 * 2,
+              f"(f) B1 launched {f_launches} times: 2 units x 2 "
+              f"microbatches x 2 dp x forward and remat")
+        check_f32_b1_body(f_bodies, f_launches, "(f) card against CPU")
+    del trees
+
+    # (g) engine against engine: (a)'s weights in float32 at pp=4, dp=1
+    # against PipelineModel (GPipe, M=4) on the same per-layer weights
+    eng = bert(make_pipeline_mesh(4, [dev] * 4), per_stage, c=f32)
+    params = eng.place(tree_a)
+    opt = eng.init_opt_state(params)
+    layer_cfgs = bert_layer_configs(f32, num_encoder_units=units,
+                                    num_classes=3, deterministic=True)
+    wm = worker_pool(4)
+    Allocator(layer_cfgs, wm).even_allocate()
+    ps = ParameterServer(layer_cfgs,
+                         state_dicts=eng.layer_state_dicts(tree_a))
+    pm = PipelineModel(wm, ps, sgd(SPMD_LR), cross_entropy_loss,
+                       devices=[dev] * 4, num_microbatches=SPMD_MICRO)
+    del tree_a
+    # the gradients of the first batch: the engine's reduced gradient
+    # against the stages' accumulated ``.grad``, layer by layer
+    _, g_tree = eng.value_and_grad(params, data, labels)
+    g_spmd = eng.layer_state_dicts(g_tree)
+    pm.compute_gradients(data, labels, generator=torch.Generator())
+    g_pipe = [{n: p.grad if p.grad is not None else torch.zeros_like(p)
+               for n, p in module.named_parameters()}
+              for stage in pm.stages for module in stage.stack.layers]
+    g_grad = _grad_rel_diff(g_spmd, g_pipe)
+    for stage in pm.stages:
+        stage.optimizer.zero_grad(set_to_none=True)
+    del g_tree, g_spmd, g_pipe
+    g_ms = dict(spmd=[], pipeline=[])
+    g_loss = {}
+    for i in range(3):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        params, opt, loss = eng.train_step(params, opt, data, labels)
+        _sync(torch, dev)
+        g_ms["spmd"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        pm_loss = pm.train_step(data, labels,
+                                generator=torch.Generator().manual_seed(i))
+        _sync(torch, dev)
+        g_ms["pipeline"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            g_loss = dict(spmd=float(loss), pipeline=float(pm_loss))
+            pm.sync_to_parameter_server()
+            ours = eng.layer_state_dicts(eng.gather(params))
+            g_diff = max((a[k].cpu() - b[k].cpu()).abs().max().item()
+                         for a, b in zip(ours, ps.params) for k in a)
+    del eng, params, opt, pm
+    _free(torch)
+    g_loss_diff = abs(g_loss["spmd"] - g_loss["pipeline"])
+    report["g_engine_vs_pipeline"] = dict(
+        losses=g_loss, loss_abs_diff=g_loss_diff, max_param_abs_diff=g_diff,
+        max_grad_rel_diff=g_grad, step_ms=g_ms)
+    log(f"   (g) against PipelineModel: "
+        f"{json.dumps(report['g_engine_vs_pipeline'])}")
+    check(g_loss_diff <= 1e-5 and g_diff <= 1e-5,
+          f"(g) loss {g_loss_diff:.3g} and parameters {g_diff:.3g} after "
+          f"one step within 1e-5 of PipelineModel's")
+    check(g_grad <= GRAD_RTOL,
+          f"(g) every layer's gradient within {GRAD_RTOL} of "
+          f"PipelineModel's in norm (worst {g_grad:.3g})")
+    return report
+
+
+def flash_cuda_core_checks(torch, np, ptxas):
+    """B1's CUDA-core body at its own head_dims (float32 at D=36, bf16
+    at D=40; B=4, L=128, H=16, 32 keys padded), against its plain version
+    and timed as phase 3 times, with its bound as :func:`flash_bound`
+    reckons it (bf16 at the tensor cores' peak; float32 at the
+    float32-accurate 3xTF32 bound, the FFMA bound beside it) and SDPA's
+    time."""
+    import torch.nn.functional as F
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    rows = []
+    for dtype, D, tol in (("float32", 36, 1e-4), ("bfloat16", 40, 2e-2)):
+        rng = np.random.default_rng(400 + D)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(rng.standard_normal((4, 128, 16, D))
+                                    .astype(np.float32)).to("cuda", dt)
+                   for _ in range(3))
+        bias = torch.zeros(4, 128)
+        bias[:, -32:] = -10000.0
+        bias = bias.to("cuda", dt)
+        scale = D ** -0.5
+        err = (flash_attention(q, k, v, bias).float()
+               - flash_attention_reference(q, k, v, bias, scale).float()
+               ).abs().max().item()
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        body = flash_body(torch, ptxas, q)
+        B, L, H, _ = q.shape
+        bound_ms, bound_by, extra = flash_bound(
+            q, bias, dtype, "tensor_core_f32" if dtype == "float32" else None)
+        row = dict(
+            kernel="flash_attention", case=f"cuda_core_D{D}", B=B, L=L, H=H,
+            D=D, padded_keys=32, dtype=dtype, max_abs_err=err, tol=tol,
+            ms=time_ms(torch, lambda: flash_attention(q, k, v, bias)),
+            plain_ms=time_ms(torch, lambda: flash_attention_reference(
+                q, k, v, bias, scale)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias[:, None, None, :])),
+            bound_ms=bound_ms, bound_by=bound_by, **extra, **body)
+        log(f"   {json.dumps(row)}")
+        check(body["body"] == "cuda_core" and err <= tol,
+              f"flash_attention cuda_core D={D} {dtype}: max |err| "
+              f"{err:.3g} <= {tol}")
+        rows.append(row)
+    return rows
+
+
+
 def main() -> int:
     import torch
 
@@ -3868,6 +4316,7 @@ def main() -> int:
         flash = flash_checks(torch, np, ptxas)
         report["flash_kernel"] = flash
         report["flash_edges"] = flash_edge_checks(torch, np, ptxas)
+        report["flash_cuda_core"] = flash_cuda_core_checks(torch, np, ptxas)
 
     with phase("main path: GPT-2 small paged serving"):
         cfg = gpt_mod.GptConfig()
@@ -4315,6 +4764,24 @@ def main() -> int:
             torch, np, kernels, dev, par_units, par_cfg.vocab_size)
         _free(torch)
 
+    with phase("compiled SPMD pipelines: BERT-large's width on 8, 4 and "
+               "8 positions (GPipe, interleaved, ZeRO-3, TP), GPT-2 small's "
+               "(dense, MoE, MoE with TP), card against CPU, against "
+               "PipelineModel"):
+        report["spmd"] = spmd_path(torch, np, kernels, dev)
+        spmd = report["spmd"]
+        for name in ("a_gpipe_dp2_pp4", "b_interleaved_V2_M4",
+                     "b_interleaved_V2_M8", "c_zero3_adam_dp2_pp4",
+                     "d_tp_dp2_pp2_tp2", "e_gpt_dense_pp4", "e_gpt_moe_pp2",
+                     "e_gpt_moe_pp2_tp2"):
+            log(f"   {name}: step {spmd[name]['step_ms_median_2_on']:.1f} "
+                f"ms (median of steps 2 on), peak "
+                f"{spmd[name]['peak_mem_gb']:.2f} GB; beside phase 27's "
+                f"replicas {_median(report['data_parallel']['step_ms']):.1f}"
+                f" ms and phase 28's mesh engine "
+                f"{_median(report['mesh_pipeline']['step_ms']):.1f} ms")
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
@@ -4327,7 +4794,9 @@ def main() -> int:
                    bound_by=row["bound_by"], library_ms=row["library_ms"])
         if body is not None:
             check(row["body"] == body, f"{out['name']}: timed on {body}")
-            out.update(body=body, ffma_bound_ms=row["ffma_bound_ms"])
+            out["body"] = body
+            if "ffma_bound_ms" in row:
+                out["ffma_bound_ms"] = row["ffma_bound_ms"]
         return out
 
     # each kernel's launches from the paths that are its own: B2 from the
@@ -4370,7 +4839,13 @@ def main() -> int:
         # time at that baseline's microbatch, 1 row of 4,096
         entry(B1, report["sequence_parallel"]["long_bert"]["runs"]["b1"][
             "b1_bodies"][F32_BODY], report["flash_long"], "long_L4096",
-              dtype="float32", label=f"{B1}:f32_L4096", body=F32_BODY)]}
+              dtype="float32", label=f"{B1}:f32_L4096", body=F32_BODY),
+        # the compiled SPMD BERT pipeline's bf16 runs (phase 29 (a)-(c)),
+        # beside B1's time at (a)'s dp shard, 4 rows of 128
+        entry(B1, sum(sum(spmd[r]["b1_per_step"]) for r in (
+            "a_gpipe_dp2_pp4", "b_interleaved_V2_M4", "b_interleaved_V2_M8",
+            "c_zero3_adam_dp2_pp4")), flash, "bert_large_L128_B4",
+              label=f"{B1}:spmd_bf16", body="tensor_core")]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(

@@ -14,7 +14,11 @@ the BERT pipeline trainer: ``models/bert.py`` split into units over a
 Later slices add the paper's main path (profilers, solver, allocation,
 1F1B, the launcher), the bench, GLUE data and evaluation, and the
 trainer's safety net: the pre-flight plan verifier (:mod:`.analysis`),
-the telemetry core (:mod:`.telemetry`), fault injection and self-heal.
+the telemetry core (:mod:`.telemetry`), fault injection and self-heal,
+the parallel engines on a single-controller device mesh
+(:mod:`.parallel`: sequence parallelism, data-parallel replicas,
+mesh-native stages, and the compiled SPMD BERT and GPT pipelines with
+tensor parallelism, ZeRO-1/2/3 and expert parallelism).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on a CPU tensor each kernel wrapper runs its plain PyTorch version.
@@ -22,7 +26,7 @@ on a CPU tensor each kernel wrapper runs its plain PyTorch version.
 
 from . import models  # noqa: F401 - registers the BERT and GPT layers
 from .builder import LayerStack, build_layer, build_layer_stack
-from .convert import params_from_jax
+from .convert import params_from_jax, spmd_params_from_jax, spmd_params_to_jax
 from .registry import LAYER, Registry
 
 __all__ = [
@@ -32,4 +36,6 @@ __all__ = [
     "build_layer",
     "build_layer_stack",
     "params_from_jax",
+    "spmd_params_from_jax",
+    "spmd_params_to_jax",
 ]

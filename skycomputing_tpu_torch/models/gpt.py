@@ -371,32 +371,21 @@ class GptBlock_MoeMlp(nn.Module):
         return self.initial_params(self.config, self.num_experts, normal)
 
     def forward(self, hidden):
-        from ..ops.moe import (
-            moe_dispatch_combine,
-            router_probs,
-            top_k_dispatch,
-        )
+        from ..ops.moe import expert_mlp, moe_dispatch_combine, moe_route
 
         cfg = self.config
         dt = torch_dtype(cfg.dtype)
         act = ACT2FN[cfg.hidden_act]
-        E, H = self.num_experts, cfg.hidden_size
         x = _layer_norm(hidden, self.ln_2).to(dt)
-        B, L, _ = x.shape
-        tokens = x.reshape(B * L, H)
-        capacity = max(1, math.ceil(B * L / E * self.capacity_factor))
-        probs = router_probs(tokens, self.router)
-        dispatch, combine, aux = top_k_dispatch(probs, capacity, self.top_k)
+        tokens, dispatch, combine, aux = moe_route(
+            x, self.router, self.num_experts, self.top_k,
+            self.capacity_factor)
         self.aux_loss = aux.detach()
-
-        def experts(buf):  # [E, C, H] -> [E, C, H]
-            h = act(torch.einsum("ech,ehi->eci", buf, self.w1.to(dt))
-                    + self.b1[:, None, :].to(dt))
-            return (torch.einsum("eci,eih->ech", h, self.w2.to(dt))
-                    + self.b2[:, None, :].to(dt))
-
-        out = moe_dispatch_combine(tokens, dispatch, combine, experts)
-        out = self.drop(out.reshape(B, L, H).to(dt))
+        out = moe_dispatch_combine(
+            tokens, dispatch, combine,
+            lambda buf: expert_mlp(buf, self.w1.to(dt), self.b1.to(dt),
+                                   self.w2.to(dt), self.b2.to(dt), act))
+        out = self.drop(out.reshape(hidden.shape).to(dt))
         if self.return_aux:
             return hidden + out, aux
         return hidden + out

@@ -14,7 +14,8 @@ PyTorch.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import math
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,17 +62,55 @@ def top_k_dispatch(probs: torch.Tensor, capacity: int, top_k: int = 1
     return dispatch, combine, aux_loss
 
 
+def moe_route(x: torch.Tensor, router_kernel: torch.Tensor,
+              num_experts: int, top_k: int, capacity_factor: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """The MoE block's routing of normalized activations x [B, L, H]:
+    (tokens [B*L, H], dispatch, combine, aux_loss) at capacity ``C =
+    max(1, ceil(B*L / E * capacity_factor))``."""
+    H = x.shape[-1]
+    tokens = x.reshape(-1, H)
+    capacity = max(1, math.ceil(tokens.shape[0] / num_experts
+                                * capacity_factor))
+    probs = router_probs(tokens, router_kernel)
+    return (tokens, *top_k_dispatch(probs, capacity, top_k))
+
+
+def moe_dispatch(tokens: torch.Tensor, dispatch: torch.Tensor
+                 ) -> torch.Tensor:
+    """tokens [T, H] -> expert buffers [E, C, H]."""
+    return torch.einsum("tec,th->ech", dispatch.to(tokens.dtype), tokens)
+
+
+def moe_combine(combine: torch.Tensor, expert_out: torch.Tensor
+                ) -> torch.Tensor:
+    """Expert outputs [E, C, H'] -> gate-weighted tokens [T, H']."""
+    return torch.einsum("tec,ech->th", combine.to(expert_out.dtype),
+                        expert_out)
+
+
+def expert_mlp(buf: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: Optional[torch.Tensor],
+               act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The experts' two-layer MLP on their buffers, [E, C, H] -> [E, C,
+    H'], batched over the leading expert axis; ``b2=None`` leaves the
+    output bias to the caller (a row-parallel split adds it after the
+    sum)."""
+    h = act(torch.einsum("ech,ehi->eci", buf, w1) + b1[:, None, :])
+    y = torch.einsum("eci,eih->ech", h, w2)
+    return y if b2 is None else y + b2[:, None, :]
+
+
 def moe_dispatch_combine(tokens: torch.Tensor, dispatch: torch.Tensor,
                          combine: torch.Tensor,
                          expert_fn: Callable[[torch.Tensor], torch.Tensor]
                          ) -> torch.Tensor:
     """tokens [T, H] -> expert buffers [E, C, H] -> combined [T, H'].
     ``expert_fn`` maps [E, C, H] -> [E, C, H']."""
-    expert_in = torch.einsum("tec,th->ech", dispatch.to(tokens.dtype),
-                             tokens)
-    expert_out = expert_fn(expert_in)
-    return torch.einsum("tec,ech->th", combine.to(expert_out.dtype),
-                        expert_out)
+    return moe_combine(combine, expert_fn(moe_dispatch(tokens, dispatch)))
 
 
-__all__ = ["moe_dispatch_combine", "router_probs", "top_k_dispatch"]
+__all__ = ["expert_mlp", "moe_combine", "moe_dispatch",
+           "moe_dispatch_combine", "moe_route", "router_probs",
+           "top_k_dispatch"]

@@ -75,7 +75,10 @@ def test_package_imports_with_jax_blocked():
     assert "imported" in proc.stdout
 
 
-@pytest.mark.parametrize("first", ["parallel", "runner", "analysis"])
+@pytest.mark.parametrize("first", ["parallel", "runner", "analysis",
+                                   "parallel.spmd_gpt",
+                                   "parallel.tensor_parallel",
+                                   "parallel.expert_parallel"])
 def test_each_subpackage_imports_first(first):
     """A user may import any subpackage before the others (the parallel
     engines' entry points are ``skycomputing_tpu_torch.parallel``): no
@@ -156,6 +159,38 @@ def test_pipeline_without_devices_refuses_cpu_fallback():
     ps = ParameterServer(model_cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PipelineModel(wm, ps, sgd(1e-3), cross_entropy_loss)
+
+
+@pytest.mark.parametrize("engine", ["bert", "gpt", "tp", "ep"])
+def test_spmd_engines_without_devices_refuse_cpu_fallback(engine):
+    """The compiled SPMD pipelines and the tensor- and expert-parallel
+    meshes built with ``devices=None`` take the CUDA devices, and raise
+    on a box with none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from skycomputing_tpu_torch.models import bert_config
+    from skycomputing_tpu_torch.models.gpt import GptConfig
+    from skycomputing_tpu_torch.parallel import (
+        CompiledBertPipeline,
+        CompiledGptPipeline,
+        make_dp_pp_mesh,
+        make_ep_mesh,
+        make_pipeline_mesh,
+        make_tp_mesh,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if engine == "bert":
+            CompiledBertPipeline(bert_config("tiny", dtype="float32"),
+                                 make_dp_pp_mesh(1, 2), units_per_stage=1)
+        elif engine == "gpt":
+            CompiledGptPipeline(GptConfig(hidden_size=16,
+                                          num_attention_heads=2),
+                                make_pipeline_mesh(2), units_per_stage=1)
+        elif engine == "tp":
+            make_tp_mesh(2)
+        else:
+            make_ep_mesh(2)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
