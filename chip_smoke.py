@@ -294,6 +294,34 @@ one.  Phases, each fatal on failure:
     turns.  Printed: each run's step times (median of steps 2 on),
     tokens/s, peak memory, losses and B1's launches by body, beside
     phases 27-28's steps.
+30. multihost, heartbeat and elastic (``parallel/multihost.py``,
+    ``heartbeat.py``, ``elastic.py``, ``HeartbeatHook``,
+    ``SelfHealHook(mode="exit")``), each run in processes of its own
+    that this script starts (``--elastic-child ROLE``, below) and
+    kills at the end: (a) a world of one under NCCL on the card
+    (``initialize_from_env`` through ``SKYTPU_COORDINATOR``), its
+    ``global_mesh(("dp",), (1,))``, 50 ``PeerHeartbeat`` beats (median
+    and p95 in ms), and a ``HeartbeatHook`` beat dropped by a
+    ``drop_beat`` fault; (b) peer death under gloo (NCCL puts no two
+    ranks of one communicator on one card): two processes beat, rank 1
+    exits, the survivor's next beat detects it (the seconds printed);
+    (c) an ``ElasticSupervisor`` over a trainer of BERT-large's width
+    (bf16, flash on) cut to 8 layers (27 units), 4 stimulated workers
+    on the card, under ``Runner`` with ``HeartbeatHook(interval=1)``
+    (a world of one, NCCL), worker 0 6x slower from iteration 3 and
+    ``SelfHealHook(mode="exit")``: the trainer exits ``REALLOC_RC``,
+    the supervisor re-forms generation 1 with the staged payload, and
+    the relaunched trainer validates it, applies the device scales,
+    solves ``optimal_allocate`` (worker 0 must shed units), loads the
+    snapshot (every parameter bitwise) and trains on to iteration 11;
+    the iterations continuous, B1 on the tensor-core body in every
+    step of both generations, no kernel library loaded inside the
+    steps, and the seconds from the exit to generation 1's first
+    step; (d) JAX's ``test_elastic_reform.py`` scenario with its trainer
+    on the card: two supervisors under gloo, node 1's trainer dies at
+    iteration 2, the survivor re-forms as ``[0]`` and resumes from the
+    checkpoint, the losses falling across the boundary.  The
+    children's logs and JSON go to ``chiprun_out/elastic/``.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
@@ -302,7 +330,8 @@ prefill and chunk waves; B1's from its BERT paths, at L=4,096 from
 phase 23, and its float32 tensor-core body's, by body, from phases
 27-28, beside its time at their 4 rows of 128, and from phase 26's
 baseline, beside its time at 1 row of 4,096; its tensor-core body's in
-phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128);
+phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128,
+and in phase 30's supervised trainer, beside its time at 8 rows of 128);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -314,8 +343,10 @@ from __future__ import annotations
 import gc
 import importlib
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -4228,6 +4259,639 @@ def flash_cuda_core_checks(torch, np, ptxas):
 
 
 
+# --------------------------------------------------------------------------
+# phase 30: multihost, heartbeat and elastic on the card
+# --------------------------------------------------------------------------
+
+# phase 30 starts its processes as ``python3 chip_smoke.py --elastic-child
+# ROLE ...``; each writes what it found as JSON under ``--work``
+ELASTIC_CHILD = "--elastic-child"
+ELASTIC_LAYERS, ELASTIC_STEPS = 8, 12  # BERT-large's width, cut in depth
+ELASTIC_FAULT_ITER, ELASTIC_FACTOR = 3, 6.0
+ELASTIC_BEATS = 50
+CRASH_ITERS = 8  # (d): JAX's test_elastic_reform.py trainer
+CHILD_TIMEOUT_S = dict(a=120.0, b=90.0, c=420.0, d=240.0)
+
+
+def _write_json(work, name, obj):
+    (Path(work) / name).write_text(json.dumps(obj, indent=1))
+
+
+def _read_json(work, name):
+    return json.loads((Path(work) / name).read_text())
+
+
+def _drop_beat_run(torch, np, dev, dev_arg):
+    """A ``Runner`` over a 4-unit ``MatmulStack`` pipeline (2 workers on
+    ``dev``) for 3 steps with ``HeartbeatHook(interval=1)`` and a
+    ``drop_beat`` fault at iteration 1: 2 beats, the drop consumed."""
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        FaultInjectionHook,
+        FaultPlan,
+        ParameterServer,
+        WorkerManager,
+    )
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import PipelineModel, sgd
+    from skycomputing_tpu_torch.runner import HeartbeatHook, Runner
+
+    features = 256
+    mc = [dict(layer_type="MatmulStack", features=features, depth=1,
+               dtype="float32") for _ in range(4)]
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config([
+        dict(name=f"node-{i}", device_config=dict(device_index=0))
+        for i in range(2)])
+    Allocator(mc, wm).even_allocate()
+    ps = ParameterServer(mc, generator=torch.Generator().manual_seed(SEED))
+    model = PipelineModel(wm, ps, sgd(1e-2), cross_entropy_loss,
+                          devices=[dev])
+    rng = np.random.default_rng(SEED)
+    batch = (rng.normal(size=(8, features)).astype(np.float32),
+             rng.integers(0, features, size=(8,)).astype(np.int32))
+    runner = Runner(model, ps, wm, max_epochs=1, max_iters=3)
+    faults = FaultInjectionHook(FaultPlan([dict(iter=1, kind="drop_beat")]))
+    hook = HeartbeatHook(interval=1, timeout_s=60.0, action="stop",
+                         device=dev_arg)
+    runner.register_hook(faults)
+    runner.register_hook(hook)
+    runner.train([batch] * 3)
+    return dict(hook_iters=runner.iter, hook_beats=hook.heartbeat.beats,
+                hook_failed=hook.heartbeat.failed,
+                drops_consumed=[e.get("consumed", True)
+                                for e in faults.applied
+                                if e["kind"] == "drop_beat"])
+
+
+def elastic_world_of_one(torch, np, args, started):
+    """(a): a world of one (NCCL on the card), its global mesh, 50 timed
+    beats and a beat dropped by the fault harness."""
+    import torch.distributed as dist
+    from skycomputing_tpu_torch.parallel import (
+        PeerHeartbeat,
+        global_mesh,
+        initialize_from_env,
+        is_coordinator,
+    )
+
+    on_card = args.device != "cpu"
+    dev_arg = None if on_card else "cpu"
+    t0 = time.perf_counter()
+    joined = initialize_from_env(device=dev_arg)
+    init_s = time.perf_counter() - t0
+    mesh = global_mesh(("dp",), (1,),
+                       devices=None if on_card else [torch.device("cpu")])
+    hb = PeerHeartbeat(timeout_s=60.0, device=dev_arg)
+    oks = [hb.beat()]
+    first_ms = hb.last_beat_s * 1e3  # communicator set-up included
+    ms = []
+    for _ in range(ELASTIC_BEATS):
+        oks.append(hb.beat())
+        ms.append(hb.last_beat_s * 1e3)
+    # the same beat with no collective (clone, sum, .item()): what the
+    # all-reduce adds to a beat
+    local_ms = []
+    for _ in range(ELASTIC_BEATS):
+        t1 = time.perf_counter()
+        hb._ones.clone().sum().item()
+        local_ms.append((time.perf_counter() - t1) * 1e3)
+    out = dict(joined=joined, backend=dist.get_backend(),
+               world=dist.get_world_size(), rank=dist.get_rank(),
+               coordinator=is_coordinator(), mesh_shape=dict(mesh.shape),
+               mesh_devices=[str(d) for d in mesh.devices.flatten()],
+               mesh_owners=mesh.owners.flatten().tolist(), init_s=init_s,
+               all_ok=all(oks), failed=hb.failed, beats=hb.beats,
+               first_beat_ms=first_ms, beat_ms=ms,
+               beat_ms_median=float(np.median(ms)),
+               beat_ms_p95=float(np.percentile(ms, 95)),
+               local_ms_median=float(np.median(local_ms)),
+               start_to_ready_s=time.time() - started)
+    out.update(_drop_beat_run(torch, np, mesh.devices.flat[0], dev_arg))
+    dist.destroy_process_group()
+    _write_json(args.work, "a.json", out)
+    return 0
+
+
+def elastic_peer_death(torch, np, args, started):
+    """(b): one process of a two-process gloo world; both beat once,
+    rank 1 exits, rank 0's next beat must detect it."""
+    from skycomputing_tpu_torch.parallel import (
+        PeerHeartbeat,
+        initialize_from_env,
+    )
+
+    initialize_from_env(device="cpu")
+    rank = int(os.environ["SKYTPU_PROCESS_ID"])
+    state = {}
+
+    def detected(reason):
+        _write_json(args.work, "b.json", dict(
+            detected=True, detect_s=time.perf_counter() - state["t0"],
+            by="exception" if "raised" in reason else "watchdog",
+            reason=reason))
+        os._exit(0)
+
+    hb = PeerHeartbeat(timeout_s=20.0, on_failure=detected, device="cpu")
+    if not hb.beat():
+        return 1
+    if rank == 1:
+        os._exit(0)  # the peer dies without leaving the world
+    state["t0"] = time.perf_counter()
+    hb.beat()
+    _write_json(args.work, "b.json", dict(detected=False))
+    return 1
+
+
+def elastic_bert_trainer(torch, np, args, started):
+    """(c): the supervised trainer.  Generation 0: BERT-large's width
+    (bf16, flash on), ``args.layers`` layers, evenly over 4 stimulated
+    workers on the card, under ``Runner`` with ``HeartbeatHook`` (a
+    world of one), a slowdown of worker 0 and ``SelfHealHook(mode=
+    "exit")``, which exits ``REALLOC_RC``.  Generation 1: the payload
+    from ``SKYTPU_ALLOCATION`` validated and applied, ``optimal_allocate``,
+    the snapshot loaded, and training on to the last iteration."""
+    import torch.distributed as dist
+    from skycomputing_tpu_torch.analysis import verify_allocation_payload
+    from skycomputing_tpu_torch.dataset import RandomTokenGenerator
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        FaultInjectionHook,
+        FaultPlan,
+        ModelBenchmarker,
+        ParameterServer,
+        WorkerManager,
+        proxy_device_benchmarker,
+    )
+    from skycomputing_tpu_torch.ops import _build, cross_entropy_loss
+    from skycomputing_tpu_torch.ops.flash_attention import flash_attention
+    from skycomputing_tpu_torch.parallel import (
+        PipelineModel,
+        initialize_from_env,
+        sgd,
+    )
+    from skycomputing_tpu_torch.runner import (
+        HeartbeatHook,
+        Hook,
+        Runner,
+        SelfHealHook,
+    )
+
+    on_card = args.device != "cpu"
+    dev_arg = None if on_card else "cpu"
+    devices = None if on_card else [torch.device("cpu")]
+    gen = int(os.environ["SKYTPU_GENERATION"])
+    snapshot = str(Path(args.work) / "snapshot.pt")
+    rec = dict(gen=gen, started_wall=started,
+               lib_on_disk=on_card and _build.library_path(
+                   "flash_attention").exists(),
+               stamps=[("imported", time.time())])
+    rec["joined"] = initialize_from_env(device=dev_arg)
+    rec.update(backend=dist.get_backend(), world=dist.get_world_size())
+    rec["stamps"].append(("joined", time.time()))
+
+    cfg, model_cfg = bert_units(args.preset, args.layers)
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config([
+        dict(name=f"node-{i}", device_config=dict(device_index=0))
+        for i in range(BERT_WORKERS)])
+    allocator = Allocator(
+        model_cfg, wm,
+        ModelBenchmarker(model_cfg, RandomTokenGenerator(
+            BERT_BATCH, BERT_SEQ, cfg.vocab_size)),
+        proxy_device_benchmarker(wm, devices=devices))
+    ps = ParameterServer(model_cfg,
+                         generator=torch.Generator().manual_seed(SEED))
+    rec["stamps"].append(("initialized", time.time()))
+    start = 0
+    if gen == 0:
+        allocator.even_allocate()
+        rec["stamps"].append(("allocated", time.time()))
+    else:
+        payload = json.loads(os.environ["SKYTPU_ALLOCATION"])
+        problems = verify_allocation_payload(payload)
+        if problems:
+            raise ValueError(f"SKYTPU_ALLOCATION refused: {problems}")
+        allocator.apply_device_scales(payload["device_scale"])
+        allocator.optimal_allocate(max_time=5.0)
+        rec["stamps"].append(("allocated", time.time()))
+        ps.load_weights_from_file(snapshot)
+        rec["stamps"].append(("loaded", time.time()))
+        start = int(payload["iter"])
+        rec["payload"] = payload
+    model = PipelineModel(wm, ps, sgd(BERT_LR), cross_entropy_loss,
+                          devices=devices,
+                          num_microbatches=BERT_MICROBATCHES)
+    rec["stamps"].append(("built", time.time()))
+    if gen > 0:
+        # the stages' weights, gathered back, against the file
+        saved = torch.load(snapshot, map_location="cpu",
+                           weights_only=True)["layers"]
+        model.sync_to_parameter_server()
+        rec["bitwise_equal_to_snapshot"] = len(saved) == len(ps.params) \
+            and all(a.keys() == b.keys() and all(
+                torch.equal(a[k].cpu(), b[k]) for k in b)
+                for a, b in zip(ps.params, saved))
+    rec["units_by_worker"] = {str(w.stim_index): len(w.model_config or [])
+                              for w in wm.worker_pool}
+    rec["partition"] = model.partition_signature()
+    if on_card:
+        _build.load("flash_attention")  # before the steps, not in them
+    loads0 = _build.load.count
+    bodies0 = dict(flash_attention.body_launches)
+    launches0 = flash_attention.launches
+    rec.update(start_iter=start, iters=[], step_ms=[], b1_per_step=[],
+               losses=[])
+
+    class Record(Hook):
+        """Registered first: its before_iter opens the step's window,
+        its after_iter closes it before the beat and the heal."""
+
+        def before_iter(self, runner):
+            self.launches = flash_attention.launches
+            self.t0 = time.perf_counter()
+
+        def after_iter(self, runner):
+            if on_card:
+                torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - self.t0) * 1e3)
+            rec["iters"].append(runner.iter - 1)
+            rec["b1_per_step"].append(flash_attention.launches
+                                      - self.launches)
+            rec["losses"].append(float(runner.model.stats.loss))
+            rec.setdefault("first_step_end_wall", time.time())
+
+        def after_run(self, runner):
+            rec["exit_wall"] = time.time()
+            rec["aborted"] = runner.aborted
+            rec["loads_in_steps"] = _build.load.count - loads0
+            rec["b1_launches"] = flash_attention.launches - launches0
+            rec["b1_bodies"] = {b: n - bodies0[b] for b, n in
+                                flash_attention.body_launches.items()}
+            rec["beats"] = beat.heartbeat.beats
+            rec["beat_failed"] = beat.heartbeat.failed
+            rec["heal_events"] = [
+                dict(kind=e["kind"], iter=e["iter"],
+                     divergence={str(k): v for k, v in
+                                 e.get("divergence", {}).items()})
+                for e in heal.events]
+            _write_json(args.work, f"gen_{gen}.json", rec)
+
+    beat = HeartbeatHook(interval=1, timeout_s=60.0, device=dev_arg)
+    heal = SelfHealHook(allocator, window=2, k_windows=2, threshold=1.35,
+                        grace_iters=1, baseline_windows=1, max_heals=1,
+                        measure_repeats=1, measure_inner=1,
+                        solver_time_s=5.0, mode="exit",
+                        snapshot_path=snapshot)
+    runner = Runner(model, ps, wm, max_epochs=1, max_iters=args.steps)
+    runner.iter = start
+    # a degraded node stays degraded: the slowdown holds in every
+    # generation from its iteration on
+    fault = FaultPlan([dict(iter=max(ELASTIC_FAULT_ITER, start),
+                            kind="slowdown", worker=0,
+                            factor=ELASTIC_FACTOR)])
+    for hook in (Record(), beat, FaultInjectionHook(fault), heal):
+        runner.register_hook(hook)
+    data, labels = bert_batch(np, cfg.vocab_size)
+    rec["stamps"].append(("checked", time.time()))
+    rec["ready_wall"] = time.time()
+    try:
+        runner.train([(data, labels)] * (args.steps - start))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def elastic_crash_trainer(torch, np, args, started):
+    """(d): JAX's ``test_elastic_reform.py`` trainer on the card: a
+    least-squares fit of a 16 x 4 weight over 8 rows, each rank's rows
+    on ``cuda:0``, their gradient summed over gloo; rank 0 logs and
+    checkpoints every iteration; node 1's trainer dies at iteration 2 of
+    generation 0."""
+    import torch.distributed as dist
+    from skycomputing_tpu_torch.parallel import initialize_from_env
+    from skycomputing_tpu_torch.utils import atomic_torch_save
+
+    node_id = int(os.environ["ELASTIC_NODE_ID"])
+    gen = int(os.environ["SKYTPU_GENERATION"])
+    dev = torch.device("cuda", 0) if args.device != "cpu" else (
+        torch.device("cpu"))
+    initialize_from_env(device="cpu")  # gloo: two ranks share one card
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    rows = slice(rank * 8 // world, (rank + 1) * 8 // world)
+    xs, ys = X[rows].to(dev), y[rows].to(dev)
+    ckpt = os.path.join(args.work, "ckpt.pt")
+    if os.path.exists(ckpt):
+        blob = torch.load(ckpt, weights_only=True)
+        W, start = blob["W"].to(dev), int(blob["it"])
+    else:
+        W, start = torch.zeros(16, 4, device=dev), 0
+    for it in range(start, CRASH_ITERS):
+        err = xs @ W - ys
+        buf = torch.cat([(2.0 / 32) * (xs.T @ err).reshape(-1),
+                         ((err ** 2).sum() / 32).reshape(1)]).cpu()
+        dist.all_reduce(buf)
+        W = W - 0.02 * buf[:-1].reshape(16, 4).to(dev)
+        if rank == 0:
+            with open(os.path.join(args.work, "losses.log"), "a") as fh:
+                fh.write(f"{gen} {it} {float(buf[-1]):.8f} "
+                         f"{time.time():.6f}\n")
+            atomic_torch_save({"W": W.cpu(), "it": it + 1}, ckpt)
+        if node_id == 1 and gen == 0 and it == 2:
+            os._exit(3)  # node 1 is lost: its trainer dies here
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_supervise(torch, np, args, started):
+    """(c), (d): one node's ``ElasticSupervisor`` over this script's
+    ``args.trainer`` role."""
+    from skycomputing_tpu_torch.parallel import ElasticSupervisor
+
+    env = dict(os.environ)
+    env["ELASTIC_NODE_ID"] = str(args.node)
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), ELASTIC_CHILD,
+           args.trainer, "--work", args.work, "--device", args.device,
+           "--preset", args.preset, "--layers", str(args.layers),
+           "--steps", str(args.steps)]
+    sup = ElasticSupervisor(
+        args.node, str(Path(args.work) / "rdv"),
+        trainer_cmd=lambda spec, rank: cmd, expect=args.expect,
+        max_reforms=args.max_reforms, max_reallocs=args.max_reallocs,
+        env=env, stale_s=args.stale, settle_s=args.settle, timeout_s=60.0)
+    rc = sup.run()
+    _write_json(args.work, f"supervisor_{args.node}.json", dict(
+        rc=rc, generations=[s["members"] for s in sup.generations],
+        specs=sup.generations, end_wall=time.time()))
+    return 0 if rc == 0 else 1
+
+
+def elastic_child(argv) -> int:
+    """The entry of phase 30's processes (``ELASTIC_CHILD ROLE ...``)."""
+    started = time.time()
+    import argparse
+
+    parser = argparse.ArgumentParser(prog=f"chip_smoke.py {ELASTIC_CHILD}")
+    parser.add_argument("role", choices=sorted(ELASTIC_ROLES))
+    parser.add_argument("--work", required=True)
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--preset", default="large")
+    parser.add_argument("--layers", type=int, default=ELASTIC_LAYERS)
+    parser.add_argument("--steps", type=int, default=ELASTIC_STEPS)
+    parser.add_argument("--trainer", default="bert")
+    parser.add_argument("--node", type=int, default=0)
+    parser.add_argument("--expect", type=int, default=1)
+    parser.add_argument("--max-reforms", type=int, default=0)
+    parser.add_argument("--max-reallocs", type=int, default=0)
+    parser.add_argument("--stale", type=float, default=6.0)
+    parser.add_argument("--settle", type=float, default=0.5)
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    return ELASTIC_ROLES[args.role](torch, np, args, started)
+
+
+ELASTIC_ROLES = dict(world_of_one=elastic_world_of_one,
+                     peer_death=elastic_peer_death,
+                     bert=elastic_bert_trainer, crash=elastic_crash_trainer,
+                     supervise=elastic_supervise)
+
+
+def run_children(runs, timeout_s):
+    """Start each ``(args, env, log path)`` as ``chip_smoke.py
+    ELASTIC_CHILD *args`` in a session of its own, wait for all within
+    ``timeout_s``, then kill what is left of every session (a
+    supervisor's trainers too).  Returns the exit codes, None where the
+    deadline passed."""
+    procs = []
+    try:
+        for argv, env, log_path in runs:
+            fh = open(log_path, "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), ELASTIC_CHILD,
+                 *argv], env=env, stdout=fh, stderr=subprocess.STDOUT,
+                start_new_session=True), fh))
+        deadline = time.monotonic() + timeout_s
+        rcs = []
+        for p, _ in procs:
+            try:
+                rcs.append(p.wait(
+                    timeout=max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+        return rcs
+    finally:
+        for p, fh in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+            fh.close()
+
+
+def _child_env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _check_children(what, rcs, logs, want=None):
+    want = want if want is not None else [0] * len(rcs)
+    if rcs != want:
+        for log_path in logs:
+            tail = Path(log_path).read_text()[-3000:]
+            log(f"   --- {log_path.name} (tail) ---\n{tail}")
+    check(rcs == want, f"{what}: exit codes {rcs} (want {want})")
+
+
+def elastic_path(torch, np, dev, workdir, preset="large",
+                 layers=ELASTIC_LAYERS, steps=ELASTIC_STEPS):
+    """Phase 30 (a)-(d); every sub-run is fatal on failure.  ``dev`` is
+    the card (the CPU only to rehearse the phase: gloo then stands in
+    for NCCL and B1 runs its plain version)."""
+    from skycomputing_tpu_torch.parallel.elastic import _free_port
+
+    on_card = dev.type == "cuda"
+    device = "cuda" if on_card else "cpu"
+    common = ["--device", device, "--preset", preset, "--layers",
+              str(layers), "--steps", str(steps)]
+    report = {}
+
+    # (a) a world of one
+    work = workdir / "a"
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    logs = [work / "a.log"]
+    rcs = run_children([(["world_of_one", "--work", str(work), *common],
+                         _child_env(SKYTPU_COORDINATOR=f"127.0.0.1:"
+                                    f"{_free_port()}",
+                                    SKYTPU_NUM_PROCESSES=1,
+                                    SKYTPU_PROCESS_ID=0,
+                                    SKYTPU_PEER_TIMEOUT_S=20), logs[0])],
+                       CHILD_TIMEOUT_S["a"])
+    _check_children("(a) world of one", rcs, logs)
+    a = report["a_world_of_one"] = _read_json(work, "a.json")
+    a["command_s"] = time.perf_counter() - t0
+    check(a["joined"] and a["world"] == 1 and a["coordinator"]
+          and a["backend"] == ("nccl" if on_card else "gloo")
+          and a["mesh_shape"] == {"dp": 1} and a["mesh_owners"] == [0],
+          f"(a) a world of one under {a['backend']}, mesh "
+          f"{a['mesh_shape']} on {a['mesh_devices']}, rank 0 the "
+          f"coordinator")
+    check(a["all_ok"] and not a["failed"]
+          and a["beats"] == ELASTIC_BEATS + 1,
+          f"(a) {a['beats']} beats, every one whole: median "
+          f"{a['beat_ms_median']:.3f} ms, p95 {a['beat_ms_p95']:.3f} ms "
+          f"(the first, with the communicator's set-up, "
+          f"{a['first_beat_ms']:.1f} ms; the same beat without the "
+          f"all-reduce {a['local_ms_median']:.3f} ms)")
+    check(a["hook_iters"] == 3 and a["hook_beats"] == 2
+          and not a["hook_failed"] and a["drops_consumed"] == [True],
+          f"(a) HeartbeatHook over 3 steps: {a['hook_beats']} beats, the "
+          f"drop_beat at iteration 1 consumed")
+
+    # (b) peer death under gloo
+    work = workdir / "b"
+    work.mkdir()
+    t0 = time.perf_counter()
+    port = _free_port()
+    logs = [work / f"b{r}.log" for r in range(2)]
+    rcs = run_children([(["peer_death", "--work", str(work), *common],
+                         _child_env(SKYTPU_COORDINATOR=f"127.0.0.1:{port}",
+                                    SKYTPU_NUM_PROCESSES=2,
+                                    SKYTPU_PROCESS_ID=r,
+                                    SKYTPU_PEER_TIMEOUT_S=20), logs[r])
+                        for r in range(2)], CHILD_TIMEOUT_S["b"])
+    _check_children("(b) peer death", rcs, logs)
+    b = report["b_peer_death"] = _read_json(work, "b.json")
+    b["command_s"] = time.perf_counter() - t0
+    check(b["detected"] and b["detect_s"] < 20.0,
+          f"(b) the survivor detected its dead peer by {b['by']} in "
+          f"{b['detect_s']:.4f} s")
+
+    # (c) a supervised planned re-form through B1
+    work = workdir / "c"
+    work.mkdir()
+    t0 = time.perf_counter()
+    logs = [work / "supervisor.log"]
+    rcs = run_children([(["supervise", "--work", str(work), *common,
+                          "--trainer", "bert", "--expect", "1",
+                          "--max-reforms", "0", "--max-reallocs", "1",
+                          "--settle", "0.5"], _child_env(), logs[0])],
+                       CHILD_TIMEOUT_S["c"])
+    _check_children("(c) supervised re-form", rcs, logs)
+    sup = _read_json(work, "supervisor_0.json")
+    g0, g1 = (_read_json(work, f"gen_{g}.json") for g in (0, 1))
+    c = report["c_planned_reform"] = dict(supervisor=sup, gen_0=g0,
+                                          gen_1=g1)
+    c["command_s"] = time.perf_counter() - t0
+    check(sup["rc"] == 0 and sup["generations"] == [[0], [0]]
+          and (work / "rdv" / "planned_gen_1.json").exists(),
+          f"(c) the trainer exited REALLOC_RC and the supervisor re-formed "
+          f"{sup['generations']} as a planned re-form")
+    exits = [e for e in g0["heal_events"] if e["kind"] == "heal_exit"]
+    div = exits[0]["divergence"] if exits else {}
+    check(len(exits) == 1 and not g0["aborted"]
+          and max(div, key=div.get) == "0",
+          f"(c) generation 0: one heal_exit after "
+          f"{exits[0]['iter'] if exits else None} steps, worker 0 the "
+          f"straggler "
+          f"({ {k: round(v, 3) for k, v in div.items()} }), not aborted")
+    check(g0["beats"] == len(g0["iters"]) and g1["beats"] == len(
+        g1["iters"]) and not g0["beat_failed"] and not g1["beat_failed"],
+          f"(c) a heartbeat after every step under {g0['backend']}: "
+          f"{g0['beats']} + {g1['beats']} beats")
+    payload = g1["payload"]
+    check(g1["start_iter"] == payload["iter"] == g0["iters"][-1] + 1
+          and payload["device_scale"]["0"] > 1.3
+          and g1["bitwise_equal_to_snapshot"],
+          f"(c) generation 1 validated the payload (worker 0's scale "
+          f"{payload['device_scale']['0']:.3f}), resumed at iteration "
+          f"{g1['start_iter']}, every parameter bitwise the snapshot's")
+    check(g1["units_by_worker"]["0"] < g0["units_by_worker"]["0"],
+          f"(c) partition {g0['partition']} -> {g1['partition']}: worker 0 "
+          f"sheds {g0['units_by_worker']['0']} -> "
+          f"{g1['units_by_worker']['0']} units")
+    check(g0["iters"] + g1["iters"] == list(range(steps))
+          and all(np.isfinite(x) for x in g0["losses"] + g1["losses"]),
+          f"(c) iterations {g0['iters']} then {g1['iters']}: continuous, "
+          f"none repeated, every loss finite")
+    per_step = 2 * layers * BERT_MICROBATCHES if on_card else 0
+    for g in (g0, g1):
+        check(g["b1_per_step"] == [per_step] * len(g["iters"])
+              and g["b1_bodies"].get("tensor_core", 0) == g["b1_launches"]
+              and (g["b1_launches"] > 0) == on_card,
+              f"(c) generation {g['gen']}: B1 {per_step} launches a step, "
+              f"{g['b1_launches']} in all ({json.dumps(g['b1_bodies'])}); "
+              f"step ms {[round(t, 1) for t in g['step_ms']]}")
+    check(g1["lib_on_disk"] == on_card and g1["loads_in_steps"] == 0
+          and g0["loads_in_steps"] == 0,
+          f"(c) no kernel built or loaded inside the steps "
+          f"(library on disk at generation 1's start: {g1['lib_on_disk']})")
+    c["reform_s"] = g1["first_step_end_wall"] - g0["exit_wall"]
+    # the re-form by part: the supervisor (exit to the relaunched
+    # interpreter), then the trainer's stamps, then its first step
+    c["reform_parts_s"] = parts = dict(
+        exit_to_relaunch=g1["started_wall"] - g0["exit_wall"])
+    last = g1["started_wall"]
+    for name, wall in g1["stamps"]:
+        parts[f"to_{name}"] = wall - last
+        last = wall
+    parts["first_step"] = g1["first_step_end_wall"] - g1["ready_wall"]
+    log(f"   (c) REALLOC_RC exit to generation 1's first step done: "
+        f"{c['reform_s']:.3f} s "
+        f"({json.dumps({k: round(v, 3) for k, v in c['reform_parts_s'].items()})})")
+    c["b1_launches"] = g0["b1_launches"] + g1["b1_launches"]
+
+    # (d) a crash re-form under gloo
+    work = workdir / "d"
+    work.mkdir()
+    t0 = time.perf_counter()
+    logs = [work / f"supervisor{n}.log" for n in range(2)]
+    # gloo reports the lost peer at once, so the lost node's beacon must
+    # be stale (3 s) by the end of the survivor's settle (4 s)
+    rcs = run_children([(["supervise", "--work", str(work), *common,
+                          "--trainer", "crash", "--node", str(n),
+                          "--expect", "2", "--max-reforms", str(mr),
+                          "--stale", "3", "--settle", "4"], _child_env(),
+                         logs[n]) for n, mr in ((0, 3), (1, 0))],
+                       CHILD_TIMEOUT_S["d"])
+    _check_children("(d) crash re-form", rcs, logs, want=[0, 1])
+    sups = [_read_json(work, f"supervisor_{n}.json") for n in range(2)]
+    rows = [ln.split() for ln in
+            (work / "losses.log").read_text().splitlines()]
+    by_iter = {int(it): (int(g), float(l), float(w))
+               for g, it, l, w in rows}
+    losses = [by_iter[i][1] for i in sorted(by_iter)]
+    d = report["d_crash_reform"] = dict(
+        generations=sups[0]["generations"], rows=rows,
+        command_s=time.perf_counter() - t0)
+    check(sups[0]["generations"] == [[0, 1], [0]] and sups[1]["rc"] != 0,
+          f"(d) the survivor re-formed {sups[0]['generations']}; the lost "
+          f"node's supervisor gave up (rc {sups[1]['rc']})")
+    check(len(rows) == CRASH_ITERS
+          and sorted(by_iter) == list(range(CRASH_ITERS))
+          and {g for g, _, _ in by_iter.values()} == {0, 1}
+          and losses[-1] < losses[3] < losses[0]
+          and max(l for g, l, _ in by_iter.values() if g == 1)
+          < min(l for g, l, _ in by_iter.values() if g == 0),
+          f"(d) iterations 0-{CRASH_ITERS - 1} once each, the losses "
+          f"falling across the boundary: "
+          f"{[round(x, 4) for x in losses]}")
+    d["reform_s"] = min(w for g, _, w in by_iter.values() if g == 1) - max(
+        w for g, _, w in by_iter.values() if g == 0)
+    log(f"   (d) last step of generation 0 to the first of generation 1: "
+        f"{d['reform_s']:.3f} s")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -4782,6 +5446,22 @@ def main() -> int:
                 f"{_median(report['mesh_pipeline']['step_ms']):.1f} ms")
         _free(torch)
 
+    with phase("multihost, heartbeat and elastic: a world of one under "
+               "NCCL, peer death under gloo, a supervised planned re-form "
+               "of BERT-large's width through B1, a crash re-form"):
+        workdir = ROOT / "build" / "chip_smoke_elastic"
+        shutil.rmtree(workdir, ignore_errors=True)
+        try:
+            report["elastic"] = elastic_path(torch, np, dev, workdir)
+        finally:
+            keep = ROOT / "chiprun_out" / "elastic"
+            shutil.rmtree(keep, ignore_errors=True)
+            if workdir.exists():
+                shutil.copytree(workdir, keep,
+                                ignore=shutil.ignore_patterns("*.pt"))
+            shutil.rmtree(workdir, ignore_errors=True)
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
@@ -4845,7 +5525,12 @@ def main() -> int:
         entry(B1, sum(sum(spmd[r]["b1_per_step"]) for r in (
             "a_gpipe_dp2_pp4", "b_interleaved_V2_M4", "b_interleaved_V2_M8",
             "c_zero3_adam_dp2_pp4")), flash, "bert_large_L128_B4",
-              label=f"{B1}:spmd_bf16", body="tensor_core")]}
+              label=f"{B1}:spmd_bf16", body="tensor_core"),
+        # the supervised trainer's two generations (phase 30 (c)), beside
+        # B1's time at their microbatch, 8 rows of 128
+        entry(B1, report["elastic"]["c_planned_reform"]["b1_launches"],
+              flash, "bert_large_L128", label=f"{B1}:elastic",
+              body="tensor_core")]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(
@@ -4865,4 +5550,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [ELASTIC_CHILD]:
+        sys.exit(elastic_child(sys.argv[2:]))
     sys.exit(main())

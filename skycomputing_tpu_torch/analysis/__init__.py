@@ -8,6 +8,7 @@ from .plan_check import (
     PlanIssue,
     PlanReport,
     has_plan,
+    verify_allocation_payload,
     verify_mesh_payload,
     verify_pipeline,
     verify_plan,
@@ -19,6 +20,7 @@ __all__ = [
     "PlanIssue",
     "PlanReport",
     "has_plan",
+    "verify_allocation_payload",
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",

@@ -44,9 +44,13 @@ page geometry, chunk size, ``spec_k``) with nothing to trace.
 stage, devices, ``tp``, microbatch rows) before the mesh-native engine
 takes it.
 
-Not ported yet: ``verify_allocation_payload`` (queue A item 3, elastic);
-``verify_scale_payload``, ``verify_handoff_payload`` and
-``verify_fault_plan`` (item 4, the planes that call them).
+:func:`verify_allocation_payload` checks a ``realloc.json`` /
+``SKYTPU_ALLOCATION`` payload before the elastic rendezvous
+(``FileRendezvous.take_payload``) or a supervisor's launch
+(``ElasticSupervisor._launch``) passes it on.
+
+Not ported yet: ``verify_scale_payload``, ``verify_handoff_payload`` and
+``verify_fault_plan`` (queue A item 4, the planes that call them).
 
 Wiring: ``Runner`` runs :func:`verify_pipeline` on its first batch before
 the first train step and again after a self-heal rebuild; the bench
@@ -59,6 +63,7 @@ plan again) before it changes anything.
 from __future__ import annotations
 
 import json
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -747,6 +752,89 @@ def _pos_int(v) -> bool:
     )
 
 
+def verify_allocation_payload(payload: Any) -> List[str]:
+    """Validate a ``realloc.json`` / ``SKYTPU_ALLOCATION`` payload.
+
+    Returns a list of precise problems (empty = valid).  The schema is
+    what :class:`~..runner.hooks_collection.selfheal_hook.SelfHealHook`
+    stages and the relaunched trainer consumes: ``device_scale`` (stable
+    stim_index -> positive finite multiplier) required; optional
+    ``measured_stage_times`` (positive finite seconds), ``epoch`` /
+    ``iter`` (non-negative ints), ``serving`` and ``mesh`` (their own
+    schemas)."""
+    def finite_pos(v) -> bool:
+        # a hand-edited payload can carry an arbitrary-precision JSON
+        # integer; float() of a >1e308 int raises OverflowError, which
+        # classifies it as not-a-valid-multiplier instead of crashing
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            return False
+        try:
+            f = float(v)
+        except OverflowError:
+            return False
+        return math.isfinite(f) and f > 0
+
+    problems: List[str] = []
+    if not isinstance(payload, dict):
+        return [
+            f"allocation payload must be a JSON object, got "
+            f"{type(payload).__name__}"
+        ]
+    scales = payload.get("device_scale")
+    if scales is None:
+        problems.append(
+            "missing required key 'device_scale' "
+            "({stim_index: speed multiplier})"
+        )
+    elif not isinstance(scales, dict):
+        problems.append(
+            f"'device_scale' must be an object, got "
+            f"{type(scales).__name__}"
+        )
+    else:
+        for k, v in scales.items():
+            try:
+                int(k)
+            except (TypeError, ValueError):
+                problems.append(
+                    f"device_scale key {k!r} is not a stable worker "
+                    f"index (must parse as int)"
+                )
+            if not finite_pos(v):
+                problems.append(
+                    f"device_scale[{k!r}] = {v!r} is not a positive "
+                    f"finite speed multiplier"
+                )
+    times = payload.get("measured_stage_times")
+    if times is not None:
+        if not isinstance(times, list):
+            problems.append(
+                f"'measured_stage_times' must be a list, got "
+                f"{type(times).__name__}"
+            )
+        else:
+            for i, t in enumerate(times):
+                if not finite_pos(t):
+                    problems.append(
+                        f"measured_stage_times[{i}] = {t!r} is not a "
+                        f"positive finite duration"
+                    )
+    for key in ("epoch", "iter"):
+        v = payload.get(key)
+        if v is not None and (
+                isinstance(v, bool) or not isinstance(v, int) or v < 0):
+            problems.append(
+                f"'{key}' must be a non-negative int, got {v!r}"
+            )
+    serving = payload.get("serving")
+    if serving is not None:
+        problems.extend(_verify_serving_payload(serving))
+    mesh = payload.get("mesh")
+    if mesh is not None:
+        problems.extend(verify_mesh_payload(mesh))
+    return problems
+
+
 def verify_mesh_payload(mesh: Any) -> List[str]:
     """Problems with a mesh operating point (empty = valid).
 
@@ -1052,6 +1140,7 @@ __all__ = [
     "PlanIssue",
     "PlanReport",
     "has_plan",
+    "verify_allocation_payload",
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",

@@ -22,10 +22,10 @@ Event kinds (each a plain dict, so plans serialize as JSON):
 ``nan``        poison one worker's stage parameters with NaN (what a bad
                DIMM / bit-flip looks like by the time the loss sees it).
 ``drop_beat``  suppress this iteration's heartbeat collective by setting
-               ``runner.fault_drop_beat``.  No ``HeartbeatHook`` is
-               ported yet (queue A item 3), so nothing consumes the flag
-               and the event is recorded ``consumed: False``, as the
-               reference records an unconsumed drop.
+               ``runner.fault_drop_beat``, which ``HeartbeatHook``
+               consumes at a scheduled beat; a drop armed where no beat
+               is scheduled is recorded ``consumed: False``, as in the
+               reference.
 ``corrupt_checkpoint``  truncate the newest checkpoint (``*.pt``, not its
                training-state sidecar) under ``path`` to a seeded
                fraction of its bytes — a torn write as the newest

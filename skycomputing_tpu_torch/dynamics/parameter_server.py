@@ -17,7 +17,8 @@ checkpoint survives re-allocation.  Weights come from one of:
 - ``state_dicts`` (e.g. :func:`~..convert.params_from_jax`).
 
 Whole-model checkpoints are single files written with ``torch.save``
-and published atomically (a temporary file renamed into place); the
+and published atomically (a temporary file synced, then renamed into
+place: :func:`~..utils.atomic_torch_save`); the
 write and the read of an existing file retry transient ``OSError``s
 with :func:`~..utils.retry_call`, as the JAX store does.  Orbax
 directories are not ported.
@@ -34,7 +35,7 @@ import torch
 from torch import nn
 
 from ..builder import build_layer_stack
-from ..utils import retry_call
+from ..utils import atomic_torch_save, retry_call
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -132,12 +133,11 @@ class ParameterServer:
 
     # --- whole-model checkpoint io -----------------------------------------
     def save_weights_to_file(self, checkpoint: str) -> None:
-        """Write ``checkpoint + ".tmp"`` and rename it into place, so a
-        crash at any point leaves the previous checkpoint whole."""
+        """Write ``checkpoint + ".tmp"``, sync it and rename it into
+        place, so a crash at any point leaves the previous checkpoint
+        whole."""
         def write():
-            tmp = f"{checkpoint}.tmp"
-            torch.save({"layers": self.params}, tmp)
-            os.replace(tmp, checkpoint)
+            atomic_torch_save({"layers": self.params}, checkpoint)
 
         retry_call(write, retry_on=(OSError,),
                    describe=f"checkpoint save {checkpoint}")

@@ -28,9 +28,13 @@ from ..utils import resolve_devices
 class Mesh:
     """A named grid of devices: ``devices`` (a numpy object array of
     ``torch.device``), ``axis_names`` (one per array axis), ``shape``
-    (axis name -> size) and ``size`` (positions in all)."""
+    (axis name -> size), ``size`` (positions in all) and ``owners``
+    (an int array of the grid's shape: the rank of the process that
+    drives each position; 0 everywhere unless given, as in the
+    single-controller engines, and set by
+    :func:`~.multihost.global_mesh` in a multi-process world)."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], owners=None):
         grid = np.array(devices, dtype=object)
         for idx in np.ndindex(grid.shape):
             grid[idx] = torch.device(grid[idx])
@@ -39,6 +43,13 @@ class Mesh:
             raise ValueError(
                 f"{len(axis_names)} axis names {axis_names} for a "
                 f"{grid.ndim}-d device grid")
+        owners = (np.zeros(grid.shape, dtype=np.int64) if owners is None
+                  else np.asarray(owners, dtype=np.int64))
+        if owners.shape != grid.shape:
+            raise ValueError(
+                f"owners of shape {owners.shape} for a device grid of "
+                f"shape {grid.shape}")
+        self.owners = owners
         self.devices = grid
         self.axis_names = axis_names
         self.shape: Dict[str, int] = dict(zip(axis_names, grid.shape))

@@ -6,6 +6,7 @@ from .hooks_collection import (
     CheckpointHook,
     DistributedTimerHelperHook,
     EvalHook,
+    HeartbeatHook,
     MetricsHook,
     NanGuardHook,
     SelfHealHook,
@@ -16,5 +17,5 @@ from .hooks_collection import (
 from .runner import Runner
 
 __all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
-           "Hook", "MetricsHook", "NanGuardHook", "Runner", "SelfHealHook",
+           "HeartbeatHook", "Hook", "MetricsHook", "NanGuardHook", "Runner", "SelfHealHook",
            "StopHook", "TraceHook", "WatchdogHook"]

@@ -1,10 +1,11 @@
 """The hooks the launcher's configs name (the port of
 ``skycomputing_tpu/runner/hooks_collection``: stop, timer, checkpoint,
-evaluation, metrics, NaN guard, watchdog, trace and self-heal;
-heartbeat and autotune are later slices)."""
+evaluation, metrics, NaN guard, watchdog, trace, self-heal and
+heartbeat; autotune is a later slice)."""
 
 from .checkpoint_hook import CheckpointHook
 from .eval_hook import EvalHook
+from .heartbeat_hook import HeartbeatHook
 from .metrics_hook import MetricsHook
 from .selfheal_hook import SelfHealHook
 from .stop_hook import StopHook
@@ -13,5 +14,5 @@ from .trace_hook import TraceHook
 from .watchdog_hook import NanGuardHook, WatchdogHook
 
 __all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
-           "MetricsHook", "NanGuardHook", "SelfHealHook", "StopHook",
+           "HeartbeatHook", "MetricsHook", "NanGuardHook", "SelfHealHook", "StopHook",
            "TraceHook", "WatchdogHook"]

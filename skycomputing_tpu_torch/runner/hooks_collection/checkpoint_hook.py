@@ -28,13 +28,8 @@ import torch
 
 from ...registry import HOOKS
 from ...telemetry import trace_span
+from ...utils import atomic_torch_save
 from ..hooks import Hook
-
-
-def _atomic_save(obj, path: str) -> None:
-    tmp = f"{path}.tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
 
 
 @HOOKS.register_module
@@ -122,7 +117,7 @@ class CheckpointHook(Hook):
         runner.logger.info(f"saved checkpoint to {path}")
         if self._save_training_state:
             ts_path = self.training_state_path(path)
-            _atomic_save({
+            atomic_torch_save({
                 "optimizer": runner.model.get_optimizer_state(),
                 "epoch": runner.epoch,
                 "iter": runner.iter,

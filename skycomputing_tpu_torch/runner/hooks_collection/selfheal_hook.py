@@ -26,10 +26,11 @@ iterations) leaves the schedule bottlenecked on the straggler forever.
    - ``mode="inprocess"`` (single-controller): rebuild the pipeline in
      place and keep training — optimizer momentum is the documented cost,
      exactly as for elastic membership changes.
-   - ``mode="exit"`` (supervised multi-process: stage the measured
-     device scales for a rendezvous and exit with ``REALLOC_RC``) needs
-     elastic's ``FileRendezvous`` and ``REALLOC_RC``, which wait for
-     queue A item 3; it raises ``NotImplementedError``.
+   - ``mode="exit"`` (supervised multi-process): persist the params
+     snapshot, stage the measured device scales in the rendezvous dir,
+     and exit with :data:`~...parallel.elastic.REALLOC_RC` — the
+     supervisor treats it as a PLANNED re-form and carries the scales to
+     every relaunched trainer through ``world.json``.
 
 After the rebuild the hook re-arms the runner's pre-flight, so the new
 plan is verified before its first step, and it traces the heal as an
@@ -41,6 +42,8 @@ tensors before it builds the new ones (``PipelineModel.rebuild``).
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -87,12 +90,6 @@ class SelfHealHook(Hook):
             # trainer would silently lose everything since the last
             # periodic checkpoint
             raise ValueError("mode='exit' requires snapshot_path")
-        if mode == "exit":
-            raise NotImplementedError(
-                "SelfHealHook(mode='exit') is not ported to PyTorch yet: it "
-                "needs elastic's FileRendezvous and REALLOC_RC (queue A "
-                "item 3); use mode='inprocess'"
-            )
         if window < 1 or k_windows < 1 or baseline_windows < 1:
             raise ValueError(
                 "window, k_windows and baseline_windows must be >= 1"
@@ -110,7 +107,9 @@ class SelfHealHook(Hook):
         self._solver_time_s = float(solver_time_s)
         self._measure_repeats = int(measure_repeats)
         self._measure_inner = int(measure_inner)
+        self._mode = mode
         self._snapshot_path = snapshot_path
+        self._rendezvous_dir = rendezvous_dir
         # injectable iteration clock: detection compares wall times, so
         # under heavy host load the EWMA trigger can read every iteration
         # as slow (or the baseline as already-degraded).  Tests inject a
@@ -273,6 +272,10 @@ class SelfHealHook(Hook):
                 f"SelfHealHook: snapshot saved to {self._snapshot_path}"
             )
 
+        if self._mode == "exit":
+            self._exit_for_realloc(runner, measured, divergence)
+            return  # pragma: no cover - _exit_for_realloc raises
+
         old_partition = runner.model.partition_signature()
         self._allocator.refine_allocation(
             measured,
@@ -302,6 +305,52 @@ class SelfHealHook(Hook):
         )
         self._arc_end(runner, "healed")
         self._reset_telemetry()
+
+    def _exit_for_realloc(self, runner, measured, divergence) -> None:
+        from ...parallel.elastic import REALLOC_RC, FileRendezvous
+
+        rdv_dir = self._rendezvous_dir or os.environ.get("SKYTPU_RENDEZVOUS")
+        # fold this round's divergence into the allocator's override, then
+        # stage the CUMULATIVE scales: the relaunched trainer's allocator
+        # starts fresh, so a payload carrying only the latest round would
+        # drop every earlier correction (a node that degraded 3x then 2x
+        # more would be modeled as 2x, not 6x)
+        self._allocator.calibrate_device_speeds(
+            measured, damping=self._damping
+        )
+        payload = {
+            "device_scale": {
+                str(k): float(v)
+                for k, v in self._allocator.device_scales().items()
+            },
+            "measured_stage_times": [float(t) for t in measured],
+            "epoch": runner.epoch,
+            "iter": runner.iter,
+        }
+        if rdv_dir:
+            node_id = int(os.environ.get("SKYTPU_PROCESS_ID", "0"))
+            FileRendezvous(rdv_dir, node_id).stage_payload(payload)
+            runner.logger.info(
+                f"SelfHealHook: staged realloc payload in {rdv_dir}"
+            )
+        else:
+            runner.logger.info(
+                "SelfHealHook: no rendezvous dir (SKYTPU_RENDEZVOUS unset); "
+                "exiting for re-allocation without a staged payload"
+            )
+        self.heals += 1
+        self._record(runner, "heal_exit", divergence=divergence,
+                     measured=[float(t) for t in measured],
+                     payload=json.loads(json.dumps(payload)))
+        runner.logger.info(
+            f"SelfHealHook: exiting rc={REALLOC_RC} for supervised "
+            f"re-allocation"
+        )
+        self._arc_end(runner, "heal_exit")
+        # SystemExit is not an Exception: Runner's abort detection leaves
+        # ``aborted`` False (the params are fine — we just snapshotted),
+        # after_run hooks still flush, and the supervisor sees REALLOC_RC
+        raise SystemExit(REALLOC_RC)
 
 
 __all__ = ["SelfHealHook"]

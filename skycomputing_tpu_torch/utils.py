@@ -3,7 +3,9 @@ resolution, and the ports of ``skycomputing_tpu/utils/logger.py``
 (:class:`Logger`), ``skycomputing_tpu/utils/timer.py``
 (:class:`DistributedTimer`, :class:`PhaseTimer`) and
 ``skycomputing_tpu/utils/retry.py`` (:func:`retry_call`,
-:func:`backoff_delays`, :class:`RetryError`)."""
+:func:`backoff_delays`, :class:`RetryError`) and
+``skycomputing_tpu/utils/fileio.py`` (:func:`atomic_write`, with
+:func:`atomic_torch_save` beside it)."""
 
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import os
 import random
 import sys
 import time
-from typing import Callable, List, Optional, TextIO, Tuple, Type, TypeVar
+from typing import (Callable, List, Optional, TextIO, Tuple, Type, TypeVar,
+                    Union)
 
 import torch
 
@@ -160,6 +163,37 @@ class PhaseTimer:
         return {k: self.mean(k) for k in self.totals}
 
 
+# --- durable atomic publication ---------------------------------------------
+# Write a same-directory temporary file, flush, fsync, then ``os.replace``:
+# a crash (or ``kill -9``) at any point before the rename leaves the
+# previous file whole, and the fsync keeps the rename from outliving its
+# data on power loss.  ``tmp_suffix`` keeps concurrent writers apart
+# (per-node suffixes on a shared rendezvous directory).
+
+
+def _publish(path: str, tmp_suffix: str, mode: str, write) -> None:
+    tmp = path + tmp_suffix
+    with open(tmp, mode) as fh:
+        write(fh)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def atomic_write(path: str, data: Union[bytes, str],
+                 tmp_suffix: str = ".tmp") -> None:
+    """Write ``data`` (bytes or str) to ``path`` through a temporary
+    file and an atomic rename, syncing the file before the rename."""
+    mode = "wb" if isinstance(data, bytes) else "w"
+    _publish(path, tmp_suffix, mode, lambda fh: fh.write(data))
+
+
+def atomic_torch_save(obj, path: str, tmp_suffix: str = ".tmp") -> None:
+    """:func:`atomic_write` for ``torch.save(obj)``, written through the
+    open temporary file."""
+    _publish(path, tmp_suffix, "wb", lambda fh: torch.save(obj, fh))
+
+
 T = TypeVar("T")
 
 
@@ -266,5 +300,5 @@ def retry_call(
 
 
 __all__ = ["DistributedTimer", "Logger", "PhaseTimer", "RetryError",
-           "backoff_delays", "resolve_device", "resolve_devices",
+           "atomic_torch_save", "atomic_write", "backoff_delays", "resolve_device", "resolve_devices",
            "retry_call", "torch_dtype"]

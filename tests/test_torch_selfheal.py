@@ -5,10 +5,14 @@ reference's messages and draws its numbers; on the 10-unit
 ``MatmulStack`` world (3 workers, even) a straggler at iteration 5 is
 detected, confirmed and healed at the same iteration, with the same
 divergence and the same partitions, in both packages, and a transient
-stall heals in neither; a ``nan`` fault trips ``NanGuardHook`` and the
-checkpoint skip; a truncated checkpoint is refused on load; and
-``retry_call`` backs off on the reference's schedule."""
+stall heals in neither; in exit mode both packages stage the same
+payload and exit with ``REALLOC_RC`` at the same iteration; a ``nan``
+fault trips ``NanGuardHook`` and the checkpoint skip; a truncated
+checkpoint is refused on load; every checkpoint write syncs its
+temporary file before the rename (fault C9); and ``retry_call`` backs
+off on the reference's schedule."""
 
+import json
 import os
 import os.path as osp
 
@@ -260,11 +264,148 @@ def test_transient_stall_heals_in_neither_package(no_emulation_sleep):
 
 
 def test_selfheal_exit_mode_waits_for_elastic():
+    """Exit mode hands the heal to the elastic supervisor: it needs a
+    snapshot path (the process and its parameter server go away), and
+    with one it builds as the reference's does."""
     _model, _ps, _wm, alloc = _world("torch")
     with pytest.raises(ValueError, match="snapshot_path"):
         trun.SelfHealHook(alloc, mode="exit")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        trun.SelfHealHook(alloc, mode="exit", snapshot_path="snap.pt")
+    with pytest.raises(ValueError, match="unknown mode"):
+        trun.SelfHealHook(alloc, mode="restart", snapshot_path="snap.pt")
+    hook = trun.SelfHealHook(alloc, mode="exit", snapshot_path="snap.pt")
+    assert hook.heals == 0 and hook.events == []
+
+
+def _exit_run(pkg, tmp_path):
+    """A straggler at iteration 5 under ``SelfHealHook(mode="exit")`` on
+    the emulated clock: (exit code, runner, hook, staged payload, ps)."""
+    dyn, run = (jdyn, jrun) if pkg == "jax" else (tdyn, trun)
+    model, ps, wm, alloc = _world(pkg)
+    rdv = tmp_path / f"rdv_{pkg}"
+    rdv.mkdir()
+    snapshot = str(tmp_path / ("snap.msgpack" if pkg == "jax" else "snap.pt"))
+    heal = run.SelfHealHook(
+        alloc, window=2, k_windows=2, threshold=1.35, grace_iters=1,
+        measure_repeats=1, measure_inner=1, mode="exit",
+        snapshot_path=snapshot, rendezvous_dir=str(rdv),
+        clock=_EmulatedIterClock(model))
+    runner = run.Runner(model, ps, wm, max_epochs=100, max_iters=40)
+    runner.register_hook(dyn.FaultInjectionHook(dyn.FaultPlan(
+        [dict(iter=5, kind="slowdown", worker=0, factor=3.0)])))
+    runner.register_hook(heal)
+    with pytest.raises(SystemExit) as info:
+        runner.train(_batches())
+    assert osp.exists(snapshot)
+    payload = json.loads((rdv / "realloc.json").read_text())
+    return info.value.code, runner, heal, payload, (ps, snapshot)
+
+
+def test_selfheal_exit_mode_stages_payload_as_the_reference_does(
+        no_emulation_sleep, tmp_path):
+    """Supervised path: instead of repartitioning in process, the hook
+    snapshots, stages the cumulative device scales for the rendezvous
+    and exits with REALLOC_RC, at the reference's iteration and with the
+    reference's payload; a fresh allocator that applies the payload
+    sheds layers from the slow worker."""
+    from skycomputing_tpu.parallel.elastic import REALLOC_RC as JAX_RC
+    from skycomputing_tpu_torch.parallel import REALLOC_RC
+
+    got = _exit_run("torch", tmp_path)
+    want = _exit_run("jax", tmp_path)
+    (code, runner, heal, payload, (ps, snapshot)) = got
+    assert code == REALLOC_RC == JAX_RC == want[0]
+    assert runner.aborted is False  # a planned exit, not a crash
+    assert sorted(payload) == sorted(want[3]) == [
+        "device_scale", "epoch", "iter", "measured_stage_times"]
+    assert (payload["iter"], payload["epoch"]) == (
+        want[3]["iter"], want[3]["epoch"])
+    assert payload["device_scale"].keys() == want[3]["device_scale"].keys()
+    for k, v in payload["device_scale"].items():
+        assert v == pytest.approx(want[3]["device_scale"][k], abs=1e-6)
+    assert payload["device_scale"]["0"] > 1.5  # the straggler dominates
+    assert len(payload["measured_stage_times"]) == 3
+    assert [(e["kind"], e["iter"]) for e in heal.events] == [
+        (e["kind"], e["iter"]) for e in want[2].events]
+    assert heal.events[-1]["kind"] == "heal_exit"
+
+    # the snapshot restores the live weights exactly
+    ps2 = tdyn.ParameterServer(list(ps._model_config))
+    ps2.load_weights_from_file(snapshot)
+    for a, b in zip(ps2.params, ps.params):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+    # a fresh allocator (the relaunched trainer's) applies the carried
+    # scales and routes work away from the degraded node: with uniform
+    # layers it must shed layers from the even split's 4
+    _model2, _ps2, wm2, alloc2 = _world("torch")
+    alloc2.apply_device_scales(payload["device_scale"])
+    alloc2.optimal_allocate(max_time=5.0)
+    slow = next(w for w in wm2.worker_pool if w.stim_index == 0)
+    assert len(slow.model_config or []) < 4
+
+
+# --- fault C9: checkpoint writes sync before they rename ---------------------
+
+@pytest.fixture
+def sync_log(monkeypatch):
+    """Wraps ``os.fsync`` and ``os.replace``: each event with the inode
+    of the file synced or renamed from."""
+    events = []
+    real_fsync, real_replace = os.fsync, os.replace
+
+    def fsync(fd):
+        events.append(("fsync", os.fstat(fd).st_ino))
+        return real_fsync(fd)
+
+    def replace(src, dst, *args, **kwargs):
+        events.append(("replace", os.stat(src).st_ino, osp.basename(dst)))
+        return real_replace(src, dst, *args, **kwargs)
+
+    monkeypatch.setattr(os, "fsync", fsync)
+    monkeypatch.setattr(os, "replace", replace)
+    return events
+
+
+def _renames_synced(events):
+    """The renamed files' names, each checked synced just before."""
+    names = []
+    for i, event in enumerate(events):
+        if event[0] == "replace":
+            assert i > 0 and events[i - 1] == ("fsync", event[1]), events
+            names.append(event[2])
+    return names
+
+
+def test_parameter_server_save_syncs_before_rename(sync_log, tmp_path):
+    _model, ps, _wm, _alloc = _world("torch")
+    path = str(tmp_path / "ckpt.pt")
+    ps.save_weights_to_file(path)
+    assert _renames_synced(sync_log) == ["ckpt.pt"]
+    ps2 = tdyn.ParameterServer(list(ps._model_config))
+    ps2.load_weights_from_file(path)
+    assert all(torch.equal(a[k], b[k])
+               for a, b in zip(ps2.params, ps.params) for k in a)
+
+
+def test_checkpoint_hook_saves_sync_before_rename(sync_log, tmp_path):
+    model, ps, wm, _alloc = _world("torch")
+    runner = trun.Runner(model, ps, wm, max_epochs=1, max_iters=100)
+    runner.register_hook(trun.CheckpointHook(
+        save_path=str(tmp_path / "ck"), save_interval=1,
+        save_training_state=True))
+    runner.train(_batches(2))
+    assert _renames_synced(sync_log) == [
+        "epoch_1.pt", "epoch_1.pt.train_state.pt"]
+
+
+@pytest.mark.parametrize("data", [b"bytes", "text"], ids=["bytes", "str"])
+def test_atomic_write_syncs_as_the_reference_does(sync_log, tmp_path, data):
+    for pkg, write in (("jax", jutils.atomic_write),
+                       ("torch", tutils.atomic_write)):
+        write(str(tmp_path / pkg), data, tmp_suffix=f".tmp{pkg}")
+    assert _renames_synced(sync_log) == ["jax", "torch"]
+    assert (tmp_path / "jax").read_bytes() == (tmp_path / "torch").read_bytes()
 
 
 # --- nan, torn checkpoints, dropped beats ------------------------------------
