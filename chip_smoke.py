@@ -309,7 +309,9 @@ one.  Phases, each fatal on failure:
     (bf16, flash on) cut to 8 layers (27 units), 4 stimulated workers
     on the card, under ``Runner`` with ``HeartbeatHook(interval=1)``
     (a world of one, NCCL), worker 0 6x slower from iteration 3 and
-    ``SelfHealHook(mode="exit")``: the trainer exits ``REALLOC_RC``,
+    ``SelfHealHook(mode="exit")`` (stage times the median of 3
+    samples; worker 0 must read the largest divergence): the trainer
+    exits ``REALLOC_RC``,
     the supervisor re-forms generation 1 with the staged payload, and
     the relaunched trainer validates it, applies the device scales,
     solves ``optimal_allocate`` (worker 0 must shed units), loads the
@@ -322,6 +324,36 @@ one.  Phases, each fatal on failure:
     iteration 2, the survivor re-forms as ``[0]`` and resumes from the
     checkpoint, the losses falling across the boundary.  The
     children's logs and JSON go to ``chiprun_out/elastic/``.
+31. the measuring tools (``skycomputing_tpu_torch/tools/``): their
+    commands' ``main`` in a process of their own on the card
+    (``--tools-child OUT``, below; the ladder as ``python -m
+    skycomputing_tpu_torch.tools.run_ladder``, which starts its rungs'
+    processes), their output under ``chiprun_out/tools/``: (a)
+    ``bench_step_overhead`` (its module constants ``STEPS=3,
+    ROUNDS=2``: dispatch against device wait under both schedules,
+    tracing's cost, a traced window kept), then ``--mesh``: held, the
+    bitwise equivalence leg; printed, every other gate and its verdict;
+    (b) ``validate_schedule_model`` at BERT-base (the composition and
+    fill-drain deltas, printed); (c) ``bench_kv_cache`` at GPT-2 small:
+    the tokens identical (held), ms per token both ways; (d) in this
+    process, ``utils.profiling.trace`` of 3 rounds of one B1 bf16 call
+    and one decode tick of the paged engine at GPT-2 small: the trace's
+    kernels include ``flash_attention_kernel_mma`` and
+    ``paged_attention_kernel_decode``, 3 B1 launches and 36 decode
+    launches (held); ``trace_report``'s ``main`` (a file, no device)
+    over (a)'s window (``--json``, then ``--baseline`` against its own
+    JSON, exit 0); (e) ``bench_mfu`` at its defaults (BERT-large, 32 x
+    128, bf16); (f) ``profile_allocation`` over the launcher config
+    with ``SKYTPU_FLASH=1 SKYTPU_PROFILE=timed STIMULATE=1``, B1's
+    launches in the timed profile all on the tensor-core body; (g)
+    ``run_ladder --only even_4 optimal_8`` at ``SKYTPU_FLASH=1``, 2
+    iterations (BERT-large's width, 10 layers): each rung exits 0 with
+    finite losses, B1 on the tensor-core body in every step, the
+    optimal rung's 8 stages covering all 33 units; (h) a
+    reference-style checkpoint at BERT-large's width (2 layers, 9 units)
+    from a seed: converted by ``convert_torch_checkpoint``'s ``main``,
+    loaded, its logits on the card within 1e-4 of the CPU's (float32),
+    and written back to the reference's layout bitwise.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
@@ -331,17 +363,23 @@ phase 23, and its float32 tensor-core body's, by body, from phases
 27-28, beside its time at their 4 rows of 128, and from phase 26's
 baseline, beside its time at 1 row of 4,096; its tensor-core body's in
 phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128,
-and in phase 30's supervised trainer, beside its time at 8 rows of 128);
+and in phase 30's supervised trainer, beside its time at 8 rows of 128;
+phase 31's B1 tensor-core and B2 decode launches);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
     python3 chip_smoke.py
+    # phase 30 (c)'s heal measurement alone, repeated; --tree compares
+    # another checkout of the port on the same card
+    python3 chip_smoke.py --heal-probe [--tree DIR] [--tag TAG]
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
+import io
 import json
 import os
 import re
@@ -4538,9 +4576,13 @@ def elastic_bert_trainer(torch, np, args, started):
             _write_json(args.work, f"gen_{gen}.json", rec)
 
     beat = HeartbeatHook(interval=1, timeout_s=60.0, device=dev_arg)
+    # the heal's stage times: the median of 3 round-robin samples.  One
+    # sample a stage let a disturbed sample decide the straggler (healthy
+    # stages 0.48-1.35 of the median with worker 0 at 2.70, where a quiet
+    # process reads them within 1.3 and worker 0 at 3.5-7.3)
     heal = SelfHealHook(allocator, window=2, k_windows=2, threshold=1.35,
                         grace_iters=1, baseline_windows=1, max_heals=1,
-                        measure_repeats=1, measure_inner=1,
+                        measure_repeats=3, measure_inner=1,
                         solver_time_s=5.0, mode="exit",
                         snapshot_path=snapshot)
     runner = Runner(model, ps, wm, max_epochs=1, max_iters=args.steps)
@@ -4890,6 +4932,474 @@ def elastic_path(torch, np, dev, workdir, preset="large",
     log(f"   (d) last step of generation 0 to the first of generation 1: "
         f"{d['reform_s']:.3f} s")
     return report
+
+
+HEAL_PROBE = "--heal-probe"
+# (samples a stage, chained iterations a sample, measurements) of the probe
+HEAL_PROBE_SETTINGS = ((1, 1, 8), (3, 1, 8), (5, 2, 4))
+
+
+def heal_probe(argv) -> int:
+    """Phase 30 (c)'s heal measurement, repeated (``HEAL_PROBE [--tree
+    DIR] [--tag TAG] [--device cpu]``): BERT-large's width, 8 layers,
+    evenly over 4 workers, worker 0 6x slower from iteration 3 of 7,
+    then ``measure_stage_times`` at each of ``HEAL_PROBE_SETTINGS`` and
+    ``Allocator.stage_divergence`` of each measurement, with the static
+    profile's FLOPs a stage.  ``--tree`` imports the port from another
+    checkout (a parent commit, unpacked), so two commits are compared on
+    one card; one JSON line to stdout."""
+    import argparse
+
+    parser = argparse.ArgumentParser(prog=f"chip_smoke.py {HEAL_PROBE}")
+    parser.add_argument("--tree", default=str(ROOT))
+    parser.add_argument("--tag", default="probe")
+    parser.add_argument("--device", default=None)
+    parser.add_argument("--preset", default="large")
+    parser.add_argument("--layers", type=int, default=ELASTIC_LAYERS)
+    args = parser.parse_args(argv)
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import numpy as np
+    import torch
+    from skycomputing_tpu_torch.dataset import RandomTokenGenerator
+    from skycomputing_tpu_torch.dynamics import (
+        Allocator,
+        ModelBenchmarker,
+        ParameterServer,
+        WorkerManager,
+        proxy_device_benchmarker,
+    )
+    from skycomputing_tpu_torch.ops import cross_entropy_loss
+    from skycomputing_tpu_torch.parallel import PipelineModel, sgd
+
+    on_card = args.device != "cpu"
+    devices = None if on_card else [torch.device("cpu")]
+    cfg, model_cfg = bert_units(args.preset, args.layers)
+    wm = WorkerManager()
+    wm.load_worker_pool_from_config([
+        dict(name=f"node-{i}", device_config=dict(device_index=0))
+        for i in range(BERT_WORKERS)])
+    allocator = Allocator(
+        model_cfg, wm,
+        ModelBenchmarker(model_cfg, RandomTokenGenerator(
+            BERT_BATCH, BERT_SEQ, cfg.vocab_size)),
+        proxy_device_benchmarker(wm, devices=devices))
+    ps = ParameterServer(model_cfg,
+                         generator=torch.Generator().manual_seed(SEED))
+    allocator.even_allocate()
+    model = PipelineModel(wm, ps, sgd(BERT_LR), cross_entropy_loss,
+                          devices=devices,
+                          num_microbatches=BERT_MICROBATCHES)
+    data, labels = bert_batch(np, cfg.vocab_size)
+    occupied = [w for w in sorted(wm.worker_pool, key=lambda w: w.rank)
+                if w.model_config]
+    worker0 = next(w for w in occupied if w.stim_index == 0)
+    for it in range(7):
+        if it == ELASTIC_FAULT_ITER:  # as FaultInjectionHook's slowdown
+            worker0.extra_config["slowdown"] = ELASTIC_FACTOR
+            model.stages[occupied.index(worker0)].slowdown = ELASTIC_FACTOR
+        model.train_step(data, labels)
+    flops = allocator._profiles()[3]
+    sums, pos = [], 0
+    for w in occupied:
+        sums.append(float(sum(flops[pos:pos + len(w.model_config)])))
+        pos += len(w.model_config)
+    import skycomputing_tpu_torch
+
+    out = dict(tag=args.tag, port=skycomputing_tpu_torch.__file__,
+               partition=[
+        len(w.model_config) for w in occupied], stage_flops=sums, runs={})
+    for repeats, inner, n in HEAL_PROBE_SETTINGS:
+        out["runs"][f"{repeats}x{inner}"] = [
+            {str(k): v for k, v in allocator.stage_divergence(
+                model.measure_stage_times(data, repeats=repeats,
+                                          inner_iters=inner)).items()}
+            for _ in range(n)]
+    print(json.dumps(out))
+    return 0
+
+
+# --------------------------------------------------------------------------
+# phase 31: the measuring tools (``skycomputing_tpu_torch/tools/``) on the
+# card, each a subprocess; output under ``chiprun_out/tools/``
+# --------------------------------------------------------------------------
+
+TOOLS_OUT = ROOT / "chiprun_out" / "tools"
+
+
+TOOLS_CHILD = "--tools-child"
+TOOLS_CHILD_TIMEOUT_S = 600
+# the step-overhead tool's module constants in phase 31 (its own: 6, 4)
+TOOLS_STEPS, TOOLS_ROUNDS = 3, 2
+TRACE_ROUNDS = 3  # B1 calls and decode ticks in phase 31's traced window
+
+
+def tool_runs(out_dir):
+    """Phase 31's commands that run in one process of their own: (log
+    name, tool module, argv, environment for its run)."""
+    from skycomputing_tpu_torch.tools import (
+        bench_kv_cache,
+        bench_mfu,
+        bench_step_overhead,
+        profile_allocation,
+        validate_schedule_model,
+    )
+
+    bench_step_overhead.STEPS = TOOLS_STEPS
+    bench_step_overhead.ROUNDS = TOOLS_ROUNDS
+    return [
+        ("bench_step_overhead", bench_step_overhead,
+         ["--trace-out", str(out_dir / "step_overhead_trace.json")], {}),
+        ("bench_step_overhead_mesh", bench_step_overhead,
+         ["--mesh", "--out", str(out_dir / "bench_mesh_pipeline.json")], {}),
+        ("validate_schedule_model", validate_schedule_model, [], {}),
+        ("bench_kv_cache", bench_kv_cache, [], {}),
+        ("bench_mfu", bench_mfu, [], {}),
+        ("profile_allocation", profile_allocation,
+         ["-c", "skycomputing_tpu_torch/configs/bert_pipeline.py", "--json",
+          str(out_dir / "profile_allocation.json")],
+         dict(SKYTPU_FLASH="1", SKYTPU_PROFILE="timed", STIMULATE="1")),
+    ]
+
+
+def tools_child(argv) -> int:
+    """The entry of phase 31's tools process (``TOOLS_CHILD OUT_DIR``):
+    each command's ``main`` in turn, in a fresh process on the card, its
+    output to ``OUT_DIR/<log name>.log`` and its exit code, seconds and
+    JSON line to ``OUT_DIR/child.json``.  A command that raises ends the
+    process with its traceback."""
+    out_dir = Path(argv[0])
+    sys.path.insert(0, str(ROOT))
+    os.chdir(ROOT)
+    results = {}
+    for name, tool, args, env in tool_runs(out_dir):
+        saved = {key: os.environ.get(key) for key in env}
+        os.environ.update(env)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = tool.main(args)
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+            (out_dir / f"{name}.log").write_text(buf.getvalue())
+        lines = [x for x in buf.getvalue().splitlines() if x.startswith("{")]
+        results[name] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                             json=json.loads(lines[0]) if lines else None)
+        print(f"{name}: exit {rc} in {results[name]['seconds']:.1f} s",
+              flush=True)
+    (out_dir / "child.json").write_text(json.dumps(results, indent=1))
+    return 0
+
+
+def first_json(text):
+    return next(json.loads(line) for line in text.splitlines()
+                if line.startswith("{"))
+
+
+def reference_state_dict(torch, cfg, n_units, n_classes, seed):
+    """A reference-style checkpoint: the ``nn.ModuleList`` state dict
+    the reference's ParameterServer saves, ``"{idx}.{path}"`` keys, its
+    weights drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    state = {}
+
+    def lin(prefix, din, dout):
+        state[f"{prefix}.weight"] = torch.randn(dout, din, generator=g) * .02
+        state[f"{prefix}.bias"] = torch.randn(dout, generator=g) * .02
+
+    def ln(prefix, dim):
+        state[f"{prefix}.weight"] = 1 + torch.randn(dim, generator=g) * .02
+        state[f"{prefix}.bias"] = torch.randn(dim, generator=g) * .02
+
+    for name, rows in (("word_embeddings", cfg.vocab_size),
+                       ("position_embeddings", cfg.max_position_embeddings),
+                       ("token_type_embeddings", cfg.type_vocab_size)):
+        state[f"0.{name}.weight"] = torch.randn(rows, H, generator=g) * .02
+    ln("0.LayerNorm", H)
+    idx = 1
+    for _ in range(n_units):
+        for name in ("query", "key", "value"):
+            lin(f"{idx}.attention.self.{name}", H, H)
+        lin(f"{idx}.attention.output.dense", H, H)
+        ln(f"{idx}.attention.output.LayerNorm", H)
+        lin(f"{idx + 1}.intermediate.dense_act", H, I)
+        lin(f"{idx + 2}.output.dense", I, H)
+        ln(f"{idx + 2}.output.LayerNorm", H)
+        idx += 3
+    lin(f"{idx}.dense_act", H, H)
+    lin(f"{idx + 1}.classifier", H, n_classes)
+    return state
+
+
+def profiler_check(torch, np, kernels, gpt_mod, ServingEngine, Request):
+    """Phase 31 (d): ``utils.profiling.trace`` of one B1 bf16 call and
+    one decode tick of the paged engine at GPT-2 small: (the trace's
+    kernel names, the launches by body inside it)."""
+    from skycomputing_tpu_torch.utils.profiling import kernel_names, trace
+
+    engine = build_engine(ServingEngine, gpt_mod, LAYERS, "bfloat16",
+                          "cuda")
+    rng = np.random.default_rng(7)
+    for _ in range(4):
+        engine.submit(Request(prompt=rng.integers(1, 50257, 24).astype(
+            np.int32), max_new_tokens=8))
+    engine.step()  # the prefill wave: 4 prompts of one bucket
+    q, k, v, bias = flash_case(torch, np, 8, 128, 0, "bfloat16", SEED)
+    flash_attention = kernels[B1]["fn"]
+    flash_attention(q, k, v, bias)  # warm
+    torch.cuda.synchronize()
+    launches0 = {n: dict(kernels[n]["fn"].body_launches) for n in (B1, B2)}
+    # three rounds in the window: after earlier profiler sessions in the
+    # process a window's first kernels can go unrecorded (seen on the
+    # card: the first several of a window lost, at random)
+    with trace(str(TOOLS_OUT / "profiler")) as prof:
+        for _ in range(TRACE_ROUNDS):
+            flash_attention(q, k, v, bias)
+            engine.step()  # a decode tick
+    names = kernel_names(prof)
+    profiled = {n: {b: c - launches0[n].get(b, 0) for b, c in
+                    kernels[n]["fn"].body_launches.items()
+                    if c != launches0[n].get(b, 0)} for n in (B1, B2)}
+    check(profiled == {B1: {"tensor_core": TRACE_ROUNDS},
+                       B2: {"decode": LAYERS * TRACE_ROUNDS}},
+          f"traced: {TRACE_ROUNDS} B1 calls and decode ticks "
+          f"({json.dumps(profiled)})")
+    check(any("flash_attention_kernel_mma" in n for n in names)
+          and any("paged_attention_kernel_decode" in n for n in names),
+          f"the trace's kernels include B1's tensor-core body and B2's "
+          f"decode body ({len(names)} kernel names; attention's: "
+          f"{[n[:48] for n in names if 'attention' in n]})")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return names, profiled
+
+
+def tools_path(torch, np, kernels, gpt_mod, ServingEngine, Request):
+    """Phase 31: each measuring tool as a user runs it on the card."""
+    from skycomputing_tpu_torch.builder import build_layer_stack
+    from skycomputing_tpu_torch.dynamics import ParameterServer
+    from skycomputing_tpu_torch.models import bert_config, bert_layer_configs
+    from skycomputing_tpu_torch.tools import (
+        convert_torch_checkpoint,
+        trace_report,
+    )
+    from skycomputing_tpu_torch.utils.torch_convert import (
+        to_torch_state_dict,
+    )
+
+    shutil.rmtree(TOOLS_OUT, ignore_errors=True)
+    TOOLS_OUT.mkdir(parents=True)
+    out = {}
+
+    # (a)-(c), (e), (f): each command's main in one process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), TOOLS_CHILD,
+         str(TOOLS_OUT)], cwd=ROOT, capture_output=True, text=True,
+        timeout=TOOLS_CHILD_TIMEOUT_S)
+    (TOOLS_OUT / "child.log").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    log(f"   tools process: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(proc.returncode == 0, "the tools process ran every command"
+          + ("" if proc.returncode == 0 else
+             f" (stderr tail: {proc.stderr[-600:]})"))
+    runs = json.loads((TOOLS_OUT / "child.json").read_text())
+    for name, r in runs.items():
+        log(f"   {name}: exit {r['rc']} in {r['seconds']:.1f} s")
+
+    # (a) step overhead: the default mode (its traced window kept for
+    # (d)), then --mesh; only the equivalence gate is held
+    window = TOOLS_OUT / "step_overhead_trace.json"
+    check(runs["bench_step_overhead"]["rc"] == 0, "bench_step_overhead ran")
+    res = runs["bench_step_overhead"]["json"]
+    for schedule, by in res["schedules"].items():
+        s = by["hotpath"]
+        log(f"   {schedule}: step {s['step_wall_s'] * 1e3:.3f} ms, dispatch "
+            f"{s['dispatch_s'] * 1e3:.3f} ms ({s['dispatch_fraction']:.4f}"
+            f" of the step), device wait {s['compute_wait_s'] * 1e3:.3f} ms")
+    tr = res["tracing"]
+    log(f"   tracing: {tr['step_wall_s_tracing_off'] * 1e3:.3f} -> "
+        f"{tr['step_wall_s_tracing_on'] * 1e3:.3f} ms, "
+        f"{tr['events_per_step']} events a step x "
+        f"{tr['cost_per_event_us']:.3f} us = "
+        f"{tr['modeled_overhead_pct']:.4f}% modeled")
+    out["step_overhead"] = res
+    rc = runs["bench_step_overhead_mesh"]["rc"]
+    check(rc in (0, 1), f"bench_step_overhead --mesh ran (exit {rc}: 1 "
+          f"is a gate missed)")
+    mesh = json.loads((TOOLS_OUT / "bench_mesh_pipeline.json").read_text())
+    gates = mesh["gates"]
+    check(gates["params_bitwise_equal"]["ok"],
+          f"mesh against per-device bitwise: "
+          f"{json.dumps(gates['params_bitwise_equal']['value'])}")
+    for name, g in gates.items():
+        if name != "params_bitwise_equal":
+            log(f"   finding: gate {name} = {json.dumps(g['value'])} "
+                f"(target {g['target']}): "
+                f"{'held' if g['ok'] else 'missed'}")
+    for mode, m in mesh["modes"].items():
+        log(f"   {mode}: {m['stages']} stages, step "
+            f"{m['step_wall_s'] * 1e3:.3f} ms, dispatch share "
+            f"{m['dispatch_fraction']:.4f}, {m['ops_per_step']} host ops "
+            f"and {m['kernels_per_step']} kernels a step")
+    out["mesh"] = mesh
+
+    # (b) the schedule model at BERT-base (exit 1: a delta >= 15%)
+    rc = runs["validate_schedule_model"]["rc"]
+    check(rc in (0, 1), f"validate_schedule_model ran (exit {rc})")
+    res = runs["validate_schedule_model"]["json"]
+    log(f"   composition delta {res['composition_delta_pct']:.3f}%, "
+        f"fill-drain {json.dumps(res['fill_drain_delta_pct'])} %, "
+        f"concurrency ratio {res['concurrency_ratio']:.3f} (serial "
+        f"{res['serial_devices']})")
+    out["schedule_model"] = res
+
+    # (c) cached against full decoding at GPT-2 small
+    res = runs["bench_kv_cache"]["json"]
+    check(runs["bench_kv_cache"]["rc"] == 0 and res["identical"],
+          f"cached and full tokens identical: {res['identical']}")
+    log(f"   cached {res['cached_ms_per_token']:.3f} ms/token, full "
+        f"{res['full_ms_per_token']:.3f} ms/token "
+        f"({res['speedup']:.3f}x)")
+    out["kv_cache"] = res
+
+    # (d) the profiler: one B1 bf16 call and one decode tick of the paged
+    # engine at GPT-2 small, then trace_report over (a)'s window
+    names, profiled = profiler_check(torch, np, kernels, gpt_mod,
+                                     ServingEngine, Request)
+    # trace_report reads a file and no device: its main, in this process
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_report.main([str(window), "--json"])
+    check(rc == 0, "trace_report --json over (a)'s traced window")
+    report_json = TOOLS_OUT / "trace_report.json"
+    report_json.write_text(buf.getvalue())
+    rep = first_json(buf.getvalue())
+    log(f"   window: bubble {rep['bubble_fraction']}, dispatch share "
+        f"{rep['dispatch']['share']}, step p50 {rep['steps']['p50_ms']} ms")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = trace_report.main([str(window), "--baseline",
+                                str(report_json)])
+    check(rc == 0, "trace_report --baseline against its own JSON: exit 0")
+    out["profiler"] = dict(kernel_names=names, launches=profiled,
+                           window=rep)
+
+    # (e) MFU of the monolithic BERT-large train step at its defaults
+    check(runs["bench_mfu"]["rc"] == 0, "bench_mfu ran")
+    res = runs["bench_mfu"]["json"]
+    log(f"   BERT-large step {res['step_time_ms']:.3f} ms, "
+        f"{res['flops_per_step'] / 1e12:.4f} TFLOP counted (6 x params x "
+        f"tokens {res['six_n_tokens'] / 1e12:.4f}), MFU {res['mfu']:.4f}; "
+        f"trio fwd+bwd {res['unit_fwd_bwd_ms']:.3f} ms")
+    out["mfu"] = res
+
+    # (f) the launcher config's profiles and partitions, timed through B1
+    check(runs["profile_allocation"]["rc"] == 0, "profile_allocation ran")
+    res = json.loads((TOOLS_OUT / "profile_allocation.json").read_text())
+    flash_prof = res["flash_launches"]
+    check(flash_prof.get("tensor_core", 0) > 0
+          and set(flash_prof) == {"tensor_core"},
+          f"the timed profile's B1 launches by body: "
+          f"{json.dumps(flash_prof)}")
+    log(f"   partitions: {json.dumps(res['partitions'])}")
+    out["profile_allocation"] = res
+
+    # (g) the ladder's first two rungs at BERT-large's width, 10 layers
+    ladder_json = TOOLS_OUT / "ladder.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "skycomputing_tpu_torch.tools.run_ladder",
+         "--only", "even_4", "optimal_8", "--max-iters", "2", "--timeout",
+         "300", "--log-root", str(ROOT / "build" / "ladder"), "--json",
+         str(ladder_json)], cwd=ROOT, capture_output=True, text=True,
+        timeout=700, env=dict(os.environ, PYTHONPATH=str(ROOT),
+                              SKYTPU_FLASH="1"))
+    (TOOLS_OUT / "run_ladder.log").write_text(
+        proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    rc = proc.returncode
+    log(f"   run_ladder: exit {rc} in {time.perf_counter() - t0:.1f} s")
+    rungs = {r["config"]: r for r in
+             json.loads(ladder_json.read_text())["rungs"]}
+    ladder_b1 = 0
+    for name, r in rungs.items():
+        check(r["exit"] == 0 and len(r["losses"]) == 2
+              and all(x is not None and np.isfinite(x) for x in r["losses"]),
+              f"{name}: exit {r['exit']}, losses {r['losses']}")
+        steps = r["flash_launches"]
+        check(len(steps) == 2 and all(
+            set(s) == {"tensor_core"} and s["tensor_core"] > 0
+            for s in steps),
+              f"{name}: B1 on the tensor-core body in every step "
+              f"({json.dumps(steps)})")
+        ladder_b1 += sum(s["tensor_core"] for s in steps)
+        log(f"   {name}: step 2: forward {r['fwd_s'] * 1e3:.3f} ms, "
+            f"backward {r['bwd_s'] * 1e3:.3f} ms, update "
+            f"{r['step_s'] * 1e3:.3f} ms")
+    check(rc == 0, "run_ladder: every rung exit 0")
+    alloc = rungs["optimal_8"].get("allocation", [])
+    check(len(alloc) == 8 and sum(alloc) == 33,
+          f"optimal_8 covers every unit: {alloc}")
+    out["ladder"] = rungs
+    shutil.rmtree(ROOT / "build" / "ladder", ignore_errors=True)
+
+    # (h) a reference checkpoint at BERT-large's width (2 layers, 9
+    # units) converted, loaded, run on the card against the CPU, and
+    # written back to the reference's layout bitwise
+    work = ROOT / "build" / "tools_ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        cfg = bert_config("large", dtype="float32",
+                          hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+        units = bert_layer_configs(cfg, num_encoder_units=2, num_classes=3,
+                                   deterministic=True)
+        state = reference_state_dict(torch, cfg, 2, 3, SEED)
+        torch.save(state, work / "reference.pth")
+        # a file conversion on the CPU: the command's main, here
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = convert_torch_checkpoint.main(
+                ["--checkpoint", str(work / "reference.pth"), "--out",
+                 str(work / "port.pt"), "--preset", "large",
+                 "--layer-num", "2"])
+        check(rc == 0, "convert_torch_checkpoint ran")
+        ps = ParameterServer(units,
+                             generator=torch.Generator().manual_seed(1))
+        ps.load_weights_from_file(str(work / "port.pt"))
+        ids, types, mask = (torch.from_numpy(x) for x in
+                            bert_batch(np, cfg.vocab_size)[0])
+        logits = {}
+        for where in ("cuda", "cpu"):
+            stack = build_layer_stack(units)
+            for module, sd in zip(stack.layers, ps.params):
+                module.load_state_dict(sd, strict=True)
+            stack = stack.to(where).eval()
+            with torch.no_grad():
+                logits[where] = stack(ids.to(where), types.to(where),
+                                      mask.to(where)).float().cpu()
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        check(bool(torch.isfinite(logits["cuda"]).all()) and err <= 1e-4,
+              f"converted weights: card against CPU logits {err:.3e} "
+              f"(<= 1e-4)")
+        back = to_torch_state_dict(ps.params, units)
+        check(set(back) == set(state) and all(
+            torch.equal(back[key], state[key]) for key in state),
+              f"round trip to the reference layout bitwise "
+              f"({len(state)} tensors)")
+        out["convert"] = dict(units=len(units), card_vs_cpu=err)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["b1_tensor_core"] = (profiled[B1].get("tensor_core", 0)
+                             + flash_prof["tensor_core"] + ladder_b1)
+    out["b2_decode"] = profiled[B2].get("decode", 0)
+    return out
 
 
 def main() -> int:
@@ -5462,6 +5972,13 @@ def main() -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         _free(torch)
 
+    with phase("measuring tools: step overhead, schedule model, KV-cache "
+               "decode, the profiler and trace report, MFU, allocation "
+               "preview, the ladder's first rungs, checkpoint conversion"):
+        report["tools"] = tools_path(torch, np, kernels, gpt_mod,
+                                     ServingEngine, Request)
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
@@ -5530,7 +6047,14 @@ def main() -> int:
         # B1's time at their microbatch, 8 rows of 128
         entry(B1, report["elastic"]["c_planned_reform"]["b1_launches"],
               flash, "bert_large_L128", label=f"{B1}:elastic",
-              body="tensor_core")]}
+              body="tensor_core"),
+        # the measuring tools (phase 31): B1's tensor-core body in the
+        # traced call, the timed profile and the ladder's rungs, beside
+        # its time at 8 rows of 128; B2's decode body in the traced tick
+        entry(B1, report["tools"]["b1_tensor_core"], flash,
+              "bert_large_L128", label=f"{B1}:tools", body="tensor_core"),
+        entry(B2, report["tools"]["b2_decode"], label=f"{B2}:tools",
+              body="decode")]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(
@@ -5552,4 +6076,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [ELASTIC_CHILD]:
         sys.exit(elastic_child(sys.argv[2:]))
+    if sys.argv[1:2] == [TOOLS_CHILD]:
+        sys.exit(tools_child(sys.argv[2:]))
+    if sys.argv[1:2] == [HEAL_PROBE]:
+        sys.exit(heal_probe(sys.argv[2:]))
     sys.exit(main())

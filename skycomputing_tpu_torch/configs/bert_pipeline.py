@@ -35,6 +35,9 @@ Environment overrides (all optional):
 - ``SKYTPU_OPTIM`` (sgd) / ``SKYTPU_LR`` (0.001): an optax name and rate
 - ``SKYTPU_CKPT_DIR``: where a ``CheckpointHook`` saves at the end of
   each epoch and of the run (no checkpoint when unset)
+- ``SKYTPU_KERNEL_LAUNCHES``: 1 registers ``KernelLaunchHook``, which
+  logs the flash kernel's launches by body after each step (set by
+  ``tools/run_ladder`` for its rungs)
 - ``SKYTPU_LOG_ROOT``: the log directory's root (logs)
 - ``STIMULATE``: the seeded heterogeneity stimulator skews the device
   profile (read by the device benchmarker)
@@ -156,6 +159,8 @@ __hooks = [
     dict(type="StopHook", root=__LOG_ROOT),
     dict(type="DistributedTimerHelperHook"),
 ]
+if os.getenv("SKYTPU_KERNEL_LAUNCHES") == "1":
+    __hooks.append(dict(type="KernelLaunchHook"))
 if os.getenv("SKYTPU_CKPT_DIR"):
     __hooks.append(dict(type="CheckpointHook",
                         save_path=os.environ["SKYTPU_CKPT_DIR"],

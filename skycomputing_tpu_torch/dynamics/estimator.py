@@ -7,7 +7,7 @@
   counts the products (matmuls, convolutions, attention), plus a count
   of the work it does not see, charged as XLA's cost model charges the
   reference on the CPU, where the JAX package reads it: one FLOP per
-  output element of every pointwise op (adds, the mask arithmetic), 8
+  output element of every pointwise op (adds, the mask arithmetic), 7
   per element of a LayerNorm, 5 of a softmax, 64 of the erf-gelu; a
   dropout in train mode dispatches, on ``meta``, to ``bernoulli_`` (the
   mask), then ``div_`` and ``mul`` (1 each), and its mask costs 55 per
@@ -31,6 +31,21 @@
   flash attention wrapper runs its plain version over one grid cell of
   the JAX kernel, the work XLA's cost analysis charges the kernel's
   interpret-mode loop on the CPU.
+- Backward and update (a whole train step, :func:`count_flops` over a
+  function that calls ``backward`` and steps an optimizer, as
+  ``utils.profiling.compiled_cost`` does): the products of autograd's
+  backward are counted as the forward's are; its elementwise ops at
+  what XLA charges them inside a compiled float32 train step, where
+  the backward shares the forward's values: 37 FLOPs per element of
+  the erf-gelu's derivative, 25 of a LayerNorm's, 5 of a softmax's,
+  and one per row element an embedding's gradient scatters.  An add
+  or a subtract with a scale (``alpha``, the SGD update ``p - lr *
+  g``) is a multiply and an add, 2 per element, as optax's update is;
+  a ``_foreach_`` op counts every tensor of its list.  So the count
+  of BERT ``tiny``'s float32 train step is within 1% of XLA's
+  (``tests/test_torch_profiling.py``); in bfloat16 XLA's CPU backend
+  also charges the converts of the backward, which the count leaves
+  out (about 12% of the tiny step).
 - Memory: the reference's formula over tensor shapes exactly — inputs +
   2 x outputs + ``param_scale`` x parameters, at 4 bytes a number, in
   MB.
@@ -58,13 +73,19 @@ aten = torch.ops.aten
 # FLOPs per output element of the elementwise ops that are not tagged
 # pointwise (a pointwise op counts 1)
 _ELEMENT_FLOPS = {
-    aten.native_layer_norm: 8,
+    aten.native_layer_norm: 7,
     aten._softmax: 5,
     aten._to_copy: 1,
     aten.bernoulli_: 55,  # a dropout mask, as XLA counts it
     aten.clone: 0,  # a layout copy (einsum's contiguous operand): a move
     aten.gelu: 64,  # the erf form, as XLA counts it
+    # backward ops, as XLA charges them in a compiled train step
+    aten.gelu_backward: 37,
+    aten.native_layer_norm_backward: 25,
+    aten._softmax_backward_data: 5,
 }
+# an add or subtract with a scale: a multiply and an add per element
+_SCALED = {aten.add, aten.add_, aten.sub, aten.sub_}
 # XLA's GroupNorm (flax's): the square, the two reductions, the centring,
 # the scaling by the inverse deviation, the scale and the offset cost 6
 # FLOPs per element, and the statistics 7 per (sample, group)
@@ -178,10 +199,23 @@ class _ElementwiseFlops(TorchDispatchMode):
         elif packet in (aten.mean, aten.sum):
             # XLA's reduce: one add per element it reads
             self.flops += args[0].numel()
+        elif packet is aten.embedding_dense_backward:
+            # XLA's scatter-add: one add per row element it scatters
+            self.flops += args[0].numel()
+        if func.name().startswith("aten::_foreach_"):
+            # a list op: every tensor of the list (the result, or the
+            # first argument of an in-place op)
+            per = 2 if (kwargs or {}).get("alpha", 1) != 1 else 1
+            listed = out if out else args[0]
+            self.flops += per * sum(t.numel() for t in tree_leaves(listed)
+                                    if isinstance(t, torch.Tensor))
+            return out
         per = _ELEMENT_FLOPS.get(packet)
         pointwise = torch.Tag.pointwise in func.tags
         if per is None and pointwise:
             per = 1
+        if packet in _SCALED and (kwargs or {}).get("alpha", 1) != 1:
+            per = 2
         first = next((t for t in tree_leaves(out)
                       if isinstance(t, torch.Tensor)
                       and t.is_floating_point()), None)

@@ -20,9 +20,13 @@ The port's spans time the host issuing work, as the reference's do: on
 one card every stage shares the device, so the stages' spans follow one
 another and the bubble fraction is at least ``1 - 1/S`` by
 construction.  The reference's ``xla_compiles`` count has no
-counterpart (nothing compiles); its serving breakdown, request-timeline
-reconstruction and regression gate serve the serving planes and the CI
-tools, which are not ported (queue A item 4).
+counterpart (nothing compiles).  The regression gate
+(:func:`baseline_targets`, :func:`check_regression`) is the reference's,
+read by ``python -m skycomputing_tpu_torch.tools.trace_report``.  Its
+serving breakdown, request-timeline reconstruction and serving padding
+waste read the serving engine's tracer lanes and the incident plane,
+and wait with them for queue A item 4, as do ``trace_report``'s
+``--request`` and ``--incidents`` modes.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 STAGE_RE = re.compile(r"^stage\s+(\d+)")
+# step-time keys a BENCH json may carry, and their scale to ms (None:
+# recognized, never a step time)
+_STEP_KEYS_MS = {"step_ms": 1.0, "dispatch_ms": None, "step_wall_s": 1e3,
+                 "step_s": 1e3, "step_time_s": 1e3}
 
 
 class TraceError(Exception):
@@ -250,9 +258,88 @@ def measured_stage_seconds(report: Dict[str, Any],
     return [busy[k] / 1e3 / n for k in sorted(busy, key=int)]
 
 
+# --------------------------------------------------------------------------
+# regression gate
+# --------------------------------------------------------------------------
+
+
+def _walk_numeric(obj: Any, key_names, found: List[float]) -> None:
+    if isinstance(obj, dict):
+        for key, value in obj.items():
+            if key in key_names and isinstance(value, (int, float)):
+                found.append(float(value))
+            else:
+                _walk_numeric(value, key_names, found)
+    elif isinstance(obj, list):
+        for item in obj:
+            _walk_numeric(item, key_names, found)
+
+
+def baseline_targets(path: str) -> Dict[str, float]:
+    """Best step time (ms) and bubble fraction recorded in a BENCH json.
+
+    Committed BENCH_*.json artifacts nest their figures differently per
+    round, so extraction is by key name, recursively: the MINIMUM over
+    all ``step_ms``/``step_wall_s``/``step_s`` occurrences is the
+    trajectory's best step time — the gate's reference point.
+    """
+    with open(path) as fh:
+        data = json.load(fh)
+    out: Dict[str, float] = {}
+    steps: List[float] = []
+    for key, scale in _STEP_KEYS_MS.items():
+        if scale is None:
+            continue
+        found: List[float] = []
+        _walk_numeric(data, {key}, found)
+        steps.extend(v * scale for v in found)
+    positive = [v for v in steps if v > 0]
+    if positive:  # all-zero placeholders -> "no recognized keys" path
+        out["step_ms"] = min(positive)
+    bubbles: List[float] = []
+    _walk_numeric(data, {"bubble_fraction"}, bubbles)
+    if bubbles:
+        out["bubble_fraction"] = min(bubbles)
+    return out
+
+
+def check_regression(
+    report: Dict[str, Any], targets: Dict[str, float], tolerance: float
+) -> List[str]:
+    """Human-readable failure list (empty = within tolerance)."""
+    failures: List[str] = []
+    base_step = targets.get("step_ms")
+    if base_step is not None:
+        steps = report.get("steps")
+        if steps is None:
+            failures.append(
+                "baseline has a step time but the trace has no 'iter' "
+                "spans to compare (record with TraceHook)"
+            )
+        elif steps["p50_ms"] > base_step * (1.0 + tolerance):
+            failures.append(
+                f"step time regressed: trace p50 {steps['p50_ms']:.2f} ms "
+                f"> baseline {base_step:.2f} ms + {tolerance:.0%}"
+            )
+    base_bubble = targets.get("bubble_fraction")
+    if base_bubble is not None:
+        got = report["bubble_fraction"]
+        # absolute slack floor: a 0.02 -> 0.04 bubble move is noise on
+        # a near-perfect schedule, not a 2x regression
+        limit = max(base_bubble * (1.0 + tolerance), base_bubble + 0.02)
+        if got > limit:
+            failures.append(
+                f"bubble fraction regressed: trace {got:.4f} > baseline "
+                f"{base_bubble:.4f} (+{tolerance:.0%}, floor +0.02)"
+            )
+    return failures
+
+
 __all__ = [
     "TraceError",
     "analyze",
+    "baseline_targets",
+    "check_regression",
     "busy_us",
     "count_instants",
     "lane_processes",

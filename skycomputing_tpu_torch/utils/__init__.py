@@ -5,7 +5,9 @@ resolution, and the ports of ``skycomputing_tpu/utils/logger.py``
 ``skycomputing_tpu/utils/retry.py`` (:func:`retry_call`,
 :func:`backoff_delays`, :class:`RetryError`) and
 ``skycomputing_tpu/utils/fileio.py`` (:func:`atomic_write`, with
-:func:`atomic_torch_save` beside it)."""
+:func:`atomic_torch_save` beside it).  The submodules
+:mod:`.profiling` and :mod:`.torch_convert` port their namesakes in
+``skycomputing_tpu/utils/``."""
 
 from __future__ import annotations
 

@@ -1,0 +1,86 @@
+"""``python -m skycomputing_tpu_torch.tools.validate_schedule_model``
+against the JAX package's ``tools/validate_schedule_model.py``: the
+composition claim at small scale as ``tests/test_schedule_model.py``
+holds it (isolated per-stage taus compose into the measured pipelined
+step within 25% at BERT ``tiny``), the schedule model's arithmetic equal
+to JAX's, and the concurrency probe calling every position of one
+device serial."""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from skycomputing_tpu_torch.tools import validate_schedule_model as v
+
+pytestmark = pytest.mark.torch_port
+
+REPO = Path(__file__).resolve().parents[1]
+POSITIONS = [torch.device("cpu")] * v.N_POSITIONS
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _jax_tool():
+    spec = importlib.util.spec_from_file_location(
+        "jax_validate_schedule_model",
+        REPO / "tools" / "validate_schedule_model.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_composition_claim_small_scale():
+    ratio = v.probe_device_concurrency(POSITIONS)
+    serial = ratio > 0.6 * len(POSITIONS)
+    assert serial, ratio  # one device: the positions run one at a time
+    # 25%, as tests/test_schedule_model.py: at the tiny preset the host's
+    # noise is a real fraction of a stage time.  Each measurement takes
+    # its taus and steps in turns; a host shared with other test workers
+    # can still stretch one, so the claim is held on the median of three
+    # measurements: one stretched measurement does not decide it, two
+    # misses fail it
+    deltas = [v.validate_composition(POSITIONS, serial, preset="tiny")
+              for _ in range(3)]
+    assert float(np.median(deltas)) < 0.25, (
+        f"isolated per-stage taus do not compose into the measured "
+        f"end-to-end step (deltas {[round(d * 100, 1) for d in deltas]}%)")
+
+
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16])
+def test_schedule_arithmetic_equals_jax(M):
+    jax_tool = _jax_tool()
+    taus = np.random.default_rng(M).uniform(0.1, 2.0, 5)
+    assert v.schedule_step_time(taus, M) == jax_tool.schedule_step_time(
+        taus, M)
+    # parallel devices: JAX's fill-drain shape; serial: the port's engine
+    # runs only the M x S real cells
+    assert v.fill_drain_shape(M, 4, serial=False) == (M + 4 - 1) / M
+    assert v.fill_drain_shape(M, 4, serial=True) == 1.0
+
+
+def test_main_reports_both_checks(capsys, monkeypatch, tmp_path):
+    out = tmp_path / "schedval.json"
+    monkeypatch.setenv("SKYTPU_SCHEDVAL_JSON", str(out))
+    monkeypatch.setattr(v, "PRESET", "tiny")
+    # the composition claim is held above; here a fixed delta keeps the
+    # command's run short
+    monkeypatch.setattr(v, "validate_composition",
+                        lambda devices, serial, preset: 0.1)
+    rc = v.main(["--device", "cpu"])
+    line = next(json.loads(x) for x in capsys.readouterr().out.splitlines()
+                if x.startswith("{"))
+    assert rc == (0 if line["ok"] else 1)
+    assert json.loads(out.read_text()) == line
+    assert line["serial_devices"] and line["device"]["platform"] == "cpu"
+    assert set(line["fill_drain_delta_pct"]) == {"4", "8"}
+    assert line["composition_delta_pct"] == pytest.approx(10.0)
