@@ -353,7 +353,32 @@ one.  Phases, each fatal on failure:
     reference-style checkpoint at BERT-large's width (2 layers, 9 units)
     from a seed: converted by ``convert_torch_checkpoint``'s ``main``,
     loaded, its logits on the card within 1e-4 of the CPU's (float32),
-    and written back to the reference's layout bitwise.
+    and written back to the reference's layout bitwise;
+32. the serving fleet (``python -m
+    skycomputing_tpu_torch.tools.bench_fleet``'s kill-and-spike
+    scenario) at GPT-2 small's width and depth, float32, three replicas
+    over paged KV at page 16, each on the card, at the bench's own
+    operating point (2 decode rows a replica, buckets 32/64/96,
+    ``max_len`` 128, ``max_pending`` 12, bursts of 8 every 32 ticks,
+    replica 0 crashed mid-run, then the 2x spike): (a) every accepted
+    request token-identical to the one-shot ``generate`` on the card
+    (a mismatch printed with its position and both logits), none
+    failed, at least one migration and one re-form, every spike
+    rejection counted by reason with a Retry-After, B2's decode and
+    register-tile bodies launched in the fleet run and its plain
+    version never called on the card (held); TTFT p95 before and after
+    the kill, TPOT p95 steady and under the spike, tokens/s, the
+    re-form's seconds (its ``fleet.reform`` span) and sheds by reason
+    (printed: JAX's timing gates are 2x and 1.25x); (b) on the same run
+    the flight recorder and the bench's two SLO targets: the crash
+    opens a replica-outage incident whose bundle's cause chain is
+    non-empty and whose digest verifies, and ``/metrics``,
+    ``/metrics.json`` and ``/healthz`` scraped once mid-run on
+    ``127.0.0.1`` show the fleet counters equal to ``fleet.stats``; (c)
+    one replica at GPT-2 small's width, 2 blocks, under a TTFT target
+    that burns: a verified ADD, then a drain-then-REMOVE, the accepted
+    streams (the added replica's among them) token-identical to the
+    reference.
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
@@ -364,7 +389,9 @@ phase 23, and its float32 tensor-core body's, by body, from phases
 baseline, beside its time at 1 row of 4,096; its tensor-core body's in
 phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128,
 and in phase 30's supervised trainer, beside its time at 8 rows of 128;
-phase 31's B1 tensor-core and B2 decode launches);
+phase 31's B1 tensor-core and B2 decode launches; phase 32's B2 decode
+and register-tile launches, beside its float32 decode and prefill
+times);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -933,6 +960,20 @@ def requests_for(np, Request, n=16, new_tokens=32, seed=SEED):
     return [Request(prompt=p, max_new_tokens=new_tokens) for p in prompts]
 
 
+_WEIGHTS = {}
+
+
+def random_weights(cfg_mod, layer_cfgs, key, seed):
+    """``random_state_dicts(layer_cfgs, seed)``, drawn once per (``key``,
+    seed) in this process: GPT-2 small's draw takes seconds of host time,
+    and the serving phases build dozens of engines from the same
+    weights.  Each engine copies them into its own modules, so callers
+    share the host tensors and never write them."""
+    if (key, seed) not in _WEIGHTS:
+        _WEIGHTS[key, seed] = cfg_mod.random_state_dicts(layer_cfgs, seed)
+    return _WEIGHTS[key, seed]
+
+
 def build_engine(ServingEngine, cfg_mod, depth, dtype, device, seed=SEED,
                  quiet_after=None, **kw):
     """GPT-2 small's width at ``depth`` blocks, random weights from
@@ -943,11 +984,13 @@ def build_engine(ServingEngine, cfg_mod, depth, dtype, device, seed=SEED,
     weights the early-exit draft almost never agrees."""
     cfg = cfg_mod.GptConfig(dropout_prob=0.0, dtype=dtype)
     layer_cfgs = cfg_mod.gpt_layer_configs(cfg, num_blocks=depth)
-    params = cfg_mod.random_state_dicts(layer_cfgs, seed)
+    params = [dict(sd) for sd in random_weights(cfg_mod, layer_cfgs,
+                                                 (dtype, depth), seed)]
     if quiet_after is not None:
         for block in range(quiet_after, depth):
             for layer in (1 + 2 * block, 2 + 2 * block):  # attn, mlp
-                params[layer]["c_proj.weight"] *= 0.1
+                params[layer]["c_proj.weight"] = (
+                    params[layer]["c_proj.weight"] * 0.1)
     return ServingEngine(
         layer_cfgs, params, kv_layout="paged", page_size=16,
         buckets=(32, 64, 128, 256),
@@ -5402,6 +5445,262 @@ def tools_path(torch, np, kernels, gpt_mod, ServingEngine, Request):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 32: the serving fleet and its observability
+# --------------------------------------------------------------------------
+
+#: phase 32's model: GPT-2 small's width and depth, float32, positions
+#: enough for the bench's 59-token prompts and 27 new tokens
+FLEET_MODEL = dict(vocab_size=50257, hidden_size=768,
+                   num_hidden_layers=LAYERS, num_attention_heads=12,
+                   max_position_embeddings=160, dropout_prob=0.0,
+                   dtype="float32")
+#: the bench's operating point over paged KV at page 16: 2 decode rows a
+#: replica (the bench's 2 slots), 16 pages each
+FLEET_ENGINE = dict(num_slots=2, max_concurrency=2, max_len=128,
+                    buckets=(32, 64, 96), prefill_batch=1,
+                    kv_layout="paged", page_size=16)
+
+
+def _scrape(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as response:
+        return response.read().decode()
+
+
+def fleet_kill_and_spike(torch, np, kernels, gpt_mod, dev, model):
+    """Phase 32 (a) and (b): ``bench_fleet``'s kill-and-spike scenario
+    over three paged replicas on ``dev``, traced, with the flight
+    recorder attached and the exporter scraped once mid-run.  Returns
+    (a report, B2's launches by body in the fleet run)."""
+    from skycomputing_tpu_torch import telemetry
+    from skycomputing_tpu_torch.telemetry import incidents
+    from skycomputing_tpu_torch.tools import bench_fleet
+
+    on_card = dev.type == "cuda"
+    scrape = {}
+
+    def setup(fleet):
+        fleet.attach_flight()
+        scrape["exporter"] = fleet.start_exporter(host="127.0.0.1", port=0)
+
+    def on_tick(fleet):
+        # once, a few ticks after the kill: the heal's counters are in
+        if "metrics" in scrape or fleet.stats.reforms < 1:
+            return
+        url = scrape["exporter"].url
+        scrape["metrics"] = _scrape(f"{url}/metrics")
+        scrape["metrics_json"] = json.loads(_scrape(f"{url}/metrics.json"))
+        scrape["healthz"] = json.loads(_scrape(f"{url}/healthz"))
+        scrape["stats"] = fleet.stats.snapshot()
+        scrape["tick"] = fleet.tick
+
+    # the plain version of B2 is counted wherever the fleet reaches it
+    plain_calls = {"card": 0}
+    plain = gpt_mod.paged_attention_reference
+
+    def counted_plain(q, *args, **kw):
+        if q.device.type == "cuda":
+            plain_calls["card"] += 1
+        return plain(q, *args, **kw)
+
+    layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
+                                           deterministic=True)
+    params = random_weights(gpt_mod, layer_cfgs,
+                            ("fleet", model["num_hidden_layers"]), SEED)
+    zero_counts(kernels)
+    tracer = telemetry.enable_tracing()
+    try:
+        with mock.patch.object(gpt_mod, "paged_attention_reference",
+                               counted_plain):
+            t0 = time.perf_counter()
+            report, fleet, accepted = bench_fleet.run_scenario(
+                device=dev, seed=SEED, model=model, params=params,
+                engine_kwargs=dict(FLEET_ENGINE), setup=setup,
+                on_tick=on_tick)
+            run_s = time.perf_counter() - t0
+        bodies = dict(kernels[B2]["fn"].body_launches)
+        launches = {name: k["fn"].launches for name, k in kernels.items()}
+        events = tracer.to_chrome()["traceEvents"]
+    finally:
+        telemetry.disable_tracing()
+        if scrape.get("exporter") is not None:
+            scrape["exporter"].stop()
+    for f in report["identity_findings"]:
+        log(f"   identity finding: {json.dumps(f)}")
+    stats = report["fleet_stats"]
+    check(report["gates"]["token_identical"],
+          f"all {len(accepted)} accepted requests token-identical to the "
+          f"one-shot generate on {dev.type} (migrated ones included)")
+    check(stats["failed"] == 0 and all(r.status == "finished"
+                                       for r in accepted),
+          f"failed {stats['failed']}, every accepted request finished")
+    check(stats["reforms"] >= 1 and stats["migrations"] >= 1,
+          f"the kill of replica 0 migrated {stats['migrations']} "
+          f"request(s) and re-formed {stats['reforms']} time(s)")
+    spike = report["spike"]
+    check(spike["rejected"] == sum(spike["rejected_by_reason"].values())
+          and stats["rejected"] == sum(stats["rejected_by_reason"].values())
+          and report["gates"]["shedding_visible"] == (spike["rejected"] > 0),
+          f"the spike's {spike['rejected']} rejections counted by reason "
+          f"{spike['rejected_by_reason']}, each with a Retry-After")
+    if on_card:
+        check(bodies["decode"] > 0 and bodies["register_tile"] > 0
+              and plain_calls["card"] == 0,
+              f"B2 by body in the fleet run {json.dumps(bodies)}: decode "
+              f"and register-tile launched, the plain version called "
+              f"{plain_calls['card']} times on the card")
+    # (b) observability on the same run
+    outage = [b for b in fleet.bundles
+              if b["incident"]["rule"] == "replica_outage"]
+    chain = incidents.cause_chain(outage[0]["flight_log"]) if outage else []
+    stages = incidents.chain_stages(chain)
+    check(outage and chain and stages
+          and outage[0]["digest"] == incidents.bundle_digest(outage[0]),
+          f"the crash opened a replica-outage incident "
+          f"({outage[0]['incident']['incident_id'] if outage else None}), "
+          f"its bundle's cause chain {stages} ({len(chain)} links), "
+          f"digest verified")
+    body, snap = scrape.get("metrics", ""), scrape.get("stats", {})
+    counters = [k for k, v in snap.items() if isinstance(v, int)]
+    check(snap and all(f"skytpu_fleet_{k} {snap[k]}\n" in body
+                       for k in counters)
+          and scrape["metrics_json"]["snapshot"]["fleet"]["reforms"]
+          == snap["reforms"]
+          and set(scrape["healthz"]["replicas"]) == {
+              "replica0", "replica1", "replica2"},
+          f"/metrics, /metrics.json and /healthz scraped at tick "
+          f"{scrape.get('tick')} on 127.0.0.1: {len(counters)} fleet "
+          f"counters equal fleet.stats")
+    reform_ms = [e["dur"] / 1e3 for e in events
+                 if e.get("ph") == "X" and e.get("name") == "fleet.reform"]
+    st = report["steady"]
+    out = dict(
+        run_s=run_s, wall_s=report["wall_s"],
+        tokens_per_s=report["tokens_per_s"],
+        generated_tokens=report["generated_tokens"],
+        ttft_p95_pre_kill_s=st["ttft_p95_pre_kill_s"],
+        ttft_p95_post_kill_s=st["ttft_p95_post_kill_s"],
+        ttft_ratio=st["ttft_degradation"], tpot_p95_steady_s=st["tpot_p95_s"],
+        tpot_p95_spike_s=spike["tpot_p95_s"],
+        tpot_ratio=spike["tpot_vs_envelope"], reform_ms=reform_ms,
+        sheds_by_reason=stats["rejected_by_reason"],
+        spike=spike, fleet_stats=stats, gates=report["gates"],
+        supervisor_events=[(e["kind"], e["replica"], e["tick"])
+                           for e in report["supervisor_events"]],
+        slo=report["slo"], b2_bodies=bodies, launches=launches,
+        plain_calls_on_card=plain_calls["card"],
+        incident=outage[0]["incident"], cause_chain=stages,
+        scrape_tick=scrape["tick"], healthz=scrape["healthz"])
+    log(f"   (a) {report['generated_tokens']} tokens in "
+        f"{report['wall_s']:.2f} s ({report['tokens_per_s']:.1f} tok/s); "
+        f"TTFT p95 {st['ttft_p95_pre_kill_s']} -> "
+        f"{st['ttft_p95_post_kill_s']} s (ratio {st['ttft_degradation']}, "
+        f"JAX's gate 2x), TPOT p95 {st['tpot_p95_s']} -> "
+        f"{spike['tpot_p95_s']} s (ratio {spike['tpot_vs_envelope']}, "
+        f"JAX's gate 1.25x); re-form {reform_ms} ms; sheds "
+        f"{stats['rejected_by_reason']}; timing gates (reported) "
+        f"{json.dumps(report['gates'])}")
+    return out, bodies
+
+
+def fleet_autoscale(torch, np, kernels, gpt_mod, dev, model):
+    """Phase 32 (c): one replica at ``model``'s width (depth cut) under a
+    TTFT target that burns: a verified ADD, then, the target relaxed and
+    the load gone, a drain-then-REMOVE; every stream, the added
+    replica's included, token-identical to the one-shot reference."""
+    from skycomputing_tpu_torch.bench_serving import _identical, _one_shot
+    from skycomputing_tpu_torch.fleet import (
+        FleetAutoscaler,
+        FleetSupervisor,
+        ServingFleet,
+    )
+    from skycomputing_tpu_torch.serving import Request
+    from skycomputing_tpu_torch.telemetry import SloMonitor, SloTarget
+    from skycomputing_tpu_torch.workload.mixes import fleet_request_spec
+
+    layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
+                                           deterministic=True)
+    params = random_weights(gpt_mod, layer_cfgs,
+                            ("fleet", model["num_hidden_layers"]), SEED)
+    auto = FleetAutoscaler(min_replicas=1, max_replicas=2, up_streak=2,
+                           down_streak=4, cooldown_ticks=3,
+                           slack_utilization=0.3)
+    fleet = ServingFleet(
+        layer_cfgs, params, replicas=1, engine_kwargs=dict(FLEET_ENGINE),
+        supervisor=FleetSupervisor(check_every=1, heartbeat_misses=1,
+                                   sick_threshold=float("inf")),
+        autoscaler=auto, devices=[dev] * 2)
+    # any first token slower than a microsecond burns it
+    fleet.attach_slo(SloMonitor([SloTarget(
+        name="ttft_p95", metric="fleet.ttft_p95_s", threshold=1e-6,
+        budget=0.25, fast_window=1, slow_window=2)]))
+    rng = np.random.default_rng(SEED + 32)
+    reqs = [Request(prompt=p, max_new_tokens=n) for p, n in
+            (fleet_request_spec(rng) for _ in range(12))]
+    placed = []
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    for r in reqs[:4]:
+        placed.append(fleet.submit(r).replica)
+    while fleet.stats.scale_ups < 1 and fleet.tick < 64:
+        fleet.step()
+    up_tick = fleet.tick
+    # the burn is over: the target's threshold back to a bound no first
+    # token reaches, so slack can build once the load drains
+    fleet.slo.targets[0].threshold = float("inf")
+    for r in reqs[4:]:
+        placed.append(fleet.submit(r).replica)
+    while fleet.has_work():
+        fleet.step()
+    for _ in range(16):
+        if fleet.stats.scale_downs:
+            break
+        fleet.step()
+    wall_s = time.perf_counter() - t0
+    bodies = dict(kernels[B2]["fn"].body_launches)
+    kinds = [(e["kind"], e["tick"], e.get("replica")) for e in auto.events]
+    accepted = [r for r, name in zip(reqs, placed) if name is not None]
+    check(fleet.stats.scale_ups >= 1 and fleet.stats.scale_downs == 1
+          and [k for k, _, _ in kinds][:2] == ["scale_up", "scale_down"]
+          and len(fleet.replicas) == 1,
+          f"(c) a verified ADD at tick {up_tick} under the burning TTFT "
+          f"target, then a drain-then-REMOVE: {kinds}")
+    added = kinds[0][2]
+    served = [r for r, name in zip(reqs, placed) if name == added]
+    findings = []
+    finished = all(r.status == "finished" for r in accepted)
+    identical = finished and _identical(
+        {r.request_id: r.output() for r in accepted}, accepted,
+        _one_shot(layer_cfgs, params, dev,
+                  model["max_position_embeddings"]), findings)
+    for f in findings:
+        log(f"   identity finding: {json.dumps(f)}")
+    check(identical and served and fleet.stats.failed == 0,
+          f"(c) all {len(accepted)} accepted streams token-identical "
+          f"({len(reqs) - len(accepted)} shed, by reason "
+          f"{fleet.stats.rejected_by_reason}), {len(served)} of them "
+          f"routed to the added {added}")
+    return dict(events=kinds, served_by_added=len(served), wall_s=wall_s,
+                fleet_stats=fleet.stats.snapshot(), b2_bodies=bodies)
+
+
+def fleet_path(torch, np, kernels, gpt_mod, dev, preset="gpt2"):
+    """Phase 32.  ``preset="tiny"`` rehearses it on the CPU (hidden 64,
+    2 blocks).  Returns (a report, B2's launches by body in (a))."""
+    model = dict(FLEET_MODEL)
+    if preset == "tiny":
+        model.update(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=2)
+    report, bodies = fleet_kill_and_spike(torch, np, kernels, gpt_mod,
+                                          dev, model)
+    report["autoscale"] = fleet_autoscale(
+        torch, np, kernels, gpt_mod, dev,
+        dict(model, num_hidden_layers=2))
+    return report, bodies
+
+
 def main() -> int:
     import torch
 
@@ -5979,6 +6278,13 @@ def main() -> int:
                                      ServingEngine, Request)
         _free(torch)
 
+    with phase("serving fleet: bench_fleet's kill-and-spike at GPT-2 "
+               "small, float32, 3 paged replicas, flight recorder, SLO, "
+               "exporter; then the autoscaler"):
+        report["fleet"], fleet_bodies = fleet_path(
+            torch, np, kernels, gpt_mod, torch.device("cuda"))
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
@@ -6054,7 +6360,15 @@ def main() -> int:
         entry(B1, report["tools"]["b1_tensor_core"], flash,
               "bert_large_L128", label=f"{B1}:tools", body="tensor_core"),
         entry(B2, report["tools"]["b2_decode"], label=f"{B2}:tools",
-              body="decode")]}
+              body="decode"),
+        # the serving fleet (phase 32 (a)): B2's decode body in every
+        # replica's decode ticks, its register-tile body in their float32
+        # prefill waves, beside the decode and float32 prefill times
+        entry(B2, fleet_bodies["decode"], dtype="float32",
+              label=f"{B2}:fleet", body="decode"),
+        entry(B2, fleet_bodies["register_tile"], case="prefill",
+              dtype="float32", label=f"{B2}:fleet_register_tile",
+              body="register_tile")]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(

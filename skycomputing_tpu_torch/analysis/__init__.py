@@ -12,6 +12,7 @@ from .plan_check import (
     verify_mesh_payload,
     verify_pipeline,
     verify_plan,
+    verify_scale_payload,
     verify_tuning_knobs,
 )
 
@@ -24,5 +25,6 @@ __all__ = [
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",
+    "verify_scale_payload",
     "verify_tuning_knobs",
 ]

@@ -49,8 +49,11 @@ takes it.
 (``FileRendezvous.take_payload``) or a supervisor's launch
 (``ElasticSupervisor._launch``) passes it on.
 
-Not ported yet: ``verify_scale_payload``, ``verify_handoff_payload`` and
-``verify_fault_plan`` (queue A item 4, the planes that call them).
+:func:`verify_scale_payload` checks a fleet autoscaler's decision (chip
+budget, replica bounds) before the fleet adds or removes a replica.
+
+Not ported yet: ``verify_handoff_payload`` and ``verify_fault_plan``
+(the disaggregated-serving and chaos planes that call them).
 
 Wiring: ``Runner`` runs :func:`verify_pipeline` on its first batch before
 the first train step and again after a self-heal rebuild; the bench
@@ -918,6 +921,108 @@ def verify_mesh_payload(mesh: Any) -> List[str]:
     return problems
 
 
+#: scale-decision actions the fleet autoscaler may propose
+SCALE_ADD = "add"
+SCALE_REMOVE = "remove"
+
+
+def verify_scale_payload(scale: Any) -> List[str]:
+    """Problems with a fleet scale decision (empty = valid).
+
+    Schema — what :class:`~..fleet.autoscaler.FleetAutoscaler` emits
+    before ANY fleet mutation: ``action`` (``"add"`` | ``"remove"``),
+    ``replicas`` (current live replica count, positive int), ``delta``
+    (positive int, how many replicas the decision moves), optional
+    ``min_replicas`` / ``max_replicas`` bounds (positive ints,
+    ``min <= max``), an optional ``pool`` (non-empty role string —
+    disaggregated fleets scale one pool at a time, and ``replicas`` /
+    the bounds are then THAT pool's, so the same pre-flight enforces
+    per-pool floors and ceilings), and for ADDs a chip-budget
+    feasibility pair:
+    ``chips_required`` (positive int) must fit ``chips_free``
+    (non-negative int) — an add the device pool cannot back dies HERE,
+    with the fleet untouched, exactly like an infeasible re-form dies
+    in its builder's pre-flight.  REMOVEs must keep the fleet at or
+    above ``min_replicas`` (and never below one replica: an empty
+    fleet cannot serve the drain).  This is the verify-then-apply gate
+    every autoscaler decision passes through before it becomes a
+    mutation.
+    """
+    problems: List[str] = []
+    if not isinstance(scale, dict):
+        return [
+            f"scale decision must be an object, got "
+            f"{type(scale).__name__}"
+        ]
+    action = scale.get("action")
+    if action not in (SCALE_ADD, SCALE_REMOVE):
+        problems.append(
+            f"scale.action must be {SCALE_ADD!r} or {SCALE_REMOVE!r}, "
+            f"got {action!r}"
+        )
+    replicas = scale.get("replicas")
+    if not _pos_int(replicas):
+        problems.append(
+            f"scale.replicas must be a positive int (the current live "
+            f"count), got {replicas!r}"
+        )
+    delta = scale.get("delta")
+    if not _pos_int(delta):
+        problems.append(
+            f"scale.delta must be a positive int, got {delta!r}"
+        )
+    pool = scale.get("pool")
+    if pool is not None and (not isinstance(pool, str) or not pool):
+        problems.append(
+            f"scale.pool must be a non-empty role string when "
+            f"present, got {pool!r}"
+        )
+    lo, hi = scale.get("min_replicas"), scale.get("max_replicas")
+    for key, v in (("min_replicas", lo), ("max_replicas", hi)):
+        if v is not None and not _pos_int(v):
+            problems.append(
+                f"scale.{key} must be a positive int, got {v!r}"
+            )
+    if _pos_int(lo) and _pos_int(hi) and lo > hi:
+        problems.append(
+            f"scale.min_replicas ({lo}) exceeds max_replicas ({hi})"
+        )
+    if problems:
+        return problems
+    if action == SCALE_ADD:
+        if _pos_int(hi) and replicas + delta > hi:
+            problems.append(
+                f"adding {delta} to {replicas} replicas exceeds "
+                f"max_replicas={hi}"
+            )
+        required = scale.get("chips_required")
+        free = scale.get("chips_free")
+        if not _pos_int(required):
+            problems.append(
+                f"scale.chips_required must be a positive int for an "
+                f"add, got {required!r}"
+            )
+        if (isinstance(free, bool) or not isinstance(free, int)
+                or free < 0):
+            problems.append(
+                f"scale.chips_free must be a non-negative int for an "
+                f"add, got {free!r}"
+            )
+        if not problems and required > free:
+            problems.append(
+                f"no chip budget: the add needs {required} chip(s) but "
+                f"only {free} are free — rejected before any mutation"
+            )
+    else:
+        floor = lo if _pos_int(lo) else 1
+        if replicas - delta < max(floor, 1):
+            problems.append(
+                f"removing {delta} from {replicas} replicas would drop "
+                f"below min_replicas={max(floor, 1)}"
+            )
+    return problems
+
+
 def _verify_serving_payload(serving: Any) -> List[str]:
     """Problems with a serving operating point.
 
@@ -1144,5 +1249,6 @@ __all__ = [
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",
+    "verify_scale_payload",
     "verify_tuning_knobs",
 ]

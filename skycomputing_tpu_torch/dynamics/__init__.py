@@ -21,13 +21,18 @@ from .worker_manager import WorkerManager, worker_pool_config
 
 # last: faults imports the runner's Hook, whose package imports the names
 # above
-from .faults import FaultInjectionHook, FaultPlan  # noqa: E402
+from .faults import (  # noqa: E402
+    FaultInjectionHook,
+    FaultPlan,
+    FleetFaultInjector,
+)
 
 __all__ = [
     "Allocator",
     "DeviceBenchmarker",
     "Estimator",
     "FaultInjectionHook",
+    "FleetFaultInjector",
     "FaultPlan",
     "MeshShapeResult",
     "ModelBenchmarker",

@@ -32,9 +32,8 @@ Event kinds (each a plain dict, so plans serialize as JSON):
                artifact.
 
 The serving-fleet kinds (``replica_crash``, ``latency_spike``,
-``slot_leak``) are part of the plan vocabulary, so plans validate as in
-the reference; their applier, ``FleetFaultInjector``, waits for the
-fleet (queue A item 4).
+``slot_leak``) are applied by :class:`FleetFaultInjector` at the start
+of every ``ServingFleet.step``.
 
 All randomness (unspecified truncation points, spike lengths) comes
 from one numpy generator seeded at construction, so a plan replays
@@ -58,7 +57,7 @@ from ..utils import Logger
 _TRAINER_KINDS = (
     "slowdown", "stall", "nan", "drop_beat", "corrupt_checkpoint",
 )
-#: serving-fleet kinds, applied by FleetFaultInjector (queue A item 4)
+#: serving-fleet kinds, applied by :class:`FleetFaultInjector`
 _FLEET_KINDS = ("replica_crash", "latency_spike", "slot_leak")
 _KINDS = _TRAINER_KINDS + _FLEET_KINDS
 
@@ -340,4 +339,90 @@ class FaultInjectionHook(Hook):
             self._pending_stall_s = 0.0
 
 
-__all__ = ["FaultPlan", "FaultInjectionHook"]
+class FleetFaultInjector:
+    """Apply a :class:`FaultPlan`'s fleet vocabulary to a serving fleet.
+
+    The fleet twin of :class:`FaultInjectionHook`: the fleet calls
+    :meth:`on_tick` at the START of every :meth:`ServingFleet.step`
+    (before any replica runs and before the supervisor observes), so an
+    event at tick N is in place when tick N's detection looks.  The
+    target is duck-typed — anything with ``tick`` and
+    ``replica_by_index(i)`` returning objects exposing ``crash()`` /
+    ``inject_stall(seconds, duration_ticks)`` / ``leak_slots(count)``
+    (:class:`~..fleet.replica.EngineReplica`'s fault surface) — which
+    keeps dynamics -> fleet import-free.
+
+    ``applied`` records every fired event with the tick it fired at and
+    any seeded draw it consumed, for test assertions.
+    """
+
+    def __init__(self, plan: FaultPlan, logger: Optional[Logger] = None):
+        foreign = [e for e in plan.events
+                   if e["kind"] not in _FLEET_KINDS]
+        if foreign:
+            raise ValueError(
+                f"FleetFaultInjector applies fleet faults only; trainer "
+                f"kinds {sorted({e['kind'] for e in foreign})} belong in "
+                f"a FaultInjectionHook plan"
+            )
+        self._plan = plan
+        self._logger = logger or Logger()
+        self.applied: List[Dict[str, Any]] = []
+        self._validated = False
+
+    def on_tick(self, fleet) -> None:
+        if not self._validated:
+            # the fleet is first available HERE, so replica indices are
+            # range-checked on the first tick — before anything fires —
+            # keeping the fails-at-arm-time contract the kind/field
+            # validation makes at construction
+            self._validated = True
+            n = len(fleet.replicas)
+            bad = sorted({
+                int(e["replica"]) for e in self._plan.events
+                if not 0 <= int(e["replica"]) < n
+            })
+            if bad:
+                raise ValueError(
+                    f"fault plan names replica indices {bad} but the "
+                    f"fleet has {n} replicas"
+                )
+        for ev in self._plan.events_at(fleet.tick):
+            kind = ev["kind"]
+            replica = fleet.replica_by_index(int(ev["replica"]))
+            if kind == "replica_crash":
+                replica.crash()
+                self._logger.info(
+                    f"FAULT tick {fleet.tick}: replica {replica.name} "
+                    f"crashed"
+                )
+            elif kind == "latency_spike":
+                seconds = ev.get("seconds")
+                if seconds is None:
+                    seconds = self._plan.draw_spike_seconds()
+                    ev = dict(ev, seconds=float(seconds))
+                duration = ev.get("duration")
+                replica.inject_stall(
+                    float(seconds),
+                    None if duration is None
+                    else fleet.tick + int(duration),
+                )
+                self._logger.info(
+                    f"FAULT tick {fleet.tick}: replica {replica.name} "
+                    f"latency spike {float(seconds):.3f}s/tick"
+                    + (f" for {duration} ticks" if duration else "")
+                )
+            elif kind == "slot_leak":
+                want = int(ev.get("count", 1))
+                leaked = replica.leak_slots(want)
+                if leaked < want:
+                    # an exhausted pool leaks fewer — record the truth
+                    ev = dict(ev, leaked=leaked)
+                self._logger.info(
+                    f"FAULT tick {fleet.tick}: replica {replica.name} "
+                    f"leaked {leaked} slot(s)"
+                )
+            self.applied.append(dict(ev, fired_at=fleet.tick))
+
+
+__all__ = ["FaultPlan", "FaultInjectionHook", "FleetFaultInjector"]

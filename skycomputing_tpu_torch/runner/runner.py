@@ -22,7 +22,8 @@ stage runs.  ``preflight=False`` or ``SKYTPU_PREFLIGHT=0`` opts out.
 
 ``self.metrics`` (a ``MetricsRegistry``) reads the pipeline's per-step
 ``PipelineStats`` under ``"pipeline"``; ``enable_timeseries()`` samples
-it once per iteration.  The HTTP exporter is queue A item 4.  The JAX
+it once per iteration, and ``start_exporter()`` serves the registry over
+HTTP (``/metrics``, ``/metrics.json``, ``/healthz``).  The JAX
 runner's compile cache has no counterpart: PyTorch runs eagerly.
 """
 

@@ -65,9 +65,18 @@ A worker-manager plan is verified before any slab is allocated
 pages count against each stage's budget).  :meth:`ServingEngine.reconfigure`
 changes the operating point in place, verify-then-apply.
 
+Observability is the reference's: ``self.metrics`` (a
+``MetricsRegistry`` with the ``"serving"`` source), the live-metrics
+mixin's ``enable_timeseries`` / ``start_exporter``, ``_health_snapshot``
+for ``/healthz``, and request-scoped tracing: with a tracer enabled,
+every request gets a recycled lane carrying its ``queue_wait``,
+``prefill`` and ``decode`` segments (attributed to ``trace_name``, the
+replica's name in a fleet) and the engine lane its waves, ticks and
+admission instants.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-handoff export/import and the live-metrics exporter.  There is no tracer
-and no autotuner hook.
+handoff export/import and swap-record corruption
+(``corrupt_swap_record``).  There is no autotuner hook.
 """
 
 from __future__ import annotations
@@ -97,6 +106,7 @@ from ..models.gpt import (
     paged_step_inputs,
     run_paged_step,
 )
+from ..telemetry import LiveMetricsMixin, MetricsRegistry, get_tracer
 from ..utils import resolve_device, resolve_devices
 from .batcher import (
     AdmissionQueue,
@@ -185,6 +195,36 @@ class ServingStats:
     # per-request SLO samples
     ttft_s: List[float] = field(default_factory=list)
     tpot_s: List[float] = field(default_factory=list)
+
+    #: metric classification (``telemetry.MetricsRegistry`` contract):
+    #: counters are cumulative for the engine's lifetime, the rest gauges
+    FIELD_TYPES = {
+        "iterations": "counter", "prefill_waves": "counter",
+        "prefill_tokens": "counter", "decode_ticks": "counter",
+        "spec_ticks": "counter", "decode_tokens": "counter",
+        "generated_tokens": "counter", "admitted": "counter",
+        "finished": "counter", "preemptions": "counter",
+        "queue_stalls": "counter", "queue_rejections": "counter",
+        "prefill_s": "counter", "decode_s": "counter",
+        "prefix_hits": "counter", "prefix_tokens_reused": "counter",
+        "cow_copies": "counter", "swap_outs": "counter",
+        "swap_ins": "counter", "swap_corruptions": "counter",
+        "prefix_evictions": "counter",
+        "prefill_chunks": "counter", "chunk_stalls": "counter",
+        "quantized_pages": "counter", "dequant_blocks": "counter",
+        "draft_tokens": "counter",
+        "accepted_draft_tokens": "counter",
+        "spec_rollbacks": "counter",
+        "queue_depth": "gauge", "batch_occupancy": "gauge",
+        "pages_in_use": "gauge", "free_pages": "gauge",
+        "tokens_per_s": "gauge",
+        "ttft_p50_s": "gauge", "ttft_p95_s": "gauge",
+        "tpot_p50_s": "gauge", "tpot_p95_s": "gauge",
+    }
+
+    COUNTER_FIELDS = tuple(
+        k for k, v in FIELD_TYPES.items() if v == "counter"
+    )
 
     def tokens_per_s(self) -> float:
         """Generated tokens per second of engine step wall clock."""
@@ -402,7 +442,7 @@ def _not_ported(feature: str):
     )
 
 
-class ServingEngine:
+class ServingEngine(LiveMetricsMixin):
     """Continuous-batching GPT serving over slot slabs or a paged KV
     pool, on stages placed by an allocator.
 
@@ -642,6 +682,14 @@ class ServingEngine:
                 "depth of the draft model)"
             )
         self.stats = ServingStats()
+        # one registry source, read by the time series and the exporter
+        self.metrics = MetricsRegistry()
+        self.metrics.register("serving", lambda: self.stats.snapshot(),
+                              types=ServingStats.FIELD_TYPES)
+        # request-scoped trace segments carry this name (a fleet sets
+        # the replica's)
+        self.trace_name = "engine"
+        self.timeseries = None
         self._running: Dict[int, Request] = {}
         # chunked-prefill ledger: requests holding a page grant and a
         # decode row whose prefilled_len watermark has not reached the
@@ -1035,6 +1083,7 @@ class ServingEngine:
             new_draft = self._build_draft()
 
         evicted: List[Request] = []
+        tracer = get_tracer()
 
         def evict(r: Request, prefilling: bool) -> None:
             if prefilling:
@@ -1048,6 +1097,7 @@ class ServingEngine:
             r.preemptions += 1
             self.stats.preemptions += 1
             evicted.append(r)
+            self._trace_preempted(r, tracer, reconfigure=True)
 
         if must_evict:
             for r in list(self._running.values()):
@@ -1060,6 +1110,8 @@ class ServingEngine:
             for r in list(self._prefilling.values()):
                 evict(r, prefilling=True)
         queued = self._queue.drain()
+        for r in queued:
+            self._trace_close(r, tracer, "queued", rebucketed=True)
         if geometry_change:
             for key in self._pool_base:
                 self._pool_base[key] += getattr(self._pool, key)
@@ -1094,7 +1146,19 @@ class ServingEngine:
             self._queue.submit(
                 r, force=True,
                 require_bucket=r.request_id not in self._swapped)
+            self._trace_queued(r, tracer)
         self.stats.queue_depth = self._queue.depth
+        if tracer is not None:
+            tracer.instant(
+                "reconfigure", tracer.lane("serving", "engine"),
+                dict(new=dict(buckets=list(new_bucketer.buckets),
+                              max_concurrency=self.max_concurrency,
+                              prefill_batch=new_batch,
+                              num_pages=self.num_pages,
+                              page_size=self.page_size,
+                              prefill_chunk=new_chunk, spec_k=new_spec),
+                     evicted=len(evicted)),
+            )
 
     def _reconfigure_slots(self, new_buckets, num_slots,
                            prefill_batch) -> None:
@@ -1141,6 +1205,7 @@ class ServingEngine:
         new_pools = ([st.build_pool(new_slots) for st in self.stages]
                      if must_evict else None)
         evicted: List[Request] = []
+        tracer = get_tracer()
         if must_evict:
             for r in list(self._running.values()):
                 self._running.pop(r.request_id)
@@ -1149,7 +1214,10 @@ class ServingEngine:
                 r.preemptions += 1
                 self.stats.preemptions += 1
                 evicted.append(r)
+                self._trace_preempted(r, tracer, reconfigure=True)
         queued = self._queue.drain()
+        for r in queued:
+            self._trace_close(r, tracer, "queued", rebucketed=True)
         if new_pools is not None:
             self.num_slots = new_slots
             for st, pool in zip(self.stages, new_pools):
@@ -1162,7 +1230,15 @@ class ServingEngine:
         # they re-enter at the head
         for r in evicted + queued:
             self._queue.submit(r, force=True)
+            self._trace_queued(r, tracer)
         self.stats.queue_depth = self._queue.depth
+        if tracer is not None:
+            tracer.instant(
+                "reconfigure", tracer.lane("serving", "engine"),
+                dict(new=dict(buckets=list(new_buckets), slots=new_slots,
+                              prefill_batch=new_batch),
+                     evicted=len(evicted)),
+            )
 
     # --- features of the JAX engine this port does not have yet ------------
     def export_handoff(self, request_id: int):
@@ -1171,11 +1247,9 @@ class ServingEngine:
     def import_handoff(self, request: Request, record: dict):
         _not_ported("KV handoff import")
 
-    def enable_timeseries(self, *args, **kwargs):
-        _not_ported("the live-metrics time series")
-
-    def start_exporter(self, *args, **kwargs):
-        _not_ported("the live-metrics exporter")
+    def corrupt_swap_record(self, request_id: Optional[int] = None, *,
+                            force: bool = False) -> Optional[int]:
+        _not_ported("swap-record corruption (the chaos plane's fault)")
 
     # --- request lifecycle --------------------------------------------------
     @property
@@ -1213,6 +1287,90 @@ class ServingEngine:
             self._running.values()
         )
 
+    # --- request-scoped tracing ---------------------------------------------
+    # One stable id (request_id) threads the whole waterfall: every
+    # segment lands on the request's recycled lane with a {"request",
+    # "replica"} attribution, and the open-segment mark lives on the
+    # Request itself, so whoever ends the segment (this engine, another
+    # after a migration, or the fleet over a dead replica) can close it.
+    # Every helper is a no-op with tracing disabled (tracer is None).
+
+    def _trace_queued(self, request: Request, tracer) -> None:
+        """Open a ``queue_wait`` segment (mark + ``queued`` instant)."""
+        if tracer is None:
+            return
+        request.trace_marks["queued"] = tracer.now()
+        lane = tracer.request_lane(request.request_id)
+        if lane is not None:
+            tracer.instant(
+                "queued", lane,
+                {"request": request.request_id,
+                 "replica": self.trace_name},
+            )
+
+    def _trace_close(self, request: Request, tracer, segment: str,
+                     end_us: Optional[float] = None, **extra) -> None:
+        """Close the request's open ``segment`` (``"queued"`` closes as
+        ``queue_wait``), if any."""
+        if tracer is None:
+            return
+        mark = request.trace_marks.pop(segment, None)
+        if mark is None:
+            return
+        lane = tracer.request_lane(request.request_id, lease=False)
+        if lane is None:
+            return
+        args = {"request": request.request_id, "replica": self.trace_name}
+        if segment == "decode":
+            args["tokens"] = len(request.tokens)
+        args.update(extra)
+        end = tracer.now() if end_us is None else end_us
+        name = "queue_wait" if segment == "queued" else segment
+        tracer.complete(name, lane, mark, args, dur_us=end - mark)
+
+    def _trace_preempted(self, request: Request, tracer, **args) -> None:
+        """Engine-lane ``preempt`` instant; the request's decode (or
+        chunked prefill) segment ends here."""
+        if tracer is None:
+            return
+        tracer.instant("preempt", tracer.lane("serving", "engine"),
+                       dict({"request": request.request_id}, **args))
+        extra = {k: v for k, v in args.items() if k != "mode"} \
+            or {"preempted": True}
+        self._trace_close(request, tracer, "decode", **extra)
+        self._trace_close(request, tracer, "prefill", **extra)
+
+    def _trace_wave(self, tracer, span0: float, name: str,
+                    members: Sequence[Request], args: Dict[str, Any],
+                    admitted: bool) -> Optional[float]:
+        """Engine-lane ``name`` span over a wave or tick; a prefill
+        wave that ``admitted`` its members also closes their queue
+        segments at ``span0``, lays each a ``prefill`` segment and opens
+        its decode segment at the wave's end.  Returns the end mark."""
+        if tracer is None:
+            return None
+        end_us = tracer.now()
+        tracer.complete(name, tracer.lane("serving", "engine"), span0,
+                        dict(args, requests=[r.request_id
+                                             for r in members]),
+                        dur_us=end_us - span0)
+        if not admitted:
+            return end_us
+        for r in members:
+            tracer.instant("admit", tracer.lane("serving", "engine"),
+                           {"request": r.request_id, "slot": r.slot})
+            self._trace_close(r, tracer, "queued", end_us=span0)
+            lane = tracer.request_lane(r.request_id, lease=False)
+            if lane is not None:
+                tracer.complete(
+                    "prefill", lane, span0,
+                    {"request": r.request_id, "replica": self.trace_name,
+                     "bucket": args.get("bucket"), "slot": r.slot},
+                    dur_us=end_us - span0,
+                )
+            r.trace_marks["decode"] = end_us
+        return end_us
+
     def submit(self, request: Request, *, force: bool = False) -> Request:
         """Queue a request (admitted on a later ``step``).
 
@@ -1229,6 +1387,7 @@ class ServingEngine:
                 f"prompt ({length}) + new tokens ({request.remaining}) "
                 f"exceed max_len={self.max_len}"
             )
+        tracer = get_tracer()
         try:
             self._queue.submit(request, force=force)
         except QueueFullError:
@@ -1239,16 +1398,41 @@ class ServingEngine:
                         break
                     shed.status = REJECTED
                     self.stats.queue_rejections += 1
+                    self._trace_shed(shed, request, tracer)
                 if self._queue.depth < (self.max_queue or 0):
                     self._queue.submit(request)
                     self.stats.admitted += 1
                     self.stats.queue_depth = self._queue.depth
+                    self._trace_queued(request, tracer)
                     return request
             self.stats.queue_rejections += 1
+            if tracer is not None:
+                tracer.instant(
+                    "queue_reject", tracer.lane("serving", "engine"),
+                    {"request": request.request_id,
+                     "depth": self._queue.depth},
+                )
             raise
         self.stats.admitted += 1
         self.stats.queue_depth = self._queue.depth
+        self._trace_queued(request, tracer)
         return request
+
+    def _trace_shed(self, shed: Request, admitted: Request,
+                    tracer) -> None:
+        """A shed victim: engine-lane ``queue_shed``, its queue segment
+        closed, a ``shed`` instant on its lane, the lane recycled."""
+        if tracer is None:
+            return
+        tracer.instant("queue_shed", tracer.lane("serving", "engine"),
+                       {"shed": shed.request_id,
+                        "admitted": admitted.request_id})
+        self._trace_close(shed, tracer, "queued", shed=True)
+        lane = tracer.request_lane(shed.request_id, lease=False)
+        if lane is not None:
+            tracer.instant("shed", lane, {"request": shed.request_id,
+                                          "replica": self.trace_name})
+        tracer.release_request_lane(shed.request_id)
 
     def preempt(self, request_id: int,
                 mode: Optional[str] = None) -> Request:
@@ -1342,11 +1526,14 @@ class ServingEngine:
         if swap_record is not None:
             self._swapped[request_id] = swap_record
             self.stats.swap_outs += 1
+        tracer = get_tracer()
+        self._trace_preempted(request, tracer, mode=mode)
         # force: a preempted request is already admitted.  A swapped
         # request needs no prefill bucket (its KV returns verbatim)
         self._queue.submit(request, force=True,
                            require_bucket=(mode != "swap"))
         self.stats.queue_depth = self._queue.depth
+        self._trace_queued(request, tracer)
         return request
 
     def drain(self) -> List[Request]:
@@ -1362,8 +1549,12 @@ class ServingEngine:
             except ValueError:
                 continue  # not resumable by recompute: stays running
         drained = self._queue.drain()
+        tracer = get_tracer()
         for r in drained:
             self._swapped.pop(r.request_id, None)
+            # the queue segment ends on this engine; a re-submission
+            # elsewhere opens a fresh one, so the migration gap shows
+            self._trace_close(r, tracer, "queued", drained=True)
         self.stats.queue_depth = 0
         return drained
 
@@ -1385,6 +1576,46 @@ class ServingEngine:
             self.stats.ttft_s.append(ttft)
         if tpot is not None:
             self.stats.tpot_s.append(tpot)
+        tracer = get_tracer()
+        if tracer is not None:
+            # terminal: close the decode segment, stamp the finish and
+            # recycle the request's lane
+            self._trace_close(request, tracer, "decode")
+            lane = tracer.request_lane(request.request_id, lease=False)
+            if lane is not None:
+                tracer.instant(
+                    "finish", lane,
+                    {"request": request.request_id,
+                     "replica": self.trace_name,
+                     "tokens": len(request.tokens)},
+                )
+            tracer.release_request_lane(request.request_id)
+
+    @property
+    def finished_requests(self) -> List[Request]:
+        return list(self._finished)
+
+    def _health_snapshot(self) -> Dict[str, Any]:
+        """The ``/healthz`` body (``LiveMetricsMixin.start_exporter``)."""
+        snap = dict(
+            status="ok",
+            queue_depth=self._queue.depth,
+            running=len(self._running),
+            free_slots=self.free_slots,
+            iterations=self.stats.iterations,
+        )
+        if self._paged:
+            snap.update(
+                kv_layout="paged",
+                free_pages=self._pool.free_pages,
+                pages_in_use=self._pool.pages_in_use,
+                swapped=len(self._swapped),
+                prefilling=len(self._prefilling),
+                # which decode path a replica runs
+                kv_dtype=self._pool.kv_dtype,
+                attn_impl=self.attn_impl,
+            )
+        return snap
 
     # --- the continuous-batching loop ---------------------------------------
     def has_work(self) -> bool:
@@ -1398,6 +1629,12 @@ class ServingEngine:
         every decode row."""
         if self._queue.depth > 0 and self.free_slots == 0:
             self.stats.queue_stalls += 1
+            tracer = get_tracer()
+            if tracer is not None:
+                tracer.instant(
+                    "queue_stall", tracer.lane("serving", "engine"),
+                    {"queued": self._queue.depth},
+                )
         if self._paged:
             self._admit_paged()
             if self._chunk_policy is not None:
@@ -1416,6 +1653,8 @@ class ServingEngine:
             self._sync_paged_stats()
         else:
             self.stats.batch_occupancy = self.stages[0].pool.occupancy
+        if self.timeseries is not None:
+            self.timeseries.sample()
 
     def _sync_paged_stats(self) -> None:
         """Mirror the page pool's counters and gauges into
@@ -1482,6 +1721,8 @@ class ServingEngine:
         # their scatter drops
         dst = torch.as_tensor(slots, dtype=torch.long)
         src = torch.arange(len(wave))
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         data = torch.from_numpy(ids)
         for st in self.stages:
@@ -1492,7 +1733,11 @@ class ServingEngine:
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
         self.stats.prefill_waves += 1
-        self.stats.prefill_tokens += int(lengths[: len(wave)].sum())
+        wave_tokens = int(lengths[: len(wave)].sum())
+        self.stats.prefill_tokens += wave_tokens
+        self._trace_wave(tracer, span0, "prefill", wave,
+                         {"bucket": bucket, "wave": len(wave),
+                          "tokens": wave_tokens}, admitted=True)
 
         sampled = self._sampled_rows(
             logits, [(i, r) for i, r in enumerate(wave)]
@@ -1520,6 +1765,8 @@ class ServingEngine:
         for r in active:
             tokens[r.slot] = r.tokens[-1]
             index[r.slot] = r.index
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         data = torch.from_numpy(tokens[:, None])
         idx = torch.from_numpy(index)
@@ -1528,6 +1775,8 @@ class ServingEngine:
         logits = data[:, 0]  # [slots, V]
         nxt_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
+        self._trace_wave(tracer, span0, "decode", active,
+                         {"active": len(active)}, admitted=False)
         self.stats.decode_s += now - t0
         self.stats.decode_ticks += 1
         self.stats.decode_tokens += len(active)
@@ -1595,6 +1844,19 @@ class ServingEngine:
         request.status = RUNNING
         self._prefilling[request.request_id] = request
         self.stats.queue_depth = self._queue.depth
+        tracer = get_tracer()
+        if tracer is not None:
+            # the queue segment closes and the request's prefill segment
+            # opens here; it spans enrollment -> final chunk
+            now_us = tracer.now()
+            tracer.instant(
+                "admit", tracer.lane("serving", "engine"),
+                {"request": request.request_id, "slot": request.slot,
+                 "pages": len(grant.page_table),
+                 "shared": grant.shared_tokens, "chunked": True},
+            )
+            self._trace_close(request, tracer, "queued", end_us=now_us)
+            request.trace_marks["prefill"] = now_us
         return True
 
     def _chunk_tick(self) -> None:
@@ -1620,6 +1882,12 @@ class ServingEngine:
             budget -= len(wave)
         if any(rid not in advanced for rid in self._prefilling):
             self.stats.chunk_stalls += 1
+            tracer = get_tracer()
+            if tracer is not None:
+                tracer.instant(
+                    "chunk_stall", tracer.lane("serving", "engine"),
+                    {"pending": len(self._prefilling)},
+                )
 
     def _next_chunk_len(self, request: Request) -> int:
         return min(
@@ -1676,6 +1944,8 @@ class ServingEngine:
             valid[i] = r.prefilled_len + int(chunks[i].size)
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(wave))
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
@@ -1686,8 +1956,13 @@ class ServingEngine:
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
         self.stats.prefill_waves += 1
-        self.stats.prefill_tokens += int(sum(int(c.size) for c in chunks))
+        chunk_tokens = int(sum(int(c.size) for c in chunks))
+        self.stats.prefill_tokens += chunk_tokens
         self.stats.prefill_chunks += len(wave)
+        end_us = self._trace_wave(
+            tracer, span0, "prefill", wave,
+            {"bucket": bucket, "wave": len(wave), "tokens": chunk_tokens,
+             "chunked": True}, admitted=False)
 
         finals = [
             (i, r) for i, r in enumerate(wave)
@@ -1702,6 +1977,10 @@ class ServingEngine:
             # final chunk: the last true position's logits seed the
             # first generated token, exactly like a one-shot wave
             self._prefilling.pop(r.request_id)
+            if tracer is not None:
+                self._trace_close(r, tracer, "prefill", end_us=end_us,
+                                          chunked=True)
+                r.trace_marks["decode"] = end_us
             self._pool.register_prefix(
                 r.request_id, [int(t) for t in r.prompt]
             )
@@ -1805,6 +2084,8 @@ class ServingEngine:
 
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(wave))
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
@@ -1815,7 +2096,11 @@ class ServingEngine:
         now = time.perf_counter()
         self.stats.prefill_s += now - t0
         self.stats.prefill_waves += 1
-        self.stats.prefill_tokens += int(sum(int(t.size) for t in tails))
+        wave_tokens = int(sum(int(t.size) for t in tails))
+        self.stats.prefill_tokens += wave_tokens
+        self._trace_wave(tracer, span0, "prefill", [r for r, _ in wave],
+                         {"bucket": bucket, "wave": len(wave),
+                          "tokens": wave_tokens}, admitted=True)
 
         sampled = self._sampled_rows(
             logits, [(i, r) for i, (r, _) in enumerate(wave)]
@@ -1948,6 +2233,14 @@ class ServingEngine:
         self._running[request.request_id] = request
         self.stats.swap_ins += 1
         self.stats.queue_depth = self._queue.depth
+        tracer = get_tracer()
+        if tracer is not None:
+            now_us = tracer.now()
+            tracer.instant("swap_in", tracer.lane("serving", "engine"),
+                           {"request": request.request_id,
+                            "pages": record["pages"]})
+            self._trace_close(request, tracer, "queued", swapped_in=True)
+            request.trace_marks["decode"] = now_us
         return True
 
     def _decode_rows(self, active):
@@ -1978,6 +2271,8 @@ class ServingEngine:
 
         width = self._table_width(valid)
         self._count_quant(index, valid, width, len(active))
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(tokens[:, None]).to(self.device),
@@ -1986,6 +2281,9 @@ class ServingEngine:
         logits = data[:, 0]  # [rows, V]
         nxt_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
+        self._trace_wave(tracer, span0, "decode", active,
+                         {"active": len(active), "width": width},
+                         admitted=False)
         self.stats.decode_s += now - t0
         self.stats.decode_ticks += 1
         self.stats.decode_tokens += len(active)
@@ -2037,6 +2335,8 @@ class ServingEngine:
             kept = np.clip(reserve[slots] - index0[slots], 0, k)
             self.stats.quantized_pages += int(kept.sum())
             self.stats.dequant_blocks += k * len(active) * width
+        tracer = get_tracer()
+        span0 = tracer.now() if tracer is not None else 0.0
         t0 = time.perf_counter()
         d = self._draft.num_attn
         drafted = self._draft.draft_k(
@@ -2050,6 +2350,9 @@ class ServingEngine:
         )  # [rows, k+1, V]
         target_np = logits3.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
+        self._trace_wave(tracer, span0, "decode", active,
+                         {"active": len(active), "spec_k": k},
+                         admitted=False)
         self.stats.decode_s += now - t0
         self.stats.spec_ticks += 1
 

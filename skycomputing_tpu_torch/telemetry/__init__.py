@@ -10,17 +10,40 @@ check).
   error isolation;
 - :mod:`.timeseries` — bounded ring-buffered sampling with derived
   rates and windowed percentiles;
-- :mod:`.live` — ``enable_timeseries`` for a host's registry;
+- :mod:`.live` — ``enable_timeseries`` / ``start_exporter`` for a
+  host's registry;
+- :mod:`.exporter` — opt-in ``http.server`` endpoint: ``/metrics``
+  (Prometheus text), ``/metrics.json``, ``/healthz``, ``/incidents``;
+- :mod:`.slo` — declared SLO targets evaluated as multi-window burn
+  rates, emitting ``slo_alert`` trace instants and a registry source;
+- :mod:`.flight` — the always-on flight recorder: one bounded ring of
+  structured events every subsystem's sanctioned tap feeds, with a
+  replay-deterministic log + digest;
+- :mod:`.incidents` — the incident plane: detector rules over the
+  recorder + time-series, postmortem bundles stamped with digests;
 - :mod:`.analysis` — bubble fraction, per-stage utilisation, dispatch
   share and measured stage seconds from a trace.
-
-The exporter, SLO, flight-recorder and incident planes of the JAX
-package are queue A item 4.
 """
 
 from . import analysis
+from .exporter import MetricsExporter, prometheus_text
+from .flight import FLIGHT_KINDS, FLIGHT_LANES, FlightEvent, FlightRecorder
+from .incidents import (
+    Incident,
+    IncidentEngine,
+    SEV_CRITICAL,
+    SEV_INFO,
+    SEV_WARNING,
+    build_bundle,
+    bundle_digest,
+    cause_chain,
+    chain_stages,
+    default_rules,
+    deterministic_bundle_view,
+)
 from .live import LiveMetricsMixin
 from .metrics import MetricsRegistry
+from .slo import SloAlert, SloMonitor, SloTarget
 from .timeseries import MetricsTimeseries, nearest_rank
 from .tracer import (
     Tracer,
@@ -32,13 +55,33 @@ from .tracer import (
 
 __all__ = [
     "analysis",
+    "FLIGHT_KINDS",
+    "FLIGHT_LANES",
+    "FlightEvent",
+    "FlightRecorder",
+    "Incident",
+    "IncidentEngine",
     "LiveMetricsMixin",
+    "MetricsExporter",
     "MetricsRegistry",
     "MetricsTimeseries",
+    "SEV_CRITICAL",
+    "SEV_INFO",
+    "SEV_WARNING",
+    "SloAlert",
+    "SloMonitor",
+    "SloTarget",
     "Tracer",
+    "build_bundle",
+    "bundle_digest",
+    "cause_chain",
+    "chain_stages",
+    "default_rules",
+    "deterministic_bundle_view",
     "disable_tracing",
     "enable_tracing",
     "get_tracer",
     "nearest_rank",
+    "prometheus_text",
     "trace_span",
 ]

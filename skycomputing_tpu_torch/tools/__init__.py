@@ -16,10 +16,13 @@ drive the JAX package), each a command::
 - ``bench_mfu``: the monolithic BERT train step's time and MFU;
 - ``profile_allocation``: the model and device profiles and the
   partition each allocation strategy would choose;
-- ``run_ladder``: the experiment config ladder through the launcher.
+- ``run_ladder``: the experiment config ladder through the launcher;
+- ``bench_fleet``: the serving fleet's kill-and-spike scenario (and
+  ``--smoke``, the router's and admission's decisions);
+- ``skyreport``: an incident postmortem bundle rendered and verified.
 
-Every tool runs on the card unless ``--device`` names another device,
-and raises on a box without one.  None writes outside ``build/``,
+Every tool that runs a model runs on the card unless ``--device`` names
+another device, and raises on a box without one.  None writes outside ``build/``,
 ``chiprun_out/`` or a path its caller gives.
 """
 

@@ -19,11 +19,15 @@ tolerance.  ``--json`` prints the whole analysis as one JSON line (with
 analyzes the repository's fixture ``tools/fixtures/trace_smoke.json``
 (read as data) and fails on structural drift.
 
-The reference tool's request waterfall (``--request``), serving
-breakdown and incident overlay (``--incidents``) read the serving
-engine's tracer lanes and the incident plane; they wait with those for
-queue A item 4.  The tool reads and writes no device, so it takes no
-``--device``.
+``--incidents BUNDLE`` overlays a postmortem bundle (the incident
+plane's artifact, ``python -m skycomputing_tpu_torch.tools.skyreport``
+renders it): the incident's identity plus every ``incident_opened`` /
+``incident_closed`` instant of the analyzed trace, printed after the
+report (with ``--json``: under an ``incidents`` key).
+
+The reference tool's request waterfall (``--request``) and serving
+breakdown are not ported yet.  The tool reads and writes no device, so
+it takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,51 @@ def _smoke_problems(report: Dict[str, Any]) -> List[str]:
     return problems
 
 
+def _incident_overlay(events: List[Dict[str, Any]],
+                      bundle_path: str) -> Dict[str, Any]:
+    """The ``--incidents`` overlay: the bundle's incident identity plus
+    every incident-lifecycle instant present in the analyzed trace."""
+    with open(bundle_path) as fh:
+        bundle = json.load(fh)
+    if not isinstance(bundle, dict):
+        raise json.JSONDecodeError("bundle is not an object",
+                                   bundle_path, 0)
+    marks = [
+        {"name": ev.get("name"),
+         "ts_ms": float(ev.get("ts", 0.0)) / 1000.0,
+         "args": ev.get("args") or {}}
+        for ev in events
+        if ev.get("ph") == "i"
+        and ev.get("name") in ("incident_opened", "incident_closed")
+    ]
+    marks.sort(key=lambda m: m["ts_ms"])
+    return {
+        "bundle": bundle_path,
+        "schema": bundle.get("schema"),
+        "incident": bundle.get("incident") or {},
+        "digest": bundle.get("digest"),
+        "marks": marks,
+    }
+
+
+def _print_incidents(overlay: Dict[str, Any]) -> None:
+    inc = overlay["incident"]
+    closed = inc.get("closed_tick")
+    print(f"# incident {inc.get('incident_id', '?')} "
+          f"[{inc.get('severity', '?')}] rule={inc.get('rule', '?')} "
+          f"opened@tick {inc.get('opened_tick', '?')}"
+          + (f" closed@tick {closed}" if closed is not None
+             else " (still open)"))
+    if inc.get("reason"):
+        print(f"#   reason: {inc['reason']}")
+    if overlay.get("digest"):
+        print(f"#   bundle digest: {overlay['digest']}")
+    if not overlay["marks"]:
+        print("#   (no incident instants in this trace window)")
+    for m in overlay["marks"]:
+        print(f"#   {m['ts_ms']:10.3f} ms {m['name']:<16} {m['args']}")
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("trace", nargs="?",
@@ -98,17 +147,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--smoke", action="store_true",
                         help="analyze the repository's fixture trace and "
                              "check the report's structure")
+    parser.add_argument("--incidents", metavar="BUNDLE",
+                        help="postmortem bundle JSON (skyreport artifact) "
+                             "to overlay: incident identity + open/close "
+                             "instants on the timeline")
     args = parser.parse_args(argv)
 
     path = args.trace or (smoke_fixture() if args.smoke else None)
     if not path:
         parser.error("a trace file (or --smoke) is required")
     try:
-        report = analyze(load_events(path))
+        events = load_events(path)
+        report = analyze(events)
     except (OSError, json.JSONDecodeError, TraceError, KeyError) as exc:
         print(f"trace_report: cannot analyze {path}: {exc}",
               file=sys.stderr)
         return 1
+
+    overlay: Optional[Dict[str, Any]] = None
+    if args.incidents:
+        try:
+            overlay = _incident_overlay(events, args.incidents)
+        except (OSError, json.JSONDecodeError) as exc:
+            print(f"trace_report: cannot read incident bundle "
+                  f"{args.incidents}: {exc}", file=sys.stderr)
+            return 1
 
     failures: Optional[List[str]] = None
     if args.baseline:
@@ -130,9 +193,13 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "baseline": args.baseline, "targets": targets,
                 "tolerance": args.tolerance, "failures": failures,
                 "ok": not failures})
+        if overlay is not None:
+            report = dict(report, incidents=overlay)
         print(json.dumps(report), flush=True)
     else:
         _print_human(report)
+        if overlay is not None:
+            _print_incidents(overlay)
 
     if args.smoke:
         problems = _smoke_problems(report)

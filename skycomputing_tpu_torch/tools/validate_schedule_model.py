@@ -34,12 +34,14 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import json
 import os
 import sys
 import time
-from typing import List, Sequence
+import types
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,10 +99,42 @@ def _batch(cfg, B: int, L: int, device):
     return (ids, torch.zeros_like(ids), torch.ones_like(ids)), labels
 
 
+@contextlib.contextmanager
+def _pipeline_clock(clock: Callable[[], float]):
+    """The pipeline module's timings (its stage samples and a step's
+    phase seconds) read from ``clock`` while the block runs."""
+    from ..parallel import pipeline
+
+    real = pipeline.time
+    shim = types.SimpleNamespace(**{
+        name: getattr(real, name) for name in dir(real)
+        if not name.startswith("_")})
+    shim.perf_counter = clock
+    pipeline.time = shim
+    try:
+        yield
+    finally:
+        pipeline.time = real
+
+
 def validate_composition(devices: Sequence[torch.device], serial: bool,
-                         preset: str = "base") -> float:
+                         preset: str = "base",
+                         clock: Optional[Callable[[], float]] = None
+                         ) -> float:
     """Measured pipelined ``train_step`` against the tau-built model;
-    returns |measured - predicted| / measured."""
+    returns |measured - predicted| / measured.
+
+    ``clock`` (default ``time.perf_counter``) times both sides: the
+    taus, the steps and the accumulations.  On the CPU with one torch
+    thread, ``time.thread_time`` reads the compute thread's own CPU
+    time, which other processes on a shared host cannot stretch on one
+    side only."""
+    clock = clock or time.perf_counter
+    with _pipeline_clock(clock):
+        return _composition_delta(devices, serial, preset, clock)
+
+
+def _composition_delta(devices, serial, preset, clock) -> float:
     from ..dynamics import Allocator, ParameterServer, WorkerManager
     from ..models import bert_config, bert_layer_configs
     from ..ops.losses import cross_entropy_loss
@@ -155,11 +189,11 @@ def validate_composition(devices: Sequence[torch.device], serial: bool,
         grads = [torch.zeros_like(p) for p in stage.parameters]
         torch._foreach_add(grads, grads)
         _sync([stage.device])
-        t0 = time.perf_counter()
+        t0 = clock()
         for _ in range(3):
             torch._foreach_add(grads, grads)
         _sync([stage.device])
-        t_acc += (time.perf_counter() - t0) / 3 * (M - 1)
+        t_acc += (clock() - t0) / 3 * (M - 1)
 
     predicted_sched = (float(np.sum(taus)) if serial
                        else schedule_step_time(taus, M))

@@ -2,7 +2,7 @@
 resolution, and the ports of ``skycomputing_tpu/utils/logger.py``
 (:class:`Logger`), ``skycomputing_tpu/utils/timer.py``
 (:class:`DistributedTimer`, :class:`PhaseTimer`) and
-``skycomputing_tpu/utils/retry.py`` (:func:`retry_call`,
+``skycomputing_tpu/utils/retry.py`` (:mod:`.retry`: :func:`retry_call`,
 :func:`backoff_delays`, :class:`RetryError`) and
 ``skycomputing_tpu/utils/fileio.py`` (:func:`atomic_write`, with
 :func:`atomic_torch_save` beside it).  The submodules
@@ -12,11 +12,9 @@ resolution, and the ports of ``skycomputing_tpu/utils/logger.py``
 from __future__ import annotations
 
 import os
-import random
 import sys
 import time
-from typing import (Callable, List, Optional, TextIO, Tuple, Type, TypeVar,
-                    Union)
+from typing import List, Optional, TextIO, Union
 
 import torch
 
@@ -196,109 +194,7 @@ def atomic_torch_save(obj, path: str, tmp_suffix: str = ".tmp") -> None:
     _publish(path, tmp_suffix, "wb", lambda fh: torch.save(obj, fh))
 
 
-T = TypeVar("T")
-
-
-# --- bounded retry with exponential backoff and deterministic jitter ------
-# Checkpoint I/O on network storage sees transient OSErrors; one policy
-# here instead of ad-hoc loops at each call site.  Jitter comes from a
-# seeded ``random.Random`` (the process id when no seed is given, so N
-# processes hammering one shared resource do not back off in lockstep).
-
-
-class RetryError(RuntimeError):
-    """All attempts exhausted; ``__cause__`` carries the last failure."""
-
-
-def backoff_delays(
-    attempts: int,
-    base_delay_s: float = 0.05,
-    max_delay_s: float = 2.0,
-    jitter: float = 0.25,
-    seed: int = 0,
-):
-    """The deterministic sleep schedule ``retry_call`` uses, exposed for
-    tests and for callers that drive their own loop (e.g. polling with a
-    deadline): ``attempts - 1`` delays, exponentially growing, capped at
-    ``max_delay_s``, each stretched by up to ``jitter`` fraction."""
-    rng = random.Random(seed)
-    out = []
-    for attempt in range(max(attempts - 1, 0)):
-        delay = min(max_delay_s, base_delay_s * (2.0 ** attempt))
-        out.append(delay * (1.0 + jitter * rng.random()))
-    return out
-
-
-def retry_call(
-    fn: Callable[[], T],
-    *,
-    attempts: int = 4,
-    base_delay_s: float = 0.05,
-    max_delay_s: float = 2.0,
-    jitter: float = 0.25,
-    retry_on: Tuple[Type[BaseException], ...] = (OSError,),
-    seed: Optional[int] = None,
-    sleep: Callable[[float], None] = time.sleep,
-    deadline_s: Optional[float] = None,
-    clock: Callable[[], float] = time.monotonic,
-    logger=None,
-    describe: Optional[str] = None,
-) -> T:
-    """Call ``fn()`` with up to ``attempts`` tries.
-
-    Only exceptions in ``retry_on`` are retried; anything else propagates
-    immediately (a corrupt checkpoint must not be re-read four times).
-    The final failure re-raises the original exception unchanged so
-    callers' except clauses keep working.  ``seed=None`` (default) seeds
-    the jitter from the process id so concurrent processes decorrelate;
-    pass an explicit seed for a reproducible schedule.
-
-    ``deadline_s`` is a TOTAL budget for the call, measured on ``clock``
-    from entry: each backoff sleep is clamped to the remaining budget and
-    a failure past the deadline re-raises immediately even with attempts
-    left.  Without it, per-attempt backoff can exceed any caller
-    deadline (4 attempts at ``max_delay_s=2.0`` is up to ~7.5 s of
-    sleeping — longer than a fleet dispatch or a rendezvous formation
-    window is willing to wait).  The in-flight ``fn()`` itself is never
-    interrupted; the budget bounds only the retry loop's sleeps.
-    """
-    if attempts < 1:
-        raise ValueError(f"attempts must be >= 1, got {attempts}")
-    if deadline_s is not None and deadline_s < 0:
-        raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
-    delays = backoff_delays(
-        attempts, base_delay_s, max_delay_s, jitter,
-        seed if seed is not None else os.getpid(),
-    )
-    budget_end = None if deadline_s is None else clock() + deadline_s
-    last_exc: Optional[BaseException] = None
-    for attempt in range(attempts):
-        try:
-            return fn()
-        except retry_on as exc:
-            last_exc = exc
-            if attempt == attempts - 1:
-                raise
-            delay = delays[attempt]
-            if budget_end is not None:
-                remaining = budget_end - clock()
-                if remaining <= 0.0:
-                    if logger is not None:
-                        what = describe or getattr(fn, "__name__", "call")
-                        logger.info(
-                            f"retry deadline ({deadline_s:.3f}s) exhausted "
-                            f"after {attempt + 1} attempt(s) of {what}"
-                        )
-                    raise
-                delay = min(delay, remaining)
-            if logger is not None:
-                what = describe or getattr(fn, "__name__", "call")
-                logger.info(
-                    f"retry {attempt + 1}/{attempts} of {what} after "
-                    f"{exc!r}; backing off {delay:.3f}s"
-                )
-            sleep(delay)
-    raise RetryError("unreachable") from last_exc  # pragma: no cover
+from .retry import RetryError, backoff_delays, retry_call  # noqa: E402
 
 
 __all__ = ["DistributedTimer", "Logger", "PhaseTimer", "RetryError",

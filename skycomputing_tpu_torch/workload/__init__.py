@@ -1,6 +1,8 @@
 """The workload plane, the port's part of it so far: :mod:`.mixes`, the
 benches' named numpy request mixes (a copy of the JAX package's, draw
-for draw).  The scenario core, catalog and player are not ported yet."""
+for draw: the serving bench's ``interference`` and the fleet bench's
+``fleet_bursty`` / ``fleet_spike``).  The scenario core, catalog and
+player are not ported yet."""
 
 from .mixes import MIXES, build_mix
 

@@ -7,7 +7,8 @@ The benches' workloads under stable names, with the reference's exact
 the specs the JAX package's returns, byte for byte
 (``tests/test_torch_bench_serving.py`` holds them equal).  The port's
 serving bench consumes the ``interference`` mix by name; the fleet
-bench's mixes come with the fleet plane.
+bench's (``tools/bench_fleet``) by name too: ``fleet_bursty`` and
+``fleet_spike``.
 """
 
 from __future__ import annotations
@@ -63,4 +64,47 @@ def interference_specs(
     return [specs[i] for i in order]
 
 
-__all__ = ["MIXES", "build_mix", "interference_specs"]
+def fleet_request_spec(
+    rng: np.random.Generator, *, prompt_lo: int = 8,
+    prompt_hi: int = 60, vocab: int = 500, new_lo: int = 16,
+    new_hi: int = 28,
+) -> Tuple[np.ndarray, int]:
+    """One ``bench_fleet`` request spec: draw order plen, prompt
+    tokens, max_new — the reference's draws, byte for byte."""
+    plen = int(rng.integers(prompt_lo, prompt_hi))
+    prompt = rng.integers(1, vocab, (plen,)).astype(np.int32)
+    return prompt, int(rng.integers(new_lo, new_hi))
+
+
+@_register("fleet_bursty")
+def fleet_bursty_arrivals(
+    rng: np.random.Generator, *, n: int, burst: int, gap: int,
+    start: int = 0, **spec_kw,
+) -> List[Tuple[int, Tuple[np.ndarray, int]]]:
+    """``bench_fleet``'s steady phase: bursts of ``burst`` requests
+    every ``gap`` ticks (the ~90%-utilization knife's-edge shape its
+    docstring argues for), each request drawn by
+    :func:`fleet_request_spec` in arrival order."""
+    return [
+        (start + gap * (i // burst), fleet_request_spec(rng, **spec_kw))
+        for i in range(int(n))
+    ]
+
+
+@_register("fleet_spike")
+def fleet_spike_specs(
+    rng: np.random.Generator, *, n: int, **spec_kw,
+) -> List[Tuple[np.ndarray, int]]:
+    """``bench_fleet``'s admission-spike phase: ``n`` back-to-back
+    request specs (the bench paces them 2/tick itself)."""
+    return [fleet_request_spec(rng, **spec_kw) for _ in range(int(n))]
+
+
+__all__ = [
+    "MIXES",
+    "build_mix",
+    "fleet_bursty_arrivals",
+    "fleet_request_spec",
+    "fleet_spike_specs",
+    "interference_specs",
+]

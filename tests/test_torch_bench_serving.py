@@ -87,7 +87,8 @@ def test_interference_mix_equals_jax(smoke):
         for (a, n), (b, m) in zip(got, want):
             assert n == m
             np.testing.assert_array_equal(a, b)
-    assert sorted(MIXES) == ["interference"]
+    # the fleet bench's mixes sit beside it (test_torch_fleet_policy.py)
+    assert sorted(MIXES) == ["fleet_bursty", "fleet_spike", "interference"]
     with pytest.raises(ValueError, match="unknown workload mix"):
         build_mix("bursty", np.random.default_rng(0))
 

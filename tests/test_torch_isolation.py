@@ -78,7 +78,10 @@ def test_package_imports_with_jax_blocked():
 @pytest.mark.parametrize("first", ["parallel", "runner", "analysis",
                                    "parallel.spmd_gpt",
                                    "parallel.tensor_parallel",
-                                   "parallel.expert_parallel"])
+                                   "parallel.expert_parallel",
+                                   "fleet", "telemetry.incidents",
+                                   "tools.bench_fleet",
+                                   "tools.skyreport"])
 def test_each_subpackage_imports_first(first):
     """A user may import any subpackage before the others (the parallel
     engines' entry points are ``skycomputing_tpu_torch.parallel``): no
@@ -120,6 +123,54 @@ def test_bench_and_workload_are_covered():
     roots = set(_imported_roots(ROOT / "skycomputing_tpu_torch"
                                 / "bench_serving.py"))
     assert "tools" not in roots and "workload" not in roots
+
+
+FLEET_PLANE = [
+    "skycomputing_tpu_torch/fleet/__init__.py",
+    "skycomputing_tpu_torch/fleet/admission.py",
+    "skycomputing_tpu_torch/fleet/autoscaler.py",
+    "skycomputing_tpu_torch/fleet/fleet.py",
+    "skycomputing_tpu_torch/fleet/replica.py",
+    "skycomputing_tpu_torch/fleet/router.py",
+    "skycomputing_tpu_torch/fleet/supervisor.py",
+    "skycomputing_tpu_torch/telemetry/exporter.py",
+    "skycomputing_tpu_torch/telemetry/flight.py",
+    "skycomputing_tpu_torch/telemetry/incidents.py",
+    "skycomputing_tpu_torch/telemetry/slo.py",
+    "skycomputing_tpu_torch/tools/bench_fleet.py",
+    "skycomputing_tpu_torch/tools/skyreport.py",
+    "skycomputing_tpu_torch/utils/retry.py",
+]
+
+
+@pytest.mark.parametrize("name", FLEET_PLANE)
+def test_fleet_plane_is_covered(name):
+    """The fleet plane's modules are among the files the import check
+    reads, and none imports the JAX package's ``tools/``."""
+    assert name in {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert "tools" not in set(_imported_roots(ROOT / name))
+
+
+def test_fleet_without_device_refuses_cpu_fallback():
+    """``ServingFleet(devices=None)`` places replicas on the card: with
+    no card it raises before building any engine."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from skycomputing_tpu_torch.fleet import ServingFleet
+    from skycomputing_tpu_torch.models.gpt import (
+        GptConfig,
+        gpt_layer_configs,
+        random_state_dicts,
+    )
+
+    cfg = GptConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
+                    num_attention_heads=2, max_position_embeddings=32,
+                    dtype="float32")
+    layer_cfgs = gpt_layer_configs(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingFleet(layer_cfgs, random_state_dicts(layer_cfgs, 0),
+                     replicas=2, engine_kwargs=dict(max_len=32,
+                                                    buckets=(8,)))
 
 
 def test_bench_serving_without_device_refuses_cpu_fallback():

@@ -365,8 +365,8 @@ def test_what_slice_3_leaves_unported_raises():
     """What slice 3 left is ported now (1F1B, ``measure_stage_times``,
     the profile-driven allocations: ``tests/test_torch_schedule.py`` and
     ``tests/test_torch_dynamics.py``; the serving allocation:
-    ``tests/test_torch_serving_alloc.py``); what is still unported
-    raises, naming its later slice."""
+    ``tests/test_torch_serving_alloc.py``), and so is the runner's
+    live-metrics exporter (``tests/test_torch_exporter.py``)."""
     model_cfg = _model_cfg()
     model, ps, wm = _port(model_cfg)
     PipelineModel(wm, ps, sgd(LR), tlosses.cross_entropy_loss,
@@ -377,9 +377,13 @@ def test_what_slice_3_leaves_unported_raises():
     assert len(model.measure_stage_times(_batch()[0], repeats=1,
                                          inner_iters=1)) == 3
     # pre-flight is ported (tests/test_torch_plan_check.py) and on by
-    # default; the live-metrics exporter waits for queue A item 4
+    # default; the live-metrics exporter serves the runner's registry
     runner = Runner(model, ps, wm, max_epochs=1, max_iters=1)
     runner.train([_batch()])
     assert [r.ok for r in runner.preflight_reports] == [True]
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        runner.start_exporter()
+    exporter = runner.start_exporter()
+    try:
+        assert exporter.port > 0 and runner.start_exporter() is exporter
+    finally:
+        runner.stop_exporter()
+    assert runner._exporter is None

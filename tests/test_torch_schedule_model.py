@@ -8,6 +8,7 @@ device serial."""
 
 import importlib.util
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -45,11 +46,13 @@ def test_composition_claim_small_scale():
     assert serial, ratio  # one device: the positions run one at a time
     # 25%, as tests/test_schedule_model.py: at the tiny preset the host's
     # noise is a real fraction of a stage time.  Each measurement takes
-    # its taus and steps in turns; a host shared with other test workers
-    # can still stretch one, so the claim is held on the median of three
-    # measurements: one stretched measurement does not decide it, two
-    # misses fail it
-    deltas = [v.validate_composition(POSITIONS, serial, preset="tiny")
+    # its taus and steps in turns, and times both on the compute
+    # thread's own CPU time (one torch thread, set above): other test
+    # workers on a shared host cannot stretch one side of the comparison
+    # by taking the CPU.  The claim is held on the median of three
+    # measurements: one disturbed measurement does not decide it
+    deltas = [v.validate_composition(POSITIONS, serial, preset="tiny",
+                                     clock=time.thread_time)
               for _ in range(3)]
     assert float(np.median(deltas)) < 0.25, (
         f"isolated per-stage taus do not compose into the measured "

@@ -185,7 +185,12 @@ def test_unported_methods_raise(gpt):
                            **BASE)
     for call in (lambda: engine.export_handoff(0),
                  lambda: engine.import_handoff(None, {}),
-                 engine.enable_timeseries, engine.start_exporter):
+                 engine.corrupt_swap_record):
         with pytest.raises(NotImplementedError):
             call()
     assert engine.device == torch.device("cpu")
+    # the live-metrics time series and exporter are ported
+    # (tests/test_torch_exporter.py serves them over HTTP)
+    series = engine.enable_timeseries(window=4)
+    assert engine.enable_timeseries() is series
+    assert "serving.iterations" in series.sample()
