@@ -16,7 +16,11 @@ one.  Phases, each fatal on failure:
    speculative-verify waves, prefill waves at R=4 and Lq 32, 128 and 256,
    a chunked-prefill wave at Lq=64 with every row past index 0) over
    fp pages (kernel B2) and over int8 pages with per-page-per-head
-   scales (kernel B3); flash attention (kernel B1) at BERT-large's
+   scales (kernel B3), and B2 in float32 at phase 33 (a)'s geometry
+   (pages of 8 in tables of 16 pages: the decode specialist's decode
+   wave of 16 rows over its 128-page pool, a 32-page replica's decode
+   wave of 8 rows and its prefill wave of one row at Lq=96); flash
+   attention (kernel B1) at BERT-large's
    microbatch (B=8, L=128, H=16, D=64, a padded tail of 32 keys), at
    L=512, at L=100 and at phases 27-28's dp shard (B=4, L=128), float32
    on the 3xTF32 tensor-core body, whose rows add its bound at the TF32
@@ -378,7 +382,38 @@ one.  Phases, each fatal on failure:
     one replica at GPT-2 small's width, 2 blocks, under a TTFT target
     that burns: a verified ADD, then a drain-then-REMOVE, the accepted
     streams (the added replica's among them) token-identical to the
-    reference.
+    reference;
+33. disaggregated serving, the chaos plane and the workload player,
+    every replica on the card, float32: (a) ``python -m
+    skycomputing_tpu_torch.tools.bench_disagg``'s two topologies at
+    GPT-2 small's width and depth and the bench's own operating point
+    (buckets 32/64/96, ``max_len`` 128, ``prefill_batch`` 1, paged KV
+    at page 8; 4 monolithic replicas against 3 prefill and 1 decode
+    specialist of 4 slots and 128 pages) over ``disagg_mix`` at rate
+    2.5, one replay each after its warm-up: every admitted request
+    finished, every stream token-identical to the one-shot ``generate``
+    on the card and the disagg streams equal to the monolith's (a
+    mismatch printed with its position and both logits), each finished
+    disagg request handed off once, the ledger conserved, one trace
+    digest, ``handoff_bytes`` equal to the exported records' host
+    bytes, B2's register-tile body launched on the prefill replicas and
+    its decode body on the decode replica, each at a geometry phase 3
+    held against the plain version, its plain version never called on
+    the card (held); TTFT and TPOT p95 of both topologies
+    beside JAX's "both improve" verdict, tokens/s, handoffs and their
+    bytes, the export and import seconds a record (printed); (b)
+    ``bench_chaos``'s ``prefill_kill_mid_handoff`` (a corrupted
+    handoff, the prefill specialist killed with records in flight) on
+    a disaggregated fleet at GPT-2 small's width, 2 blocks: faults
+    applied, a poisoned record refused at import and recomputed, the
+    audit passing every check against the fault-free run within the
+    plan's recovery budget, both same-seed runs' logs and audit digests
+    equal; (c) its ``swap_corruption`` on a monolithic fleet at the
+    same size: corrupt swap records caught and recomputed, the same
+    audit and determinism; (d) ``bench_scenarios``' ``diurnal_ramp``,
+    autoscaled against fixed, at the same size: a scale-up, the run
+    ending at ``min_replicas``, token identity, one trace digest
+    (held), SLO burn per request served on both sides (printed).
 
 The line before last is ``{"kernels": [...]}``, one entry per kernel
 and body (B2's and B3's launches from their serving phases, phase 20
@@ -391,7 +426,8 @@ phase 29's bf16 BERT runs, beside its time at (a)'s 4 rows of 128,
 and in phase 30's supervised trainer, beside its time at 8 rows of 128;
 phase 31's B1 tensor-core and B2 decode launches; phase 32's B2 decode
 and register-tile launches, beside its float32 decode and prefill
-times);
+times; phase 33's, by role, beside its float32 times at the geometry of
+each of that phase's calls);
 the last line is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.  Usage::
 
@@ -637,28 +673,64 @@ def flash_body(torch, ptxas, q):
 PAGED_CASES = (("decode", 16, 1), ("prefill", 4, 128), ("verify", 16, 5),
                ("prefill_256", 4, 256), ("chunk", 4, 64),
                ("prefill_32", 4, 32))
+#: (page size, pool pages, table width) of the cases above
+PAGES_16 = (16, 512, 32)
 
 
-def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False):
-    """GPT-2 small heads (H=12, D=64), page_size 16, a 512-page pool.
-    Decode and verify waves: 12 live rows at positions 1..300 (every
-    fourth row inactive); prefill: 2 live rows (one appending after a
-    64-token prefix) and 2 pad rows; chunk: 4 live rows, each appending
-    a chunk after 64, 128, 192 or 256 positions.  ``int8``: pages are
-    N(0, 32) rounded and clipped to int8, scales U(0.02, 0.04) per
-    (page, head), so the dequantized pages are of unit size like the fp
-    ones."""
-    H, D, PS, P, W = 12, 64, 16, 512, 32
+def disagg_cases():
+    """B2's calls in phase 33 (a), at ``bench_disagg``'s operating point:
+    (case, R, Lq, (page size, pool pages, table width), the roles whose
+    replicas launch it).  Every engine's tables are 16 pages of 8 wide
+    (the largest bucket's 12 pages, rounded up to a power of two); a
+    decode wave spans the engine's ``max_concurrency`` rows (by default
+    the lesser of its pool pages and 4 per slot); a prefill wave is
+    ``prefill_batch`` rows at a bucket, the largest here.
+    :func:`disagg_against_monolith` holds each geometry against the
+    calls the phase makes."""
+    from skycomputing_tpu_torch.tools import bench_disagg
+
+    engine, decode = bench_disagg.ENGINE, bench_disagg.DECODE
+    ps = engine["page_size"]
+    width = engine["max_len"] // ps
+    pool = engine["num_slots"] * width  # a replica's default pool
+    return (
+        ("disagg_decode", min(decode["num_pages"], 4 * decode["num_slots"]),
+         1, (ps, decode["num_pages"], width), ("decode",)),
+        ("disagg_replica_decode", min(pool, 4 * engine["num_slots"]), 1,
+         (ps, pool, width), ("monolithic", "prefill")),
+        ("disagg_prefill", engine["prefill_batch"], max(engine["buckets"]),
+         (ps, pool, width), ("monolithic", "prefill")))
+
+
+def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False,
+                   geometry=PAGES_16):
+    """GPT-2 small heads (H=12, D=64); ``geometry`` is (page size, pool
+    pages, table width), by default pages of 16, a 512-page pool and
+    32-page tables.  Decode and verify waves (and any case named
+    ``*_decode``): every fourth row inactive, the others live at
+    positions 1..299, fewer where the pool could not hold every live
+    row's pages at that length; prefill: 2 live rows (one appending
+    after a 64-token prefix) and 2 pad rows, or one row at index 0
+    where R is 1; chunk: 4 live rows, each appending a chunk after 64,
+    128, 192 or 256 positions.  ``int8``: pages are N(0, 32) rounded
+    and clipped to int8, scales U(0.02, 0.04) per (page, head), so the
+    dequantized pages are of unit size like the fp ones."""
+    H, D = 12, 64
+    PS, P, W = geometry
     rng = np.random.default_rng(seed)
     pages = rng.permutation(P - 1)  # page P-1 is only ever a clamp target
     table = np.full((R, W), P, np.int32)
     index = np.zeros(R, np.int32)
+    decode = name in ("decode", "verify") or name.endswith("_decode")
+    # live rows' positions such that all their pages fit in the pool
+    live = R - R // 4
+    top = min(300, W * PS, (P - 1) // live * PS - Lq + 1)
     used = 0
     for r in range(R):
-        if name in ("decode", "verify"):
+        if decode:
             if r % 4 == 3:
                 continue  # inactive row: index 0, all sentinels
-            index[r] = rng.integers(1, 300)
+            index[r] = rng.integers(1, top)
         elif name == "chunk":
             index[r] = 64 * (r + 1)
         elif r >= 2:
@@ -666,6 +738,7 @@ def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False):
         else:
             index[r] = 64 * r  # row 1 appends after a 64-token prefix
         n = (int(index[r]) + Lq - 1) // PS + 1
+        assert used + n <= P - 1, (name, used, n, P)
         table[r, :n] = pages[used:used + n]
         used += n
     dt = getattr(torch, dtype)
@@ -785,13 +858,59 @@ def query_tile_ab(torch, ptxas, case, args, kw, first_ms):
     return (first_ms + again) / 2, [first_ms, again], row
 
 
-def kernel_checks(torch, np, ptxas):
+PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def paged_row(torch, np, ptxas, kernel, name, R, Lq, dtype, seed,
+              int8=False, geometry=PAGES_16, query_tile=True):
+    """One case of B2 (or, ``int8``, B3) against its plain version: its
+    error (held within :data:`PAGED_TOL`), body, times and bound.  A
+    register-tile row is timed beside the query-tile body where
+    ``query_tile`` (and must beat it)."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
     )
 
-    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    tol = PAGED_TOL[dtype]
+    case = attention_case(torch, np, name, R, Lq, dtype, seed=seed,
+                          int8=int8, geometry=geometry)
+    args, kw = kernel_args(case)
+    out = paged_attention(*args, **kw)
+    ref = paged_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all())
+    fields = paged_body(ptxas, case["q"], case["k"].dtype, case["table"],
+                        page_size=case["PS"])
+    ms = time_ms(torch, lambda: paged_attention(*args, **kw))
+    ab = {}
+    if query_tile and fields["body"] == "register_tile":
+        ms, ab["ms_each"], ab["query_tile"] = query_tile_ab(
+            torch, ptxas, case, args, kw, ms)
+    issue_ms = host_ms(torch, lambda: paged_attention(*args, **kw))
+    plain_ms = time_ms(torch, lambda: paged_attention_reference(*args, **kw))
+    library_ms = time_ms(torch, library_call(torch, case))
+    bound_ms, bound_by = attention_bound(np, case, dtype)
+    row = dict(kernel=kernel, case=name, R=R, Lq=Lq, dtype=dtype,
+               page_size=case["PS"], pool_pages=case["P"],
+               table_width=case["table"].shape[1], max_abs_err=err,
+               tol=tol, ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               **fields, **ab)
+    log(f"   {json.dumps(row)}")
+    check(finite and err <= tol,
+          f"{kernel} {name} {dtype}: max |err| {err:.3g} <= {tol}")
+    if ab:
+        old = ab["query_tile"]
+        check(old["max_abs_err"] <= tol and ms < old["ms"],
+              f"{kernel} {name} {dtype}: register-tile body {ms:.4f} ms < "
+              f"query-tile body {old['ms']:.4f} ms (its max |err| "
+              f"{old['max_abs_err']:.3g})")
+    return row
+
+
+def kernel_checks(torch, np, ptxas):
     results = []
     for ki, (kernel, int8) in enumerate((("paged_attention", False),
                                          ("paged_attention_int8", True))):
@@ -799,43 +918,14 @@ def kernel_checks(torch, np, ptxas):
             for di, dtype in enumerate(("bfloat16", "float32")):
                 # the first three cases keep their earlier seeds
                 seed = 6 * ki + 2 * ci + di + (0 if ci < 3 else 100)
-                case = attention_case(torch, np, name, R, Lq, dtype,
-                                      seed=seed, int8=int8)
-                args, kw = kernel_args(case)
-                out = paged_attention(*args, **kw)
-                ref = paged_attention_reference(*args, **kw)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                finite = bool(torch.isfinite(out).all())
-                fields = paged_body(ptxas, case["q"], case["k"].dtype,
-                                    case["table"])
-                ms = time_ms(torch, lambda: paged_attention(*args, **kw))
-                ab = {}
-                if fields["body"] == "register_tile":
-                    ms, ab["ms_each"], ab["query_tile"] = query_tile_ab(
-                        torch, ptxas, case, args, kw, ms)
-                issue_ms = host_ms(torch, lambda: paged_attention(*args,
-                                                                  **kw))
-                plain_ms = time_ms(
-                    torch, lambda: paged_attention_reference(*args, **kw))
-                library_ms = time_ms(torch, library_call(torch, case))
-                bound_ms, bound_by = attention_bound(np, case, dtype)
-                row = dict(kernel=kernel, case=name, R=R, Lq=Lq,
-                           dtype=dtype, max_abs_err=err, tol=tol[dtype],
-                           ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, **fields, **ab)
-                log(f"   {json.dumps(row)}")
-                check(finite and err <= tol[dtype],
-                      f"{kernel} {name} {dtype}: max |err| {err:.3g} "
-                      f"<= {tol[dtype]}")
-                if ab:
-                    old = ab["query_tile"]
-                    check(old["max_abs_err"] <= tol[dtype] and ms < old["ms"],
-                          f"{kernel} {name} {dtype}: register-tile body "
-                          f"{ms:.4f} ms < query-tile body {old['ms']:.4f} ms "
-                          f"(its max |err| {old['max_abs_err']:.3g})")
-                results.append(row)
+                results.append(paged_row(torch, np, ptxas, kernel, name, R,
+                                         Lq, dtype, seed, int8=int8))
+    # B2 in float32 at the geometry of phase 33 (a)'s calls (no query-tile
+    # comparison: that body serves no call there)
+    for ci, (name, R, Lq, geometry, _) in enumerate(disagg_cases()):
+        results.append(paged_row(torch, np, ptxas, "paged_attention", name,
+                                 R, Lq, "float32", 200 + ci,
+                                 geometry=geometry, query_tile=False))
     return results
 
 
@@ -5469,6 +5559,21 @@ def _scrape(url):
         return response.read().decode()
 
 
+def count_plain(gpt_mod):
+    """(a patch of B2's plain version, as the GPT blocks call it, that
+    counts its calls on the card; the count)."""
+    calls = {"card": 0}
+    plain = gpt_mod.paged_attention_reference
+
+    def counted(q, *args, **kw):
+        if q.device.type == "cuda":
+            calls["card"] += 1
+        return plain(q, *args, **kw)
+
+    return mock.patch.object(gpt_mod, "paged_attention_reference",
+                             counted), calls
+
+
 def fleet_kill_and_spike(torch, np, kernels, gpt_mod, dev, model):
     """Phase 32 (a) and (b): ``bench_fleet``'s kill-and-spike scenario
     over three paged replicas on ``dev``, traced, with the flight
@@ -5497,14 +5602,7 @@ def fleet_kill_and_spike(torch, np, kernels, gpt_mod, dev, model):
         scrape["tick"] = fleet.tick
 
     # the plain version of B2 is counted wherever the fleet reaches it
-    plain_calls = {"card": 0}
-    plain = gpt_mod.paged_attention_reference
-
-    def counted_plain(q, *args, **kw):
-        if q.device.type == "cuda":
-            plain_calls["card"] += 1
-        return plain(q, *args, **kw)
-
+    patch, plain_calls = count_plain(gpt_mod)
     layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
                                            deterministic=True)
     params = random_weights(gpt_mod, layer_cfgs,
@@ -5512,8 +5610,7 @@ def fleet_kill_and_spike(torch, np, kernels, gpt_mod, dev, model):
     zero_counts(kernels)
     tracer = telemetry.enable_tracing()
     try:
-        with mock.patch.object(gpt_mod, "paged_attention_reference",
-                               counted_plain):
+        with patch:
             t0 = time.perf_counter()
             report, fleet, accepted = bench_fleet.run_scenario(
                 device=dev, seed=SEED, model=model, params=params,
@@ -5699,6 +5796,255 @@ def fleet_path(torch, np, kernels, gpt_mod, dev, preset="gpt2"):
         torch, np, kernels, gpt_mod, dev,
         dict(model, num_hidden_layers=2))
     return report, bodies
+
+
+# --------------------------------------------------------------------------
+# phase 33: disaggregated serving, the chaos plane and the workload player
+# --------------------------------------------------------------------------
+
+def _bodies_by_role(fn, fleet, mode, sink, state):
+    """Wrap each replica engine's ``step`` so B2's launches by body add up
+    under the replica's role (``mode`` for a role-less fleet), with
+    ``state["role"]`` that role while the step runs."""
+    for replica in fleet.replicas:
+        engine = replica.engine
+        role = replica.role or mode
+        step = engine.step
+
+        def counted(_step=step, _role=role):
+            before = dict(fn.body_launches)
+            state["role"] = _role
+            try:
+                return _step()
+            finally:
+                state["role"] = None
+                got = sink.setdefault(_role, {})
+                for body, n in fn.body_launches.items():
+                    got[body] = got.get(body, 0) + n - before.get(body, 0)
+
+        engine.step = counted
+
+
+def record_geometry(gpt_mod, state):
+    """A patch of B2's wrapper, as the GPT blocks call it, that adds each
+    call's (R, Lq, page size, pool pages, table width) to
+    ``state["seen"]`` under ``state["role"]`` (calls outside a wrapped
+    step are not recorded)."""
+    wrapper = gpt_mod.paged_attention
+
+    def recorded(q, k, v, table, index, **kw):
+        if state["role"] is not None:
+            state["seen"].setdefault(state["role"], set()).add(
+                (q.shape[0], q.shape[1], k.shape[1], k.shape[0],
+                 table.shape[1]))
+        return wrapper(q, k, v, table, index, **kw)
+
+    return mock.patch.object(gpt_mod, "paged_attention", recorded)
+
+
+def disagg_against_monolith(torch, np, kernels, gpt_mod, dev, model):
+    """Phase 33 (a): ``bench_disagg``'s two topologies, one replay each
+    after its warm-up, every replica on ``dev``.  Returns (a report,
+    B2's launches by body in the run)."""
+    from skycomputing_tpu_torch.tools import bench_disagg
+
+    on_card = dev.type == "cuda"
+    layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
+                                           deterministic=True)
+    params = random_weights(gpt_mod, layer_cfgs,
+                            ("fleet", model["num_hidden_layers"]), SEED)
+    by_role = {}
+    state = dict(role=None, seen={})
+    fn = kernels[B2]["fn"]
+    patch, plain_calls = count_plain(gpt_mod)
+    zero_counts(kernels)
+    with patch, record_geometry(gpt_mod, state):
+        t0 = time.perf_counter()
+        report, replays = bench_disagg.run_bench(
+            device=dev, seed=SEED, model=model, params=params, replays=1,
+            throwaway=False,
+            setup=lambda fleet, mode: _bodies_by_role(fn, fleet, mode,
+                                                      by_role, state))
+        run_s = time.perf_counter() - t0
+    bodies = dict(fn.body_launches)
+    gates = report["gates"]
+    for f in report["identity_findings"]:
+        log(f"   identity finding: {json.dumps(f)}")
+    mono, dis = report["runs"]["monolithic"], report["runs"]["disagg"]
+    dis_fleet, dis_rep = replays["disagg"][0]
+    finished = len(dis_rep.finished)
+    check(gates["zero_lost_tokens"],
+          f"(a) every admitted request finished in both topologies "
+          f"({finished} of {len(dis_rep.verdicts)} arrivals)")
+    check(gates["token_identical"],
+          f"(a) every stream token-identical to the one-shot generate on "
+          f"{dev.type}, the disagg streams equal to the monolith's request "
+          f"for request")
+    ledger, counters = dis["ledger"], dis["handoff_counters"]
+    check(gates["every_request_handed_off"]
+          and counters["handoffs_out"] == counters["handoffs_in"]
+          == finished,
+          f"(a) each of the {finished} finished disagg requests crossed the "
+          f"handoff plane once: {json.dumps(counters)}")
+    check(gates["ledger_conserved"],
+          f"(a) the ledger conserved, nothing stranded: {json.dumps(ledger)}")
+    check(gates["workload_replayable"],
+          f"(a) both topologies replayed trace {report['digest'][:16]}")
+    rep = dis["replays"][0]
+    check(counters["handoff_bytes"] == rep["exported_record_bytes"] > 0
+          and rep["exported_records"] == counters["handoffs_out"],
+          f"(a) handoff_bytes {counters['handoff_bytes']} == the "
+          f"{rep['exported_records']} exported records' host bytes")
+    if on_card:
+        pre, dec = by_role.get("prefill", {}), by_role.get("decode", {})
+        check(pre.get("register_tile", 0) > 0 and dec.get("decode", 0) > 0
+              and plain_calls["card"] == 0,
+              f"(a) B2 by role {json.dumps(by_role)}: register-tile on the "
+              f"prefill replicas, decode on the decode replica, the plain "
+              f"version called {plain_calls['card']} times on the card")
+    seen = {role: sorted(shapes) for role, shapes in state["seen"].items()}
+    for name, R, Lq, (ps, pool, width), roles in disagg_cases():
+        check(all((R, Lq, ps, pool, width) in seen.get(role, ())
+                  for role in roles),
+              f"(a) phase 3's {name} row (R={R}, Lq={Lq}, pages of {ps}, "
+              f"a {pool}-page pool, tables of {width}) is a call the "
+              f"{'/'.join(roles)} replicas made; B2's calls by role as "
+              f"(R, Lq, page size, pool pages, table width): "
+              f"{json.dumps(seen)}")
+    out = dict(run_s=run_s, report=report, bodies=bodies, by_role=by_role,
+               plain_calls_on_card=plain_calls["card"], geometry=seen)
+    for mode, doc in (("monolithic", mono), ("disagg", dis)):
+        r = doc["replays"][0]
+        log(f"   (a) {mode}: TTFT p95 {doc['ttft_p95_s_floor']:.4f} s, TPOT "
+            f"p95 {doc['tpot_p95_s_floor']:.4f} s, {r['tokens_per_s']:.1f} "
+            f"tok/s ({r['generated_tokens']} tokens in {r['wall_s']:.2f} s)")
+    log(f"   (a) JAX's verdicts (printed, not held): ttft_p95_improved="
+        f"{gates['ttft_p95_improved']}, tpot_p95_improved="
+        f"{gates['tpot_p95_improved']}; {counters['handoffs_out']} "
+        f"handoffs, {counters['handoff_bytes']} bytes, export "
+        f"{rep['export_s_per_record'] * 1e3:.3f} ms and import "
+        f"{rep['import_s_per_record'] * 1e3:.3f} ms a record; B2 by body "
+        f"{json.dumps(bodies)}")
+    return out, bodies
+
+
+def chaos_campaign(torch, np, gpt_mod, dev, model, name):
+    """Phase 33 (b) and (c): one catalog plan through ``bench_chaos``'s
+    harness (a fault-free reference, the faulted run, the same seed
+    again) on ``dev``, under ``bench_disagg``'s supervisor (latency
+    parked, so the plan's faults are the only heals)."""
+    from skycomputing_tpu_torch.tools import bench_chaos, bench_disagg
+
+    layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
+                                           deterministic=True)
+    params = random_weights(gpt_mod, layer_cfgs,
+                            ("fleet", model["num_hidden_layers"]), SEED)
+    t0 = time.perf_counter()
+    report, runs = bench_chaos.run_bench(
+        [name], device=dev, seed=SEED, model=model, params=params,
+        supervisor_kwargs=dict(bench_disagg.SUPERVISOR))
+    wall_s = time.perf_counter() - t0
+    doc = report["plans"][name]
+    fleet, _, inj, audit = runs[name]["faulted"]
+    applied = [e for e in inj.event_log() if e["ok"]]
+    check(applied and doc["gates"]["faults_applied"],
+          f"{name}: {len(applied)} of {len(inj.event_log())} faults applied "
+          f"with ok: {[(e['tick'], e['kind']) for e in applied]}")
+    check(audit.ok, f"{name}: the audit against the fault-free reference "
+          f"on {dev.type} passes every check: "
+          + "; ".join(f"{c.name}: {c.detail}" for c in audit.checks))
+    check(doc["gates"]["workload_replayable"]
+          and doc["gates"]["event_log_deterministic"],
+          f"{name}: both faulted runs' deterministic logs and audit digests "
+          f"equal ({doc['audit_digest'][:16]}), one trace")
+    return dict(wall_s=wall_s, doc=doc, fleet=fleet, injector=inj)
+
+
+def scenarios_autoscaled(torch, np, gpt_mod, dev, model):
+    """Phase 33 (d): ``bench_scenarios``'s ``diurnal_ramp``, autoscaled
+    against fixed, on ``dev``, under ``bench_disagg``'s supervisor."""
+    from skycomputing_tpu_torch.tools import bench_disagg, bench_scenarios
+
+    layer_cfgs = gpt_mod.gpt_layer_configs(gpt_mod.GptConfig(**model),
+                                           deterministic=True)
+    params = random_weights(gpt_mod, layer_cfgs,
+                            ("fleet", model["num_hidden_layers"]), SEED)
+    t0 = time.perf_counter()
+    report, measured = bench_scenarios.run_bench(
+        "diurnal_ramp", device=dev, seed=SEED, model=model, params=params,
+        supervisor_kwargs=dict(bench_disagg.SUPERVISOR))
+    wall_s = time.perf_counter() - t0
+    auto_fleet, _, auto, _ = measured["autoscaled"]
+    runs, gates = report["runs"], report["gates"]
+    for f in report["identity_findings"]:
+        log(f"   identity finding: {json.dumps(f)}")
+    events = [(e["kind"], e["tick"]) for e in auto.events]
+    check(auto_fleet.stats.scale_ups >= 1
+          and runs["autoscaled"]["final_replicas"] == auto.min_replicas,
+          f"(d) scale events {events}: at least one ADD, the run ending at "
+          f"min_replicas={auto.min_replicas}")
+    check(gates["token_identical"] and gates["zero_lost_tokens"],
+          f"(d) every admitted stream in both runs token-identical to the "
+          f"one-shot generate on {dev.type}")
+    check(gates["workload_replayable"],
+          f"(d) both runs replayed trace {report['digest'][:16]}")
+    log(f"   (d) SLO burn per request served: autoscaled "
+        f"{runs['autoscaled']['burn_per_served']} "
+        f"({runs['autoscaled']['burn_ticks']} ticks / "
+        f"{runs['autoscaled']['summary']['total']['finished']}), fixed "
+        f"{runs['fixed']['burn_per_served']} ({runs['fixed']['burn_ticks']}"
+        f" / {runs['fixed']['summary']['total']['finished']}); gates "
+        f"(reported) {json.dumps(gates)}")
+    return dict(wall_s=wall_s, report=report, events=events)
+
+
+def disagg_chaos_path(torch, np, kernels, gpt_mod, dev, preset="gpt2"):
+    """Phase 33.  ``preset="tiny"`` rehearses it on the CPU (hidden 64).
+    Returns (a report, B2's launches by role and body in (a)'s measured
+    replays)."""
+    model = dict(FLEET_MODEL)
+    if preset == "tiny":
+        model.update(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=2)
+    small = dict(model, num_hidden_layers=2)
+    t0 = time.perf_counter()
+    a, bodies = disagg_against_monolith(torch, np, kernels, gpt_mod, dev,
+                                        model)
+    b = chaos_campaign(torch, np, gpt_mod, dev, small,
+                       "prefill_kill_mid_handoff")
+    failures = sum(r.engine.stats.handoff_failures
+                   for r in b["fleet"].replicas if r.engine is not None)
+    reasons = b["fleet"].ledger.audit()["failed_reasons"]
+    recomputed = reasons.get(
+        "checksum mismatch at import; recomputing from prompt", 0)
+    check(failures >= 1 and recomputed >= 1,
+          f"(b) {failures} poisoned record(s) refused at import, "
+          f"{recomputed} recomputed from the prompt: ledger reasons "
+          f"{json.dumps(reasons)}")
+    c = chaos_campaign(torch, np, gpt_mod, dev, small, "swap_corruption")
+    corruptions = sum(r.engine.stats.swap_corruptions
+                      for r in c["fleet"].replicas if r.engine is not None)
+    check(corruptions >= 1 and c["fleet"].stats.failed == 0,
+          f"(c) {corruptions} corrupt swap record(s) caught at swap-in, "
+          f"each victim recomputed, none failed")
+    d = scenarios_autoscaled(torch, np, gpt_mod, dev, small)
+    seconds = time.perf_counter() - t0
+    log(f"   phase 33: (a) {a['run_s']:.1f} s, (b) {b['wall_s']:.1f} s, "
+        f"(c) {c['wall_s']:.1f} s, (d) {d['wall_s']:.1f} s; "
+        f"{seconds:.1f} s in all")
+    report = dict(
+        seconds=seconds,
+        a=dict(run_s=a["run_s"], gates=a["report"]["gates"],
+               runs=a["report"]["runs"], digest=a["report"]["digest"],
+               b2_bodies=a["bodies"], b2_by_role=a["by_role"],
+               b2_geometry=a["geometry"],
+               plain_calls_on_card=a["plain_calls_on_card"]),
+        b=dict(b["doc"], wall_s=b["wall_s"], handoff_failures=failures,
+               recomputed=recomputed),
+        c=dict(c["doc"], wall_s=c["wall_s"], swap_corruptions=corruptions),
+        d=dict(wall_s=d["wall_s"], events=d["events"],
+               gates=d["report"]["gates"], runs=d["report"]["runs"]))
+    return report, a["by_role"]
 
 
 def main() -> int:
@@ -6285,6 +6631,14 @@ def main() -> int:
             torch, np, kernels, gpt_mod, torch.device("cuda"))
         _free(torch)
 
+    with phase("disaggregated serving, the chaos plane and the workload "
+               "player: bench_disagg at GPT-2 small, bench_chaos's "
+               "prefill_kill_mid_handoff and swap_corruption, "
+               "bench_scenarios' diurnal_ramp"):
+        report["disagg"], disagg_roles = disagg_chaos_path(
+            torch, np, kernels, gpt_mod, torch.device("cuda"))
+        _free(torch)
+
     def entry(name, kernel_launches, rows=attn, case="decode", label=None,
               dtype="bfloat16", body=None):
         row = next(r for r in rows if r["kernel"] == name
@@ -6368,7 +6722,22 @@ def main() -> int:
               label=f"{B2}:fleet", body="decode"),
         entry(B2, fleet_bodies["register_tile"], case="prefill",
               dtype="float32", label=f"{B2}:fleet_register_tile",
-              body="register_tile")]}
+              body="register_tile"),
+        # disaggregated serving (phase 33 (a)'s measured replays), each
+        # beside B2's float32 time at that call's geometry: the decode
+        # body in the decode specialist's ticks, the decode body in the
+        # other replicas' ticks (the monolith's and the prefill
+        # specialists'), the register-tile body in their prefill waves
+        entry(B2, disagg_roles["decode"]["decode"], case="disagg_decode",
+              dtype="float32", label=f"{B2}:disagg", body="decode"),
+        entry(B2, disagg_roles["monolithic"]["decode"]
+              + disagg_roles["prefill"]["decode"],
+              case="disagg_replica_decode", dtype="float32",
+              label=f"{B2}:disagg_replica", body="decode"),
+        entry(B2, disagg_roles["monolithic"]["register_tile"]
+              + disagg_roles["prefill"]["register_tile"],
+              case="disagg_prefill", dtype="float32",
+              label=f"{B2}:disagg_register_tile", body="register_tile")]}
     # B1's error: the worst over its main case and the eval path's calls
     b1_main = next(k for k in line["kernels"] if k["name"] == B1)
     b1_main["max_abs_err"] = max(

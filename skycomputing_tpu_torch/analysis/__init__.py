@@ -9,6 +9,8 @@ from .plan_check import (
     PlanReport,
     has_plan,
     verify_allocation_payload,
+    verify_fault_plan,
+    verify_handoff_payload,
     verify_mesh_payload,
     verify_pipeline,
     verify_plan,
@@ -22,6 +24,8 @@ __all__ = [
     "PlanReport",
     "has_plan",
     "verify_allocation_payload",
+    "verify_fault_plan",
+    "verify_handoff_payload",
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",

@@ -52,8 +52,9 @@ takes it.
 :func:`verify_scale_payload` checks a fleet autoscaler's decision (chip
 budget, replica bounds) before the fleet adds or removes a replica.
 
-Not ported yet: ``verify_handoff_payload`` and ``verify_fault_plan``
-(the disaggregated-serving and chaos planes that call them).
+Before a record or a plan touches a fleet, :func:`verify_handoff_payload`
+checks a prefill->decode handoff record (and its geometry against the
+importing engine's), and :func:`verify_fault_plan` a chaos fault plan.
 
 Wiring: ``Runner`` runs :func:`verify_pipeline` on its first batch before
 the first train step and again after a self-heal rebuild; the bench
@@ -1023,6 +1024,274 @@ def verify_scale_payload(scale: Any) -> List[str]:
     return problems
 
 
+def _hex_digest(v: Any) -> bool:
+    """A sha256 hex digest: 64 lowercase hex chars."""
+    return (isinstance(v, str) and len(v) == 64
+            and all(c in "0123456789abcdef" for c in v))
+
+
+def verify_handoff_payload(handoff: Any,
+                           geometry: Any = None) -> List[str]:
+    """Problems with a prefill→decode handoff payload (empty = valid).
+
+    Schema — what :meth:`~..disagg.handoff.HandoffRecord.to_dict`
+    emits and :class:`~..disagg.pools.DisaggFleet` re-verifies before
+    seating a record on a decode replica (verify-then-apply: a record
+    that cannot seat dies HERE, before any page is charged):
+    ``request_id`` non-negative int, ``source`` non-empty string,
+    ``prompt_len`` / ``prefilled_len`` / ``index`` / ``pages`` /
+    ``page_size`` / ``max_pages_per_request`` / ``stages`` positive
+    ints with ``prefilled_len >= prompt_len``,
+    ``pages <= max_pages_per_request``, and
+    ``pages * page_size >= index`` (the pages must cover the resume
+    index); ``checksum`` a sha256 hex digest; ``slab_checksums`` a list
+    of ``stages`` digests (one per stage, so corruption is
+    attributable); ``kv_dtype`` a non-empty string.
+
+    With ``geometry`` (the importing engine's
+    ``page_size`` / ``max_pages_per_request`` / ``stages`` /
+    ``kv_dtype``), the record's geometry must MATCH — a swap record
+    gathered under one page shape cannot seat under another, and a
+    dtype change would silently reinterpret every slab byte.  Pool
+    page COUNT may differ (sentinel tables are rebuilt at swap-in);
+    only the per-request shape is load-bearing.
+    """
+    if not isinstance(handoff, dict):
+        return [
+            f"handoff payload must be an object, got "
+            f"{type(handoff).__name__}"
+        ]
+    problems: List[str] = []
+    rid = handoff.get("request_id")
+    if isinstance(rid, bool) or not isinstance(rid, int) or rid < 0:
+        problems.append(
+            f"handoff.request_id must be a non-negative int, got "
+            f"{rid!r}"
+        )
+    source = handoff.get("source")
+    if not isinstance(source, str) or not source:
+        problems.append(
+            f"handoff.source must be a non-empty replica name, got "
+            f"{source!r}"
+        )
+    for key in ("prompt_len", "prefilled_len", "index", "pages",
+                "page_size", "max_pages_per_request", "stages"):
+        if not _pos_int(handoff.get(key)):
+            problems.append(
+                f"handoff.{key} must be a positive int, got "
+                f"{handoff.get(key)!r}"
+            )
+    plen, wlen = handoff.get("prompt_len"), handoff.get("prefilled_len")
+    if _pos_int(plen) and _pos_int(wlen) and wlen < plen:
+        problems.append(
+            f"handoff.prefilled_len {wlen} is below prompt_len {plen} "
+            f"— the prefill side must at least cover the prompt"
+        )
+    pages, mpr = handoff.get("pages"), handoff.get(
+        "max_pages_per_request")
+    if _pos_int(pages) and _pos_int(mpr) and pages > mpr:
+        problems.append(
+            f"handoff.pages {pages} exceeds max_pages_per_request "
+            f"{mpr}"
+        )
+    ps, idx = handoff.get("page_size"), handoff.get("index")
+    if _pos_int(pages) and _pos_int(ps) and _pos_int(idx) \
+            and pages * ps < idx:
+        problems.append(
+            f"handoff: {pages} pages of {ps} tokens cannot cover "
+            f"page-table index {idx}"
+        )
+    if not _hex_digest(handoff.get("checksum")):
+        problems.append(
+            "handoff.checksum must be a 64-char lowercase sha256 hex "
+            "digest"
+        )
+    slabs = handoff.get("slab_checksums")
+    stages = handoff.get("stages")
+    if (not isinstance(slabs, (list, tuple))
+            or not all(_hex_digest(c) for c in slabs)
+            or (_pos_int(stages) and len(slabs) != stages)):
+        problems.append(
+            f"handoff.slab_checksums must be {stages!r} sha256 hex "
+            f"digests (one per stage), got {slabs!r}"
+        )
+    kvd = handoff.get("kv_dtype")
+    if not isinstance(kvd, str) or not kvd:
+        problems.append(
+            f"handoff.kv_dtype must be a non-empty dtype name, got "
+            f"{kvd!r}"
+        )
+    if geometry is None:
+        return problems
+    if not isinstance(geometry, dict):
+        problems.append(
+            f"importing geometry must be an object, got "
+            f"{type(geometry).__name__}"
+        )
+        return problems
+    for key in ("page_size", "max_pages_per_request", "stages",
+                "kv_dtype"):
+        if key not in geometry:
+            continue
+        theirs, ours = handoff.get(key), geometry.get(key)
+        if theirs != ours:
+            problems.append(
+                f"handoff geometry mismatch: record carries "
+                f"{key}={theirs!r} but the importing engine has "
+                f"{ours!r} — a record gathered under one shape cannot "
+                f"seat under another"
+            )
+    return problems
+
+
+#: the chaos plane's sanctioned fault vocabulary, duplicated BY VALUE
+#: from ``chaos.plan.FAULT_KINDS`` (the SCALE_ADD idiom: the verifier
+#: must not import the layer it verifies; tests pin the two in sync)
+FAULT_KINDS = (
+    "replica_crash",
+    "stage_slowdown",
+    "swap_corruption",
+    "reform_failure",
+    "admission_blip",
+    "handoff_corruption",
+)
+
+#: fault kinds whose target selector is the FLEET itself, not a
+#: replica: admission_blip flips the fleet front door, and
+#: handoff_corruption flips a byte in the fleet-held prefill→decode
+#: payload (the disagg handoff plane lives on the fleet, between pools)
+FLEET_TARGET_KINDS = ("admission_blip", "handoff_corruption")
+
+
+def verify_fault_plan(plan: Any) -> List[str]:
+    """Problems with a chaos fault plan (empty = valid).
+
+    Schema — what :meth:`~..chaos.plan.FaultPlan.to_dict` emits and
+    :class:`~..chaos.injector.FaultInjector` re-verifies before its
+    first event fires (verify-then-apply: a malformed plan dies before
+    any fleet mutation): ``name`` / ``scenario`` non-empty strings,
+    ``seed`` an int, ``replicas`` and ``recovery_budget_ticks``
+    positive ints, ``rate_scale`` / ``ticks_scale`` positive finite
+    numbers, and a non-empty ``events`` list where each event carries a
+    non-negative ``tick``, a ``kind`` from the sanctioned vocabulary, a
+    ``target`` selector consistent with its kind (``admission_blip``
+    and ``handoff_corruption`` must target ``fleet``; every other kind
+    must NOT), a positive
+    ``duration``, and kind-consistent ``params`` (``stage_slowdown``
+    needs ``seconds > 0``, ``reform_failure`` needs ``builds >= 1``).
+    """
+    problems: List[str] = []
+    if not isinstance(plan, dict):
+        return [
+            f"fault plan must be an object, got {type(plan).__name__}"
+        ]
+    for key in ("name", "scenario"):
+        v = plan.get(key)
+        if not isinstance(v, str) or not v:
+            problems.append(
+                f"plan.{key} must be a non-empty string, got {v!r}"
+            )
+    seed = plan.get("seed")
+    if isinstance(seed, bool) or not isinstance(seed, int):
+        problems.append(f"plan.seed must be an int, got {seed!r}")
+    for key in ("replicas", "recovery_budget_ticks"):
+        v = plan.get(key)
+        if not _pos_int(v):
+            problems.append(
+                f"plan.{key} must be a positive int, got {v!r}"
+            )
+    for key in ("rate_scale", "ticks_scale"):
+        v = plan.get(key)
+        if v is None:
+            continue
+        if (isinstance(v, bool) or not isinstance(v, (int, float))
+                or not math.isfinite(float(v)) or float(v) <= 0):
+            problems.append(
+                f"plan.{key} must be a positive finite number, got "
+                f"{v!r}"
+            )
+    events = plan.get("events")
+    if not isinstance(events, list) or not events:
+        problems.append(
+            f"plan.events must be a non-empty list, got "
+            f"{type(events).__name__ if events is not None else None!r}"
+        )
+        return problems
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            problems.append(
+                f"events[{i}] must be an object, got "
+                f"{type(ev).__name__}"
+            )
+            continue
+        tick = ev.get("tick")
+        if isinstance(tick, bool) or not isinstance(tick, int) \
+                or tick < 0:
+            problems.append(
+                f"events[{i}].tick must be a non-negative int, got "
+                f"{tick!r}"
+            )
+        kind = ev.get("kind")
+        if kind not in FAULT_KINDS:
+            problems.append(
+                f"events[{i}].kind {kind!r} is not a sanctioned fault "
+                f"kind {list(FAULT_KINDS)}"
+            )
+            continue
+        target = ev.get("target")
+        if not isinstance(target, str) or not target:
+            problems.append(
+                f"events[{i}].target must be a non-empty selector, "
+                f"got {target!r}"
+            )
+        elif kind in FLEET_TARGET_KINDS and target != "fleet":
+            problems.append(
+                f"events[{i}]: {kind} must target 'fleet', "
+                f"got {target!r}"
+            )
+        elif kind not in FLEET_TARGET_KINDS and target == "fleet":
+            problems.append(
+                f"events[{i}]: {kind} needs a replica selector, got "
+                f"'fleet'"
+            )
+        duration = ev.get("duration", 1)
+        if not _pos_int(duration):
+            problems.append(
+                f"events[{i}].duration must be a positive int, got "
+                f"{duration!r}"
+            )
+        jitter = ev.get("jitter_ticks", 0)
+        if isinstance(jitter, bool) or not isinstance(jitter, int) \
+                or jitter < 0:
+            problems.append(
+                f"events[{i}].jitter_ticks must be a non-negative "
+                f"int, got {jitter!r}"
+            )
+        params = ev.get("params", {})
+        if not isinstance(params, dict):
+            problems.append(
+                f"events[{i}].params must be an object, got "
+                f"{type(params).__name__}"
+            )
+            continue
+        if kind == "stage_slowdown":
+            seconds = params.get("seconds")
+            if (isinstance(seconds, bool)
+                    or not isinstance(seconds, (int, float))
+                    or seconds <= 0):
+                problems.append(
+                    f"events[{i}]: stage_slowdown needs params."
+                    f"seconds > 0, got {seconds!r}"
+                )
+        elif kind == "reform_failure":
+            if not _pos_int(params.get("builds")):
+                problems.append(
+                    f"events[{i}]: reform_failure needs params."
+                    f"builds >= 1, got {params.get('builds')!r}"
+                )
+    return problems
+
+
 def _verify_serving_payload(serving: Any) -> List[str]:
     """Problems with a serving operating point.
 
@@ -1246,6 +1515,8 @@ __all__ = [
     "PlanReport",
     "has_plan",
     "verify_allocation_payload",
+    "verify_fault_plan",
+    "verify_handoff_payload",
     "verify_mesh_payload",
     "verify_pipeline",
     "verify_plan",

@@ -51,7 +51,13 @@ A running request can be preempted (:meth:`ServingEngine.preempt`): by
 recomputation (it re-queues and its KV is rebuilt by prefill on
 re-admission) or by swap (its pages are copied to host memory under a
 checksum and scattered back into fresh pages on re-admission, with no
-prefill).
+prefill).  The same record carries a request between engines: a
+disaggregated fleet's prefill replica detaches it with
+:meth:`ServingEngine.export_handoff` (a swap preemption whose record
+leaves the engine) and a decode replica seats it with
+:meth:`ServingEngine.import_handoff`, which verifies the checksum before
+it changes anything.  :meth:`ServingEngine.corrupt_swap_record` flips a
+byte of a held record's host copy, the chaos plane's swap fault.
 
 PyTorch runs eagerly, so there are no compiled programs to key, donate
 or warm: the slabs are updated in place and the bucket set only bounds
@@ -74,9 +80,7 @@ every request gets a recycled lane carrying its ``queue_wait``,
 replica's name in a fleet) and the engine lane its waves, ticks and
 admission instants.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-handoff export/import and swap-record corruption
-(``corrupt_swap_record``).  There is no autotuner hook.
+Not ported yet: the autotuner hook.
 """
 
 from __future__ import annotations
@@ -154,7 +158,13 @@ class ServingStats:
     tiles re-quantized by writes) and ``dequant_blocks`` (page blocks
     dequantized by attention reads, per step, not per layer),
     ``draft_tokens`` (usable draft proposals), ``accepted_draft_tokens``
-    and ``spec_rollbacks``.  ``prefill_waves`` counts chunk waves too.
+    and ``spec_rollbacks``, and the handoff plane's ``handoffs_out``
+    (swap records exported as portable handoffs), ``handoffs_in``
+    (records seated here for swap-in resume), ``handoff_failures``
+    (records refused at the import checksum gate; the request
+    recomputes from its prompt) and ``handoff_bytes`` (host payload
+    moved, counted once, at export).  ``prefill_waves`` counts chunk
+    waves too.
     ``decode_ticks`` counts single-token decode ticks and ``spec_ticks``
     speculative ones (draft + verify); both are the port's own.
     """
@@ -185,6 +195,10 @@ class ServingStats:
     draft_tokens: int = 0
     accepted_draft_tokens: int = 0
     spec_rollbacks: int = 0
+    handoffs_out: int = 0
+    handoffs_in: int = 0
+    handoff_failures: int = 0
+    handoff_bytes: int = 0
     # gauges
     queue_depth: int = 0
     batch_occupancy: float = 0.0
@@ -215,6 +229,8 @@ class ServingStats:
         "draft_tokens": "counter",
         "accepted_draft_tokens": "counter",
         "spec_rollbacks": "counter",
+        "handoffs_out": "counter", "handoffs_in": "counter",
+        "handoff_failures": "counter", "handoff_bytes": "counter",
         "queue_depth": "gauge", "batch_occupancy": "gauge",
         "pages_in_use": "gauge", "free_pages": "gauge",
         "tokens_per_s": "gauge",
@@ -418,6 +434,11 @@ def _host_leaves(data):
         yield data
 
 
+def _leaf_bytes(t: torch.Tensor) -> bytes:
+    """A host tensor's bytes in memory order (what the checksums fold)."""
+    return t.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
 def _swap_record_checksum(pages: int, index: int, data: List[Any]) -> str:
     """sha256 over a swap record's host payload: page count, resume
     index and every host tensor's bytes, stage by stage and layer by
@@ -426,8 +447,7 @@ def _swap_record_checksum(pages: int, index: int, data: List[Any]) -> str:
     h = hashlib.sha256()
     h.update(f"{int(pages)}:{int(index)}".encode())
     for t in _host_leaves(data):
-        h.update(t.contiguous().reshape(-1).view(torch.uint8).numpy()
-                 .tobytes())
+        h.update(_leaf_bytes(t))
     return h.hexdigest()
 
 
@@ -436,10 +456,28 @@ def _swap_record_nbytes(data: List[Any]) -> int:
     return int(sum(t.numel() * t.element_size() for t in _host_leaves(data)))
 
 
-def _not_ported(feature: str):
-    raise NotImplementedError(
-        f"{feature} is not ported to the PyTorch serving engine yet"
-    )
+def _flip_first_byte(leaf):
+    """A copy of a host leaf (a tensor, or a ``QuantizedPages``' values)
+    with byte 0 flipped."""
+    if isinstance(leaf, QuantizedPages):
+        return QuantizedPages(_flip_first_byte(leaf.values), leaf.scale)
+    bad = leaf.clone().contiguous()
+    raw = bad.reshape(-1).view(torch.uint8)
+    raw[0] ^= 0xFF
+    return bad
+
+
+def _stage_slab_checksums(data: List[Any]) -> List[str]:
+    """One sha256 per stage's host slabs (the leaf fold of
+    :func:`_swap_record_checksum`), so a corrupted handoff names its
+    stage."""
+    out = []
+    for stage_pairs in data:
+        h = hashlib.sha256()
+        for t in _host_leaves(stage_pairs):
+            h.update(_leaf_bytes(t))
+        out.append(h.hexdigest())
+    return out
 
 
 class ServingEngine(LiveMetricsMixin):
@@ -1240,16 +1278,150 @@ class ServingEngine(LiveMetricsMixin):
                      evicted=len(evicted)),
             )
 
-    # --- features of the JAX engine this port does not have yet ------------
-    def export_handoff(self, request_id: int):
-        _not_ported("KV handoff export")
-
-    def import_handoff(self, request: Request, record: dict):
-        _not_ported("KV handoff import")
-
+    # --- the swap plane's fault and the prefill/decode handoff plane ------
     def corrupt_swap_record(self, request_id: Optional[int] = None, *,
                             force: bool = False) -> Optional[int]:
-        _not_ported("swap-record corruption (the chaos plane's fault)")
+        """Flip byte 0 of a held swap record's host copy (stage 0, layer
+        0, K values): the chaos plane's ``swap_corruption`` fault, host
+        memory rot applied through the record, never to a device page.
+
+        Targets ``request_id``'s record when given, else the oldest held
+        record.  With ``force`` and nothing parked, the oldest running
+        request is swapped out first through :meth:`preempt`.  Returns
+        the corrupted record's request id, or None when no record exists
+        and none can be forced."""
+        if not self._paged:
+            raise ValueError("swap records exist on paged engines only")
+        if request_id is not None:
+            if request_id not in self._swapped:
+                raise KeyError(f"request {request_id} holds no swap record")
+            rid = request_id
+        elif self._swapped:
+            rid = min(self._swapped)
+        else:
+            rid = None
+            if force:
+                for cand in sorted(self._running):
+                    try:
+                        self.preempt(cand, mode="swap")
+                    except (ValueError, KeyError):
+                        continue
+                    rid = cand
+                    break
+            if rid is None:
+                return None
+        pairs = self._swapped[rid]["data"][0]
+        pairs[0] = (_flip_first_byte(pairs[0][0]), pairs[0][1])
+        return rid
+
+    def export_handoff(self, request_id: int) -> tuple:
+        """Detach a decoding request as a portable handoff: the request
+        (token stream intact) and its swap record (host page copies and
+        checksum), for another engine's :meth:`import_handoff`.
+
+        Rides :meth:`preempt` in ``swap`` mode, so an export counts as a
+        preemption and a swap-out; the record is then popped and the
+        request leaves the queue, and this engine holds nothing of it.
+        Only a request past prefill exports: a mid-prefill or finished
+        one raises."""
+        if not self._paged:
+            raise ValueError(
+                "handoff export needs a paged engine (swap records are "
+                "the carrier)"
+            )
+        request = self._running.get(request_id)
+        if request is None:
+            raise KeyError(f"request {request_id} is not decoding here")
+        if not request.tokens:
+            raise ValueError(
+                "a request hands off only after prefill seeded its "
+                "first token"
+            )
+        if request.done:
+            raise ValueError(
+                "a finished request has nothing left to hand off"
+            )
+        self.preempt(request_id, mode="swap")
+        record = self._swapped.pop(request_id)
+        self._queue.remove(request)
+        self.stats.queue_depth = self._queue.depth
+        self.stats.handoffs_out += 1
+        self.stats.handoff_bytes += _swap_record_nbytes(record["data"])
+        tracer = get_tracer()
+        if tracer is not None:
+            tracer.instant(
+                "handoff_out", tracer.lane("serving", "engine"),
+                {"request": request_id, "pages": record["pages"]},
+            )
+            # the queue segment preempt opened ends here: the request
+            # leaves this engine (the importing side opens its own)
+            self._trace_close(request, tracer, "queued", drained=True)
+        return request, record
+
+    def import_handoff(self, request: Request, record: dict) -> bool:
+        """Seat an exported handoff for swap-in resume, its checksum
+        verified before the record touches any engine state.
+
+        True: the record is parked, and admission's swap-in restores its
+        pages with no prefill.  False: the checksum did not match (or the
+        payload cannot fit this engine); ``handoff_failures`` counts it
+        and the request re-queues to recompute from its prompt, or is
+        FAILED with a reason when its resume prefix fits no bucket."""
+        if not self._paged:
+            raise ValueError(
+                "handoff import needs a paged engine (swap records are "
+                "the carrier)"
+            )
+        rid = request.request_id
+        if (rid in self._running or rid in self._prefilling
+                or rid in self._swapped
+                or any(r is request for r in self._queue.requests)):
+            raise ValueError(f"request {rid} is already live on this engine")
+        pages = record.get("pages")
+        index = record.get("index")
+        data = record.get("data")
+        ok = (
+            isinstance(pages, int) and 1 <= pages
+            and pages <= self.max_pages_per_request
+            and isinstance(index, int) and index >= 1
+            and isinstance(data, list) and len(data) == len(self.stages)
+        )
+        if ok:
+            expect = record.get("checksum")
+            ok = (expect is not None
+                  and _swap_record_checksum(pages, index, data) == expect)
+        tracer = get_tracer()
+        if ok:
+            self._swapped[rid] = record
+            # the bytes were counted once, at export
+            self.stats.handoffs_in += 1
+        else:
+            self.stats.handoff_failures += 1
+            if tracer is not None:
+                tracer.instant(
+                    "handoff_corrupt", tracer.lane("serving", "engine"),
+                    {"request": rid},
+                )
+            try:
+                self.bucketer.bucket_for(int(request.effective_prompt.size))
+            except ValueError:
+                request.status = FAILED
+                request.fail_reason = (
+                    "handoff record corrupted and the resume prefix "
+                    "fits no bucket"
+                )
+                return False
+        # force: the request was admitted on the exporting pool; a
+        # verified record resumes bucket-free, a refused one re-buckets
+        self._queue.submit(request, force=True, require_bucket=not ok)
+        self.stats.queue_depth = self._queue.depth
+        if tracer is not None:
+            tracer.instant(
+                "handoff_in", tracer.lane("serving", "engine"),
+                {"request": rid, "verified": ok},
+            )
+        self._trace_queued(request, tracer)
+        return ok
 
     # --- request lifecycle --------------------------------------------------
     @property

@@ -20,6 +20,11 @@ drive the JAX package), each a command::
 - ``bench_fleet``: the serving fleet's kill-and-spike scenario (and
   ``--smoke``, the router's and admission's decisions);
 - ``skyreport``: an incident postmortem bundle rendered and verified.
+- ``bench_disagg``: prefill/decode pools against a monolithic fleet
+  over ``disagg_mix``;
+- ``bench_chaos``: the fault-plan catalog replayed and audited;
+- ``bench_scenarios``: the autoscaler over a named scenario against a
+  fixed fleet.
 
 Every tool that runs a model runs on the card unless ``--device`` names
 another device, and raises on a box without one.  None writes outside ``build/``,

@@ -59,20 +59,26 @@ def _sync(devices: Sequence[torch.device]) -> None:
 
 
 def probe_device_concurrency(devices: Sequence[torch.device],
-                             repeats: int = 3) -> float:
+                             repeats: int = 3,
+                             clock: Callable[[], float] = time.perf_counter
+                             ) -> float:
     """Ratio all-N / one (1.0 = perfect overlap, N = serial), each time
     the median of ``repeats`` samples taken in turns: on a shared host
     another process can stretch one sample, or slow a stretch of them,
-    and the turns spread that over both sides."""
+    and the turns spread that over both sides. ``clock`` reads both
+    sides: wall time behind a device sync on the card (CPU time cannot
+    see device work), the calling thread's CPU time on the CPU, where
+    every position runs on that thread and other processes cannot
+    stretch either side."""
     def f(a):
         return torch.tanh(a @ a).sum()
 
     def timed(xs) -> float:
-        t0 = time.perf_counter()
+        t0 = clock()
         for x in xs:
             f(x)
         _sync(devices)
-        return time.perf_counter() - t0
+        return clock() - t0
 
     xs = [torch.ones((1200, 1200), device=d) for d in devices]
     for x in xs:

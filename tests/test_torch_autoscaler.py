@@ -8,7 +8,6 @@ equal JAX's on good and bad payloads."""
 
 import numpy as np
 import pytest
-import torch
 
 from skycomputing_tpu.analysis.plan_check import (
     verify_scale_payload as jax_verify_scale_payload,
@@ -21,16 +20,9 @@ from torch_fleet_helpers import (
     supervisor_events,
     tiny_gpt,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

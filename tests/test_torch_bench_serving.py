@@ -30,6 +30,7 @@ from skycomputing_tpu_torch.models.gpt import (
 )
 from skycomputing_tpu_torch.workload import MIXES, build_mix
 from tools import bench_serving as jax_bench
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -12,7 +12,6 @@ how host timing is kept out of the compared decisions is in
 
 import numpy as np
 import pytest
-import torch
 
 from skycomputing_tpu.telemetry.analysis import request_ids, request_timeline
 from torch_fleet_helpers import (
@@ -22,19 +21,12 @@ from torch_fleet_helpers import (
     sides,
     tiny_gpt,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
 KILL_SPECS = [(5, 9), (3, 6), (12, 7), (7, 5), (16, 6), (2, 11), (6, 8),
               (9, 4)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

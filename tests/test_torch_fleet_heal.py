@@ -10,22 +10,14 @@ checks on the healthy replica, and the spiked one crosses it on its
 first two spiked ticks, in both packages alike."""
 
 import pytest
-import torch
 
 from skycomputing_tpu.dynamics import WorkerManager as JaxWorkerManager
 from skycomputing_tpu.fleet.replica import HEALTHY, RETIRED
 from skycomputing_tpu_torch.dynamics import WorkerManager
 from torch_fleet_helpers import assert_same_replay, replay, sides, tiny_gpt
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

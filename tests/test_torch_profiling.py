@@ -28,6 +28,7 @@ from skycomputing_tpu_torch.utils.profiling import (
     kernel_names,
     trace,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -35,14 +36,6 @@ B, L = 4, 16
 TOL = 0.01  # port FLOPs within 1% of XLA's
 DROPOUT_OFF = dict(dtype="float32", hidden_dropout_prob=0.0,
                    attention_probs_dropout_prob=0.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _batch():

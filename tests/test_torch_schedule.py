@@ -41,8 +41,10 @@ from skycomputing_tpu_torch.runner import (
     Runner,
     StopHook,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
+
 
 LOSS_RTOL = 1e-4
 PARAM_ATOL = 1e-5

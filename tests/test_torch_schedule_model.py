@@ -16,19 +16,12 @@ import pytest
 import torch
 
 from skycomputing_tpu_torch.tools import validate_schedule_model as v
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
 REPO = Path(__file__).resolve().parents[1]
 POSITIONS = [torch.device("cpu")] * v.N_POSITIONS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_tool():
@@ -41,7 +34,7 @@ def _jax_tool():
 
 
 def test_composition_claim_small_scale():
-    ratio = v.probe_device_concurrency(POSITIONS)
+    ratio = v.probe_device_concurrency(POSITIONS, clock=time.thread_time)
     serial = ratio > 0.6 * len(POSITIONS)
     assert serial, ratio  # one device: the positions run one at a time
     # 25%, as tests/test_schedule_model.py: at the tiny preset the host's

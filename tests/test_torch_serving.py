@@ -161,33 +161,41 @@ def test_queue_bound_reject_and_shed(gpt):
 
 
 @pytest.mark.parametrize("kwargs, feature", [
-    pytest.param(dict(kv_layout="slot"), "KV handoff",
+    pytest.param(dict(kv_layout="slot"), "handoff export needs a paged",
                  id="kwargs0-slot KV layout"),
 ])
 def test_unported_features_raise(gpt, kwargs, feature):
-    """Engine features still to port raise ``NotImplementedError``, on
-    the slot layout as on the paged one (the slot layout itself is
-    ported: ``test_torch_serving_slot.py``; int8 pages, speculation,
-    chunked prefill and preemption: ``test_torch_serving_int8_spec.py``
-    and ``test_torch_serving_chunk_preempt.py``; multi-stage placement
-    and ``reconfigure``: ``test_torch_serving_stages.py``)."""
+    """The handoff plane rides swap records, which only a paged engine
+    keeps: on the slot layout export, import and swap-record corruption
+    refuse with the reference's ``ValueError`` (the slot layout itself:
+    ``test_torch_serving_slot.py``; the handoff plane on paged engines:
+    ``test_torch_disagg.py``)."""
     layer_cfgs, _, sds = gpt
     engine = ServingEngine(layer_cfgs, sds, device="cpu",
                            **dict(BASE, **kwargs))
     assert engine.kv_layout == "slot"
-    with pytest.raises(NotImplementedError, match=feature):
+    with pytest.raises(ValueError, match=feature):
         engine.export_handoff(0)
+    with pytest.raises(ValueError, match="handoff import needs a paged"):
+        engine.import_handoff(None, {})
+    with pytest.raises(ValueError, match="paged engines only"):
+        engine.corrupt_swap_record()
 
 
 def test_unported_methods_raise(gpt):
+    """The handoff plane's methods, once unported, now answer as the
+    reference's do on an idle paged engine: nothing decodes, so nothing
+    exports; no record is parked, so nothing can be corrupted (None
+    without ``force``, ``KeyError`` for a named request)."""
     layer_cfgs, _, sds = gpt
     engine = ServingEngine(layer_cfgs, sds, device="cpu", kv_layout="paged",
                            **BASE)
-    for call in (lambda: engine.export_handoff(0),
-                 lambda: engine.import_handoff(None, {}),
-                 engine.corrupt_swap_record):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(KeyError, match="not decoding here"):
+        engine.export_handoff(0)
+    with pytest.raises(KeyError, match="holds no swap record"):
+        engine.corrupt_swap_record(0)
+    assert engine.corrupt_swap_record() is None
+    assert engine.corrupt_swap_record(force=True) is None
     assert engine.device == torch.device("cpu")
     # the live-metrics time series and exporter are ported
     # (tests/test_torch_exporter.py serves them over HTTP)

@@ -24,8 +24,10 @@ from skycomputing_tpu_torch.serving.engine import (
     _swap_record_checksum,
     _swap_record_nbytes,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
+
 
 BASE = dict(num_slots=3, max_len=48, buckets=(8, 16, 32), page_size=8,
             prefill_batch=2)

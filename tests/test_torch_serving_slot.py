@@ -43,8 +43,10 @@ from skycomputing_tpu_torch.serving import (
     SlotKVCachePool,
     init_layer_caches,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
+
 
 BASE = dict(num_slots=3, max_len=48, buckets=(8, 16, 32), prefill_batch=2)
 # the ServingStats counters both packages keep alike on a slot engine

@@ -170,3 +170,36 @@ def assert_same_replay(gpt, jax_run, port_run):
     assert pf.stats.snapshot() == jf.stats.snapshot()
     assert supervisor_events(pf) == supervisor_events(jf)
     assert heal_trace(pev) == heal_trace(jev)
+
+
+_STDLIB_RUNNER = r'''
+import importlib.abc, importlib.util, json, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "numpy", "jax"):
+            raise ImportError(f"{name} is blocked")
+        return None
+
+sys.meta_path.insert(0, Block())
+spec = importlib.util.spec_from_file_location("stdlib_under_test",
+                                              sys.argv[1])
+mod = importlib.util.module_from_spec(spec)
+sys.modules[spec.name] = mod
+spec.loader.exec_module(mod)
+print(json.dumps(eval(sys.argv[2], {"mod": mod})))
+'''
+
+
+def stdlib_load(path, expression):
+    """Load ``path`` by file path in a fresh interpreter where importing
+    torch, numpy or jax raises, and return ``expression`` (Python over
+    the loaded module ``mod``) evaluated there, through JSON."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, "-c", _STDLIB_RUNNER, str(path), expression],
+        capture_output=True, text=True, check=True)
+    return json.loads(out.stdout)
