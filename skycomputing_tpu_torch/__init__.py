@@ -18,7 +18,10 @@ the telemetry core (:mod:`.telemetry`), fault injection and self-heal,
 the parallel engines on a single-controller device mesh
 (:mod:`.parallel`: sequence parallelism, data-parallel replicas,
 mesh-native stages, and the compiled SPMD BERT and GPT pipelines with
-tensor parallelism, ZeRO-1/2/3 and expert parallelism).
+tensor parallelism, ZeRO-1/2/3 and expert parallelism), the measuring
+tools, the serving fleet with its observability, disaggregated serving,
+the chaos plane and the workload player, the closed tuning loop
+(:mod:`.tuning`) and the port's own static analysers (:mod:`.analysis`).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on a CPU tensor each kernel wrapper runs its plain PyTorch version.

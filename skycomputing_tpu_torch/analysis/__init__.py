@@ -1,7 +1,10 @@
-"""Static analysis of a plan before it runs (the port of
-``skycomputing_tpu/analysis``: the pre-flight plan verifier).  The JAX
-package's linters (skylint, skyaudit, skydet) check JAX hazards and are
-queue A item 5."""
+"""Static analysis (the port of ``skycomputing_tpu/analysis``): the
+pre-flight plan verifier (:mod:`.plan_check`, exported here), and the
+port's own linters, each pure stdlib and loaded by file path by its
+command: :mod:`.lint` (skylint, eager PyTorch/CUDA hazards),
+:mod:`.audit` (skyaudit, the port's layering manifest, locks and counter
+types) and :mod:`.determinism` (skydet, the replay planes' determinism
+and digest contracts)."""
 
 from .plan_check import (
     PlanError,

@@ -3,6 +3,7 @@
 
 from .hooks import Hook
 from .hooks_collection import (
+    AutotuneHook,
     CheckpointHook,
     DistributedTimerHelperHook,
     EvalHook,
@@ -16,6 +17,6 @@ from .hooks_collection import (
 )
 from .runner import Runner
 
-__all__ = ["CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
+__all__ = ["AutotuneHook", "CheckpointHook", "DistributedTimerHelperHook", "EvalHook",
            "HeartbeatHook", "Hook", "MetricsHook", "NanGuardHook", "Runner", "SelfHealHook",
            "StopHook", "TraceHook", "WatchdogHook"]

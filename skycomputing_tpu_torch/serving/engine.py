@@ -78,9 +78,9 @@ for ``/healthz``, and request-scoped tracing: with a tracer enabled,
 every request gets a recycled lane carrying its ``queue_wait``,
 ``prefill`` and ``decode`` segments (attributed to ``trace_name``, the
 replica's name in a fleet) and the engine lane its waves, ticks and
-admission instants.
-
-Not ported yet: the autotuner hook.
+admission instants, and each stage's lane the work it issued.  A
+``tuning.ServingAutotuner`` attaches itself as ``self.autotuner``; every
+``step`` then ends with its ``on_step``.
 """
 
 from __future__ import annotations
@@ -276,9 +276,9 @@ class _PagedServingStage:
         self.device = device
         self.kv_dtype = kv_dtype
         self.plain = plain
-        for module, sd in zip(modules, state_dicts):
+        self.modules = [m.to_empty(device=device) for m in modules]
+        for module, sd in zip(self.modules, state_dicts):
             module.load_state_dict(sd, strict=True)
-        self.modules = [m.to(device) for m in modules]
         self.specs = [
             kv_spec_from_config(self.modules[i].config.to_dict(), page_size)
             for i in attn_indices(self.modules)
@@ -380,9 +380,9 @@ class _SlotServingStage:
     def __init__(self, modules: Sequence[Any], state_dicts: Sequence[Any],
                  device: torch.device, num_slots: int, max_len: int):
         self.device = device
-        for module, sd in zip(modules, state_dicts):
+        self.modules = [m.to_empty(device=device) for m in modules]
+        for module, sd in zip(self.modules, state_dicts):
             module.load_state_dict(sd, strict=True)
-        self.modules = [m.to(device) for m in modules]
         self.specs = [
             kv_spec_from_config(self.modules[i].config.to_dict(), max_len)
             for i in attn_indices(self.modules)
@@ -619,7 +619,10 @@ class ServingEngine(LiveMetricsMixin):
         )
         if not self._devices:
             raise ValueError("devices is empty")
-        modules = decode_modules(build_layer_stack(list(model_cfg)))
+        # built on the meta device: each stage materializes its slice on
+        # its own device and loads the weights (no throwaway init)
+        with torch.device("meta"):
+            modules = decode_modules(build_layer_stack(list(model_cfg)))
         if not attn_indices(modules) or not isinstance(
             modules[0], GptEmbeddings
         ):
@@ -735,6 +738,9 @@ class ServingEngine(LiveMetricsMixin):
         # FIFO, which chunk waves honor head-first)
         self._prefilling: Dict[int, Request] = {}
         self._finished: List[Request] = []
+        # closed-loop tuning: a ``tuning.ServingAutotuner`` attaches
+        # itself here, and every step ends with its observe/decide call
+        self.autotuner = None
         # kept for reconfigure's second pre-flight against a proposed
         # operating point (the opt-out carries over)
         self._model_cfg = list(model_cfg)
@@ -808,6 +814,10 @@ class ServingEngine(LiveMetricsMixin):
                 self.stages.append(_SlotServingStage(
                     mods, sds, dev, self.num_slots, self.max_len))
             cursor += n
+        # trace-lane names: the analysis keys stage occupancy on the
+        # "stage N" prefix, as it does for the training pipeline's
+        for i, st in enumerate(self.stages):
+            st.lane_name = f"stage {i} [{st.device}]"
         # token ids enter on stage 0's device, logits leave the last's
         self.device = self.stages[0].device
         self._last_device = self.stages[-1].device
@@ -1827,6 +1837,8 @@ class ServingEngine(LiveMetricsMixin):
             self.stats.batch_occupancy = self.stages[0].pool.occupancy
         if self.timeseries is not None:
             self.timeseries.sample()
+        if self.autotuner is not None:
+            self.autotuner.on_step(self)
 
     def _sync_paged_stats(self) -> None:
         """Mirror the page pool's counters and gauges into
@@ -1898,8 +1910,11 @@ class ServingEngine(LiveMetricsMixin):
         t0 = time.perf_counter()
         data = torch.from_numpy(ids)
         for st in self.stages:
+            stage0 = tracer.now() if tracer is not None else 0.0
             data = st.prefill(data.to(st.device), dst.to(st.device),
                               src.to(st.device))
+            self._trace_stage(tracer, st, "prefill", stage0,
+                              {"bucket": bucket})
         logits = self._last_logits(data, lengths)
         tokens_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
@@ -1943,7 +1958,9 @@ class ServingEngine(LiveMetricsMixin):
         data = torch.from_numpy(tokens[:, None])
         idx = torch.from_numpy(index)
         for st in self.stages:
+            stage0 = tracer.now() if tracer is not None else 0.0
             data = st.decode(data.to(st.device), idx.to(st.device))
+            self._trace_stage(tracer, st, "decode", stage0, None)
         logits = data[:, 0]  # [slots, V]
         nxt_np = logits.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()
@@ -2121,7 +2138,8 @@ class ServingEngine(LiveMetricsMixin):
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
-            index, valid,
+            index, valid, tracer, "prefill",
+            {"bucket": bucket, "chunk": True},
         )
         logits = self._last_logits(data, lengths)
         tokens_np = logits.argmax(dim=-1).cpu().numpy()
@@ -2261,7 +2279,7 @@ class ServingEngine(LiveMetricsMixin):
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(ids).to(self.device), tables[:, :width],
-            index, valid,
+            index, valid, tracer, "prefill", {"bucket": bucket},
         )
         logits = self._last_logits(data, lengths)  # [rows, V]
         tokens_np = logits.argmax(dim=-1).cpu().numpy()
@@ -2334,23 +2352,37 @@ class ServingEngine(LiveMetricsMixin):
             for st in self.stages:
                 st.apply_cow_plan(plan)
 
-    def _run_paged_stages(self, data, tables, index, valid):
+    def _run_paged_stages(self, data, tables, index, valid, tracer,
+                          span_name, span_args=None):
         """Thread one paged step through every stage in order — the one
         dispatch idiom of prefill waves, chunk waves, decode ticks and
         the speculative verify.  The step's table, index and write plan
         are planned on the host once and moved once per distinct device
         (stages on one card share them); the hidden state moves only
         where the next stage's device differs (``.to`` is a no-op
-        otherwise).  Returns the last stage's output."""
+        otherwise).  Each stage lays a ``span_name`` span on its lane.
+        Returns the last stage's output."""
         slab = next((st.slabs[0][0] for st in self.stages if st.slabs),
                     None)
         inputs: Dict[torch.device, Any] = {}
         for st in self.stages:
+            stage0 = tracer.now() if tracer is not None else 0.0
             if st.device not in inputs:
                 inputs[st.device] = paged_step_inputs(
                     slab, tables, index, valid, data.shape[1], st.device)
             data = st.step(data.to(st.device), inputs[st.device])
+            self._trace_stage(tracer, st, span_name, stage0, span_args)
         return data
+
+    @staticmethod
+    def _trace_stage(tracer, stage, name: str, stage0: float,
+                     args: Optional[Dict[str, Any]]) -> None:
+        """A ``name`` span on ``stage``'s lane from ``stage0`` (the
+        host issuing the stage's work, as the reference's spans are);
+        a no-op with tracing disabled."""
+        if tracer is not None:
+            tracer.complete(name, tracer.lane(stage.lane_name, "dispatch"),
+                            stage0, args)
 
     def _last_logits(self, data, lengths):
         """Each row's logits at its last true position: [rows, V]."""
@@ -2448,7 +2480,7 @@ class ServingEngine(LiveMetricsMixin):
         t0 = time.perf_counter()
         data = self._run_paged_stages(
             torch.from_numpy(tokens[:, None]).to(self.device),
-            tables[:, :width], index, valid,
+            tables[:, :width], index, valid, tracer, "decode",
         )
         logits = data[:, 0]  # [rows, V]
         nxt_np = logits.argmax(dim=-1).cpu().numpy()
@@ -2518,7 +2550,7 @@ class ServingEngine(LiveMetricsMixin):
         verify_in = np.concatenate([tokens[:, None], drafted], axis=1)
         logits3 = self._run_paged_stages(
             torch.from_numpy(verify_in).to(self.device), tables, index0,
-            valid,
+            valid, tracer, "decode",
         )  # [rows, k+1, V]
         target_np = logits3.argmax(dim=-1).cpu().numpy()
         now = time.perf_counter()

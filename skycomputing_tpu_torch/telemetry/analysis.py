@@ -2,7 +2,7 @@
 ``skycomputing_tpu/telemetry/analysis.py``; pure stdlib).
 
 Consumes Chrome-trace timelines produced by :mod:`.tracer` (``TraceHook``
-for training) and computes the schedule-shape numbers the paper's
+for training, a traced ``ServingEngine`` for serving) and computes the schedule-shape numbers the paper's
 headline claim is about:
 
 - **per-stage utilization / busy time** — busy fraction and absolute
@@ -14,7 +14,14 @@ headline claim is about:
   gaps where NO stage had work in flight;
 - **step times** — distribution over ``iter`` spans (TraceHook rows);
 - **host dispatch** — the ``host_dispatch`` spans' share of the window;
-- **transfers** — ``transfer`` and ``transfer_elided`` instants.
+- **transfers** — ``transfer`` and ``transfer_elided`` instants;
+- **serving breakdown** — prefill (the TTFT component) and decode (the
+  TPOT component) span distributions, admissions, preemptions and
+  stalls, and a per-bucket prefill histogram with padding waste, which
+  ``tuning.TuningAdvisor`` reads;
+- **request timelines** — one request's waterfall of ``queue_wait`` /
+  ``prefill`` / ``decode`` segments and lifecycle instants across
+  replicas (``trace_report --request``).
 
 The port's spans time the host issuing work, as the reference's do: on
 one card every stage shares the device, so the stages' spans follow one
@@ -22,11 +29,11 @@ another and the bubble fraction is at least ``1 - 1/S`` by
 construction.  The reference's ``xla_compiles`` count has no
 counterpart (nothing compiles).  The regression gate
 (:func:`baseline_targets`, :func:`check_regression`) is the reference's,
-read by ``python -m skycomputing_tpu_torch.tools.trace_report``.  Its
-serving breakdown, request-timeline reconstruction and serving padding
-waste read the serving engine's tracer lanes and the incident plane,
-and wait with them for queue A item 4, as do ``trace_report``'s
-``--request`` and ``--incidents`` modes.
+read by ``python -m skycomputing_tpu_torch.tools.trace_report``.
+
+Pure stdlib by contract (``pure_stdlib`` in ``analysis/audit.py``'s
+manifest): ``tools/bench_autotune.py --smoke`` loads this module by file
+path with no torch installed.
 """
 
 from __future__ import annotations
@@ -153,6 +160,50 @@ def _clip(
             for t0, t1 in intervals if t1 > lo and t0 < hi]
 
 
+def _bucket_histogram(
+    events: List[Dict[str, Any]], serving_pids: set
+) -> Dict[str, Dict[str, Any]]:
+    """Per-bucket prefill accounting from engine-lane prefill spans.
+
+    The engine's prefill span args carry the wave's bucket, request
+    count, and true token count, so padding waste is computable per
+    bucket: ``1 - tokens / (bucket * requests)`` is the share of
+    prefill FLOPs spent on pad positions — the skewed-bucket signature
+    the serving autotuner acts on.
+    """
+    hist: Dict[int, Dict[str, float]] = {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev.get("name") != "prefill":
+            continue
+        if ev.get("pid") not in serving_pids:
+            continue
+        args = ev.get("args") or {}
+        bucket = args.get("bucket")
+        if bucket is None:
+            continue
+        row = hist.setdefault(
+            int(bucket), {"waves": 0, "requests": 0, "tokens": 0}
+        )
+        row["waves"] += 1
+        row["requests"] += int(args.get("wave", 0))
+        row["tokens"] += int(args.get("tokens", 0))
+    out: Dict[str, Dict[str, Any]] = {}
+    for bucket in sorted(hist):
+        row = hist[bucket]
+        capacity = bucket * row["requests"]
+        padded = (
+            round(1.0 - row["tokens"] / capacity, 4)
+            if capacity > 0 and row["tokens"] > 0 else None
+        )
+        out[str(bucket)] = {
+            "waves": int(row["waves"]),
+            "requests": int(row["requests"]),
+            "tokens": int(row["tokens"]),
+            "padded_fraction": padded,
+        }
+    return out
+
+
 def analyze(events: List[Dict[str, Any]]) -> Dict[str, Any]:
     """The full report dict over one trace's events."""
     spans = stage_spans(events)
@@ -214,6 +265,49 @@ def analyze(events: List[Dict[str, Any]]) -> Dict[str, Any]:
             "p50_ms": round(_pct(iter_durs, 50) / 1e3, 3),
             "p95_ms": round(_pct(iter_durs, 95) / 1e3, 3),
         }
+    # serving breakdown: prefill spans bound TTFT (admission -> first
+    # token), decode spans bound TPOT (one tick = one token for every
+    # active request)
+    prefill = named_durations(events, "prefill")
+    decode = named_durations(events, "decode")
+    serving_lanes = {
+        pid for pid, name in lane_processes(events).items()
+        if name == "serving"
+    }
+    if prefill or decode:
+        # engine-level spans only (per-stage prefill/decode spans share
+        # names; the engine lane carries the end-to-end figure)
+        eng_prefill = [float(ev["dur"]) for ev in events
+                       if ev.get("ph") == "X" and ev["name"] == "prefill"
+                       and ev.get("pid") in serving_lanes]
+        eng_decode = [float(ev["dur"]) for ev in events
+                      if ev.get("ph") == "X" and ev["name"] == "decode"
+                      and ev.get("pid") in serving_lanes]
+        prefill, decode = eng_prefill or prefill, eng_decode or decode
+        report["serving"] = {
+            "prefill_waves": len(prefill),
+            "decode_ticks": len(decode),
+            "ttft_component_p50_ms": round(
+                (_pct(prefill, 50) or 0.0) / 1e3, 3),
+            "ttft_component_p95_ms": round(
+                (_pct(prefill, 95) or 0.0) / 1e3, 3),
+            "tpot_component_p50_ms": round(
+                (_pct(decode, 50) or 0.0) / 1e3, 3),
+            "tpot_component_p95_ms": round(
+                (_pct(decode, 95) or 0.0) / 1e3, 3),
+            "admissions": count_instants(events, "admit"),
+            "preemptions": count_instants(events, "preempt"),
+            "queue_stalls": count_instants(events, "queue_stall"),
+            "buckets": _bucket_histogram(events, serving_lanes),
+        }
+        # the aggregate padding waste is THE skewed-bucket signal, and
+        # both its consumers (the advisor's decide step and the serving
+        # tuner's commit/rollback judge) read this one field — a single
+        # implementation, so they can never disagree
+        padding = serving_padding_fraction(report["serving"])
+        report["serving"]["padding_fraction"] = (
+            round(padding, 4) if padding is not None else None
+        )
     # host-dispatch share: one "host_dispatch" span per train step (its
     # duration IS the engine's PipelineStats.dispatch_s), so the trace
     # carries the same dispatch fraction the engine reports — the figure
@@ -256,6 +350,133 @@ def measured_stage_seconds(report: Dict[str, Any],
     if n < 1:
         raise TraceError(f"invalid step count {n}")
     return [busy[k] / 1e3 / n for k in sorted(busy, key=int)]
+
+
+def serving_padding_fraction(
+    serving: Optional[Dict[str, Any]]
+) -> Optional[float]:
+    """Token-weighted prefill padding waste over the bucket histogram:
+    the fraction of prefill positions that were pad, across all waves.
+    None when the trace carries no per-bucket token accounting."""
+    if not serving:
+        return None
+    hist = serving.get("buckets") or {}
+    capacity = tokens = 0
+    for bucket, row in hist.items():
+        if row.get("tokens") and row.get("requests"):
+            capacity += int(bucket) * row["requests"]
+            tokens += row["tokens"]
+    if capacity <= 0:
+        return None
+    return 1.0 - tokens / capacity
+
+
+# --------------------------------------------------------------------------
+# request-scoped timeline reconstruction
+# --------------------------------------------------------------------------
+
+#: span names the request lanes emit, one per waterfall segment kind
+REQUEST_SEGMENT_NAMES = ("queue_wait", "prefill", "decode")
+#: instants that end a request's story (nothing more may follow)
+REQUEST_TERMINAL_NAMES = ("finish", "failed", "rejected", "shed")
+
+
+def request_timeline(events: List[Dict[str, Any]],
+                     request_id: int) -> Dict[str, Any]:
+    """One request's end-to-end waterfall from a Chrome trace.
+
+    Selects every event whose args carry ``request == request_id`` —
+    the request-lane ``queue_wait``/``prefill``/``decode`` spans plus
+    lifecycle instants (``submitted``/``queued``/``dispatch``/
+    ``admit``/``preempt``/``migrate``/``limbo``/``finish``/...) — and
+    orders them into segments with per-segment replica attribution.
+    A migrated request reads as: segments on replica A, a ``migrate``
+    marker, segments on replica B — one id, one timeline.
+
+    Returns ``segments`` (spans, time-ordered), ``markers``
+    (instants), ``replicas`` (distinct attribution, first-seen order),
+    ``migrations``, ``complete`` (reached a terminal marker),
+    ``orphan_spans`` (spans that start after the terminal marker —
+    zero in a well-formed trace), and ``max_gap_ms`` between adjacent
+    segments.
+    """
+    rid = request_id
+    spans: List[Dict[str, Any]] = []
+    markers: List[Dict[str, Any]] = []
+    for ev in events:
+        args = ev.get("args") or {}
+        if args.get("request") != rid:
+            continue
+        if (ev.get("ph") == "X"
+                and ev.get("name") in REQUEST_SEGMENT_NAMES):
+            t0 = float(ev["ts"])
+            t1 = t0 + float(ev.get("dur", 0))
+            spans.append({
+                "name": ev["name"],
+                "start_ms": t0 / 1e3,
+                "end_ms": t1 / 1e3,
+                "duration_ms": (t1 - t0) / 1e3,
+                "replica": args.get("replica"),
+                "args": {k: v for k, v in args.items()
+                         if k != "request"},
+            })
+        elif ev.get("ph") == "i":
+            markers.append({
+                "name": ev["name"],
+                "ts_ms": float(ev["ts"]) / 1e3,
+                "replica": args.get("replica") or args.get("from"),
+                "args": {k: v for k, v in args.items()
+                         if k != "request"},
+            })
+    if not spans and not markers:
+        raise TraceError(f"no events carry request id {rid}")
+    spans.sort(key=lambda s: (s["start_ms"], s["end_ms"]))
+    markers.sort(key=lambda m: m["ts_ms"])
+    replicas: List[str] = []
+    for item in sorted(spans + markers,
+                       key=lambda x: x.get("start_ms", x.get("ts_ms"))):
+        rep = item.get("replica")
+        if rep and rep not in replicas:
+            replicas.append(rep)
+    terminal = [m for m in markers
+                if m["name"] in REQUEST_TERMINAL_NAMES]
+    end_of_story = terminal[-1]["ts_ms"] if terminal else None
+    orphans = (
+        [s for s in spans if s["start_ms"] > end_of_story + 1e-6]
+        if end_of_story is not None else []
+    )
+    gaps = [
+        max(0.0, b["start_ms"] - a["end_ms"])
+        for a, b in zip(spans, spans[1:])
+    ]
+    points = ([s["start_ms"] for s in spans]
+              + [s["end_ms"] for s in spans]
+              + [m["ts_ms"] for m in markers])
+    return {
+        "request": rid,
+        "segments": spans,
+        "markers": markers,
+        "replicas": replicas,
+        "migrations": sum(1 for m in markers if m["name"] == "migrate"),
+        "preemptions": sum(1 for m in markers
+                           if m["name"] == "preempt"),
+        "complete": bool(terminal),
+        "terminal": terminal[-1]["name"] if terminal else None,
+        "orphan_spans": len(orphans),
+        "max_gap_ms": round(max(gaps), 3) if gaps else 0.0,
+        "start_ms": min(points),
+        "end_ms": max(points),
+    }
+
+
+def request_ids(events: List[Dict[str, Any]]) -> List[int]:
+    """Every distinct request id appearing in the trace's args."""
+    seen = set()
+    for ev in events:
+        rid = (ev.get("args") or {}).get("request")
+        if isinstance(rid, int):
+            seen.add(rid)
+    return sorted(seen)
 
 
 # --------------------------------------------------------------------------
@@ -336,6 +557,8 @@ def check_regression(
 
 
 __all__ = [
+    "REQUEST_SEGMENT_NAMES",
+    "REQUEST_TERMINAL_NAMES",
     "TraceError",
     "analyze",
     "baseline_targets",
@@ -347,5 +570,8 @@ __all__ = [
     "measured_stage_seconds",
     "merge_intervals",
     "named_durations",
+    "request_ids",
+    "request_timeline",
+    "serving_padding_fraction",
     "stage_spans",
 ]

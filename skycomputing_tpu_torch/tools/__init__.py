@@ -19,12 +19,20 @@ drive the JAX package), each a command::
 - ``run_ladder``: the experiment config ladder through the launcher;
 - ``bench_fleet``: the serving fleet's kill-and-spike scenario (and
   ``--smoke``, the router's and admission's decisions);
-- ``skyreport``: an incident postmortem bundle rendered and verified.
+- ``skyreport``: an incident postmortem bundle rendered and verified;
 - ``bench_disagg``: prefill/decode pools against a monolithic fleet
   over ``disagg_mix``;
 - ``bench_chaos``: the fault-plan catalog replayed and audited;
 - ``bench_scenarios``: the autoscaler over a named scenario against a
-  fixed fleet.
+  fixed fleet;
+- ``bench_autotune``: the closed tuning loop on a straggler pipeline
+  (and ``--smoke``, the decide step on the repository's fixture);
+- ``bench_flight``: the flight recorder's overhead and the incident
+  plane's detection, silence and determinism gates;
+- ``skylint``, ``skyaudit``, ``skydet``: the port's static analysis
+  (eager-PyTorch hazards; layering, purity, locks and counter types;
+  determinism and digest integrity), each loadable by file path with
+  no torch installed.
 
 Every tool that runs a model runs on the card unless ``--device`` names
 another device, and raises on a box without one.  None writes outside ``build/``,

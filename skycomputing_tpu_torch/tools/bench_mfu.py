@@ -120,9 +120,11 @@ def run(device) -> dict:
     # built and initialized on the device from a seed (the weights'
     # values do not move the step's time; a host-side init of
     # BERT-large's 335M parameters would cost seconds)
-    torch.manual_seed(0)
-    with torch.device(device):
-        model = build_layer_stack(layer_cfgs)
+    cuda = torch.device(device).type == "cuda"
+    with torch.random.fork_rng(devices=[device] if cuda else []):
+        torch.manual_seed(0)
+        with torch.device(device):
+            model = build_layer_stack(layer_cfgs)
 
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(

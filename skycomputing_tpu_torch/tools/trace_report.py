@@ -25,9 +25,16 @@ renders it): the incident's identity plus every ``incident_opened`` /
 ``incident_closed`` instant of the analyzed trace, printed after the
 report (with ``--json``: under an ``incidents`` key).
 
-The reference tool's request waterfall (``--request``) and serving
-breakdown are not ported yet.  The tool reads and writes no device, so
-it takes no ``--device``.
+``--request ID`` reconstructs one request's end-to-end waterfall
+(queue wait, admission, prefill, decode, preemption and migration
+segments with their replica) from a traced ``ServingEngine`` or fleet
+instead of the aggregate report; with ``--smoke`` it checks the
+repository's fixture ``tools/fixtures/trace_request.json`` (one request
+migrated across two replicas, read as data).  Exit codes: 0 ok, 1 a
+trace that cannot be read or analysed (or a request id it does not
+carry, or a smoke self-check that fails), 2 a baseline regression.
+
+The tool reads and writes no device, so it takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from ..telemetry.analysis import (
     baseline_targets,
     check_regression,
     load_events,
+    request_ids,
+    request_timeline,
 )
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -52,6 +61,42 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def smoke_fixture() -> str:
     return os.path.join(_REPO, "tools", "fixtures", "trace_smoke.json")
+
+
+def request_fixture() -> str:
+    return os.path.join(_REPO, "tools", "fixtures", "trace_request.json")
+
+
+def _print_request(timeline: Dict[str, Any]) -> None:
+    """Human waterfall: segments and markers in one time-ordered list,
+    with per-segment replica attribution."""
+    t0 = timeline["start_ms"]
+    print(f"# request {timeline['request']}: "
+          f"{len(timeline['segments'])} segments over "
+          f"{len(timeline['replicas'])} replica(s) "
+          f"({', '.join(timeline['replicas']) or 'unattributed'}), "
+          f"{timeline['migrations']} migration(s), "
+          f"{'complete' if timeline['complete'] else 'INCOMPLETE'}"
+          + (f" ({timeline['terminal']})" if timeline["terminal"]
+             else ""))
+    rows = (
+        [("span", s["start_ms"], s) for s in timeline["segments"]]
+        + [("mark", m["ts_ms"], m) for m in timeline["markers"]]
+    )
+    for kind, ts, item in sorted(rows, key=lambda r: r[1]):
+        where = item.get("replica")
+        extra = {k: v for k, v in item["args"].items()
+                 if k not in ("replica", "from")}
+        suffix = f"  {extra}" if extra else ""
+        if kind == "span":
+            print(f"#   [{item['start_ms'] - t0:10.3f} -> "
+                  f"{item['end_ms'] - t0:10.3f} ms] "
+                  f"{item['name']:<12} @ {where or '-'}{suffix}")
+        else:
+            print(f"#    {ts - t0:10.3f} ms {'':>15} "
+                  f"{item['name']:<12} @ {where or '-'}{suffix}")
+    print(f"# max inter-segment gap {timeline['max_gap_ms']:.3f} ms, "
+          f"orphan spans {timeline['orphan_spans']}")
 
 
 def _print_human(report: Dict[str, Any]) -> None:
@@ -73,6 +118,17 @@ def _print_human(report: Dict[str, Any]) -> None:
         s = report["steps"]
         print(f"# steps: n={s['count']} mean {s['mean_ms']:.2f} ms "
               f"p50 {s['p50_ms']:.2f} p95 {s['p95_ms']:.2f}")
+    if "serving" in report:
+        s = report["serving"]
+        print(f"# serving: {s['prefill_waves']} prefill waves "
+              f"(TTFT p95 {s['ttft_component_p95_ms']:.2f} ms), "
+              f"{s['decode_ticks']} decode ticks "
+              f"(TPOT p95 {s['tpot_component_p95_ms']:.2f} ms), "
+              f"{s['admissions']} admits, {s['preemptions']} preempts, "
+              f"{s['queue_stalls']} stalls")
+        padding = s.get("padding_fraction")
+        if padding is not None:
+            print(f"# serving prefill padding waste: {padding * 100:.1f}%")
     print(f"# transfers {report['transfers']['copies']} copied, "
           f"{report['transfers']['elided']} elided")
 
@@ -87,6 +143,8 @@ def _smoke_problems(report: Dict[str, Any]) -> List[str]:
                         f"{report['bubble_fraction']} not in (0, 1)")
     if "steps" not in report or report["steps"]["count"] < 1:
         problems.append("fixture lost its iter spans")
+    if "serving" not in report:
+        problems.append("fixture lost its serving spans")
     return problems
 
 
@@ -135,6 +193,64 @@ def _print_incidents(overlay: Dict[str, Any]) -> None:
         print(f"#   {m['ts_ms']:10.3f} ms {m['name']:<16} {m['args']}")
 
 
+def _run_request_mode(path: str, args) -> int:
+    """``--request ID``: the per-request waterfall path (no aggregate
+    analysis — a request-only trace has no stage lanes to analyze)."""
+    try:
+        events = load_events(path)
+        timeline = request_timeline(events, args.request)
+    except (OSError, json.JSONDecodeError, TraceError, KeyError) as exc:
+        known = []
+        try:
+            known = request_ids(load_events(path))
+        except (OSError, json.JSONDecodeError, TraceError):
+            pass
+        print(f"trace_report: cannot reconstruct request "
+              f"{args.request} from {path}: {exc}"
+              + (f" (ids in trace: {known[:20]})" if known else ""),
+              file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(timeline), flush=True)
+    else:
+        _print_request(timeline)
+    if args.smoke:
+        # structural self-check: the fixture encodes one request
+        # migrated across two replicas with a complete waterfall
+        problems = []
+        if not timeline["complete"]:
+            problems.append("fixture request never reached a terminal "
+                            "marker")
+        if timeline["migrations"] < 1:
+            problems.append("fixture lost its migration marker")
+        if len(timeline["replicas"]) < 2:
+            problems.append(
+                f"fixture spans {timeline['replicas']}, expected two "
+                f"replicas"
+            )
+        if len(timeline["segments"]) < 5:
+            problems.append(
+                f"fixture has {len(timeline['segments'])} segments, "
+                f"expected the full queue/prefill/decode x2 waterfall"
+            )
+        if timeline["orphan_spans"]:
+            problems.append(
+                f"{timeline['orphan_spans']} orphan span(s) after the "
+                f"terminal marker"
+            )
+        names = {s["name"] for s in timeline["segments"]}
+        if not {"queue_wait", "prefill", "decode"} <= names:
+            problems.append(f"fixture segment names {sorted(names)} "
+                            f"lost a waterfall phase")
+        if problems:
+            for p in problems:
+                print(f"trace_report --smoke --request: {p}",
+                      file=sys.stderr)
+            return 1
+        print("# smoke: ok")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("trace", nargs="?",
@@ -146,16 +262,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="print the full analysis as one JSON line")
     parser.add_argument("--smoke", action="store_true",
                         help="analyze the repository's fixture trace and "
-                             "check the report's structure")
+                             "check the report's structure (with "
+                             "--request: the request-waterfall fixture)")
+    parser.add_argument("--request", type=int, default=None,
+                        metavar="ID",
+                        help="reconstruct one request's end-to-end "
+                             "waterfall (queue/admission/prefill/"
+                             "decode/migration segments) instead of "
+                             "the aggregate report")
     parser.add_argument("--incidents", metavar="BUNDLE",
                         help="postmortem bundle JSON (skyreport artifact) "
                              "to overlay: incident identity + open/close "
                              "instants on the timeline")
     args = parser.parse_args(argv)
 
-    path = args.trace or (smoke_fixture() if args.smoke else None)
+    path = args.trace
+    if args.smoke:
+        path = path or (request_fixture() if args.request is not None
+                        else smoke_fixture())
     if not path:
         parser.error("a trace file (or --smoke) is required")
+    if args.request is not None:
+        return _run_request_mode(path, args)
     try:
         events = load_events(path)
         report = analyze(events)

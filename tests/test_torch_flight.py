@@ -6,7 +6,10 @@ incident engine's lifecycle; postmortem bundles, ``cause_chain`` /
 stories and for the same fleet replay; the SLO monitor's burn rates and
 alerts equal JAX's on the same series; and the readers of the bundles
 (``skyreport`` and ``trace_report --incidents``) equal JAX's tools on
-the same bundle and trace.
+the same bundle and trace; and ``bench_flight``'s gates at the
+reference bench's tiny size (its campaigns detected, silent on their
+fault-free replays and deterministic; its overhead gate the verdict of
+its own measurement), writing nothing unless ``--out`` says where.
 
 One field differs between the packages' fleet bundles by design: the
 JAX fleet's flight log carries a ``serving/recompile`` event where an
@@ -30,6 +33,7 @@ from skycomputing_tpu_torch.tools import skyreport
 from skycomputing_tpu_torch.tools import trace_report
 from torch_fleet_helpers import replay, sides, tiny_gpt
 from tools._loader import load_by_path
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -415,3 +419,53 @@ def test_trace_report_incident_overlay_equals_jax(tmp_path, capsys):
     missing = [str(trace), "--incidents", str(tmp_path / "nope.json")]
     assert trace_report.main(missing) == jax_tool.main(missing) == 1
     assert Path(bundle).exists()
+
+
+def test_bench_flight_gates_at_tiny_size():
+    """The four gates over the port's fleet, disagg, chaos and flight
+    planes on the CPU.  The campaigns' gates count ticks and events and
+    must hold; the overhead gate compares host wall times, which other
+    test workers share, so here it is held to be its measurement's
+    verdict, read as the reference reads it (the card's run holds it to
+    the 2% budget)."""
+    from skycomputing_tpu_torch.tools import bench_flight
+
+    report = bench_flight.run_bench(device="cpu", overhead_repeats=2,
+                                    overhead_ticks_scale=0.25)
+    gates = report["gates"]
+    campaign = {g: ok for g, ok in gates.items() if "." in g}
+    assert len(campaign) == 2 * 5
+    assert all(campaign.values()), campaign
+    for name in bench_flight.CAMPAIGNS:
+        doc = report["campaigns"][name]
+        assert doc["reference_incidents_opened"] == 0
+        assert doc["bundle_digests"] and any(
+            chain[:1] == ["fault"] and "impact" in chain
+            for chain in doc["cause_chains"])
+    over = report["overhead"]
+    assert gates["recorder_overhead"] == (
+        over["overhead_frac"] <= bench_flight.OVERHEAD_LIMIT)
+    assert len(over["wall_s_on"]) == len(over["wall_s_off"]) == 2
+    # the reference's reading: each mode's least wall over the repeats
+    assert over["overhead_frac"] == (
+        min(over["wall_s_on"]) / min(over["wall_s_off"]) - 1.0)
+    # beside it: the recorder's own share of each attached replay
+    assert all(0.0 < t < w for t, w in zip(over["recorder_s_on"],
+                                           over["wall_s_on"]))
+    assert report["passed"] == all(gates.values())
+
+
+def test_bench_flight_writes_only_where_asked(tmp_path, monkeypatch):
+    from skycomputing_tpu_torch.tools import bench_flight
+
+    repo = Path(__file__).resolve().parents[1]
+    before = (repo / "BENCH_flight.json").read_bytes()
+    monkeypatch.chdir(tmp_path)
+    rc = bench_flight.main(["--skip-overhead", "--device", "cpu"])
+    assert rc == 0
+    assert list(tmp_path.iterdir()) == []
+    out = tmp_path / "sub" / "flight.json"
+    assert bench_flight.main(["--skip-overhead", "--device", "cpu",
+                              "--out", str(out)]) == 0
+    assert json.loads(out.read_text())["passed"] is True
+    assert (repo / "BENCH_flight.json").read_bytes() == before

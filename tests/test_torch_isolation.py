@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``skycomputing_tpu_torch`` (the
-serving bench and the workload mixes among them) and nothing in
+serving bench, the workload mixes, the tuning loop and the static
+analysers among them) and nothing in
 ``chip_smoke.py`` or ``prefill_ab.py`` imports ``jax``, ``flax`` or the
 JAX package; the package imports with those blocked; an engine, a
 pipeline or the serving bench asked for no device refuses to fall back
@@ -81,7 +82,11 @@ def test_package_imports_with_jax_blocked():
                                    "parallel.expert_parallel",
                                    "fleet", "telemetry.incidents",
                                    "tools.bench_fleet",
-                                   "tools.skyreport"])
+                                   "tools.skyreport", "tuning",
+                                   "runner.hooks_collection.autotune_hook",
+                                   "tools.bench_autotune",
+                                   "tools.bench_flight", "tools.skylint",
+                                   "tools.skyaudit", "tools.skydet"])
 def test_each_subpackage_imports_first(first):
     """A user may import any subpackage before the others (the parallel
     engines' entry points are ``skycomputing_tpu_torch.parallel``): no
@@ -147,6 +152,35 @@ FLEET_PLANE = [
 def test_fleet_plane_is_covered(name):
     """The fleet plane's modules are among the files the import check
     reads, and none imports the JAX package's ``tools/``."""
+    assert name in {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert "tools" not in set(_imported_roots(ROOT / name))
+
+
+TUNING_AND_ANALYSIS = [
+    "skycomputing_tpu_torch/tuning/__init__.py",
+    "skycomputing_tpu_torch/tuning/advisor.py",
+    "skycomputing_tpu_torch/tuning/autotune.py",
+    "skycomputing_tpu_torch/runner/hooks_collection/autotune_hook.py",
+    "skycomputing_tpu_torch/analysis/lint.py",
+    "skycomputing_tpu_torch/analysis/audit.py",
+    "skycomputing_tpu_torch/analysis/determinism.py",
+    "skycomputing_tpu_torch/tools/bench_autotune.py",
+    "skycomputing_tpu_torch/tools/bench_flight.py",
+    "skycomputing_tpu_torch/tools/trace_report.py",
+    "skycomputing_tpu_torch/tools/skylint.py",
+    "skycomputing_tpu_torch/tools/skyaudit.py",
+    "skycomputing_tpu_torch/tools/skydet.py",
+    "skycomputing_tpu_torch/tools/changed.py",
+    "skycomputing_tpu_torch/tools/_static_cli.py",
+]
+
+
+@pytest.mark.parametrize("name", TUNING_AND_ANALYSIS)
+def test_tuning_and_analysis_are_covered(name):
+    """The tuning loop, the new tools and the three analysers are among
+    the files the import check reads, and none imports the JAX
+    package's ``tools/`` (the analysers and the CLIs keep their own
+    copies of what they need)."""
     assert name in {str(p.relative_to(ROOT)) for p in _port_files()}
     assert "tools" not in set(_imported_roots(ROOT / name))
 

@@ -50,6 +50,7 @@ from skycomputing_tpu_torch.parallel import (
     mesh as tmesh,
     sgd,
 )
+from torch_test_helpers import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -497,3 +498,105 @@ def test_rebuild_reads_the_allocators_reshape():
     assert model.partition_signature() == [len(w.model_config)
                                            for w in staged]
     assert np.isfinite(model.train_step(*_batch(4)))
+
+
+# --- the autotuner's mesh reshape ------------------------------------------
+
+class _OneProposal:
+    """A scripted advisor: one straggler proposal, then nothing."""
+
+    def __init__(self, proposal):
+        self._queue = [proposal]
+
+    def propose_training(self, report, *, blocked=(), **_):
+        while self._queue:
+            p = self._queue.pop(0)
+            if p.signature not in blocked:
+                return p
+        return None
+
+
+def _reshape_run(pkg, devices, monkeypatch):
+    """``tests/test_mesh_pipeline.py:264``'s scenario in one package: a
+    straggler proposal on a mesh-native model re-solves the mesh shape
+    through verify-then-apply and is committed (the step-time judge
+    forced, so host timing decides nothing)."""
+    if pkg == "jax":
+        import skycomputing_tpu.runner as run
+        import skycomputing_tpu.runner.hooks_collection.autotune_hook as hk
+        from skycomputing_tpu.tuning import Proposal
+        units = _units(jax_bert_config, jax_bert_layers, units=3)
+        wm, alloc_cls = _pool(JaxWorkerManager, 8), JaxAllocator
+    else:
+        import skycomputing_tpu_torch.runner as run
+        import skycomputing_tpu_torch.runner.hooks_collection.autotune_hook \
+            as hk
+        from skycomputing_tpu_torch.tuning import Proposal
+        units = _units(bert_config, bert_layer_configs, units=3)
+        wm, alloc_cls = _pool(WorkerManager, 8), Allocator
+    monkeypatch.setattr(hk, "improved", lambda *a, **k: True)
+
+    class _Dev:
+        def benchmark(self):
+            return {f"worker{w.rank}": dict(time=1.0, avai_mem=1e6)
+                    for w in wm.worker_pool}
+
+    class _Mod:
+        def benchmark(self):
+            return [1.0] * len(units), [0.1] * len(units)
+
+    alloc = alloc_cls(units, wm, _Mod(), _Dev())
+    alloc.mesh_allocate(max_chips_per_stage=2)
+    data, labels = _batch(seed=0)
+    if pkg == "jax":
+        ps = JaxParameterServer(units, example_inputs=data,
+                                rng=jax.random.key(0))
+        model = JaxMeshPipeline(wm, ps, _OPT, jax_ce, devices=devices,
+                                num_microbatches=2)
+    else:
+        ps = ParameterServer(units,
+                             generator=torch.Generator().manual_seed(0))
+        model = MeshPipelineModel(wm, ps, sgd(LR), cross_entropy_loss,
+                                  devices=CPUS, num_microbatches=2)
+    chips_before = list(model.chips_per_stage)
+    straggle = Proposal(knob="allocation", value=[3.0, 1.0, 1.0, 1.0],
+                        signature="straggler", metric="step_p50_ms",
+                        reason="scripted")
+    hook = run.AutotuneHook(allocator=alloc, advisor=_OneProposal(straggle),
+                            tune_every=2)
+    runner = run.Runner(model, ps, wm, max_epochs=1, max_iters=8)
+    runner.register_hook(hook)
+    runner.train([(data, labels)] * 8)
+    staged = sorted((w for w in wm.worker_pool if w.model_config),
+                    key=lambda w: w.order)
+    return dict(outcomes=[e["outcome"] for e in hook.events],
+                chips_before=chips_before,
+                chips=list(model.chips_per_stage),
+                pool_chips=[w.extra_config["mesh_chips"] for w in staged],
+                partition=model.partition_signature(),
+                pool_partition=[len(w.model_config) for w in staged],
+                model=model, data=(data, labels),
+                preflight=[r.ok for r in getattr(
+                    runner, "preflight_reports", [])])
+
+
+def test_autotune_straggler_mesh_reshape_equals_jax(devices, monkeypatch):
+    """The reshape passes the plan and mesh-payload checks, applies
+    through ``rebuild()``, and the committed world keeps training: the
+    same outcomes, chips per stage and partition in both packages, the
+    straggler's stage shedding layers."""
+    runs = {}
+    for pkg in ("jax", "torch"):
+        with monkeypatch.context() as m:
+            runs[pkg] = _reshape_run(pkg, devices, m)
+    got, want = runs["torch"], runs["jax"]
+    for key in ("outcomes", "chips_before", "chips", "partition"):
+        assert got[key] == want[key], key
+    assert got["chips_before"] == [2, 2, 2, 2]
+    assert "applied" in got["outcomes"] and "committed" in got["outcomes"]
+    assert got["partition"][0] < 3
+    assert got["chips"] == got["pool_chips"]
+    assert got["partition"] == got["pool_partition"]
+    assert sum(got["chips"]) <= len(CPUS)
+    assert got["preflight"] == [True, True]
+    assert np.isfinite(got["model"].train_step(*_batch(9)))
