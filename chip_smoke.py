@@ -6,10 +6,11 @@ one.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source under ``skycomputing_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, started together), one ``ptxas`` line per
-   kernel instantiation (registers, spill bytes, static shared memory);
-   the tensor-core (bf16 and 3xTF32), decode and register-tile bodies
-   must not spill;
+   (one ``nvcc`` per source, started together; each source's seconds
+   printed), one ``ptxas`` line per kernel instantiation (registers,
+   spill bytes, static shared memory); every instantiation is of the
+   tensor-core (bf16 and 3xTF32), decode or register-tile bodies, and
+   none may spill;
 3. each kernel against its plain PyTorch version on the card, in
    bfloat16 and float32, with kernel / plain / library times and the
    bound: paged attention at GPT-2 small's shapes (decode waves,
@@ -23,27 +24,28 @@ one.  Phases, each fatal on failure:
    phase 34 (b)'s (pages of 16 in tables of 8 pages over a 32-page
    pool: a decode wave of 8 rows, and a prefill wave of one row at
    each bucket, Lq=16 on the decode body, 32, 48 and 112 on the
-   register-tile body); flash
+   register-tile body); B2 and B3 where a K/V row is not whole 16-byte
+   chunks, staged padded (bf16 pages at head_dim 36, int8 pages under
+   bf16 q at 40, float32 pages at 30; decode R=16, Lq=1 on the decode
+   body and prefill R=4, Lq=128 on the register-tile body); flash
    attention (kernel B1) at BERT-large's
    microbatch (B=8, L=128, H=16, D=64, a padded tail of 32 keys), at
    L=512, at L=100 and at phases 27-28's dp shard (B=4, L=128), float32
    on the 3xTF32 tensor-core body, whose rows add its bound at the TF32
-   peak beside the FFMA bound; then, checked but not timed, each kernel
-   body's edges (B1 at L=7, 64 and 65, head_dim 32, 36, 40 and 128,
-   B=1, every key masked, float32 against the plain version evaluated
-   in float64; B2 and B3 with a row at index 0, a row filling its whole
-   table, a row at index 20 and an all-sentinel pad row, head_dim 64
-   and 128, pages of 16 at Lq 1, 5, 16, 17, 63, 64, 65 and 256, pages of
-   4 and 8 at Lq 17, 33 and 64).  Every row names the body that served
-   it and what ``ptxas -v`` reported for that body (registers, spills,
-   shared memory) beside its dynamic shared memory.  At each float32
-   prefill and chunk row (the register-tile body) the query-tile body it
-   replaced runs the same call too: its error, its ``ptxas`` figures and
-   its time, the two bodies timed in turns, the register-tile body
-   required to be the faster; and B1's CUDA-core body timed at its own
-   head_dims (float32 at 36, bf16 at 40; B=4, L=128, H=16) beside its
-   bound (``flash_bound``: bf16 at the tensor cores' peak, float32 at
-   the 3xTF32 bound with the FFMA bound beside it) and SDPA's time;
+   peak beside the FFMA bound, and at head_dims its mma's k-step does
+   not divide, staged padded on the tensor-core bodies (float32 at 36
+   and 37, bf16 at 40 and 37; B=4, L=128, H=16), beside their bound
+   (``flash_bound`` at the real head_dim) and SDPA's time; then,
+   checked but not timed, each kernel body's edges (B1 at L=7, 64 and
+   65, head_dim 32, 36, 37, 40 and 128, B=1, every key masked, float32
+   against the plain version evaluated in float64; B2 and B3 with a row
+   at index 0, a row filling its whole table, a row at index 20 and an
+   all-sentinel pad row, head_dim 64 and 128, pages of 16 at Lq 1, 5,
+   16, 17, 63, 64, 65 and 256, pages of 4 and 8 at Lq 17, 33 and 64,
+   and padded rows at head_dim 37 and 30 in every copy granule).  Every
+   row names the body that served it and what ``ptxas -v`` reported for
+   that body (registers, spills, shared memory) beside its dynamic
+   shared memory;
 4. the serving path: GPT-2 small (full width, 12 layers, random weights
    from a seed) served by the paged ``ServingEngine`` — 16 requests,
    four sharing a 64-token prefix — with every kernel's launch count
@@ -470,7 +472,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import importlib
 import io
 import json
 import os
@@ -658,15 +659,13 @@ def paged_body(ptxas, q, page_dtype, table, page_size=16):
         label = f"paged_attention_kernel_decode<{t}, {kv}, {max_q}>"
     elif body == "tensor_core":
         label = f"paged_attention_kernel_mma<{kv}, {D}>"
-    elif body == "register_tile":
+    else:
         # the head-dim bound, and whether it is the head dim (1) or not
         d_max = 32 if D <= 32 else (64 if D <= 64 else 128)
         label = (f"paged_attention_kernel_tile<{t}, {kv}, {d_max}, "
                  f"{int(D == d_max)}>")
-    else:
-        label = f"paged_attention_kernel<{t}, {kv}>"
     return body_fields(ptxas, body, label, kernel_smem_bytes(
-        body, page_dtype, Lq, D, page_size, table.shape[1]))
+        body, page_dtype, Lq, D, table.shape[1]))
 
 
 def flash_body(torch, ptxas, q):
@@ -679,15 +678,13 @@ def flash_body(torch, ptxas, q):
     B, L, H, D = q.shape
     plan = kernel_plan(q.dtype, B, L, H, D, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
-    if plan["body"] == "tensor_core":
-        label = f"flash_attention_kernel_mma<{D}>"
-    elif plan["body"] == "tensor_core_f32":
-        label = f"flash_attention_kernel_tf32x3<{D}>"
-    else:
-        t = _SHORT[str(q.dtype).replace("torch.", "")]
-        label = f"flash_attention_kernel<{t}, {4 if D <= 64 else 8}>"
-    out = body_fields(ptxas, plan["body"], label, kernel_smem_bytes(plan, D))
-    out["warps"] = plan["warps"]
+    # the instantiation for the padded head dim
+    kernel = ("flash_attention_kernel_mma" if plan["body"] == "tensor_core"
+              else "flash_attention_kernel_tf32x3")
+    out = body_fields(ptxas, plan["body"], f"{kernel}<{plan['padded_dim']}>",
+                      kernel_smem_bytes(plan, D))
+    out.update(warps=plan["warps"], padded_dim=plan["padded_dim"],
+               copy_bytes=plan["copy_bytes"])
     return out
 
 
@@ -732,19 +729,19 @@ def disagg_cases():
 
 
 def attention_case(torch, np, name, R, Lq, dtype, seed, int8=False,
-                   geometry=PAGES_16):
-    """GPT-2 small heads (H=12, D=64); ``geometry`` is (page size, pool
-    pages, table width), by default pages of 16, a 512-page pool and
-    32-page tables.  Decode and verify waves (and any case named
-    ``*_decode``): every fourth row inactive, the others live at
-    positions 1..299, fewer where the pool could not hold every live
-    row's pages at that length; prefill: 2 live rows (one appending
-    after a 64-token prefix) and 2 pad rows, or one row at index 0
-    where R is 1; chunk: 4 live rows, each appending a chunk after 64,
-    128, 192 or 256 positions.  ``int8``: pages are N(0, 32) rounded
-    and clipped to int8, scales U(0.02, 0.04) per (page, head), so the
-    dequantized pages are of unit size like the fp ones."""
-    H, D = 12, 64
+                   geometry=PAGES_16, D=64):
+    """GPT-2 small heads (H=12, head_dim ``D``, 64 by default);
+    ``geometry`` is (page size, pool pages, table width), by default
+    pages of 16, a 512-page pool and 32-page tables.  Decode and verify
+    waves (and any case named ``*_decode``): every fourth row inactive,
+    the others live at positions 1..299, fewer where the pool could not
+    hold every live row's pages at that length; prefill: 2 live rows
+    (one appending after a 64-token prefix) and 2 pad rows, or one row
+    at index 0 where R is 1; chunk: 4 live rows, each appending a chunk
+    after 64, 128, 192 or 256 positions.  ``int8``: pages are N(0, 32)
+    rounded and clipped to int8, scales U(0.02, 0.04) per (page, head),
+    so the dequantized pages are of unit size like the fp ones."""
+    H = 12
     PS, P, W = geometry
     rng = np.random.default_rng(seed)
     pages = rng.permutation(P - 1)  # page P-1 is only ever a clamp target
@@ -855,47 +852,14 @@ def library_call(torch, case):
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=m)
 
 
-def query_tile_ab(torch, ptxas, case, args, kw, first_ms):
-    """The query-tile body, which served float32 prefill and chunk waves
-    before the register-tile body, on the same call: its error against
-    the plain version, its ``ptxas`` figures and its time, the two bodies
-    timed in turns (register-tile, query-tile, query-tile, register-tile;
-    ``first_ms`` is the first).  Returns (the register-tile body's mean
-    time and its two times, the query-tile body's row)."""
-    pa = importlib.import_module(
-        "skycomputing_tpu_torch.ops.paged_attention")
-
-    def call():
-        return pa.paged_attention(*args, **kw)
-
-    with mock.patch.object(pa, "kernel_plan", lambda *a: "query_tile"):
-        out = call()
-        torch.cuda.synchronize()
-        ref = pa.paged_attention_reference(*args, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
-        old = [time_ms(torch, call), time_ms(torch, call)]
-    again = time_ms(torch, call)
-    R, Lq, H, D = case["q"].shape
-    t = _SHORT[str(case["q"].dtype).replace("torch.", "")]
-    kv = _SHORT[str(case["k"].dtype).replace("torch.", "")]
-    row = dict(ms=sum(old) / 2, ms_each=old, max_abs_err=err,
-               **body_fields(ptxas, "query_tile",
-                             f"paged_attention_kernel<{t}, {kv}>",
-                             pa.kernel_smem_bytes(
-                                 "query_tile", case["k"].dtype, Lq, D,
-                                 case["PS"], case["table"].shape[1])))
-    return (first_ms + again) / 2, [first_ms, again], row
-
-
 PAGED_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def paged_row(torch, np, ptxas, kernel, name, R, Lq, dtype, seed,
-              int8=False, geometry=PAGES_16, query_tile=True):
-    """One case of B2 (or, ``int8``, B3) against its plain version: its
-    error (held within :data:`PAGED_TOL`), body, times and bound.  A
-    register-tile row is timed beside the query-tile body where
-    ``query_tile`` (and must beat it)."""
+              int8=False, geometry=PAGES_16, D=64):
+    """One case of B2 (or, ``int8``, B3) at head_dim ``D`` against its
+    plain version: its error (held within :data:`PAGED_TOL`), body, times
+    and bound."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -903,7 +867,7 @@ def paged_row(torch, np, ptxas, kernel, name, R, Lq, dtype, seed,
 
     tol = PAGED_TOL[dtype]
     case = attention_case(torch, np, name, R, Lq, dtype, seed=seed,
-                          int8=int8, geometry=geometry)
+                          int8=int8, geometry=geometry, D=D)
     args, kw = kernel_args(case)
     out = paged_attention(*args, **kw)
     ref = paged_attention_reference(*args, **kw)
@@ -913,29 +877,20 @@ def paged_row(torch, np, ptxas, kernel, name, R, Lq, dtype, seed,
     fields = paged_body(ptxas, case["q"], case["k"].dtype, case["table"],
                         page_size=case["PS"])
     ms = time_ms(torch, lambda: paged_attention(*args, **kw))
-    ab = {}
-    if query_tile and fields["body"] == "register_tile":
-        ms, ab["ms_each"], ab["query_tile"] = query_tile_ab(
-            torch, ptxas, case, args, kw, ms)
     issue_ms = host_ms(torch, lambda: paged_attention(*args, **kw))
     plain_ms = time_ms(torch, lambda: paged_attention_reference(*args, **kw))
     library_ms = time_ms(torch, library_call(torch, case))
     bound_ms, bound_by = attention_bound(np, case, dtype)
-    row = dict(kernel=kernel, case=name, R=R, Lq=Lq, dtype=dtype,
+    row = dict(kernel=kernel, case=name, R=R, Lq=Lq, D=D, dtype=dtype,
                page_size=case["PS"], pool_pages=case["P"],
                table_width=case["table"].shape[1], max_abs_err=err,
                tol=tol, ms=ms, host_ms=issue_ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-               **fields, **ab)
+               **fields)
     log(f"   {json.dumps(row)}")
     check(finite and err <= tol,
-          f"{kernel} {name} {dtype}: max |err| {err:.3g} <= {tol}")
-    if ab:
-        old = ab["query_tile"]
-        check(old["max_abs_err"] <= tol and ms < old["ms"],
-              f"{kernel} {name} {dtype}: register-tile body {ms:.4f} ms < "
-              f"query-tile body {old['ms']:.4f} ms (its max |err| "
-              f"{old['max_abs_err']:.3g})")
+          f"{kernel} {name} D={D} {dtype} ({fields['body']}): max |err| "
+          f"{err:.3g} <= {tol}")
     return row
 
 
@@ -949,18 +904,39 @@ def kernel_checks(torch, np, ptxas):
                 seed = 6 * ki + 2 * ci + di + (0 if ci < 3 else 100)
                 results.append(paged_row(torch, np, ptxas, kernel, name, R,
                                          Lq, dtype, seed, int8=int8))
-    # B2 in float32 at the geometry of phase 33 (a)'s calls (no query-tile
-    # comparison: that body serves no call there)
+    # B2 in float32 at the geometry of phase 33 (a)'s calls
     for ci, (name, R, Lq, geometry, _) in enumerate(disagg_cases()):
         results.append(paged_row(torch, np, ptxas, "paged_attention", name,
                                  R, Lq, "float32", 200 + ci,
-                                 geometry=geometry, query_tile=False))
+                                 geometry=geometry))
     # and at the geometry of each of phase 34 (b)'s calls
     for name, R, Lq, geometry, _, seed in autotune_cases():
         results.append(paged_row(torch, np, ptxas, "paged_attention", name,
                                  R, Lq, "float32", seed,
-                                 geometry=geometry, query_tile=False))
+                                 geometry=geometry))
     return results
+
+
+# (q dtype, int8 pages, head_dim) of the K/V rows that are not whole
+# 16-byte chunks, each timed at PADDED_CALLS: bf16 pages at 36 (72-byte
+# rows, copied 8 bytes at a time), int8 pages under bf16 q at 40 (40
+# bytes, by 8), float32 pages at 30 (120 bytes, by 8)
+PADDED_ROWS = (("bfloat16", False, 36), ("bfloat16", True, 40),
+               ("float32", False, 30))
+PADDED_CALLS = (("decode", 16, 1), ("prefill", 4, 128))
+
+
+def paged_padded_checks(torch, np, ptxas):
+    """B2 and B3 where a K/V row is not whole 16-byte chunks, staged
+    padded by the decode body (decode R=16, Lq=1) and the register-tile
+    body (prefill R=4, Lq=128), at GPT-2 small's 12 heads over pages of
+    16: each row as :func:`paged_row` makes it (error, body, times,
+    bound)."""
+    return [paged_row(torch, np, ptxas, "paged_attention_int8" if int8
+                      else "paged_attention", name, R, Lq, dtype,
+                      900 + 2 * ri + ci, int8=int8, D=D)
+            for ri, (dtype, int8, D) in enumerate(PADDED_ROWS)
+            for ci, (name, R, Lq) in enumerate(PADDED_CALLS)]
 
 
 def paged_edge_case(torch, np, D, Lq, dtype, int8, seed, PS=16):
@@ -1019,7 +995,11 @@ def paged_edge_checks(torch, np, ptxas):
     query past one warp, around a 64-query block, the largest bucket;
     float32: the register-tile body, one past the decode bound, around
     its 32- and 16-query tiles), head_dim 64 and 128; then pages of 4
-    and 8 (the register-tile body in both dtypes) at Lq 17, 33 and 64."""
+    and 8 (the register-tile body in both dtypes) at Lq 17, 33 and 64;
+    then K/V rows staged padded (head_dim 37: float32 rows copied 4
+    bytes at a time, bf16 by 2, int8 by 1; head_dim 30: by 8, 4 and 2)
+    on the decode body (Lq 1 and 16, pages of 16) and the register-tile
+    body (Lq 17 and 64, pages of 16 and 8)."""
     from skycomputing_tpu_torch.ops.paged_attention import (
         paged_attention,
         paged_attention_reference,
@@ -1030,29 +1010,34 @@ def paged_edge_checks(torch, np, ptxas):
                for Lq in (1, 5, 16, 17, 63, 64, 65, 256)]
               + [(PS, D, Lq) for PS in (4, 8) for D in (64, 128)
                  for Lq in (17, 33, 64)])
+    padded = [(16, D, Lq) for D in (37, 30) for Lq in (1, 16, 17, 64)] + [
+        (8, D, Lq) for D in (37, 30) for Lq in (17, 64)]
+    kernels = (("paged_attention", False), ("paged_attention_int8", True))
     results = []
-    for kernel, int8 in (("paged_attention", False),
-                         ("paged_attention_int8", True)):
-        for PS, D, Lq in shapes:
-            for dtype in ("bfloat16", "float32"):
-                args, kw = paged_edge_case(torch, np, D, Lq, dtype, int8,
-                                           seed=500 + len(results), PS=PS)
-                out = paged_attention(*args, **kw)
-                ref = paged_attention_reference(*args, **kw)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                finite = bool(torch.isfinite(out).all())
-                row = dict(kernel=kernel, case=f"edge_ps{PS}_d{D}_lq{Lq}",
-                           page_size=PS, D=D, Lq=Lq, dtype=dtype,
-                           max_abs_err=err, tol=tol[dtype],
-                           **paged_body(ptxas, args[0], args[1].dtype,
-                                        args[3], PS))
-                log(f"   {json.dumps(row)}")
-                check(finite and err <= tol[dtype],
-                      f"{kernel} page {PS} D={D} Lq={Lq} {dtype} "
-                      f"({row['body']}): max |err| {err:.3g} "
-                      f"<= {tol[dtype]}")
-                results.append(row)
+    for first_seed, group in ((500, shapes), (900, padded)):
+        for ki, (kernel, int8) in enumerate(kernels):
+            for si, (PS, D, Lq) in enumerate(group):
+                for di, dtype in enumerate(("bfloat16", "float32")):
+                    seed = first_seed + 2 * (ki * len(group) + si) + di
+                    args, kw = paged_edge_case(torch, np, D, Lq, dtype,
+                                               int8, seed=seed, PS=PS)
+                    out = paged_attention(*args, **kw)
+                    ref = paged_attention_reference(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    finite = bool(torch.isfinite(out).all())
+                    row = dict(kernel=kernel,
+                               case=f"edge_ps{PS}_d{D}_lq{Lq}", page_size=PS,
+                               D=D, Lq=Lq, dtype=dtype, max_abs_err=err,
+                               tol=tol[dtype],
+                               **paged_body(ptxas, args[0], args[1].dtype,
+                                            args[3], PS))
+                    log(f"   {json.dumps(row)}")
+                    check(finite and err <= tol[dtype],
+                          f"{kernel} page {PS} D={D} Lq={Lq} {dtype} "
+                          f"({row['body']}): max |err| {err:.3g} "
+                          f"<= {tol[dtype]}")
+                    results.append(row)
     return results
 
 
@@ -1310,9 +1295,8 @@ def check_launches(launches, expect, what):
 def check_bodies(e2e, kernel, prefill, decode):
     """``kernel``'s launches by body in a serving run: every prefill (and
     chunk) wave on the tensor-core body, every decode and verify tick on
-    the decode body, none on the query-tile or register-tile body."""
-    expect = dict(query_tile=0, decode=decode, tensor_core=prefill,
-                  register_tile=0)
+    the decode body, none on the register-tile body."""
+    expect = dict(decode=decode, tensor_core=prefill, register_tile=0)
     got = e2e["body_launches"][kernel]
     check(got == expect, f"{kernel} by body: {json.dumps(got)} == "
           f"{json.dumps(expect)}")
@@ -1536,9 +1520,9 @@ def flash_checks(torch, np, ptxas):
 
 
 # (case, B, L, H, D, masked tail keys) at the tensor-core bodies' edges;
-# head_dim 40 is not a multiple of 16, so bf16 takes the CUDA-core body
-# (float32 the float32 tensor-core body, 40 being a multiple of 8), and
-# head_dim 36 not a multiple of 8, so both dtypes take the CUDA-core body
+# head_dims 40, 36 and 37 are staged padded (bf16 at 48, float32 at 40),
+# their rows copied 16, 8 or 2 bytes at a time in bf16 and 16, 16 or 4 in
+# float32
 FLASH_EDGE_CASES = (("short_L7", 2, 7, 4, 64, 0), ("one_tile_L64", 2, 64, 4,
                                                     64, 0),
                     ("one_past_L65", 2, 65, 4, 64, 0),
@@ -1547,7 +1531,8 @@ FLASH_EDGE_CASES = (("short_L7", 2, 7, 4, 64, 0), ("one_tile_L64", 2, 64, 4,
                     ("batch_1", 1, 128, 16, 64, 32),
                     ("all_keys_masked", 2, 64, 4, 64, 64),
                     ("head_dim_40", 2, 100, 4, 40, 8),
-                    ("head_dim_36", 2, 100, 4, 36, 8))
+                    ("head_dim_36", 2, 100, 4, 36, 8),
+                    ("head_dim_37", 2, 100, 4, 37, 8))
 
 
 def flash_edge_checks(torch, np, ptxas):
@@ -1602,6 +1587,67 @@ def flash_edge_checks(torch, np, ptxas):
                   f"max |err| {err:.3g} <= {tol[dtype]}")
             results.append(row)
     return results
+
+
+# (dtype, head_dim) of B1's padded routes, timed at B=4, L=128, H=16
+FLASH_PADDED = (("float32", 36), ("bfloat16", 40), ("float32", 37),
+                ("bfloat16", 37))
+
+
+def flash_padded_checks(torch, np, ptxas):
+    """B1 at head_dims its mma's k-step does not divide (float32 at D=36
+    and 37, bf16 at 40 and 37; B=4, L=128, H=16, 32 keys padded), staged
+    padded on the tensor-core bodies: each against its plain version
+    (float32 evaluated in float64) and timed as phase 3 times, with its
+    bound as :func:`flash_bound` reckons it at the real D (bf16 at the
+    tensor cores' peak; float32 at the 3xTF32 bound, the FFMA bound
+    beside it) and SDPA's time."""
+    import torch.nn.functional as F
+    from skycomputing_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}
+    rows = []
+    for dtype, D in FLASH_PADDED:
+        rng = np.random.default_rng(400 + D)
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.from_numpy(rng.standard_normal((4, 128, 16, D))
+                                    .astype(np.float32)).to("cuda", dt)
+                   for _ in range(3))
+        bias = torch.zeros(4, 128)
+        bias[:, -32:] = -10000.0
+        bias = bias.to("cuda", dt)
+        scale = D ** -0.5
+        ref = flash_attention_reference(
+            q, k, v, bias, scale, compute_dtype=(
+                torch.float64 if dtype == "float32" else torch.float32))
+        out = flash_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.double() - ref.double()).abs().max().item()
+        finite = bool(torch.isfinite(out).all())
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        body = flash_body(torch, ptxas, q)
+        B, L, H, _ = q.shape
+        bound_ms, bound_by, extra = flash_bound(q, bias, dtype, body["body"])
+        row = dict(
+            kernel="flash_attention", case=f"padded_D{D}", B=B, L=L, H=H,
+            D=D, padded_keys=32, dtype=dtype, max_abs_err=err, tol=tol[dtype],
+            ms=time_ms(torch, lambda: flash_attention(q, k, v, bias)),
+            plain_ms=time_ms(torch, lambda: flash_attention_reference(
+                q, k, v, bias, scale)),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias[:, None, None, :])),
+            bound_ms=bound_ms, bound_by=bound_by, **extra, **body)
+        log(f"   {json.dumps(row)}")
+        want = "tensor_core" if dtype == "bfloat16" else F32_BODY
+        check(finite and body["body"] == want and err <= tol[dtype],
+              f"flash_attention D={D} {dtype} on {want} at "
+              f"{body['padded_dim']}, copied {body['copy_bytes']} bytes at a "
+              f"time: max |err| {err:.3g} <= {tol[dtype]}")
+        rows.append(row)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -3112,8 +3158,8 @@ def serving_bench_path(torch, np, kernels, gpt_mod):
             launches[kernel] += section["launches"][kernel]
             prefill[kernel] += bodies["tensor_core"]
             tile[kernel] += bodies["register_tile"]
-            check(bodies["query_tile"] == 0,
-                  f"{name}: {kernel} never on the query-tile body "
+            check(sum(bodies.values()) == section["launches"][kernel],
+                  f"{name}: every {kernel} launch counted under a body "
                   f"({json.dumps(bodies)})")
         gc.collect()
         torch.cuda.empty_cache()
@@ -4415,56 +4461,6 @@ def spmd_path(torch, np, kernels, dev, preset="large", units=24,
           f"(g) every layer's gradient within {GRAD_RTOL} of "
           f"PipelineModel's in norm (worst {g_grad:.3g})")
     return report
-
-
-def flash_cuda_core_checks(torch, np, ptxas):
-    """B1's CUDA-core body at its own head_dims (float32 at D=36, bf16
-    at D=40; B=4, L=128, H=16, 32 keys padded), against its plain version
-    and timed as phase 3 times, with its bound as :func:`flash_bound`
-    reckons it (bf16 at the tensor cores' peak; float32 at the
-    float32-accurate 3xTF32 bound, the FFMA bound beside it) and SDPA's
-    time."""
-    import torch.nn.functional as F
-    from skycomputing_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_reference,
-    )
-
-    rows = []
-    for dtype, D, tol in (("float32", 36, 1e-4), ("bfloat16", 40, 2e-2)):
-        rng = np.random.default_rng(400 + D)
-        dt = getattr(torch, dtype)
-        q, k, v = (torch.from_numpy(rng.standard_normal((4, 128, 16, D))
-                                    .astype(np.float32)).to("cuda", dt)
-                   for _ in range(3))
-        bias = torch.zeros(4, 128)
-        bias[:, -32:] = -10000.0
-        bias = bias.to("cuda", dt)
-        scale = D ** -0.5
-        err = (flash_attention(q, k, v, bias).float()
-               - flash_attention_reference(q, k, v, bias, scale).float()
-               ).abs().max().item()
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        body = flash_body(torch, ptxas, q)
-        B, L, H, _ = q.shape
-        bound_ms, bound_by, extra = flash_bound(
-            q, bias, dtype, "tensor_core_f32" if dtype == "float32" else None)
-        row = dict(
-            kernel="flash_attention", case=f"cuda_core_D{D}", B=B, L=L, H=H,
-            D=D, padded_keys=32, dtype=dtype, max_abs_err=err, tol=tol,
-            ms=time_ms(torch, lambda: flash_attention(q, k, v, bias)),
-            plain_ms=time_ms(torch, lambda: flash_attention_reference(
-                q, k, v, bias, scale)),
-            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=bias[:, None, None, :])),
-            bound_ms=bound_ms, bound_by=bound_by, **extra, **body)
-        log(f"   {json.dumps(row)}")
-        check(body["body"] == "cuda_core" and err <= tol,
-              f"flash_attention cuda_core D={D} {dtype}: max |err| "
-              f"{err:.3g} <= {tol}")
-        rows.append(row)
-    return rows
-
 
 
 # --------------------------------------------------------------------------
@@ -6392,7 +6388,7 @@ def autotune_serving(torch, np, kernels, gpt_mod, dev, model, trace_path):
             by_body[body] = by_body.get(body, 0) + calls.get(g, 0)
         check(bodies["decode"] == by_body["decode"]
               and bodies["register_tile"] == by_body["register_tile"]
-              and bodies["query_tile"] == 0 and bodies["tensor_core"] == 0
+              and bodies["tensor_core"] == 0
               and plain_calls["card"] == 0,
               f"(b) B2 by body {json.dumps(bodies)}: decode and "
               f"register-tile, each the sum of its geometries' calls "
@@ -6591,25 +6587,33 @@ def main() -> int:
 
     with phase("build"):
         sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+
+        def timed_build(stem):
+            t0 = time.perf_counter()
+            _build.build(stem)
+            return time.perf_counter() - t0
+
         t0 = time.perf_counter()
         with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-            built = list(pool.map(_build.build, sources))
+            report["build_s_by_source"] = dict(zip(
+                sources, pool.map(timed_build, sources)))
         report["build_s"] = time.perf_counter() - t0
-        log(f"   built {sources} in {report['build_s']:.2f} s")
+        log(f"   built {sources} in {report['build_s']:.2f} s "
+            f"({json.dumps(report['build_s_by_source'])}, all at once)")
         ptxas = ptxas_by_label(_build)
         report["ptxas"] = ptxas
         for label, info in ptxas.items():
             log(f"   ptxas {label}: {json.dumps(info)}")
-        new_bodies = {label: info for label, info in ptxas.items()
-                      if "_kernel_mma<" in label or "_kernel_decode<" in label
-                      or "_kernel_tile<" in label
-                      or "_kernel_tf32x3<" in label}
-        check(len(new_bodies) > 0 and all(
+        bodies = {label: info for label, info in ptxas.items()
+                  if "_kernel_mma<" in label or "_kernel_decode<" in label
+                  or "_kernel_tile<" in label
+                  or "_kernel_tf32x3<" in label}
+        check(len(bodies) == len(ptxas) > 0 and all(
             info.get("spill_store_bytes", 1) == 0
             and info.get("spill_load_bytes", 1) == 0
-            for info in new_bodies.values()),
-              f"{len(new_bodies)} instantiations of the tensor-core (bf16 "
-              f"and 3xTF32), decode and register-tile bodies, none "
+            for info in bodies.values()),
+              f"{len(bodies)} instantiations, every one of the tensor-core "
+              f"(bf16 and 3xTF32), decode and register-tile bodies, none "
               f"spilling")
 
     with phase("kernels against plain versions"):
@@ -6618,13 +6622,14 @@ def main() -> int:
             f"{report['spin_ms']:.3f} ms")
         attn = kernel_checks(torch, np, ptxas)
         report["kernels"] = attn
+        report["kernel_padded"] = paged_padded_checks(torch, np, ptxas)
         report["kernel_edges"] = paged_edge_checks(torch, np, ptxas)
 
     with phase("flash attention (B1) against its plain version"):
         flash = flash_checks(torch, np, ptxas)
         report["flash_kernel"] = flash
         report["flash_edges"] = flash_edge_checks(torch, np, ptxas)
-        report["flash_cuda_core"] = flash_cuda_core_checks(torch, np, ptxas)
+        report["flash_padded"] = flash_padded_checks(torch, np, ptxas)
 
     with phase("main path: GPT-2 small paged serving"):
         cfg = gpt_mod.GptConfig()

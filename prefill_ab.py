@@ -20,13 +20,6 @@ the card's clock), the variants in turns, forward then backward; each
 row's ``ms`` is the mean of the two.  Every variant but ``p_once``
 keeps the shipped arithmetic and must agree within 2e-2.
 
-``tile``: the float32 prefill and chunk waves of the same phase (fp
-and int8 pages), each on the register-tile body the plan names and
-forced onto the query-tile body it replaced, checked against the plain
-version and timed in turns (register-tile, query-tile, query-tile,
-register-tile), beside SDPA's time and the call's bound; with each
-body's ``ptxas`` registers and spills.
-
 ``tile_variants``: where the register-tile body's time goes.  It is
 built as it is (at the cases' head_dim 64, a compile-time constant), with
 head_dim read at run time under its bound (``bound_d``, as the body runs
@@ -39,17 +32,10 @@ for), from patched copies as in ``kernel``, and timed at the float32
 prefill waves in turns; the variants' outputs, but ``bound_d``'s, are
 wrong by construction and are not checked.
 
-``serve``: ``chip_smoke.py``'s fp serving run (16 requests, GPT-2 small
-at full width, 12 layers, random weights), plain and speculative
-(``spec_k=4``, ``draft_blocks=2``), with the prefill waves on the body
-the plan names and forced onto the query-tile body, in turns, ``--reps``
-times.
-
 Prints one JSON object per row and writes them all to
 ``chiprun_out/prefill_ab.json``.  Usage::
 
-    python3 prefill_ab.py [--part kernel|tile|tile_variants|serve|all]
-        [--reps 3]
+    python3 prefill_ab.py [--part kernel|tile_variants|all]
 """
 
 from __future__ import annotations
@@ -99,7 +85,7 @@ VARIANTS = {
                              for loop in _LOOPS],
 }
 # the register-tile body with one stage taken out (timing only)
-_TILE_TOP = "  const int QS = D + 4;  // a float row of q_s, K or V"
+_TILE_TOP = "  const int QS = Dp + 4;  // a float row of q_s, K or V"
 _TILE_MERGE = "  // merge the warps' (m, l, acc); a warp that walked nothing"
 TILE_VARIANTS = {
     "shipped": [],
@@ -116,7 +102,7 @@ TILE_VARIANTS = {
                  (_TILE_MERGE, "  if (D > 0) return;\n" + _TILE_MERGE)],
     "empty": [(_TILE_TOP, "  if (D > 0) return;\n" + _TILE_TOP)],
     "empty_no_smem": [(_TILE_TOP, "  if (D > 0) return;\n" + _TILE_TOP),
-                      ("  return tile_staging_offset(D, q_tile, width) + "
+                      ("  return tile_staging_offset(Dp, q_tile, width) + "
                        "(walk > merge ? walk : merge);",
                        "  return 0;")],
     "no_scores": [("      if (4 * c < D) {\n        float4 qv[kTileQPL]",
@@ -220,52 +206,6 @@ def kernel_part(torch, np):
     return rows
 
 
-def tile_part(torch, np):
-    """The register-tile body against the query-tile body at the float32
-    prefill and chunk waves, as ``chip_smoke.py``'s kernel phase times
-    them (see the module docstring)."""
-    from skycomputing_tpu_torch.ops import _build
-
-    pa = paged_module()
-    _build.build("paged_attention")
-    ptxas = cs.ptxas_by_label(_build)
-    rows = []
-    for label, info in sorted(ptxas.items()):
-        if label.startswith(("paged_attention_kernel_tile<",
-                             "paged_attention_kernel<")):
-            row = dict(part="ptxas", kernel_function=label, **info)
-            cs.log(json.dumps(row))
-            rows.append(row)
-    for int8 in (False, True):
-        for ci, (case_name, R, Lq) in enumerate(PREFILL_CASES):
-            case = cs.attention_case(torch, np, case_name, R, Lq, "float32",
-                                     seed=950 + 10 * int8 + ci, int8=int8)
-            args, kw = cs.kernel_args(case)
-            cs.check(pa.kernel_plan(torch.float32, case["k"].dtype, Lq, 64,
-                                    16) == "register_tile",
-                     f"{case_name} int8={int8} takes the register-tile body")
-            out = pa.paged_attention(*args, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - pa.paged_attention_reference(
-                *args, **kw).float()).abs().max().item()
-            first = cs.time_ms(torch, lambda: pa.paged_attention(*args, **kw))
-            ms, ms_each, old = cs.query_tile_ab(torch, ptxas, case, args, kw,
-                                                first)
-            row = dict(part="tile", int8=int8, case=case_name, R=R, Lq=Lq,
-                       ms=ms, ms_each=ms_each, max_abs_err=err,
-                       query_tile=old,
-                       library_ms=cs.time_ms(torch,
-                                             cs.library_call(torch, case)),
-                       bound_ms=cs.attention_bound(np, case, "float32")[0])
-            cs.log(json.dumps(row))
-            rows.append(row)
-            for side, e in (("register-tile", err),
-                            ("query-tile", old["max_abs_err"])):
-                cs.check(e <= 1e-5, f"{side} {case_name} int8={int8}: max "
-                         f"|err| {e:.3g} <= 1e-5")
-    return rows
-
-
 def tile_variants_part(torch, np):
     """The register-tile body with a stage taken out at a time, timed at
     the float32 prefill waves (see the module docstring)."""
@@ -303,53 +243,10 @@ def tile_variants_part(torch, np):
     return rows
 
 
-def serve_part(torch, np, reps):
-    from skycomputing_tpu_torch.models import gpt as gpt_mod
-    from skycomputing_tpu_torch.serving import Request, ServingEngine
-
-    pa = paged_module()
-    kernels = {"paged_attention": dict(fn=pa.paged_attention),
-               "paged_attention_int8": dict(fn=pa.paged_attention_int8)}
-    planned = pa.kernel_plan
-
-    def query_tile(*args):
-        body = planned(*args)
-        return "query_tile" if body == "tensor_core" else body
-
-    rows = []
-    for rep in range(reps):
-        sides = ("tensor_core", "query_tile")
-        for side in sides if rep % 2 == 0 else sides[::-1]:
-            plan = planned if side == "tensor_core" else query_tile
-            for spec in (False, True):
-                kw = dict(spec_k=4, draft_blocks=2, quiet_after=2) if spec \
-                    else {}
-                with mock.patch.object(pa, "kernel_plan", plan):
-                    engine, _, snap, _, e2e = cs.serve(
-                        torch, np, gpt_mod, ServingEngine, Request, kernels,
-                        **kw)
-                bodies = e2e["body_launches"]["paged_attention"]
-                cs.check(bodies[side] == cs.LAYERS * snap["prefill_waves"],
-                         f"every prefill launch on the {side} body")
-                row = dict(part="serve", rep=rep, prefill_body=side,
-                           spec=spec, tokens_per_s=e2e["tokens_per_s"],
-                           ttft_p50_ms=e2e["ttft_p50_s"] * 1e3,
-                           tpot_p50_ms=e2e["tpot_p50_s"] * 1e3,
-                           wall_s=e2e["wall_s"],
-                           ticks=snap["spec_ticks"] or snap["decode_ticks"],
-                           body_launches=bodies)
-                cs.log(json.dumps(row))
-                rows.append(row)
-                del engine
-    return rows
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--part", choices=("kernel", "tile", "tile_variants",
-                                           "serve", "all"),
+    parser.add_argument("--part", choices=("kernel", "tile_variants", "all"),
                         default="all")
-    parser.add_argument("--reps", type=int, default=3)
     opts = parser.parse_args()
     import numpy as np
     import torch
@@ -365,12 +262,8 @@ def main() -> int:
     rows = []
     if opts.part in ("kernel", "all"):
         rows += kernel_part(torch, np)
-    if opts.part in ("tile", "all"):
-        rows += tile_part(torch, np)
     if opts.part in ("tile_variants", "all"):
         rows += tile_variants_part(torch, np)
-    if opts.part in ("serve", "all"):
-        rows += serve_part(torch, np, opts.reps)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "prefill_ab.json").write_text(json.dumps(

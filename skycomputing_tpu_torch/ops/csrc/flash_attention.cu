@@ -19,27 +19,26 @@
 // q, k, v, out and bias: 128 flops per element, 64 per bf16 byte, below
 // the card's ~295 flops per byte, so the bound is the bytes.
 //
-// Three bodies; which one runs depends only on the dtype and D (the
-// wrapper's plan, skycomputing_tpu_torch/ops/flash_attention.py):
+// Two bodies, one per dtype (the wrapper's plan,
+// skycomputing_tpu_torch/ops/flash_attention.py), each for every head dim
+// D from 1 to 128:
 //
-// * bfloat16 with D a multiple of 16 (<= 128): flash_attention_kernel_mma,
-//   an FA2-style tensor-core body.  One block per (batch, head, tile of
-//   16 queries per warp; 4 warps, or 2 or 1 where fewer blocks than SMs
-//   would result).  Each warp keeps its 16 query rows as mma A fragments
-//   in registers for the whole K/V walk.  K/V tiles of 64 keys are copied
-//   into shared memory with 16-byte cp.async, double-buffered, so the
-//   next tile loads while this one is computed, with one barrier per
-//   tile; rows are padded by 16 bytes so that ldmatrix is free of bank
-//   conflicts.  A tile's bias is read one key per thread, a tile ahead.  S = Q.K^T runs on
-//   mma.sync.m16n8k16 (bf16 in, f32 accumulate); the f32 scores are
-//   multiplied by `scale` (q is never rounded after scaling), the bias is
-//   added in f32, keys past L are set to -inf by index, and the online
-//   softmax runs in registers with quad shuffles.  P is rounded to bf16
-//   in registers and reused as the A operand of P.V, V read with
-//   ldmatrix.trans; the f32 output goes through shared memory and out
-//   to device memory in 16-byte vectors.
-// * float32 with D a multiple of 8 (<= 128):
-//   flash_attention_kernel_tf32x3, the same skeleton on
+// * bfloat16: flash_attention_kernel_mma, an FA2-style tensor-core body.
+//   One block per (batch, head, tile of 16 queries per warp; 4 warps, or
+//   2 or 1 where fewer blocks than SMs would result).  Each warp keeps
+//   its 16 query rows as mma A fragments in registers for the whole K/V
+//   walk.  K/V tiles of 64 keys are copied into shared memory with
+//   cp.async, double-buffered, so the next tile loads while this one is
+//   computed, with one barrier per tile; rows are padded by 16 bytes so
+//   that ldmatrix is free of bank conflicts.  A tile's bias is read one
+//   key per thread, a tile ahead.  S = Q.K^T runs on mma.sync.m16n8k16
+//   (bf16 in, f32 accumulate); the f32 scores are multiplied by `scale`
+//   (q is never rounded after scaling), the bias is added in f32, keys
+//   past L are set to -inf by index, and the online softmax runs in
+//   registers with quad shuffles.  P is rounded to bf16 in registers and
+//   reused as the A operand of P.V, V read with ldmatrix.trans; the f32
+//   output goes through shared memory and out to device memory.
+// * float32: flash_attention_kernel_tf32x3, the same skeleton on
 //   mma.sync.m16n8k8 with tf32 operands, each product taken as three
 //   (3xTF32: every operand split once into a big and a small tf32 part,
 //   small.big + big.small + big.big into one f32 accumulator), so the
@@ -50,14 +49,23 @@
 //   tensor cores' f32 sums truncate, so each tile's P.V is summed apart
 //   and added to the output with an f32 FMA; each bias row is shifted
 //   by its largest value first, so that a row whose every key carries
-//   -1e4 does not round its scores to a step of 2^-10.  The FFMA peak
-//   (67 TFLOP/s) bounded the CUDA-core body; this one is bounded by
-//   three TF32 products (3 x 4BHL^2D at 495 TFLOP/s).
-// * float32 with another D, or bfloat16 with D not a multiple of 16:
-//   flash_attention_kernel, the CUDA-core body.  One block per (batch,
-//   head, 32 queries) stages K/V tiles of 64 keys in float32 through
-//   shared memory, every product a float32 FMA with a 4 x 4 register
-//   tile per thread.
+//   -1e4 does not round its scores to a step of 2^-10.  It is bounded by
+//   three TF32 products (3 x 4BHL^2D at 495 TFLOP/s), not by the FFMA
+//   peak (67 TFLOP/s).
+//
+// A head dim that is not a multiple of the mma's k-step (16 bf16, 8
+// tf32) is padded, not given a body of its own: each body is compiled
+// for kD, D rounded up to the step, and stages every row at kD with
+// head dims D .. kD - 1 zero.  Those are zeroed once before the walk and
+// no copy ever writes them, so Q.K^T adds nothing for them and the
+// output columns past D, which P.V computes from zero V columns, are
+// never stored.  The caller's `scale` stays the real D's.  A row of D
+// elements is copied in the widest granule that divides its bytes (16,
+// 8 or 4 bytes by cp.async, 2 by an ordinary load for a bf16 row of odd
+// D: copy_granule in common.cuh); D and the granule are run-time values,
+// so each kD is one instantiation.  (Until this design, float32 with D %
+// 8 != 0 and bfloat16 with D % 16 != 0 ran a CUDA-core body of float32
+// FMAs, 1.9-4.0x slower than SDPA.)
 //
 // On the TPU the K/V walk was a fori_loop over VMEM blocks of one grid
 // cell; here it is a loop inside one block, and blocks share nothing.
@@ -75,15 +83,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;           // four warps
-constexpr int kQTile = 32;              // queries of one (batch, head) per block
+constexpr int kThreads = 128;           // four warps at most
 constexpr int kKTile = 64;              // keys staged per step
 constexpr int kMaxHeadDim = 128;
-constexpr int kTx = 16;                 // threads along keys and head dims
-constexpr int kTy = kThreads / kTx;     // 8 threads along queries
-constexpr int kRows = kQTile / kTy;     // 4 queries per thread
-constexpr int kCols = kKTile / kTx;     // 4 keys per thread
-constexpr int kPs = kKTile + 1;         // padded row of the score tile
 
 // the bias row: [B, L] at strides (sb, sk) elements, float32 or bfloat16
 struct Bias {
@@ -99,245 +101,42 @@ struct Bias {
 };
 
 // ---------------------------------------------------------------------------
-// The CUDA-core body (float32 with D not a multiple of 8, and bfloat16
-// with D not a multiple of 16)
-// ---------------------------------------------------------------------------
-
-// Shared memory, in floats.  q and k rows are padded by one so that
-// threads reading neighbouring rows at the same head dim hit distinct
-// banks; the score rows likewise.
-__host__ __device__ inline size_t smem_floats(int D) {
-  const int Dp = D + 1;
-  return (size_t)kQTile * Dp      // qs
-         + (size_t)kKTile * Dp    // ks
-         + (size_t)kKTile * D     // vs
-         + (size_t)kQTile * kPs   // scores, then probabilities
-         + kKTile                 // bias of the key tile
-         + 3 * kQTile;            // running max, sum, correction
-}
-
-// kDims: head dims per thread (D <= 16 * kDims).  Thread (tx, ty) owns
-// queries ty + kTy * r (r < kRows), keys tx + kTx * c (c < kCols) of the
-// score tile and head dims tx + kTx * c (c < kDims) of the accumulator.
-template <typename T, int kDims>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, Bias bias,
-                       T* __restrict__ out, int L, int H, int D, float scale) {
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* qs = smem;
-  float* ks = qs + kQTile * Dp;
-  float* vs = ks + kKTile * Dp;
-  float* ps = vs + kKTile * D;
-  float* bs = ps + kQTile * kPs;
-  float* m_s = bs + kKTile;
-  float* l_s = m_s + kQTile;
-  float* c_s = l_s + kQTile;
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kQTile;
-  const int nq = min(kQTile, L - q0);
-  const int tid = threadIdx.x;
-  const int tx = tid % kTx;
-  const int ty = tid / kTx;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int64_t pos_stride = (int64_t)H * D;  // one position of q, k, v
-  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * D;
-
-  // this tile's queries, scaled in float32; rows past L are zero
-  for (int e = tid; e < kQTile * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    qs[r * Dp + d] =
-        r < nq ? to_float(q[base + (int64_t)(q0 + r) * pos_stride + d]) * scale
-               : 0.f;
-  }
-  if (tid < kQTile) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[kRows][kDims];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kDims; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < L; k0 += kKTile) {
-    const int nk = min(kKTile, L - k0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < kKTile * D; e += kThreads) {
-      const int j = e / D, d = e % D;
-      float kv = 0.f, vv = 0.f;
-      if (j < nk) {
-        const int64_t off = base + (int64_t)(k0 + j) * pos_stride + d;
-        kv = to_float(k[off]);
-        vv = to_float(v[off]);
-      }
-      ks[j * Dp + d] = kv;
-      vs[j * D + d] = vv;
-    }
-    if (tid < kKTile) bs[tid] = tid < nk ? bias.at(b, k0 + tid) : 0.f;
-    __syncthreads();
-
-    // scores (q * scale) . k + bias; keys past L are -inf by index
-    float s[kRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) qv[r] = qs[(ty + kTy * r) * Dp + d];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) kv[c] = ks[(tx + kTx * c) * Dp + d];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int j = tx + kTx * c;
-        ps[(ty + kTy * r) * kPs + j] = j < nk ? s[r][c] + bs[j] : -INFINITY;
-      }
-    __syncthreads();
-
-    // online softmax statistics, one warp per query row
-    for (int r = warp; r < kQTile; r += kThreads / 32) {
-      float* prow = ps + r * kPs;
-      float mx = -INFINITY;
-      for (int j = lane; j < kKTile; j += 32) mx = fmaxf(mx, prow[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kKTile; j += 32) {
-        const float sc = prow[j];
-        const float p = (sc == -INFINITY) ? 0.f : expf(sc - m_new);
-        prow[j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        // the first tile holds key 0, so m_new is finite from then on;
-        // the guard keeps exp(-inf - -inf) out all the same
-        const float corr = (m_new == -INFINITY) ? 1.f : expf(m_prev - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * correction + p . v
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float corr = c_s[ty + kTy * r];
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) acc[r][c] *= corr;
-    }
-    for (int j = 0; j < nk; ++j) {
-      float pv[kRows], vv[kDims];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pv[r] = ps[(ty + kTy * r) * kPs + j];
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) {
-        const int d = tx + kTx * c;
-        vv[c] = d < D ? vs[j * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int c = 0; c < kDims; ++c)
-          acc[r][c] = fmaf(pv[r], vv[c], acc[r][c]);
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = ty + kTy * r;
-    if (row < nq) {
-      const float denom = fmaxf(l_s[row], 1e-30f);
-      T* o_row = out + base + (int64_t)(q0 + row) * pos_stride;
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) {
-        const int d = tx + kTx * c;
-        if (d < D) o_row[d] = from_float<T>(acc[r][c] / denom);
-      }
-    }
-  }
-}
-
-template <typename T, int kDims>
-cudaError_t launch_dims(const void* q, const void* k, const void* v,
-                        Bias bias, void* out, int B, int L, int H, int D,
-                        float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(D) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, kDims>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((L + kQTile - 1) / kQTile, H, B);
-  flash_attention_kernel<T, kDims><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), L, H, D, scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_cuda_core(const void* q, const void* k, const void* v,
-                             Bias bias, void* out, int B, int L, int H, int D,
-                             float scale, cudaStream_t stream) {
-  // half the accumulator registers where the head is at most 64 wide
-  if (D <= 4 * kTx)
-    return launch_dims<T, 4>(q, k, v, bias, out, B, L, H, D, scale, stream);
-  return launch_dims<T, kMaxHeadDim / kTx>(q, k, v, bias, out, B, L, H, D,
-                                           scale, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core body (bfloat16, D a multiple of 16)
+// The tensor-core body (bfloat16)
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaRows = 16;  // query rows of one warp (the mma's M)
 
 constexpr int kStages = 2;  // K/V tiles in the tensor-core body's ring
 
+// the head dims a body stages a row at: D rounded up to one k-step of
+// its mma (16 bf16 values, 8 tf32)
+__host__ __device__ inline int padded_dim(int D, int step) {
+  return (D + step - 1) / step * step;
+}
+
 // Shared memory of the tensor-core body, in bytes: the block's query
 // rows (then its output rows) and kStages K and V tiles, all with rows
-// of D + 8 bf16 (16 bytes of padding), and kStages bias tiles in f32.
-__host__ __device__ inline size_t mma_smem_bytes(int D, int warps) {
-  const size_t row = (size_t)(D + 8) * sizeof(__nv_bfloat16);
+// of kD + 8 bf16 (16 bytes of padding), and kStages bias tiles in f32.
+__host__ __device__ inline size_t mma_smem_bytes(int kD, int warps) {
+  const size_t row = (size_t)(kD + 8) * sizeof(__nv_bfloat16);
   return (size_t)warps * kMmaRows * row + 2 * kStages * (size_t)kKTile * row +
          kStages * kKTile * sizeof(float);
 }
 
 // Warp w owns query rows q0 + 16 w .. q0 + 16 w + 15.  In an m16n8
 // fragment lane l holds rows l / 4 and l / 4 + 8, columns 2 (l % 4) and
-// 2 (l % 4) + 1 of each 8-column tile.
+// 2 (l % 4) + 1 of each 8-column tile.  kD is the head dim D rounded up
+// to 16; rows are staged at kD with head dims D .. kD - 1 zero (zeroed
+// once, never copied to), copied and stored `copy` bytes at a time.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v, Bias bias,
                            __nv_bfloat16* __restrict__ out, int L, int H,
-                           float scale) {
+                           int D, int copy, float scale) {
   constexpr int kStride = kD + 8;       // padded shared row, in bf16
-  constexpr int kChunks = kD / 8;       // 16-byte chunks of one row
+  constexpr int kChunks = kD / 8;       // 16-byte slots of a staged row
   constexpr int kKSteps = kD / 16;      // k-steps of Q.K^T
   constexpr int kDTiles = kD / 8;       // n-tiles of P.V
   constexpr int kNTiles = kKTile / 8;   // n-tiles of Q.K^T
@@ -358,18 +157,30 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * q_tile;
-  const int64_t pos_stride = (int64_t)H * kD;
-  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * kD;
+  const int64_t pos_stride = (int64_t)H * D;
+  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * D;
   const int n_tiles = (L + kKTile - 1) / kKTile;
   const int tig2 = 2 * (lane % 4);
+  const int row_bytes = D * (int)sizeof(__nv_bfloat16);
+  auto bytes = [](const __nv_bfloat16* p) {
+    return reinterpret_cast<const unsigned char*>(p);
+  };
 
+  // head dims D .. kD - 1 of every staged row (the query tile, each K and
+  // V tile) are zero for the whole walk
+  if (D != kD)
+    zero_padding(smem_raw, q_tile + 2 * kStages * kKTile,
+                 kStride * (int)sizeof(__nv_bfloat16), row_bytes,
+                 kD * (int)sizeof(__nv_bfloat16), tid, threads);
   // the query tile, rows past L zero-filled
-  for (int e = tid; e < q_tile * kChunks; e += threads) {
-    const int r = e / kChunks, c = e % kChunks;
-    const bool ok = q0 + r < L;
-    cp_async16(qs + r * kStride + c * 8,
-               q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride + c * 8, ok);
-  }
+  with_slot_copy(row_bytes, copy, [&](auto slot) {
+    for (int e = tid; e < q_tile * kChunks; e += threads) {
+      const int r = e / kChunks, c = e % kChunks;
+      const bool ok = q0 + r < L;
+      slot(reinterpret_cast<unsigned char*>(qs + r * kStride),
+           bytes(q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride), c, ok);
+    }
+  });
   // queue a K/V tile (keys past L zero-filled), then commit a group (an
   // empty one past the last tile, so every step waits the same way)
   auto load_kv = [&](int tile) {
@@ -377,14 +188,17 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
       const int k0 = tile * kKTile;
       __nv_bfloat16* kb = ks + (tile % kStages) * kTileElems;
       __nv_bfloat16* vb = vs + (tile % kStages) * kTileElems;
-      for (int e = tid; e < kKTile * kChunks; e += threads) {
-        const int j = e / kChunks, c = e % kChunks;
-        const bool ok = k0 + j < L;
-        const int64_t off =
-            base + (int64_t)(ok ? k0 + j : 0) * pos_stride + c * 8;
-        cp_async16(kb + j * kStride + c * 8, k + off, ok);
-        cp_async16(vb + j * kStride + c * 8, v + off, ok);
-      }
+      with_slot_copy(row_bytes, copy, [&](auto slot) {
+        for (int e = tid; e < kKTile * kChunks; e += threads) {
+          const int j = e / kChunks, c = e % kChunks;
+          const bool ok = k0 + j < L;
+          const int64_t off = base + (int64_t)(ok ? k0 + j : 0) * pos_stride;
+          slot(reinterpret_cast<unsigned char*>(kb + j * kStride),
+               bytes(k + off), c, ok);
+          slot(reinterpret_cast<unsigned char*>(vb + j * kStride),
+               bytes(v + off), c, ok);
+        }
+      });
     }
     cp_async_commit();
   };
@@ -542,15 +356,17 @@ flash_attention_kernel_mma(const __nv_bfloat16* __restrict__ q,
     const int r = e / kChunks, c = e % kChunks;
     const int qi = q0 + warp * kMmaRows + r;
     if (qi < L)
-      *reinterpret_cast<uint4*>(out + base + (int64_t)qi * pos_stride + c * 8) =
-          *reinterpret_cast<const uint4*>(ow + r * kStride + c * 8);
+      store_slot(
+          reinterpret_cast<unsigned char*>(out + base + (int64_t)qi * pos_stride),
+          bytes(ow + r * kStride), c, row_bytes, copy);
   }
 }
 
 template <int kD>
 cudaError_t launch_mma_dim(const void* q, const void* k, const void* v,
-                           Bias bias, void* out, int B, int L, int H,
-                           int warps, float scale, cudaStream_t stream) {
+                           Bias bias, void* out, int B, int L, int H, int D,
+                           int copy, int warps, float scale,
+                           cudaStream_t stream) {
   const size_t smem = mma_smem_bytes(kD, warps);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -564,17 +380,18 @@ cudaError_t launch_mma_dim(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), bias,
-      static_cast<__nv_bfloat16*>(out), L, H, scale);
+      static_cast<__nv_bfloat16*>(out), L, H, D, copy, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_mma(const void* q, const void* k, const void* v, Bias bias,
-                       void* out, int B, int L, int H, int D, int warps,
-                       float scale, cudaStream_t stream) {
-  switch (D) {
-#define SKY_MMA_CASE(d) \
-  case d:               \
-    return launch_mma_dim<d>(q, k, v, bias, out, B, L, H, warps, scale, stream);
+                       void* out, int B, int L, int H, int D, int copy,
+                       int warps, float scale, cudaStream_t stream) {
+  switch (padded_dim(D, 16)) {
+#define SKY_MMA_CASE(d)                                                  \
+  case d:                                                                \
+    return launch_mma_dim<d>(q, k, v, bias, out, B, L, H, D, copy, warps, \
+                             scale, stream);
     SKY_MMA_CASE(16)
     SKY_MMA_CASE(32)
     SKY_MMA_CASE(48)
@@ -590,7 +407,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, Bias bias,
 }
 
 // ---------------------------------------------------------------------------
-// The float32 tensor-core body (3xTF32; float32, D a multiple of 8)
+// The float32 tensor-core body (3xTF32; float32)
 // ---------------------------------------------------------------------------
 
 // keys of one K/V tile of the float32 tensor-core body: 64, or 32 past
@@ -599,11 +416,11 @@ __host__ __device__ constexpr int tf32_keys(int D) { return D > 64 ? 32 : 64; }
 
 // Shared memory of the float32 tensor-core body, in bytes: the block's
 // query rows (then its output rows) and kStages K and V tiles, float32
-// rows of D + 4 (so that a fragment's loads, rows g and columns t of a
+// rows of kD + 4 (so that a fragment's loads, rows g and columns t of a
 // quad, fall in 32 distinct banks), and kStages bias tiles in f32.
-__host__ __device__ inline size_t tf32_smem_bytes(int D, int warps) {
-  const size_t row = (size_t)(D + 4) * sizeof(float);
-  const size_t keys = tf32_keys(D);
+__host__ __device__ inline size_t tf32_smem_bytes(int kD, int warps) {
+  const size_t row = (size_t)(kD + 4) * sizeof(float);
+  const size_t keys = tf32_keys(kD);
   return (size_t)warps * kMmaRows * row + 2 * kStages * keys * row +
          kStages * keys * sizeof(float);
 }
@@ -617,16 +434,17 @@ __host__ __device__ inline size_t tf32_smem_bytes(int D, int warps) {
 // a_big.b_big (split_tf32; the dropped small.small term is about 2^-22
 // of the product, float32's own rounding).  The bound of one block per
 // SM frees ptxas's register budget (without it, head_dim 112 spilled);
-// shared memory allows two blocks per SM all the same.
+// shared memory allows two blocks per SM all the same.  kD is the head
+// dim D rounded up to 8, staged as in the bf16 body.
 template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel_tf32x3(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v, Bias bias,
-                              float* __restrict__ out, int L, int H,
-                              float scale) {
+                              float* __restrict__ out, int L, int H, int D,
+                              int copy, float scale) {
   constexpr int kStride = kD + 4;         // padded shared row, in floats
-  constexpr int kChunks = kD / 4;         // 16-byte chunks of one row
+  constexpr int kChunks = kD / 4;         // 16-byte slots of a staged row
   constexpr int kKSteps = kD / 8;         // k-steps of Q.K^T, n-tiles of P.V
   constexpr int kKeys = tf32_keys(kD);    // keys of one K/V tile
   constexpr int kNTiles = kKeys / 8;      // n-tiles of Q.K^T, k-steps of P.V
@@ -653,17 +471,28 @@ flash_attention_kernel_tf32x3(const float* __restrict__ q,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int q0 = blockIdx.x * q_tile;
-  const int64_t pos_stride = (int64_t)H * kD;
-  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * kD;
+  const int64_t pos_stride = (int64_t)H * D;
+  const int64_t base = (int64_t)b * L * pos_stride + (int64_t)h * D;
   const int n_tiles = (L + kKeys - 1) / kKeys;
+  const int row_bytes = D * (int)sizeof(float);
+  auto bytes = [](const float* p) {
+    return reinterpret_cast<const unsigned char*>(p);
+  };
 
+  // head dims D .. kD - 1 of every staged row are zero for the whole walk
+  if (D != kD)
+    zero_padding(smem_raw, q_tile + 2 * kStages * kKeys,
+                 kStride * (int)sizeof(float), row_bytes,
+                 kD * (int)sizeof(float), tid, threads);
   // the query tile, rows past L zero-filled
-  for (int e = tid; e < q_tile * kChunks; e += threads) {
-    const int r = e / kChunks, c = e % kChunks;
-    const bool ok = q0 + r < L;
-    cp_async16(qs + r * kStride + c * 4,
-               q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride + c * 4, ok);
-  }
+  with_slot_copy(row_bytes, copy, [&](auto slot) {
+    for (int e = tid; e < q_tile * kChunks; e += threads) {
+      const int r = e / kChunks, c = e % kChunks;
+      const bool ok = q0 + r < L;
+      slot(reinterpret_cast<unsigned char*>(qs + r * kStride),
+           bytes(q + base + (int64_t)(ok ? q0 + r : 0) * pos_stride), c, ok);
+    }
+  });
   // queue a K/V tile (keys past L zero-filled), then commit a group (an
   // empty one past the last tile, so every step waits the same way)
   auto load_kv = [&](int tile) {
@@ -671,14 +500,17 @@ flash_attention_kernel_tf32x3(const float* __restrict__ q,
       const int k0 = tile * kKeys;
       float* kb = ks + (tile % kStages) * kTileElems;
       float* vb = vs + (tile % kStages) * kTileElems;
-      for (int e = tid; e < kKeys * kChunks; e += threads) {
-        const int j = e / kChunks, c = e % kChunks;
-        const bool ok = k0 + j < L;
-        const int64_t off =
-            base + (int64_t)(ok ? k0 + j : 0) * pos_stride + c * 4;
-        cp_async16(kb + j * kStride + c * 4, k + off, ok);
-        cp_async16(vb + j * kStride + c * 4, v + off, ok);
-      }
+      with_slot_copy(row_bytes, copy, [&](auto slot) {
+        for (int e = tid; e < kKeys * kChunks; e += threads) {
+          const int j = e / kChunks, c = e % kChunks;
+          const bool ok = k0 + j < L;
+          const int64_t off = base + (int64_t)(ok ? k0 + j : 0) * pos_stride;
+          slot(reinterpret_cast<unsigned char*>(kb + j * kStride),
+               bytes(k + off), c, ok);
+          slot(reinterpret_cast<unsigned char*>(vb + j * kStride),
+               bytes(v + off), c, ok);
+        }
+      });
     }
     cp_async_commit();
   };
@@ -886,16 +718,17 @@ flash_attention_kernel_tf32x3(const float* __restrict__ q,
     const int r = e / kChunks, c = e % kChunks;
     const int qi = q0 + warp * kMmaRows + r;
     if (qi < L)
-      *reinterpret_cast<float4*>(out + base + (int64_t)qi * pos_stride +
-                                 c * 4) =
-          *reinterpret_cast<const float4*>(ow + r * kStride + c * 4);
+      store_slot(
+          reinterpret_cast<unsigned char*>(out + base + (int64_t)qi * pos_stride),
+          bytes(ow + r * kStride), c, row_bytes, copy);
   }
 }
 
 template <int kD>
 cudaError_t launch_tf32_dim(const void* q, const void* k, const void* v,
-                            Bias bias, void* out, int B, int L, int H,
-                            int warps, float scale, cudaStream_t stream) {
+                            Bias bias, void* out, int B, int L, int H, int D,
+                            int copy, int warps, float scale,
+                            cudaStream_t stream) {
   const size_t smem = tf32_smem_bytes(kD, warps);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -907,19 +740,19 @@ cudaError_t launch_tf32_dim(const void* q, const void* k, const void* v,
   const dim3 grid((L + q_tile - 1) / q_tile, H, B);
   flash_attention_kernel_tf32x3<kD><<<grid, warps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(out), L, H,
-      scale);
+      static_cast<const float*>(v), bias, static_cast<float*>(out), L, H, D,
+      copy, scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_tf32(const void* q, const void* k, const void* v,
                         Bias bias, void* out, int B, int L, int H, int D,
-                        int warps, float scale, cudaStream_t stream) {
-  switch (D) {
-#define SKY_TF32_CASE(d)                                                   \
-  case d:                                                                  \
-    return launch_tf32_dim<d>(q, k, v, bias, out, B, L, H, warps, scale, \
-                              stream);
+                        int copy, int warps, float scale, cudaStream_t stream) {
+  switch (padded_dim(D, 8)) {
+#define SKY_TF32_CASE(d)                                                    \
+  case d:                                                                   \
+    return launch_tf32_dim<d>(q, k, v, bias, out, B, L, H, D, copy, warps, \
+                              scale, stream);
     SKY_TF32_CASE(8)
     SKY_TF32_CASE(16)
     SKY_TF32_CASE(24)
@@ -942,19 +775,21 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// p is aligned to `bytes`
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// body: 0 = the CUDA-core body, 1 = the tensor-core body (bfloat16, D a
-// multiple of 16, q/k/v/out 16-byte aligned), 2 = the float32
-// tensor-core body (float32, D a multiple of 8, q/k/v/out 16-byte
-// aligned); warps: a tensor-core body's warps per block (1, 2 or 4; 16
-// queries each), ignored by the CUDA-core body.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out);
+// body: 0 = the tensor-core body (bfloat16), 1 = the float32 tensor-core
+// body (3xTF32); each stages a row of D <= 128 head dims padded to its
+// mma's k-step (16 bf16, 8 tf32).  copy: the bytes each row is copied in,
+// copy_granule(D * element size), the wrapper's plan's `copy_bytes`;
+// q, k, v and out aligned to it.  warps: 1, 2 or 4 per block, 16
+// queries each.  dtype: 0 = float32, 1 = bfloat16 (q, k, v and out);
 // bias_dtype likewise, the bias read at bias[b * bias_sb + key * bias_sk].
 // Returns a cudaError_t (0 = launched).  Shapes are checked by the Python
 // wrapper, which also picks the body; this rejects only what the chosen
@@ -962,43 +797,28 @@ extern "C" {
 int sky_flash_attention(int body, int warps, int dtype, const void* q,
                         const void* k, const void* v, const void* bias,
                         int bias_dtype, long long bias_sb, long long bias_sk,
-                        void* out, int B, int L, int H, int D, float scale,
-                        void* stream) {
+                        void* out, int B, int L, int H, int D, int copy,
+                        float scale, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1 || D < 1 ||
-      D > kMaxHeadDim || (bias_dtype != 0 && bias_dtype != 1))
+      D > kMaxHeadDim || (bias_dtype != 0 && bias_dtype != 1) ||
+      (warps != 1 && warps != 2 && warps != 4) || (dtype != 0 && dtype != 1)
+      || body != 1 - dtype)
+    return (int)cudaErrorInvalidValue;
+  const int elem = dtype == 1 ? (int)sizeof(__nv_bfloat16) : (int)sizeof(float);
+  if (copy != copy_granule(D * elem) || !aligned(q, copy) ||
+      !aligned(k, copy) || !aligned(v, copy) || !aligned(out, copy))
     return (int)cudaErrorInvalidValue;
   const Bias b{bias, bias_dtype, (int64_t)bias_sb, (int64_t)bias_sk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == 1) {
-    if (dtype != 1 || D % 16 != 0 || (warps != 1 && warps != 2 && warps != 4)
-        || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-      return (int)cudaErrorInvalidValue;
-    return (int)launch_mma(q, k, v, b, out, B, L, H, D, warps, scale, s);
-  }
-  if (body == 2) {
-    if (dtype != 0 || D % 8 != 0 || (warps != 1 && warps != 2 && warps != 4)
-        || !aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-      return (int)cudaErrorInvalidValue;
-    return (int)launch_tf32(q, k, v, b, out, B, L, H, D, warps, scale, s);
-  }
-  if (body != 0) return (int)cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0:
-      return (int)launch_cuda_core<float>(q, k, v, b, out, B, L, H, D, scale,
-                                          s);
-    case 1:
-      return (int)launch_cuda_core<__nv_bfloat16>(q, k, v, b, out, B, L, H, D,
-                                                  scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (body == 0)
+    return (int)launch_mma(q, k, v, b, out, B, L, H, D, copy, warps, scale, s);
+  return (int)launch_tf32(q, k, v, b, out, B, L, H, D, copy, warps, scale, s);
 }
 
 // Dynamic shared memory, in bytes, of one block of the given body.
 int sky_flash_attention_smem(int body, int D, int warps) {
-  if (body == 1) return (int)mma_smem_bytes(D, warps);
-  if (body == 2) return (int)tf32_smem_bytes(D, warps);
-  return (int)(smem_floats(D) * sizeof(float));
+  if (body == 0) return (int)mma_smem_bytes(padded_dim(D, 16), warps);
+  return (int)tf32_smem_bytes(padded_dim(D, 8), warps);
 }
 
 }  // extern "C"

@@ -27,25 +27,25 @@
 // that bound is latency: how many page round trips run one after another,
 // and, in prefill, how fast each gathered tile is consumed.
 //
-// Four bodies, chosen by the wrapper's plan
+// Three bodies, chosen by the wrapper's plan
 // (skycomputing_tpu_torch/ops/paged_attention.py) from the q and page
-// types, Lq, D and the page size alone:
+// types, Lq, D and the page size alone; together they take every head
+// dim D from 1 to 128 over every page type:
 //
-// * Lq <= 16 (decode, speculative verify) with a K/V row of D elements a
-//   whole number of 16-byte chunks: paged_attention_kernel_decode.  One
-//   block of eight warps per (row, head) (four where eight would not fit
-//   in shared memory: float32 at D = 128).  The row's positions are cut
-//   into chunks of 16; warp w of W takes chunks w, w + W, ..., each with
-//   a private float32 online-softmax state, and the warps' states are
-//   merged through shared memory at the end.  A warp copies a chunk's K and V
-//   into its own double buffer in shared memory with 16-byte cp.async
-//   (8 bf16, 4 float32 or 16 int8 per copy, the table entry of each
-//   position read from a copy of the row's table in shared memory), so
-//   the next chunk is in flight while this one is consumed, and nothing
-//   but __syncwarp orders the walk.  Each score is a dot product split
-//   over two half-warps and joined with one shuffle; the softmax
-//   statistics are shuffles over 16 lanes; in P.V each lane owns head
-//   dims lane + 32 j.  Positions past the causal bound are never read.
+// * Lq <= 16 (decode, speculative verify): paged_attention_kernel_decode.
+//   One block of eight warps per (row, head) (four where eight would not
+//   fit in shared memory: float32 at D = 128).  The row's positions are
+//   cut into chunks of 16; warp w of W takes chunks w, w + W, ..., each
+//   with a private float32 online-softmax state, and the warps' states
+//   are merged through shared memory at the end.  A warp copies a
+//   chunk's K and V into its own double buffer in shared memory with
+//   cp.async (the table entry of each position read from a copy of the
+//   row's table in shared memory), so the next chunk is in flight while
+//   this one is consumed, and nothing but __syncwarp orders the walk.
+//   Each score is a dot product split over two half-warps and joined
+//   with one shuffle; the softmax statistics are shuffles over 16 lanes;
+//   in P.V each lane owns head dims lane + 32 j.  Positions past the
+//   causal bound are never read.
 // * Lq > 16 (prefill and chunked-prefill waves) with bfloat16 q, D a
 //   multiple of 16 and page_size a multiple of 16:
 //   paged_attention_kernel_mma, the tensor-core prefill body (B1's
@@ -68,26 +68,35 @@
 //   tiles that reach past a warp's first query.  Int8 pages (B3) are
 //   converted to bf16 in shared memory (exact), their scales folded into
 //   the f32 scores and into P (see the body).
-// * every other call with Lq > 16 whose K/V row is a whole number of
-//   16-byte chunks (float32 prefill and chunk waves over float32 or int8
-//   pages; bf16 q over pages of 4 or 8, or at a head_dim that is not a
-//   multiple of 16): paged_attention_kernel_tile, the register-tile body.
-//   One block of four warps per (row, head, tile of 32 queries; 16 past
-//   head_dim 64) walks the tile's positions as the decode body does, in
-//   chunks of 16 split over the warps, each chunk gathered with 16-byte
-//   cp.async into the warp's own double buffer, nothing but __syncwarp
-//   inside the walk, the warps' states merged at the end.  Each lane
-//   holds a 4-query x 4-key tile of scores (4 x 2 past head_dim 64) and
-//   the accumulator of its 4 queries over 16 head dims in registers
-//   (8 at head_dim 32 and below); every product is a float32
-//   FMA, so the float32 results are the exact body's to float32 roundoff
-//   (the serving bench's float32 identity gates rest on that).
-// * the rest (a K/V row that is not whole 16-byte chunks, such as an
-//   int8 row of 40 bytes): paged_attention_kernel, the query-tile body.
-//   One block per (row, head, tile of 16 queries) stages each page's K/V
-//   tile in float32 through shared memory, where every query of the tile
-//   reuses it, every product a float32 FMA; pages wholly past the tile's
-//   last query position are never read.
+// * every other call with Lq > 16 (float32 prefill and chunk waves over
+//   float32 or int8 pages; bf16 q over pages of 4 or 8, or at a head_dim
+//   that is not a multiple of 16): paged_attention_kernel_tile, the
+//   register-tile body.  One block of four warps per (row, head, tile of
+//   32 queries; 16 past head_dim 64) walks the tile's positions as the
+//   decode body does, in chunks of 16 split over the warps, each chunk
+//   gathered with cp.async into the warp's own double buffer, nothing but
+//   __syncwarp inside the walk, the warps' states merged at the end.
+//   Each lane holds a 4-query x 4-key tile of scores (4 x 2 past
+//   head_dim 64) and the accumulator of its 4 queries over 16 head dims
+//   in registers (8 at head_dim 32 and below); every product is a
+//   float32 FMA, so the float32 results are the exact body's to float32
+//   roundoff (the serving bench's float32 identity gates rest on that).
+//
+// Rows of any length.  The decode and register-tile bodies read a staged
+// K/V row a whole 16-byte slot at a time (8 bf16, 4 float32 or 16 int8
+// values widened to float32).  A row of D elements that is not whole
+// slots (an int8 row of 40 bytes, a float32 row of 120) is staged padded
+// to whole slots (padded_dim), its padding zeroed once per buffer and
+// never copied to, so a slot widens to zeros past D, which add nothing to
+// Q.K^T; P.V's columns past D are never stored.  A position's row is
+// copied in the widest granule that divides its D * sizeof(KV) bytes
+// (copy_granule in common.cuh: 16, 8 or 4 bytes by cp.async; 2 or 1 by
+// an ordinary load, for a bf16 row of odd D or an int8 row of D % 4 !=
+// 0), since every row starts at a multiple of those bytes.  The int8
+// scales ride as for whole rows.  (Until this design such rows ran a
+// query-tile body, each page staged in float32 through shared memory for
+// 16 queries, every product a float32 FMA: 1.3-1.5x slower than SDPA at
+// a forced float32 prefill.)
 //
 // Pad rows (index 0, every entry a sentinel) are computed like any other
 // row, over clamped page P-1, so the output equals the plain version on
@@ -112,197 +121,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;     // four warps
-constexpr int kQueryTile = 16;    // queries of one row and head per block
 constexpr int kMaxHeadDim = 128;  // the accumulator lives in registers
-constexpr int kAccPerThread = kQueryTile * kMaxHeadDim / kThreads;
 
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
-
-// Shared memory, in floats.  q and k rows are padded by one so that the
-// score loop, where neighbouring threads read neighbouring key rows, hits
-// distinct banks.
-__host__ __device__ inline size_t smem_floats(int D, int page_size) {
-  const int Dp = D + 1;
-  return (size_t)kQueryTile * Dp       // qs
-         + (size_t)page_size * Dp      // ks
-         + (size_t)page_size * D       // vs
-         + (size_t)kQueryTile * page_size  // scores, then probabilities
-         + 3 * kQueryTile;             // running max, sum, correction
-}
-
-// T: q and output type.  KV: stored page type, T itself or int8_t; an
-// int8 page is multiplied by its (page, head) scale as it is staged
-// (k_scale/v_scale are read only when KV is int8_t).
-template <typename T, typename KV>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_pages,
-                       const KV* __restrict__ v_pages,
-                       const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale,
-                       const int32_t* __restrict__ page_table,
-                       const int32_t* __restrict__ index, T* __restrict__ out,
-                       int Lq, int H, int D, int num_pages, int page_size,
-                       int width, float scale) {
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* qs = smem;
-  float* ks = qs + kQueryTile * Dp;
-  float* vs = ks + page_size * Dp;
-  float* ps = vs + page_size * D;
-  float* m_s = ps + kQueryTile * page_size;
-  float* l_s = m_s + kQueryTile;
-  float* c_s = l_s + kQueryTile;
-
-  const int h = blockIdx.y;
-  const int r = blockIdx.z;
-  const int q0 = blockIdx.x * kQueryTile;
-  const int nq = min(kQueryTile, Lq - q0);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int idx = index[r];
-  const int64_t pos_stride = (int64_t)H * D;  // one position of q or a page
-
-  // this tile's queries, scaled in float32 (the Pallas kernel's q * scale)
-  const T* q_row = q + ((int64_t)r * Lq + q0) * pos_stride + (int64_t)h * D;
-  for (int e = tid; e < nq * D; e += kThreads) {
-    const int qq = e / D, d = e % D;
-    qs[qq * Dp + d] = to_float(q_row[qq * pos_stride + d]) * scale;
-  }
-  if (tid < kQueryTile) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.f;
-
-  // pages wholly past the tile's last query hold nothing it may see.  The
-  // walk runs in order from page 0, whose position 0 every query sees, so
-  // the running max is finite after the first page; the guards below keep
-  // exp(-inf - -inf) out all the same.
-  const int last_pos = idx + q0 + nq - 1;
-  const int n_pages = min(width, last_pos / page_size + 1);
-  const int32_t* table_row = page_table + (int64_t)r * width;
-  for (int i = 0; i < n_pages; ++i) {
-    const int phys = min(max(table_row[i], 0), num_pages - 1);
-    const KV* k_page = k_pages + (int64_t)phys * page_size * pos_stride +
-                       (int64_t)h * D;
-    const KV* v_page = v_pages + (int64_t)phys * page_size * pos_stride +
-                       (int64_t)h * D;
-    __syncthreads();  // the previous page's tiles are no longer read
-    if constexpr (std::is_same<KV, int8_t>::value) {
-      // the Pallas kernel's k.astype(f32) * k_scale, in the same order
-      const float k_sc = k_scale[(int64_t)phys * H + h];
-      const float v_sc = v_scale[(int64_t)phys * H + h];
-      for (int e = tid; e < page_size * D; e += kThreads) {
-        const int j = e / D, d = e % D;
-        ks[j * Dp + d] = to_float(k_page[j * pos_stride + d]) * k_sc;
-        vs[j * D + d] = to_float(v_page[j * pos_stride + d]) * v_sc;
-      }
-    } else {
-      for (int e = tid; e < page_size * D; e += kThreads) {
-        const int j = e / D, d = e % D;
-        ks[j * Dp + d] = to_float(k_page[j * pos_stride + d]);
-        vs[j * D + d] = to_float(v_page[j * pos_stride + d]);
-      }
-    }
-    __syncthreads();
-
-    // scores, masked by logical position
-    for (int e = tid; e < nq * page_size; e += kThreads) {
-      const int qq = e / page_size, j = e % page_size;
-      float s = -INFINITY;
-      if (i * page_size + j <= idx + q0 + qq) {
-        const float* qv = qs + qq * Dp;
-        const float* kv = ks + j * Dp;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qv[d], kv[d], dot);
-        s = dot;
-      }
-      ps[e] = s;
-    }
-    __syncthreads();
-
-    // online softmax statistics, one warp per query
-    for (int qq = warp; qq < nq; qq += kThreads / 32) {
-      float* prow = ps + qq * page_size;
-      float mx = -INFINITY;
-      for (int j = lane; j < page_size; j += 32) mx = fmaxf(mx, prow[j]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[qq];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = lane; j < page_size; j += 32) {
-        const float s = prow[j];
-        const float p = (s == -INFINITY) ? 0.f : expf(s - m_new);
-        prow[j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float corr =
-            (m_new == -INFINITY) ? 1.f : expf(m_prev - m_new);
-        c_s[qq] = corr;
-        l_s[qq] = l_s[qq] * corr + sum;
-        m_s[qq] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // accumulator: thread tid owns elements tid + a * kThreads of [nq, D]
-#pragma unroll
-    for (int a = 0; a < kAccPerThread; ++a) {
-      const int e = tid + a * kThreads;
-      if (e < nq * D) {
-        const int qq = e / D, d = e % D;
-        const float* prow = ps + qq * page_size;
-        float pv = 0.f;
-        for (int j = 0; j < page_size; ++j) pv = fmaf(prow[j], vs[j * D + d], pv);
-        acc[a] = acc[a] * c_s[qq] + pv;
-      }
-    }
-  }
-  __syncthreads();
-
-  T* o_row = out + ((int64_t)r * Lq + q0) * pos_stride + (int64_t)h * D;
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) {
-    const int e = tid + a * kThreads;
-    if (e < nq * D) {
-      const int qq = e / D, d = e % D;
-      o_row[qq * pos_stride + d] = from_float<T>(acc[a] / fmaxf(l_s[qq], 1e-30f));
-    }
-  }
-}
-
-template <typename T, typename KV>
-cudaError_t launch_tile(const void* q, const void* k, const void* v,
-                        const float* k_scale, const float* v_scale,
-                        const int32_t* table, const int32_t* index, void* out,
-                        int R, int Lq, int H, int D, int num_pages,
-                        int page_size, int width, float scale,
-                        cudaStream_t stream) {
-  const size_t smem = smem_floats(D, page_size) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T, KV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((Lq + kQueryTile - 1) / kQueryTile, H, R);
-  paged_attention_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), k_scale, v_scale, table, index,
-      static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The decode body (Lq <= 16)
@@ -315,14 +136,7 @@ constexpr int kMaxDecodeQ = 16;    // the largest Lq of the decode body
 constexpr int kDimsPerLane = kMaxHeadDim / 32;  // P.V: head dims lane + 32 j
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-// one 16-byte chunk of a K/V row as float32
+// one 16-byte slot of a staged K/V row as float32
 __device__ __forceinline__ void unpack16(const uint4& raw, float* out, float) {
   out[0] = __uint_as_float(raw.x);
   out[1] = __uint_as_float(raw.y);
@@ -362,16 +176,29 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& v) {
                                            pack_bf16(v.z, v.w));
 }
 
-// Shared memory of the decode body, in bytes: the scaled queries, each
-// warp's probabilities and (int8) scales, the row's clamped table, and
-// each warp's double buffer of K and V chunks (rows padded by 16 bytes),
-// which the merge of the warps' states reuses at the end.
-__host__ __device__ inline size_t decode_row_bytes(int D, int kv_size) {
-  return (size_t)D * kv_size + 16;
+// A K/V row of D elements of kv_size bytes as the decode and
+// register-tile bodies stage it: padded to whole 16-byte slots, the
+// padding zeroed once and never copied to (so that a slot widens to
+// float32 with zeros past D), held padded_dim elements wide
+__host__ __device__ inline int padded_row_bytes(int D, int kv_size) {
+  return (D * kv_size + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t decode_staging_offset(int D, int max_q,
-                                                        int width, int warps) {
-  return (size_t)max_q * D * sizeof(float)                     // q_s
+__host__ __device__ inline int padded_dim(int D, int kv_size) {
+  return padded_row_bytes(D, kv_size) / kv_size;
+}
+// ... and 16 bytes more between two staged rows
+__host__ __device__ inline size_t decode_row_bytes(int D, int kv_size) {
+  return (size_t)padded_row_bytes(D, kv_size) + 16;
+}
+
+// Shared memory of the decode body, in bytes: the scaled queries (rows
+// of the padded head dims), each warp's probabilities and (int8) scales,
+// the row's clamped table, and each warp's double buffer of K and V
+// chunks, which the merge of the warps' states reuses at the end.
+__host__ __device__ inline size_t decode_staging_offset(int D, int kv_size,
+                                                        int max_q, int width,
+                                                        int warps) {
+  return (size_t)max_q * padded_dim(D, kv_size) * sizeof(float)  // q_s
          + (size_t)warps * max_q * kChunk * sizeof(float)      // p_s
          + (size_t)warps * kStages * 2 * kChunk * sizeof(float)  // scales
          + (size_t)((width + 3) / 4 * 4) * sizeof(int32_t);   // table
@@ -382,7 +209,7 @@ __host__ __device__ inline size_t decode_smem_bytes(int D, int kv_size,
   const size_t staging =
       (size_t)warps * kStages * 2 * kChunk * decode_row_bytes(D, kv_size);
   const size_t merge = (size_t)warps * max_q * (D + 2) * sizeof(float);
-  return decode_staging_offset(D, max_q, width, warps) +
+  return decode_staging_offset(D, kv_size, max_q, width, warps) +
          (staging > merge ? staging : merge);
 }
 // 8 warps per block, or 4 where 8 would not fit in shared memory (0: no
@@ -401,19 +228,20 @@ paged_attention_kernel_decode(
     const KV* __restrict__ v_pages, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ page_table,
     const int32_t* __restrict__ index, T* __restrict__ out, int Lq, int H,
-    int D, int num_pages, int page_size, int width, float scale) {
+    int D, int copy, int num_pages, int page_size, int width, float scale) {
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte chunk
+  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte slot
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int threads = blockDim.x;
   const int warps = threads / 32;
   const int row_bytes = (int)decode_row_bytes(D, sizeof(KV));
-  float* q_s = reinterpret_cast<float*>(smem_raw);         // [kMaxQ][D]
-  float* p_all = q_s + kMaxQ * D;                          // [warp][kMaxQ][16]
+  const int Dp = padded_dim(D, sizeof(KV));
+  float* q_s = reinterpret_cast<float*>(smem_raw);         // [kMaxQ][Dp]
+  float* p_all = q_s + kMaxQ * Dp;                         // [warp][kMaxQ][16]
   float* sc_all = p_all + warps * kMaxQ * kChunk;          // [warp][stage][2][16]
   int32_t* table_s = reinterpret_cast<int32_t*>(sc_all + warps * kStages * 2 * kChunk);
   unsigned char* staging =  // [warp][stage][2][16][row]
-      smem_raw + decode_staging_offset(D, kMaxQ, width, warps);
+      smem_raw + decode_staging_offset(D, sizeof(KV), kMaxQ, width, warps);
   float* merge = reinterpret_cast<float*>(staging);        // [warp][kMaxQ][D + 2]
 
   const int h = blockIdx.x;
@@ -432,16 +260,20 @@ paged_attention_kernel_decode(
   for (int i = tid; i < n_pages; i += threads)
     table_s[i] = min(max(table_row[i], 0), num_pages - 1);
   const T* q_row = q + (int64_t)r * Lq * pos_stride + (int64_t)h * D;
-  for (int e = tid; e < Lq * D; e += threads) {
-    const int qq = e / D, d = e % D;
-    q_s[e] = to_float(q_row[qq * pos_stride + d]) * scale;
+  for (int e = tid; e < Lq * Dp; e += threads) {
+    const int qq = e / Dp, d = e % Dp;
+    q_s[e] = d < D ? to_float(q_row[qq * pos_stride + d]) * scale : 0.f;
   }
-  __syncthreads();
 
-  const int chunks_per_row = D / kElems;  // 16-byte chunks of one position
+  const int data_bytes = D * (int)sizeof(KV);  // a stored K/V row
+  const int chunks_per_row = (data_bytes + 15) / 16;  // its staged slots
   float* p_s = p_all + warp * kMaxQ * kChunk;
   float* sc_w = sc_all + warp * kStages * 2 * kChunk;
   unsigned char* st_w = staging + (size_t)warp * kStages * 2 * kChunk * row_bytes;
+  // the padding of this warp's staged rows is zero for the whole walk
+  zero_padding(st_w, kStages * 2 * kChunk, row_bytes, data_bytes,
+               chunks_per_row * 16, lane, 32);
+  __syncthreads();
 
   // queue chunk ci's K, V (and scales) into stage s, then commit a group
   // (an empty one past the row's end, so every step waits the same way)
@@ -449,18 +281,22 @@ paged_attention_kernel_decode(
     if (ci < n_chunks) {
       unsigned char* kb = st_w + (size_t)(2 * s) * kChunk * row_bytes;
       unsigned char* vb = kb + (size_t)kChunk * row_bytes;
-      for (int e = lane; e < kChunk * chunks_per_row; e += 32) {
-        const int j = e / chunks_per_row, c = e % chunks_per_row;
-        const int pos = ci * kChunk + j;
-        const bool ok = pos < n_pos;
-        int64_t off = 0;
-        if (ok)
-          off = ((int64_t)table_s[pos / page_size] * page_size +
-                 pos % page_size) * pos_stride +
-                (int64_t)h * D + c * kElems;
-        cp_async16(kb + j * row_bytes + c * 16, k_pages + off, ok);
-        cp_async16(vb + j * row_bytes + c * 16, v_pages + off, ok);
-      }
+      with_slot_copy(data_bytes, copy, [&](auto slot) {
+        for (int e = lane; e < kChunk * chunks_per_row; e += 32) {
+          const int j = e / chunks_per_row, c = e % chunks_per_row;
+          const int pos = ci * kChunk + j;
+          const bool ok = pos < n_pos;
+          int64_t off = 0;
+          if (ok)
+            off = ((int64_t)table_s[pos / page_size] * page_size +
+                   pos % page_size) * pos_stride +
+                  (int64_t)h * D;
+          slot(kb + j * row_bytes,
+               reinterpret_cast<const unsigned char*>(k_pages + off), c, ok);
+          slot(vb + j * row_bytes,
+               reinterpret_cast<const unsigned char*>(v_pages + off), c, ok);
+        }
+      });
       if (kInt8 && lane < kChunk) {
         const int pos = ci * kChunk + lane;
         const bool ok = pos < n_pos;
@@ -482,7 +318,7 @@ paged_attention_kernel_decode(
     for (int j = 0; j < kDimsPerLane; ++j) acc[qq][j] = 0.f;
   }
   // scores: lane (p, half) dots position p of the chunk with the queries
-  // over half of the 16-byte chunks of its row
+  // over half of the 16-byte slots of its staged row
   const int p = lane % kChunk;
   const int half = lane / kChunk;
   const int per_half = (chunks_per_row + 1) / 2;
@@ -518,7 +354,7 @@ paged_attention_kernel_decode(
       for (int qq = 0; qq < kMaxQ; ++qq) {
         if (qq < Lq) {
           const float4* qv =
-              reinterpret_cast<const float4*>(q_s + qq * D + vi * kElems);
+              reinterpret_cast<const float4*>(q_s + qq * Dp + vi * kElems);
 #pragma unroll
           for (int e4 = 0; e4 < kElems / 4; ++e4) {
             const float4 x = qv[e4];
@@ -630,7 +466,7 @@ template <typename T, typename KV, int kMaxQ>
 cudaError_t launch_decode_q(const void* q, const void* k, const void* v,
                             const float* k_scale, const float* v_scale,
                             const int32_t* table, const int32_t* index,
-                            void* out, int R, int Lq, int H, int D,
+                            void* out, int R, int Lq, int H, int D, int copy,
                             int num_pages, int page_size, int width,
                             float scale, cudaStream_t stream) {
   const int warps = decode_warps(D, sizeof(KV), kMaxQ, width);
@@ -647,7 +483,8 @@ cudaError_t launch_decode_q(const void* q, const void* k, const void* v,
       <<<grid, warps * 32, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const KV*>(k),
           static_cast<const KV*>(v), k_scale, v_scale, table, index,
-          static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
+          static_cast<T*>(out), Lq, H, D, copy, num_pages, page_size, width,
+          scale);
   return cudaGetLastError();
 }
 
@@ -1072,8 +909,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// The register-tile body (Lq > 16 outside the tensor-core body, a K/V row
-// a whole number of 16-byte chunks): float32 prefill and chunk waves
+// The register-tile body (Lq > 16 outside the tensor-core body): float32
+// prefill and chunk waves, and any head dim or page size
 // ---------------------------------------------------------------------------
 
 constexpr int kTileWarps = 4;  // warps per (row, head, query tile) block
@@ -1096,14 +933,15 @@ __host__ __device__ constexpr int tile_queries(int d_max) {
 }
 
 // Shared memory of the register-tile body, in bytes: the block's scaled
-// queries (rows of D + 4 floats), each warp's probabilities (key-major,
-// rows of q_tile + 8 floats) and (int8) scales, the row's clamped table,
-// then each warp's double buffer of raw K and V chunks (rows padded by 16
-// bytes) and, over bf16 or int8 pages, each warp's float32 K and V chunk;
-// the merge of the warps' states reuses those last two at the end.
-__host__ __device__ inline size_t tile_staging_offset(int D, int q_tile,
+// queries (rows of Dp + 4 floats, Dp the padded head dims), each warp's
+// probabilities (key-major, rows of q_tile + 8 floats) and (int8) scales,
+// the row's clamped table, then each warp's double buffer of raw K and V
+// chunks (decode_row_bytes apart) and, over bf16 or int8 pages, each
+// warp's float32 K and V chunk (rows of Dp + 4); the merge of the warps'
+// states reuses those last two at the end.
+__host__ __device__ inline size_t tile_staging_offset(int Dp, int q_tile,
                                                       int width) {
-  return (size_t)q_tile * (D + 4) * sizeof(float)                   // q_s
+  return (size_t)q_tile * (Dp + 4) * sizeof(float)                  // q_s
          + (size_t)kTileWarps * kChunk * (q_tile + 8) * sizeof(float)  // p_s
          + (size_t)kTileWarps * kStages * 2 * kChunk * sizeof(float)  // scales
          + (size_t)((width + 3) / 4 * 4) * sizeof(int32_t);          // table
@@ -1111,12 +949,13 @@ __host__ __device__ inline size_t tile_staging_offset(int D, int q_tile,
 __host__ __device__ inline size_t tile_smem_bytes(int D, int kv_size,
                                                   int width) {
   const int q_tile = tile_queries(tile_dmax(D));
+  const int Dp = padded_dim(D, kv_size);
   size_t walk = (size_t)kTileWarps * kStages * 2 * kChunk *
                 decode_row_bytes(D, kv_size);
   if (kv_size != (int)sizeof(float))
-    walk += (size_t)kTileWarps * 2 * kChunk * (D + 4) * sizeof(float);
-  const size_t merge = (size_t)kTileWarps * q_tile * (D + 6) * sizeof(float);
-  return tile_staging_offset(D, q_tile, width) + (walk > merge ? walk : merge);
+    walk += (size_t)kTileWarps * 2 * kChunk * (Dp + 4) * sizeof(float);
+  const size_t merge = (size_t)kTileWarps * q_tile * (Dp + 6) * sizeof(float);
+  return tile_staging_offset(Dp, q_tile, width) + (walk > merge ? walk : merge);
 }
 
 // One block of four warps per (query tile, head, row).  The tile's
@@ -1130,8 +969,8 @@ __host__ __device__ inline size_t tile_smem_bytes(int D, int kv_size,
 // float4 reads (16 FMAs per 8 floats read at kKPL = 4), the softmax
 // statistics are shuffles over the kKG lanes that share a query, and in
 // O += P.V the lane owns its 4 queries x the head dims of float4 columns
-// kg, kg + kKG, ....  Every product is an IEEE float32 fmaf, as in the
-// query-tile body; over bf16 or int8 pages a chunk is widened to float32
+// kg, kg + kKG, ....  Every product is an IEEE float32 fmaf; over bf16
+// or int8 pages a chunk is widened to float32
 // in the warp's own rows first (int8: float(k) * k_scale, the Pallas
 // order), and its raw buffer is refilled at once.  Chunks wholly past the
 // tile's last query are never read; the causal mask applies only on
@@ -1140,7 +979,11 @@ __host__ __device__ inline size_t tile_smem_bytes(int D, int kv_size,
 // kDMax bounds the head dim; with kExactD it is the head dim, a constant
 // the compiler sees (every loop over it unrolled, no bound tests: 18-27%
 // faster at D = 64 on an H100 than under the bound, prefill_ab.py's
-// bound_d variant).
+// bound_d variant).  Under the bound a row is staged padded to whole
+// 16-byte slots (padded_dim; zeros past D, as in the decode body), so
+// the float4 reads of its last head dims read zeros, and it is copied
+// `copy` bytes at a time; the output's last float4 column is stored
+// element by element where D is not a multiple of 4.
 template <typename T, typename KV, int kDMax, bool kExactD>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
 paged_attention_kernel_tile(const T* __restrict__ q,
@@ -1151,11 +994,11 @@ paged_attention_kernel_tile(const T* __restrict__ q,
                             const int32_t* __restrict__ page_table,
                             const int32_t* __restrict__ index,
                             T* __restrict__ out, int Lq, int H, int head_dim,
-                            int num_pages, int page_size, int width,
+                            int copy, int num_pages, int page_size, int width,
                             float scale) {
   constexpr bool kFloatKV = std::is_same<KV, float>::value;
   constexpr bool kInt8 = std::is_same<KV, int8_t>::value;
-  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte chunk
+  constexpr int kElems = 16 / (int)sizeof(KV);  // elements of a 16-byte slot
   constexpr int kQ = tile_queries(kDMax);       // queries of the block
   constexpr int kQG = kQ / kTileQPL;            // query groups: 8 or 4
   constexpr int kKG = 32 / kQG;                 // lanes sharing a query: 4, 8
@@ -1165,7 +1008,8 @@ paged_attention_kernel_tile(const T* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int D = kExactD ? kDMax : head_dim;
-  const int QS = D + 4;  // a float row of q_s, K or V (16 bytes of padding)
+  const int Dp = kExactD ? kDMax : padded_dim(D, sizeof(KV));
+  const int QS = Dp + 4;  // a float row of q_s, K or V (16 bytes of padding)
   const int row_bytes = (int)decode_row_bytes(D, sizeof(KV));
   float* q_s = reinterpret_cast<float*>(smem_raw);         // [kQ][QS]
   float* p_all = q_s + kQ * QS;                            // [warp][16][kPStride]
@@ -1173,7 +1017,7 @@ paged_attention_kernel_tile(const T* __restrict__ q,
   int32_t* table_s =
       reinterpret_cast<int32_t*>(sc_all + kTileWarps * kStages * 2 * kChunk);
   unsigned char* staging =  // [warp][stage][2][16][row]
-      smem_raw + tile_staging_offset(D, kQ, width);
+      smem_raw + tile_staging_offset(Dp, kQ, width);
   float* conv_all = reinterpret_cast<float*>(  // [warp][2][16][QS]
       staging + (size_t)kTileWarps * kStages * 2 * kChunk * row_bytes);
   float* merge = reinterpret_cast<float*>(staging);  // [warp][kQ][QS]
@@ -1212,9 +1056,8 @@ paged_attention_kernel_tile(const T* __restrict__ q,
   for (int a = 0; a < kQLoads; ++a) {
     const int e = tid + a * kTileThreads;
     const int d = e % kDMax;
-    if (d < D) q_s[(e / kDMax) * QS + d] = q_in[a] * scale;
+    if (d < Dp) q_s[(e / kDMax) * QS + d] = q_in[a] * scale;  // 0 past D
   }
-  __syncthreads();
 
   // a position's table entry and place in its page: a shift and a mask
   // where the page size is a power of two (the engine's 16)
@@ -1226,16 +1069,24 @@ paged_attention_kernel_tile(const T* __restrict__ q,
   auto row_in_page = [&](int pos) {
     return shift >= 0 ? pos & (page_size - 1) : pos % page_size;
   };
-  // 16-byte chunks of one position: chunks_per_row of them, laid out over
-  // kRowSlots (a compile-time power of two) so that the copy loops split
-  // an index with a shift and a mask
-  const int chunks_per_row = D / kElems;
+  // 16-byte slots of one staged position: chunks_per_row of them, laid
+  // out over kRowSlots (a compile-time power of two) so that the copy
+  // loops split an index with a shift and a mask
+  const int data_bytes = D * (int)sizeof(KV);  // a stored K/V row
+  const int chunks_per_row = Dp / kElems;
   constexpr int kRowSlots = kDMax / kElems;
+  // (a head dim of 32, 64 or 128 makes whole 16-byte slots of any type)
+  const int granule = kExactD ? 16 : copy;
   float* p_s = p_all + warp * kChunk * kPStride;
   float* sc_w = sc_all + warp * kStages * 2 * kChunk;
   unsigned char* st_w =
       staging + (size_t)warp * kStages * 2 * kChunk * row_bytes;
   float* conv_w = conv_all + (size_t)warp * 2 * kChunk * QS;
+  // the padding of this warp's staged rows is zero for the whole walk
+  if (!kExactD)
+    zero_padding(st_w, kStages * 2 * kChunk, row_bytes, data_bytes,
+                 Dp * (int)sizeof(KV), lane, 32);
+  __syncthreads();
 
   // queue chunk ci's K, V (and scales) into stage s, then commit a group
   // (an empty one past the tile's last chunk, so every step waits the
@@ -1244,20 +1095,24 @@ paged_attention_kernel_tile(const T* __restrict__ q,
     if (ci < n_chunks) {
       unsigned char* kb = st_w + (size_t)(2 * s) * kChunk * row_bytes;
       unsigned char* vb = kb + (size_t)kChunk * row_bytes;
+      with_slot_copy(data_bytes, granule, [&](auto slot) {
 #pragma unroll
-      for (int e = lane; e < kChunk * kRowSlots; e += 32) {
-        const int j = e / kRowSlots, c = e % kRowSlots;
-        if (c >= chunks_per_row) continue;
-        const int pos = ci * kChunk + j;
-        const bool ok = pos < n_pos;
-        int64_t off = 0;
-        if (ok)
-          off = ((int64_t)table_s[page_of(pos)] * page_size +
-                 row_in_page(pos)) * pos_stride +
-                (int64_t)h * D + c * kElems;
-        cp_async16(kb + j * row_bytes + c * 16, k_pages + off, ok);
-        cp_async16(vb + j * row_bytes + c * 16, v_pages + off, ok);
-      }
+        for (int e = lane; e < kChunk * kRowSlots; e += 32) {
+          const int j = e / kRowSlots, c = e % kRowSlots;
+          if (c >= chunks_per_row) continue;
+          const int pos = ci * kChunk + j;
+          const bool ok = pos < n_pos;
+          int64_t off = 0;
+          if (ok)
+            off = ((int64_t)table_s[page_of(pos)] * page_size +
+                   row_in_page(pos)) * pos_stride +
+                  (int64_t)h * D;
+          slot(kb + j * row_bytes,
+               reinterpret_cast<const unsigned char*>(k_pages + off), c, ok);
+          slot(vb + j * row_bytes,
+               reinterpret_cast<const unsigned char*>(v_pages + off), c, ok);
+        }
+      });
       if (kInt8 && lane < kChunk) {
         const int pos = ci * kChunk + lane;
         const bool ok = pos < n_pos;
@@ -1489,8 +1344,15 @@ paged_attention_kernel_tile(const T* __restrict__ q,
         o.w = fmaf(x.w, wq[w], o.w);
       }
       const float sum = wq[kTileWarps];
-      store4(o_row + qq * pos_stride + 4 * c4,
-             make_float4(o.x / sum, o.y / sum, o.z / sum, o.w / sum));
+      const float4 y = make_float4(o.x / sum, o.y / sum, o.z / sum, o.w / sum);
+      T* dst = o_row + qq * pos_stride + 4 * c4;
+      if (D % 4 == 0) {  // then every row's float4 columns are aligned
+        store4(dst, y);
+      } else {
+        const float ys[4] = {y.x, y.y, y.z, y.w};
+        for (int x = 0; x < 4 && 4 * c4 + x < D; ++x)
+          dst[x] = from_float<T>(ys[x]);
+      }
     }
   }
 }
@@ -1499,7 +1361,7 @@ template <typename T, typename KV, int kDMax, bool kExactD>
 cudaError_t launch_tile_dim(const void* q, const void* k, const void* v,
                             const float* k_scale, const float* v_scale,
                             const int32_t* table, const int32_t* index,
-                            void* out, int R, int Lq, int H, int D,
+                            void* out, int R, int Lq, int H, int D, int copy,
                             int num_pages, int page_size, int width,
                             float scale, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(D, sizeof(KV), width);
@@ -1516,7 +1378,8 @@ cudaError_t launch_tile_dim(const void* q, const void* k, const void* v,
       <<<grid, kTileThreads, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const KV*>(k),
           static_cast<const KV*>(v), k_scale, v_scale, table, index,
-          static_cast<T*>(out), Lq, H, D, num_pages, page_size, width, scale);
+          static_cast<T*>(out), Lq, H, D, copy, num_pages, page_size, width,
+          scale);
   return cudaGetLastError();
 }
 
@@ -1525,12 +1388,12 @@ cudaError_t launch_register_tile(const void* q, const void* k, const void* v,
                                  const float* k_scale, const float* v_scale,
                                  const int32_t* table, const int32_t* index,
                                  void* out, int R, int Lq, int H, int D,
-                                 int num_pages, int page_size, int width,
-                                 float scale, cudaStream_t stream) {
+                                 int copy, int num_pages, int page_size,
+                                 int width, float scale, cudaStream_t stream) {
 #define SKY_TILE_CASE(d_max, exact)                                          \
   return launch_tile_dim<T, KV, d_max, exact>(                              \
-      q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D, num_pages, \
-      page_size, width, scale, stream)
+      q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D, copy,      \
+      num_pages, page_size, width, scale, stream)
   switch (D) {
     case 32:
       SKY_TILE_CASE(32, true);
@@ -1553,40 +1416,33 @@ cudaError_t launch_register_tile(const void* q, const void* k, const void* v,
 // the decode body's query bound: 1 (decode), 8 (speculative verify) or 16
 int decode_max_q(int Lq) { return Lq == 1 ? 1 : (Lq <= 8 ? 8 : kMaxDecodeQ); }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+// p is aligned to `bytes`
+bool aligned(const void* p, int bytes) {
+  return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-
-bool mma_fits(int D, int page_size) {
-  return D % 16 == 0 && page_size % 16 == 0;
-}
-
-bool whole_rows(int D, int kv_size) { return (D * kv_size) % 16 == 0; }
-
-// body: 0 = the query-tile body, 1 = the decode body, 2 = the tensor-core
-// prefill body (T bf16 only), 3 = the register-tile body
+// body: 0 = the decode body (Lq <= 16), 1 = the tensor-core prefill body
+// (T bf16, D and page_size multiples of 16), 2 = the register-tile body;
+// copy: the granule of a K/V row, copy_granule(D * sizeof(KV))
 template <typename T, typename KV>
 cudaError_t launch(int body, const void* q, const void* k,
                    const void* v, const float* k_scale, const float* v_scale,
                    const int32_t* table, const int32_t* index, void* out,
-                   int R, int Lq, int H, int D, int num_pages, int page_size,
-                   int width, float scale, cudaStream_t stream) {
-  if (body == 0)
-    return launch_tile<T, KV>(q, k, v, k_scale, v_scale, table, index, out,
-                              R, Lq, H, D, num_pages, page_size, width, scale,
-                              stream);
-  if (body == 3) {
-    if (!whole_rows(D, sizeof(KV)) || !aligned16(k) || !aligned16(v))
-      return cudaErrorInvalidValue;
+                   int R, int Lq, int H, int D, int copy, int num_pages,
+                   int page_size, int width, float scale,
+                   cudaStream_t stream) {
+  if (copy != copy_granule(D * (int)sizeof(KV)) || !aligned(k, copy) ||
+      !aligned(v, copy))
+    return cudaErrorInvalidValue;
+  if (body == 2)
     return launch_register_tile<T, KV>(q, k, v, k_scale, v_scale, table,
-                                       index, out, R, Lq, H, D, num_pages,
-                                       page_size, width, scale, stream);
-  }
-  if (body == 2) {
+                                       index, out, R, Lq, H, D, copy,
+                                       num_pages, page_size, width, scale,
+                                       stream);
+  if (body == 1) {
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      if (!mma_fits(D, page_size) || !aligned16(q) || !aligned16(k) ||
-          !aligned16(v) || !aligned16(out))
+      if (D % 16 != 0 || page_size % 16 != 0 || !aligned(q, 16) ||
+          !aligned(out, 16))
         return cudaErrorInvalidValue;
       return launch_mma<KV>(q, k, v, k_scale, v_scale, table, index, out, R,
                             Lq, H, D, num_pages, page_size, width, scale,
@@ -1594,21 +1450,21 @@ cudaError_t launch(int body, const void* q, const void* k,
     }
     return cudaErrorInvalidValue;  // the body takes bfloat16 q only
   }
-  if (body != 1 || Lq > kMaxDecodeQ || !whole_rows(D, sizeof(KV)) ||
-      !aligned16(k) || !aligned16(v))
-    return cudaErrorInvalidValue;
+  if (body != 0 || Lq > kMaxDecodeQ) return cudaErrorInvalidValue;
   switch (decode_max_q(Lq)) {
     case 1:
       return launch_decode_q<T, KV, 1>(q, k, v, k_scale, v_scale, table,
-                                       index, out, R, Lq, H, D, num_pages,
-                                       page_size, width, scale, stream);
+                                       index, out, R, Lq, H, D, copy,
+                                       num_pages, page_size, width, scale,
+                                       stream);
     case 8:
       return launch_decode_q<T, KV, 8>(q, k, v, k_scale, v_scale, table,
-                                       index, out, R, Lq, H, D, num_pages,
-                                       page_size, width, scale, stream);
+                                       index, out, R, Lq, H, D, copy,
+                                       num_pages, page_size, width, scale,
+                                       stream);
     default:
       return launch_decode_q<T, KV, kMaxDecodeQ>(
-          q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D,
+          q, k, v, k_scale, v_scale, table, index, out, R, Lq, H, D, copy,
           num_pages, page_size, width, scale, stream);
   }
 }
@@ -1623,19 +1479,17 @@ bool bad_shape(int R, int Lq, int H, int D, int num_pages, int page_size,
 
 extern "C" {
 
-// body: 0 = the query-tile body, 1 = the decode body (Lq <= 16, D times
-// the page element size a multiple of 16 bytes, pages 16-byte aligned),
-// 2 = the tensor-core prefill body (bfloat16, D and page_size multiples
-// of 16, q, pages and out 16-byte aligned), 3 = the register-tile body
-// (D times the page element size a multiple of 16 bytes, pages 16-byte
-// aligned); the Python wrapper picks it.
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 =
-// launched).  Shapes are checked by the Python wrapper; this rejects only
-// what the chosen body cannot hold.
+// body: 0 = the decode body (Lq <= 16), 1 = the tensor-core prefill body
+// (bfloat16, D and page_size multiples of 16, q and out 16-byte aligned),
+// 2 = the register-tile body; the Python wrapper picks it.  copy: the
+// bytes a K/V row is copied in, copy_granule(D * page element size) (the
+// wrapper's row plan), the pages aligned to it.  dtype: 0 = float32, 1 =
+// bfloat16.  Returns a cudaError_t (0 = launched).  Shapes are checked by
+// the Python wrapper; this rejects only what the chosen body cannot hold.
 int sky_paged_attention(int body, int dtype, const void* q,
                         const void* k_pages, const void* v_pages,
                         const void* page_table, const void* index, void* out,
-                        int R, int Lq, int H, int D, int num_pages,
+                        int R, int Lq, int H, int D, int copy, int num_pages,
                         int page_size, int width, float scale, void* stream) {
   if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
     return (int)cudaErrorInvalidValue;
@@ -1646,11 +1500,12 @@ int sky_paged_attention(int body, int dtype, const void* q,
     case 0:
       return (int)launch<float, float>(body, q, k_pages, v_pages, nullptr,
                                        nullptr, table, idx, out, R, Lq, H, D,
-                                       num_pages, page_size, width, scale, s);
+                                       copy, num_pages, page_size, width,
+                                       scale, s);
     case 1:
       return (int)launch<__nv_bfloat16, __nv_bfloat16>(
           body, q, k_pages, v_pages, nullptr, nullptr, table, idx, out, R, Lq,
-          H, D, num_pages, page_size, width, scale, s);
+          H, D, copy, num_pages, page_size, width, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1663,8 +1518,8 @@ int sky_paged_attention_int8(int body, int dtype, const void* q,
                              const void* k_scale, const void* v_scale,
                              const void* page_table, const void* index,
                              void* out, int R, int Lq, int H, int D,
-                             int num_pages, int page_size, int width,
-                             float scale, void* stream) {
+                             int copy, int num_pages, int page_size,
+                             int width, float scale, void* stream) {
   if (bad_shape(R, Lq, H, D, num_pages, page_size, width))
     return (int)cudaErrorInvalidValue;
   const float* ksc = static_cast<const float*>(k_scale);
@@ -1675,12 +1530,13 @@ int sky_paged_attention_int8(int body, int dtype, const void* q,
   switch (dtype) {
     case 0:
       return (int)launch<float, int8_t>(body, q, k_pages, v_pages, ksc, vsc,
-                                        table, idx, out, R, Lq, H, D,
-                                        num_pages, page_size, width, scale, s);
+                                        table, idx, out, R, Lq, H, D, copy,
+                                        num_pages, page_size, width, scale,
+                                        s);
     case 1:
       return (int)launch<__nv_bfloat16, int8_t>(
           body, q, k_pages, v_pages, ksc, vsc, table, idx, out, R, Lq, H, D,
-          num_pages, page_size, width, scale, s);
+          copy, num_pages, page_size, width, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1689,16 +1545,12 @@ int sky_paged_attention_int8(int body, int dtype, const void* q,
 // Dynamic shared memory, in bytes, of one block of the given body for a
 // page element of kv_size bytes (4, 2 or 1).
 int sky_paged_attention_smem(int body, int kv_size, int Lq, int D,
-                             int page_size, int width) {
-  if (body == 2) return (int)mma_smem_bytes(D, kv_size, width);
-  if (body == 3) return (int)tile_smem_bytes(D, kv_size, width);
-  if (body == 1) {
-    const int max_q = decode_max_q(Lq);
-    const int warps = decode_warps(D, kv_size, max_q, width);
-    return warps ? (int)decode_smem_bytes(D, kv_size, max_q, width, warps)
-                 : -1;
-  }
-  return (int)(smem_floats(D, page_size) * sizeof(float));
+                             int width) {
+  if (body == 1) return (int)mma_smem_bytes(D, kv_size, width);
+  if (body == 2) return (int)tile_smem_bytes(D, kv_size, width);
+  const int max_q = decode_max_q(Lq);
+  const int warps = decode_warps(D, kv_size, max_q, width);
+  return warps ? (int)decode_smem_bytes(D, kv_size, max_q, width, warps) : -1;
 }
 
 }  // extern "C"

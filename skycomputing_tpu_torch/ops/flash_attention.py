@@ -4,15 +4,16 @@ The port of ``skycomputing_tpu/ops/flash_attention.py``.  On CUDA tensors
 :func:`flash_attention` launches the hand-written Hopper kernel in
 ``csrc/flash_attention.cu`` (built with ``nvcc`` for ``sm_90a`` at first
 use, bound with ``ctypes``), so the [L, L] score matrix never reaches
-device memory.  It has three bodies, and :func:`kernel_plan` picks one
-from the dtype and head_dim alone: bfloat16 with a head_dim that is a
-multiple of 16 runs the tensor-core body (``mma.sync`` products,
-``cp.async`` double-buffered K/V tiles, online softmax in registers);
-float32 with a head_dim that is a multiple of 8 runs the float32
-tensor-core body, the same design on tf32 ``mma.sync`` with each
-product taken as three (3xTF32, float32's accuracy); float32 and
-bfloat16 with any other head_dim run the CUDA-core body (float32 FMAs
-throughout).  The bias is read in its stored dtype, so a
+device memory.  It has two bodies, and :func:`kernel_plan` picks one
+from the dtype: bfloat16 runs the tensor-core body (``mma.sync``
+products, ``cp.async`` double-buffered K/V tiles, online softmax in
+registers); float32 runs the float32 tensor-core body, the same design
+on tf32 ``mma.sync`` with each product taken as three (3xTF32,
+float32's accuracy).  Each takes every head_dim up to 128: a row is
+staged in shared memory at the head_dim rounded up to the mma's k-step
+(16 bf16 values, 8 tf32), its pad columns zero, and copied in the
+widest granule its bytes allow (the plan's ``padded_dim`` and
+``copy_bytes``).  The bias is read in its stored dtype, so a
 call launches the kernel and nothing else.  On CPU tensors it runs
 :func:`flash_attention_reference`, the plain PyTorch version of the same
 function.  Nothing else picks the path: a CUDA call either launches the
@@ -37,8 +38,9 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
-# the kernel's body codes 0, 1 and 2
-_BODIES = ("cuda_core", "tensor_core", "tensor_core_f32")
+# the kernel's body codes 0 and 1, and each body's mma k-step in head dims
+_BODIES = ("tensor_core", "tensor_core_f32")
+_K_STEP = {torch.bfloat16: 16, torch.float32: 8}
 _lib = None
 _sm_counts = {}
 
@@ -50,11 +52,11 @@ def _library():
 
         lib = _build.load("flash_attention")
         # body, warps, dtype; q, k, v, bias; bias dtype; bias strides;
-        # out; B, L, H, D; scale; stream
+        # out; B, L, H, D, copy bytes; scale; stream
         lib.sky_flash_attention.argtypes = (
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.sky_flash_attention.restype = ctypes.c_int
         lib.sky_flash_attention_smem.argtypes = [ctypes.c_int] * 3
@@ -73,24 +75,42 @@ def _sm_count(device) -> int:
     return _sm_counts[index]
 
 
+def copy_granule(row_bytes: int) -> int:
+    """The widest copy every row of ``row_bytes`` bytes allows, each row
+    starting at a multiple of ``row_bytes`` from a 16-byte aligned base:
+    16, 8 or 4 bytes (``cp.async``), else 2 or 1 (an ordinary load);
+    ``csrc/common.cuh:copy_granule``, which the kernels check it
+    against."""
+    granule = 16
+    while row_bytes % granule:
+        granule //= 2
+    return granule
+
+
 def kernel_plan(dtype, B: int, L: int, H: int, D: int,
                 sm_count: int) -> dict:
-    """Which body of the kernel serves a call, by dtype and head_dim
-    alone: ``"tensor_core"`` for bfloat16 with ``D`` a multiple of 16,
-    ``"tensor_core_f32"`` (3xTF32) for float32 with ``D`` a multiple of
-    8, else ``"cuda_core"``.  The tensor-core bodies give each warp 16
-    queries; ``warps`` is 4 unless fewer blocks than ``sm_count`` would
-    result, then 2 or 1 (more, smaller blocks fill the card).  The
-    CUDA-core body always takes 32 queries on 4 warps."""
-    if D <= _MAX_HEAD_DIM and (
-            (dtype == torch.bfloat16 and D % 16 == 0)
-            or (dtype == torch.float32 and D % 8 == 0)):
-        warps = 4
-        while warps > 1 and -(-L // (16 * warps)) * H * B < sm_count:
-            warps //= 2
-        body = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_f32"
-        return dict(body=body, warps=warps, q_tile=16 * warps)
-    return dict(body="cuda_core", warps=4, q_tile=32)
+    """Which body of the kernel serves a call, by dtype alone, for every
+    head_dim ``D`` from 1 to 128: ``"tensor_core"`` for bfloat16,
+    ``"tensor_core_f32"`` (3xTF32) for float32.  Each stages a row at
+    ``padded_dim`` head dims, ``D`` rounded up to its mma's k-step (16
+    bf16 values, 8 tf32), the pad columns zero, and copies it
+    ``copy_bytes`` at a time (:func:`copy_granule` of the row's bytes).
+    Each warp takes 16 queries; ``warps`` is 4 unless fewer blocks than
+    ``sm_count`` would result, then 2 or 1 (more, smaller blocks fill
+    the card)."""
+    if dtype not in _K_STEP:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    if not 1 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} outside the kernel's 1..{_MAX_HEAD_DIM}")
+    warps = 4
+    while warps > 1 and -(-L // (16 * warps)) * H * B < sm_count:
+        warps //= 2
+    step = _K_STEP[dtype]
+    body = "tensor_core" if dtype == torch.bfloat16 else "tensor_core_f32"
+    return dict(body=body, warps=warps,
+                q_tile=16 * warps, padded_dim=-(-D // step) * step,
+                copy_bytes=copy_granule(D * dtype.itemsize))
 
 
 def kernel_smem_bytes(plan: dict, D: int) -> int:
@@ -221,9 +241,9 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
         )
     plan = kernel_plan(q.dtype, B, L, H, D, _sm_count(q.device))
     out = torch.empty_like(q)
-    if plan["body"] != "cuda_core" and any(
-            t.data_ptr() % 16 for t in (q, k, v, out)):
-        raise ValueError("q, k and v must be 16-byte aligned")
+    if any(t.data_ptr() % plan["copy_bytes"] for t in (q, k, v, out)):
+        raise ValueError(
+            f"q, k and v must be {plan['copy_bytes']}-byte aligned")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         # the bias is read in its stored dtype at its own strides
@@ -231,7 +251,8 @@ def _launch(q, k, v, bias, scale: float) -> torch.Tensor:
             _BODIES.index(plan["body"]), plan["warps"],
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), _DTYPE_CODES[bias.dtype], bias.stride(0),
-            bias.stride(1), out.data_ptr(), B, L, H, D, float(scale), stream,
+            bias.stride(1), out.data_ptr(), B, L, H, D, plan["copy_bytes"],
+            float(scale), stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -304,6 +325,6 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.body_launches = dict.fromkeys(_BODIES, 0)
 
-__all__ = ["BF16_LONG_TOL", "agreement", "flash_attention",
+__all__ = ["BF16_LONG_TOL", "agreement", "copy_granule", "flash_attention",
            "flash_attention_reference", "kernel_plan", "kernel_smem_bytes",
            "pick_block"]

@@ -10,7 +10,7 @@ launches the hand-written Hopper kernel in ``csrc/paged_attention.cu``
 the plain PyTorch version of the same function.  Nothing else picks the
 path: a CUDA call either launches the kernel or raises.
 
-The kernel never materializes a row's gathered K/V view.  It has four
+The kernel never materializes a row's gathered K/V view.  It has three
 bodies, and :func:`kernel_plan` picks one from the q and page types,
 Lq, head_dim and the page size alone.  Decode and speculative-verify
 waves (``Lq <= 16``) run the decode body: one block of eight warps per
@@ -24,18 +24,17 @@ as ``mma.sync`` fragments while 64-position K/V tiles
 (four pages of 16) are gathered through the table with ``cp.async``, two
 tiles in flight while one is consumed; an int8 tile is converted to
 bfloat16 in shared memory (exact) and its scales are folded into the
-float32 scores and into P.  Every other call with ``Lq > 16`` whose K/V
-row is a whole number of 16-byte chunks (float32 prefill and chunk
-waves; bfloat16 q over pages of 4 or 8, or at another head_dim) runs the
-register-tile body: one block of four warps per (row, head, tile of 32
-queries, 16 past head_dim 64) splits the tile's 16-position chunks over
-its warps as the decode body does, each lane holding a 4-query x 4-key
-tile of float32 scores and its 4 queries' accumulator over 16 head dims
-in registers, every product a float32 FMA.  The rest (a K/V row that is
-not whole 16-byte chunks) runs the query-tile body: one block per (row,
-head, tile of 16 queries) stages each page's K/V tile through shared
-memory in float32, where an int8 tile is multiplied by its page's scale
-as it is read.
+float32 scores and into P.  Every other call with ``Lq > 16`` (float32
+prefill and chunk waves; bfloat16 q over pages of 4 or 8, or at another
+head_dim) runs the register-tile body: one block of four warps per (row,
+head, tile of 32 queries, 16 past head_dim 64) splits the tile's
+16-position chunks over its warps as the decode body does, each lane
+holding a 4-query x 4-key tile of float32 scores and its 4 queries'
+accumulator over 16 head dims in registers, every product a float32
+FMA.  The decode and register-tile bodies take any head_dim up to 128
+over any page type: a K/V row that is not whole 16-byte slots is staged
+padded to whole slots, the padding zero, and copied in the widest
+granule its bytes allow (:func:`row_plan`).
 ``csrc/paged_attention.cu`` says what bounds the kernel on the card and
 what each body does about that.
 
@@ -51,32 +50,34 @@ from typing import Optional
 
 import torch
 
+from .flash_attention import copy_granule
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
 _MAX_DECODE_Q = 16
 _MMA_TILE = 16  # head_dim and page-size granule of the tensor-core body
-# the kernel's body codes 0, 1, 2 and 3
-_BODIES = ("query_tile", "decode", "tensor_core", "register_tile")
+# the kernel's body codes 0, 1 and 2
+_BODIES = ("decode", "tensor_core", "register_tile")
 _lib = None
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a library built from
     ``csrc/paged_attention.cu``; returns ``lib``."""
-    # body, dtype; q, k, v, table, index, out; R, Lq, H, D, num_pages,
-    # page_size, width; scale; stream
+    # body, dtype; q, k, v, table, index, out; R, Lq, H, D, copy bytes,
+    # num_pages, page_size, width; scale; stream
     lib.sky_paged_attention.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p]
     )
     # the same with k_scale, v_scale after v
     lib.sky_paged_attention_int8.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_void_p]
     )
     lib.sky_paged_attention.restype = ctypes.c_int
     lib.sky_paged_attention_int8.restype = ctypes.c_int
-    lib.sky_paged_attention_smem.argtypes = [ctypes.c_int] * 6
+    lib.sky_paged_attention_smem.argtypes = [ctypes.c_int] * 5
     lib.sky_paged_attention_smem.restype = ctypes.c_int
     return lib
 
@@ -92,35 +93,45 @@ def _library():
 
 def kernel_plan(q_dtype, page_dtype, Lq: int, D: int, page_size: int) -> str:
     """Which body of the kernel serves a call, from the q and page
-    types, Lq, head_dim and the page size alone:
+    types, Lq, head_dim and the page size alone, for every head_dim up
+    to 128 over every page type:
 
-    - ``"decode"`` where ``Lq <= 16`` and a K/V row of ``D`` elements is
-      a whole number of 16-byte chunks (its warps per block are the
+    - ``"decode"`` where ``Lq <= 16`` (its warps per block are the
       kernel's: 8, or 4 where 8 would not fit in shared memory);
     - ``"tensor_core"`` for the other calls (``Lq > 16``) with bfloat16
       q and ``D`` and ``page_size`` multiples of 16 (4 warps of 16
       queries per block);
-    - ``"register_tile"`` for the other calls whose K/V row is a whole
-      number of 16-byte chunks (4 warps per block of 32 queries, 16
-      past head_dim 64);
-    - ``"query_tile"`` for the rest (16 queries on 4 warps)."""
-    whole_rows = (D * page_dtype.itemsize) % 16 == 0 and D <= _MAX_HEAD_DIM
-    if Lq <= _MAX_DECODE_Q and whole_rows:
+    - ``"register_tile"`` for the rest (4 warps per block of 32
+      queries, 16 past head_dim 64).
+
+    The decode and register-tile bodies stage each K/V row as
+    :func:`row_plan` says; the tensor-core body's rows are always whole
+    16-byte chunks."""
+    if Lq <= _MAX_DECODE_Q:
         return "decode"
     if (q_dtype == torch.bfloat16 and D % _MMA_TILE == 0
             and D <= _MAX_HEAD_DIM and page_size % _MMA_TILE == 0):
         return "tensor_core"
-    if whole_rows:
-        return "register_tile"
-    return "query_tile"
+    return "register_tile"
+
+
+def row_plan(page_dtype, D: int) -> dict:
+    """How the kernel stages a K/V row of ``D`` elements of
+    ``page_dtype``: ``padded_dim`` elements wide (the row's bytes
+    rounded up to a whole 16-byte slot, the padding zero), copied
+    ``copy_bytes`` at a time (:func:`~.flash_attention.copy_granule` of
+    the row's bytes; the pages must be aligned to it)."""
+    row = D * page_dtype.itemsize
+    return dict(padded_dim=-(-row // 16) * 16 // page_dtype.itemsize,
+                copy_bytes=copy_granule(row))
 
 
 def kernel_smem_bytes(body: str, page_dtype, Lq: int, D: int,
-                      page_size: int, width: int) -> int:
+                      width: int) -> int:
     """Dynamic shared memory of one block of ``body`` (builds and loads
     the kernel's library)."""
     return _library().sky_paged_attention_smem(
-        _BODIES.index(body), page_dtype.itemsize, Lq, D, page_size, width)
+        _BODIES.index(body), page_dtype.itemsize, Lq, D, width)
 
 
 def _row_index(index, R: int, device) -> torch.Tensor:
@@ -131,8 +142,8 @@ def _row_index(index, R: int, device) -> torch.Tensor:
 
 def _launch_args(q, pages, page_dtype, page_table, index):
     """Check what the kernel takes (raising on anything else) and return
-    the common launch arguments: (body, table, index, R, Lq, H, D, P,
-    page_size)."""
+    the common launch arguments: (body, table, index, R, Lq, H, D, copy
+    bytes, P, page_size)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     R, Lq, H, D = q.shape
@@ -163,13 +174,14 @@ def _launch_args(q, pages, page_dtype, page_table, index):
             f"page_table must be [R={R}, W>=1], got {tuple(page_table.shape)}"
         )
     body = kernel_plan(q.dtype, page_dtype, Lq, D, page_size)
-    if body != "query_tile" and any(t.data_ptr() % 16 for t in pages):
-        raise ValueError("k_pages and v_pages must be 16-byte aligned")
+    copy = row_plan(page_dtype, D)["copy_bytes"]
+    if any(t.data_ptr() % copy for t in pages):
+        raise ValueError(f"k_pages and v_pages must be {copy}-byte aligned")
     if body == "tensor_core" and q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     idx = _row_index(index, R, q.device)
-    return body, table, idx, R, Lq, H, D, P, page_size
+    return body, table, idx, R, Lq, H, D, copy, P, page_size
 
 
 def _check_rc(rc: int) -> None:
@@ -223,7 +235,7 @@ def paged_attention(
             q, k_pages, v_pages, page_table, index,
             softmax_scale=softmax_scale,
         )
-    body, table, idx, R, Lq, H, D, P, page_size = _launch_args(
+    body, table, idx, R, Lq, H, D, copy, P, page_size = _launch_args(
         q, (k_pages, v_pages), q.dtype, page_table, index
     )
     if softmax_scale is None:
@@ -234,7 +246,7 @@ def paged_attention(
         rc = _library().sky_paged_attention(
             _BODIES.index(body), _DTYPE_CODES[q.dtype], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), table.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), R, Lq, H, D, P, page_size,
+            idx.data_ptr(), out.data_ptr(), R, Lq, H, D, copy, P, page_size,
             table.shape[1], float(softmax_scale), stream,
         )
     _check_rc(rc)
@@ -269,7 +281,7 @@ def paged_attention_int8(
             q, k_pages, v_pages, page_table, index, k_scale=k_scale,
             v_scale=v_scale, softmax_scale=softmax_scale,
         )
-    body, table, idx, R, Lq, H, D, P, page_size = _launch_args(
+    body, table, idx, R, Lq, H, D, copy, P, page_size = _launch_args(
         q, (k_pages, v_pages), torch.int8, page_table, index
     )
     for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -291,7 +303,7 @@ def paged_attention_int8(
             _BODIES.index(body), _DTYPE_CODES[q.dtype], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), table.data_ptr(), idx.data_ptr(),
-            out.data_ptr(), R, Lq, H, D, P, page_size, table.shape[1],
+            out.data_ptr(), R, Lq, H, D, copy, P, page_size, table.shape[1],
             float(softmax_scale), stream,
         )
     _check_rc(rc)
@@ -351,4 +363,4 @@ def paged_attention_reference(
 
 
 __all__ = ["bind", "kernel_plan", "kernel_smem_bytes", "paged_attention",
-           "paged_attention_int8", "paged_attention_reference"]
+           "paged_attention_int8", "paged_attention_reference", "row_plan"]

@@ -29,6 +29,7 @@ from skycomputing_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_int8,
     paged_attention_reference,
+    row_plan,
 )
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
@@ -100,13 +101,24 @@ PREFILL_SHAPES = {
 # takes to it too): pages of 4 and 8 (bf16 q as well: the tensor-core body
 # takes pages of 16 only), Lq one past the 16-query decode bound, one past
 # a 32-query tile and two whole tiles, head_dim 40 (an int8 row of 40
-# bytes keeps the query-tile body), 64 and 128 (16-query tiles)
+# bytes, staged padded to 48), 64 and 128 (16-query tiles)
 TILE_SHAPES = {
     f"tile_ps{PS}_d{D}_lq{Lq}": (_prefill_rows(Lq, PS)[0], PS, 2, D, Lq,
                                  _prefill_rows(Lq, PS)[1])
     for PS in (4, 8) for D in (40, 64, 128) for Lq in (17, 33, 64)
 }
-ALL_SHAPES = {**SHAPES, **EDGE_SHAPES, **PREFILL_SHAPES, **TILE_SHAPES}
+# K/V rows that are not whole 16-byte chunks, staged padded by the decode
+# (Lq 1, 8, 16) and register-tile (Lq 17, 128) bodies over pages of 4, 8
+# and 16, in every copy granule: head_dim 30 (float32 rows of 120 bytes
+# copied 8 at a time, bf16 60 by 4, int8 30 by 2), 36 (144 by 16, 72 by
+# 8, 36 by 4) and 37 (148 by 4, 74 by 2, 37 by 1)
+ODD_SHAPES = {
+    f"odd_ps{PS}_d{D}_lq{Lq}": (_prefill_rows(Lq, PS)[0], PS, 2, D, Lq,
+                                _prefill_rows(Lq, PS)[1])
+    for PS in (4, 8, 16) for D in (30, 36, 37) for Lq in (1, 8, 16, 17, 128)
+}
+ALL_SHAPES = {**SHAPES, **EDGE_SHAPES, **PREFILL_SHAPES, **TILE_SHAPES,
+              **ODD_SHAPES}
 
 
 def _seed(name):
@@ -116,7 +128,9 @@ def _seed(name):
         return 50 + sorted(EDGE_SHAPES).index(name)
     if name in PREFILL_SHAPES:
         return 150 + sorted(PREFILL_SHAPES).index(name)
-    return 350 + sorted(TILE_SHAPES).index(name)
+    if name in TILE_SHAPES:
+        return 350 + sorted(TILE_SHAPES).index(name)
+    return 1000 + sorted(ODD_SHAPES).index(name)
 
 
 def _case(name, dtype):
@@ -166,19 +180,19 @@ def card():
 
 def _paged_body(q, pages):
     """The body :func:`paged_kernel_plan` names for ``q`` over ``pages``,
-    checked against the rule it states."""
+    checked against the rule it states, and the row plan's granule
+    against the row's bytes."""
     Lq, D = q.shape[1], q.shape[3]
     body = paged_kernel_plan(q.dtype, pages.dtype, Lq, D, pages.shape[1])
-    whole_rows = D * pages.element_size() % 16 == 0
-    if Lq <= 16 and whole_rows:
+    if Lq <= 16:
         assert body == "decode"
     elif (q.dtype == torch.bfloat16 and D % 16 == 0
           and pages.shape[1] % 16 == 0):
         assert body == "tensor_core"
-    elif whole_rows:
-        assert body == "register_tile"
     else:
-        assert body == "query_tile"
+        assert body == "register_tile"
+    row = D * pages.element_size()
+    assert row % row_plan(pages.dtype, D)["copy_bytes"] == 0
     return body
 
 
@@ -260,11 +274,19 @@ FLASH_SHAPES = {
     "head_dim_128": (2, 130, 4, 128, 8),
     "batch_1": (1, 128, 16, 64, 32),
     "all_keys_masked": (2, 64, 4, 64, 64),  # every key of every row masked
-    "head_dim_40": (2, 100, 4, 40, 8),  # bf16 takes the CUDA-core body
-    "head_dim_36": (2, 100, 4, 36, 8),  # both dtypes take the CUDA-core body
+    # head_dims staged padded (bf16 to a multiple of 16, float32 of 8),
+    # rows copied (bf16 / float32 bytes at a time): 40 at 48 / 40 (16 /
+    # 16), 36 at 48 / 40 (8 / 16), 37 at 48 / 40 (2 / 4), 100 at 112 /
+    # 104 (8 / 16), 120 at 128 / 120 (16 / 16)
+    "head_dim_40": (2, 100, 4, 40, 8),
+    "head_dim_36": (2, 100, 4, 36, 8),
+    "head_dim_37": (2, 100, 4, 37, 8),
+    "head_dim_100": (2, 100, 4, 100, 8),
+    "head_dim_120": (2, 100, 4, 120, 8),
 }
 _FLASH_ORIGINAL = ("bert_large_L128", "indivisible_L100", "long_L512")
-_FLASH_LATER = ("bert_large_L128_B4", "head_dim_36")
+_FLASH_LATER = ("bert_large_L128_B4", "head_dim_36", "head_dim_37",
+                "head_dim_100", "head_dim_120")
 
 
 def _flash_case(name, dtype):
@@ -295,12 +317,9 @@ def test_flash_attention_kernel_matches_plain_version(card, name, dtype):
     q, k, v, bias = _flash_case(name, dtype)
     B, L, H, D = q.shape
     plan = flash_kernel_plan(q.dtype, B, L, H, D, 132)
-    if dtype == "bfloat16":
-        assert plan["body"] == ("tensor_core" if D % 16 == 0
-                                else "cuda_core")
-    else:
-        assert plan["body"] == ("tensor_core_f32" if D % 8 == 0
-                                else "cuda_core")
+    assert plan["body"] == ("tensor_core" if dtype == "bfloat16"
+                            else "tensor_core_f32")
+    assert D * q.element_size() % plan["copy_bytes"] == 0
     before = flash_attention.launches
     body_before = flash_attention.body_launches[plan["body"]]
     out = flash_attention(q, k, v, bias)

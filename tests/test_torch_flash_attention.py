@@ -66,6 +66,26 @@ def test_plain_and_port_match_jax(name):
     np.testing.assert_allclose(plain.numpy(), ref, **OUT_TOL)
 
 
+@pytest.mark.parametrize("D", [36, 37, 40])
+def test_odd_head_dims_match_jax(D):
+    """Head dims that are not a multiple of the card's mma k-step (the
+    kernel stages them padded with zeros): the port's function and its
+    plain version against the Pallas kernel at the same tolerance, with
+    the JAX signature's default scale (the real ``D ** -0.5``) and a
+    padded tail."""
+    B, L, H, tail, block = 2, 128, 4, 24, 64
+    q, k, v, bias = _inputs(60 + D, B, L, H, D, tail)
+    ref = np.asarray(jax_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+        None, block, block))
+    tq, tk, tv, tb = _torch(q, k, v, bias)
+    port = flash_attention(tq, tk, tv, tb)
+    plain = flash_attention_reference(tq, tk, tv, tb, D ** -0.5)
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(port.numpy(), ref, **OUT_TOL)
+    np.testing.assert_allclose(plain.numpy(), ref, **OUT_TOL)
+
+
 def test_masked_keys_do_not_influence_outputs():
     q, k, v, bias = _inputs(1, 2, 128, 4, 32, masked_tail=32)
     k2 = k.copy()

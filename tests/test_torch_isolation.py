@@ -1,11 +1,11 @@
 """The port stands alone: no module of ``skycomputing_tpu_torch`` (the
 serving bench, the workload mixes, the tuning loop and the static
-analysers among them) and nothing in
-``chip_smoke.py`` or ``prefill_ab.py`` imports ``jax``, ``flax`` or the
-JAX package; the package imports with those blocked; an engine, a
-pipeline or the serving bench asked for no device refuses to fall back
-to the CPU; and ``chip_smoke.py`` fails without a CUDA device, also
-when it stands alone in a directory."""
+analysers among them) and nothing in ``chip_smoke.py``,
+``prefill_ab.py``, ``launcher_ab.py`` or ``padded_ab.py`` imports
+``jax``, ``flax`` or the JAX package; the package imports with those
+blocked; an engine, a pipeline or the serving bench asked for no
+device refuses to fall back to the CPU; and ``chip_smoke.py`` fails
+without a CUDA device, also when it stands alone in a directory."""
 
 import ast
 import os
@@ -26,7 +26,7 @@ FORBIDDEN = ("jax", "flax", "skycomputing_tpu")
 def _port_files():
     files = sorted((ROOT / "skycomputing_tpu_torch").rglob("*.py"))
     return files + [ROOT / name for name in (
-        "chip_smoke.py", "prefill_ab.py", "launcher_ab.py")]
+        "chip_smoke.py", "prefill_ab.py", "launcher_ab.py", "padded_ab.py")]
 
 
 def _imported_roots(path: Path):

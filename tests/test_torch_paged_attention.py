@@ -104,6 +104,60 @@ def test_plain_version_matches_jax_kernel_and_reference(name):
     np.testing.assert_allclose(out[live], ref[live], atol=1e-5, rtol=0)
 
 
+# (R, Lq, tables, index) at head dims whose K/V rows are not whole
+# 16-byte chunks in some page type: a decode wave whose rows cross pages
+# and whose tables hold sentinels, and a prefill wave with a pad row
+ODD_CASES = {
+    "decode": CASES["sentinel_padded_wave"],
+    "prefill": CASES["prefill_lq8_pad_rows"],
+}
+
+
+def _odd_inputs(seed, R, Lq, D, int8):
+    """``_inputs`` / ``_int8_inputs`` at head_dim ``D``: (q, k, v, scales
+    or None)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((R, Lq, H, D)).astype(np.float32)
+    if not int8:
+        k, v = (rng.standard_normal((P, PS, H, D)).astype(np.float32)
+                for _ in range(2))
+        return q, k, v, None
+    k, v = (rng.integers(-127, 128, (P, PS, H, D)).astype(np.int8)
+            for _ in range(2))
+    scales = tuple(rng.uniform(0.005, 0.03, (P, H)).astype(np.float32)
+                   for _ in range(2))
+    return q, k, v, scales
+
+
+@pytest.mark.parametrize("wave", sorted(ODD_CASES))
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("D", [30, 36, 37, 40])
+def test_odd_head_dims_match_jax_kernel_and_reference(D, int8, wave):
+    """At head_dims 30, 36, 37 and 40 (float32 rows of 120, 144, 148 and
+    160 bytes; int8 rows of 30, 36, 37 and 40, which the card stages
+    padded to whole 16-byte slots) the plain version equals the Pallas
+    kernel in interpret mode to 1e-5 over fp and int8 pools, and the XLA
+    reference on every live row."""
+    R, Lq, table, index = ODD_CASES[wave]
+    index = np.asarray(index, np.int32)
+    q, k, v, scales = _odd_inputs(70 + D + 5 * int8 + (wave == "prefill"),
+                                  R, Lq, D, int8)
+    kw = {} if scales is None else dict(k_scale=scales[0],
+                                        v_scale=scales[1])
+    out = paged_attention(
+        *map(torch.from_numpy, (q, k, v, table, index)),
+        **{name: torch.from_numpy(a) for name, a in kw.items()}).numpy()
+    assert out.shape == (R, Lq, H, D) and np.isfinite(out).all()
+    kern = np.asarray(jax_paged_attention(q, k, v, table, index,
+                                          interpret=True, **kw))
+    ref = np.asarray(jax_paged_attention_reference(q, k, v, table, index,
+                                                   **kw))
+    np.testing.assert_allclose(out, kern, atol=1e-5, rtol=0)
+    live = _sees_no_sentinel(table, index, Lq)
+    assert live.any()
+    np.testing.assert_allclose(out[live], ref[live], atol=1e-5, rtol=0)
+
+
 def test_scalar_index_and_softmax_scale_match_jax():
     """A scalar ``index`` broadcasts over rows and an explicit
     ``softmax_scale`` replaces ``D**-0.5``, as in the JAX function."""
